@@ -8,31 +8,44 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build ``skyline_tpu_torch/csrc/dominance.cu`` for sm_90a, timed;
-3. kernels: K1 (``dominated_by_any``), K2 (``dominated_by_rect``, with and
-   without a partition dimension) and K3 (``skyline_mask_kernel``) against
-   their plain PyTorch versions on the card, exact equality: d in
-   {3, 4, 8, 16}, ragged N up to 8192, duplicate rows, integer ties,
-   +inf padding, invalid rows, NaN/-inf rows, a dominator whose f32 sum
-   ties its victim's, and K3 under other sort keys;
-4. parity: a 65,536-row 8-D anti-correlated window, then a second one (the
-   second flush runs the old-vs-new cleanup), through the engine on CUDA
-   and with ``device="cpu"`` (plain versions): same sizes, optimality and
-   point bytes; plus a small window against the numpy oracle;
-5. main path: the north-star configuration (8-D anti-correlated, domain
+2. build ``skyline_tpu_torch/csrc/dominance.cu`` and ``dominance_rank.cu``
+   for sm_90a, one nvcc each, started together, timed;
+3. kernels against their plain PyTorch versions on the card, exact
+   equality: K1 (``dominated_by_any``), K2 (``dominated_by_rect``), K3
+   (``skyline_mask_kernel``), K5 (``dominated_by_any_rank``), K6
+   (``dominated_by_rank_rect``) — K1, K2, K5 and K6 with and without a
+   partition dimension — and K7 (``skyline_mask_rank_kernel``); K4
+   (``rank_transform``) on the card against K4 on the CPU. Cases: d in
+   {3, 4, 8, 16}, ragged N up to 8192, duplicate rows, integer ties, +inf
+   padding, invalid rows with finite coordinates; NaN/-inf rows and a
+   dominator whose f32 sum ties its victim's (value kernels); K3 under
+   other sort keys; int32 rank sums that differ by 1 at ~2^24 and ~2^25;
+4. parity, each on CUDA and with ``device="cpu"`` (plain versions): the
+   host-ingest engine over two 65,536-row 8-D anti-correlated windows
+   (same sizes, optimality and point bytes) plus a small window against
+   the numpy oracle; then device ingest over two 32,768-row windows with
+   the rank cascade on and off (same sizes and sorted point bytes; where
+   the card routes every row as the CPU does, also the same local sizes,
+   optimality and published order — otherwise the first differing row is
+   printed);
+5. main paths at the north-star configuration (8-D anti-correlated, domain
    0-10000, parallelism 4, mr-angle, lazy flush, buffer 8192, initial
-   capacity 65536, trigger "0,0") at 1,000,000 rows: one warm window and
-   ``--windows`` measured ones; tuples/s (all measured rows over the
-   summed window walls), p50 window latency, flush and merge walls (the
-   engine synchronises the card between them), launches per kernel (each
-   must be > 0); the answer is
-   checked on the card against samples of input and output;
-6. timings: each kernel at the main path's shapes (rebuilt from the last
-   window's state), CUDA-event ms beside the plain version's ms and the
-   bound (pairs x d compares at the FP32 peak, or bytes at the HBM rate;
-   the peak counts an FMA as two operations and the predicate spends more
-   than one instruction per compare, so this is a loose lower bound on
-   time); the plain version must agree here too.
+   capacity 65536, trigger "0,0") at 1,000,000 rows, each one warm window
+   and ``--windows`` measured ones: (a) device ingest with the rank
+   cascade on (K4–K7), (b) device ingest with it off (K1–K3), (c) host
+   ingest with it off (K1–K3). Each prints tuples/s (all measured rows
+   over the summed window walls), p50 window latency, flush and merge
+   walls (the engine synchronises the card between them) and launches,
+   each of its kernels > 0; its warm answer is checked on the card against
+   samples of input and output. (a) also counts the rows the card routes
+   differently from ``partition_ids_np`` and from the CPU;
+6. timings: each kernel at its main path's shapes (K1–K3 from (c), K4–K7
+   from (a), rebuilt from the last window's state), CUDA-event ms beside
+   the plain version's ms and the bound: needed pairs x d compares at the
+   FP32 peak (K1–K3) or x (d + 1) at the INT32 compare rate (K5–K7), or
+   bytes at the HBM rate (K4, and whichever is larger). Both peaks are
+   loose lower bounds on time (the predicates spend more than one
+   instruction per compare); the plain version must agree here too.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -41,7 +54,9 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -52,12 +67,31 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
 FP32_FLOPS = 67e12
 HBM_BYTES_S = 3.35e12
+# INT32 compares: 64 results per clock per SM (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0) x 132 SMs x
+# 1,980 MHz boost (NVIDIA H100 SXM data sheet) — half the FP32 issue rate
+INT32_OPS = 64 * 132 * 1.98e9
 
+# entry point -> (short name, route, source, the TPU kernel it replaces)
+_VALUE_CU = "skyline_tpu_torch/csrc/dominance.cu"
+_RANK_CU = "skyline_tpu_torch/csrc/dominance_rank.cu"
+_PALLAS = "skyline_tpu/ops/pallas_dominance.py"
 KERNELS = {
-    "dominated_by_any": ("K1", "skyline_tpu/ops/pallas_dominance.py:380"),
-    "dominated_by_rect": ("K2", "skyline_tpu/ops/pallas_dominance.py:418"),
-    "skyline_mask_kernel": ("K3", "skyline_tpu/ops/pallas_dominance.py:467"),
+    "dominated_by_any": ("K1", "cuda", _VALUE_CU, f"{_PALLAS}:380"),
+    "dominated_by_rect": ("K2", "cuda", _VALUE_CU, f"{_PALLAS}:418"),
+    "skyline_mask_kernel": ("K3", "cuda", _VALUE_CU, f"{_PALLAS}:467"),
+    "rank_transform": (
+        "K4", "torch", "skyline_tpu_torch/ops/dominance_kernels.py", f"{_PALLAS}:257",
+    ),
+    "dominated_by_any_rank": ("K5", "cuda", _RANK_CU, f"{_PALLAS}:301"),
+    "dominated_by_rank_rect": ("K6", "cuda", _RANK_CU, f"{_PALLAS}:335"),
+    "skyline_mask_rank_kernel": ("K7", "cuda", _RANK_CU, f"{_PALLAS}:512"),
 }
+VALUE_PATH = ("dominated_by_any", "dominated_by_rect", "skyline_mask_kernel")
+RANK_PATH = (
+    "rank_transform", "dominated_by_any_rank", "dominated_by_rank_rect",
+    "skyline_mask_rank_kernel",
+)
 PHASES = ("kernels", "parity", "main", "timings")
 
 
@@ -111,6 +145,7 @@ def _cases(torch, rng, np, dev):
 
 def check_kernels(torch, np, dev) -> int:
     from skyline_tpu_torch.ops import dominance_kernels as dk
+    from skyline_tpu_torch.workload.generators import anti_correlated
 
     def same(a, b, what):
         torch.cuda.synchronize()
@@ -120,7 +155,8 @@ def check_kernels(torch, np, dev) -> int:
 
     rng = np.random.default_rng(7)
     checks = 0
-    for name, x, valid in _cases(torch, rng, np, dev):
+    cases = _cases(torch, rng, np, dev)
+    for name, x, valid in cases:
         xt = x.T.contiguous()
         same(dk.dominated_by_any(xt, valid), dk.dominated_by_any_plain(xt, valid), f"K1 {name}")
         # triangular input: sum-sorted, invalid last
@@ -149,9 +185,42 @@ def check_kernels(torch, np, dev) -> int:
         xd, vd, yv = x[:cut].T.contiguous(), valid[:cut].contiguous(), x[cut:].T.contiguous()
         same(dk.dominated_by_rect(xd, vd, yv), dk.dominated_by_rect_plain(xd, vd, yv), f"K2 {name}")
         checks += 7
-    # K1/K2 with a leading partition dimension (the batched SFS round)
-    from skyline_tpu_torch.workload.generators import anti_correlated
-
+    # the rank cascade (NaN has no rank order: value cases only)
+    for name, x, valid in cases:
+        if name == "nan_inf":
+            continue
+        rt = dk.rank_transform(x, valid)
+        same(rt, dk.rank_transform(x.cpu(), valid.cpu()).to(dev), f"K4 cuda vs cpu {name}")
+        same(dk.dominated_by_any_rank(rt, valid), dk.dominated_by_any_rank_plain(rt, valid),
+             f"K5 {name}")
+        o = torch.argsort(torch.where(valid, rt[-1].long(), 2**62), stable=True)
+        rs, vs = rt[:, o].contiguous(), valid[o]
+        same(dk.dominated_by_any_rank(rs, vs, triangular=True),
+             dk.dominated_by_any_rank_plain(rs, vs), f"K5 tri {name}")
+        keep = dk.skyline_mask_rank_kernel(x, valid)
+        same(keep, dk.skyline_mask_rank_plain(x, valid), f"K7 {name}")
+        same(keep, dk.skyline_mask_plain(x, valid), f"K7 vs value mask {name}")
+        cut = x.shape[0] // 3 + 1
+        xr, vr, yr = rt[:, :cut].contiguous(), valid[:cut].contiguous(), rt[:, cut:].contiguous()
+        same(dk.dominated_by_rank_rect(xr, vr, yr), dk.dominated_by_rank_rect_plain(xr, vr, yr),
+             f"K6 {name}")
+        checks += 6
+    # rank sums that differ by 1 where float32 ties them (~2^24, ~2^25)
+    for base in (2**21, 2**22):
+        d, n = 8, 1000
+        rt = torch.zeros((d + 1, n), dtype=torch.int32, device=dev)
+        rt[:d, :] = base
+        rt[0, 1::2] = base + 1  # odd columns: one rank above the even ones
+        rt[d] = rt[:d].sum(0, dtype=torch.int32)
+        v = torch.ones(n, dtype=torch.bool, device=dev)
+        got = dk.dominated_by_any_rank(rt, v)
+        same(got, dk.dominated_by_any_rank_plain(rt, v), f"K5 sums near {8 * base}")
+        same(dk.dominated_by_rank_rect(rt, v, rt), got, f"K6 sums near {8 * base}")
+        want = torch.zeros(n, dtype=torch.bool, device=dev)
+        want[1::2] = True
+        same(got, want, f"K5 sums near {8 * base} against the known answer")
+        checks += 3
+    # K1/K2/K5/K6 with a leading partition dimension (the batched SFS round)
     for d, P, nx, ny in ((3, 4, 777, 2049), (8, 8, 4096, 3000), (16, 3, 257, 511)):
         xs = torch.from_numpy(anti_correlated(rng, P * nx, d, 0, 100)).to(dev)
         ys = torch.from_numpy(anti_correlated(rng, P * ny, d, 0, 100)).to(dev)
@@ -162,7 +231,19 @@ def check_kernels(torch, np, dev) -> int:
              f"K2 P={P} d={d}")
         same(dk.dominated_by_any(x3, v2, triangular=False),
              dk.dominated_by_any_plain(x3, v2), f"K1 P={P} d={d}")
-        checks += 2
+        # one rank universe per partition over its dominators and victims
+        ranks = torch.stack([
+            dk.rank_transform(
+                torch.cat([xs.reshape(P, nx, d)[p], ys.reshape(P, ny, d)[p]]),
+                torch.ones(nx + ny, dtype=torch.bool, device=dev),
+            ) for p in range(P)
+        ])
+        xr, yr = ranks[:, :, :nx].contiguous(), ranks[:, :, nx:].contiguous()
+        same(dk.dominated_by_rank_rect(xr, v2, yr), dk.dominated_by_rank_rect_plain(xr, v2, yr),
+             f"K6 P={P} d={d}")
+        same(dk.dominated_by_any_rank(xr, v2), dk.dominated_by_any_rank_plain(xr, v2),
+             f"K5 P={P} d={d}")
+        checks += 4
     return checks
 
 
@@ -174,6 +255,28 @@ NORTH_STAR = dict(
     buffer_size=8192, initial_capacity=65536, flush_policy="lazy",
 )
 PARITY_ROWS = 65536
+DEVICE_PARITY_ROWS = 32768
+# the main paths: (ingest, rank cascade) and the kernels each must launch
+PATHS = {
+    "a": ("device", True, RANK_PATH),
+    "b": ("device", False, VALUE_PATH),
+    "c": ("host", False, VALUE_PATH),
+}
+
+
+@contextlib.contextmanager
+def rank_gate(on: bool):
+    """``SKYLINE_RANK_CASCADE`` for the duration (the port reads it at
+    flush and merge time)."""
+    old = os.environ.get("SKYLINE_RANK_CASCADE")
+    os.environ["SKYLINE_RANK_CASCADE"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["SKYLINE_RANK_CASCADE"]
+        else:
+            os.environ["SKYLINE_RANK_CASCADE"] = old
 
 
 def run_window(cfg, ids, x, required=0, chunk=65536):
@@ -194,32 +297,57 @@ def run_window(cfg, ids, x, required=0, chunk=65536):
     return time.perf_counter() - t0, result, eng
 
 
+def _drive_windows(cfg, windows, chunk):
+    """Windows back to back through one engine, a trigger after each:
+    (results, local sizes after each trigger, wall s)."""
+    import numpy as np
+
+    from skyline_tpu_torch.stream import SkylineEngine
+
+    eng = SkylineEngine(cfg)
+    t0 = time.perf_counter()
+    out, sizes = [], []
+    base = 0
+    for i, x in enumerate(windows):
+        n = x.shape[0]
+        ids = np.arange(base, base + n, dtype=np.int64)
+        base += n
+        for s in range(0, n, chunk):
+            eng.process_records(ids[s : s + chunk], x[s : s + chunk])
+        eng.process_trigger(f"q{i},0")
+        out += eng.poll_results()
+        sizes.append(eng.pset.sky_counts().tolist())
+    return out, sizes, time.perf_counter() - t0
+
+
+def _points(r):
+    import numpy as np
+
+    return np.asarray(r["skyline_points"], np.float32)
+
+
+def _sorted_bytes(pts):
+    import numpy as np
+
+    return pts[np.lexsort(pts.T[::-1])].tobytes()
+
+
 def check_parity(torch, np, n: int, devices=("cuda", "cpu")) -> dict:
     from skyline_tpu_torch.ops.dominance import skyline_np
-    from skyline_tpu_torch.stream import EngineConfig, SkylineEngine
+    from skyline_tpu_torch.stream import EngineConfig
     from skyline_tpu_torch.workload.generators import anti_correlated
 
     rng = np.random.default_rng(11)
     windows = [anti_correlated(rng, n, 8, 0, 10000) for _ in range(2)]
     answers = {}
     walls = {}
-    for device in devices:
-        eng = SkylineEngine(EngineConfig(**NORTH_STAR, emit_skyline_points=True, device=device))
-        t0 = time.perf_counter()
-        out = []
-        base = 0
-        for i, x in enumerate(windows):
-            ids = np.arange(base, base + n, dtype=np.int64)
-            base += n
-            for s in range(0, n, 16384):
-                eng.process_records(ids[s : s + 16384], x[s : s + 16384])
-            eng.process_trigger(f"q{i},0")
-            out += eng.poll_results()
-        walls[device] = time.perf_counter() - t0
-        answers[device] = out
+    with rank_gate(False):
+        for device in devices:
+            cfg = EngineConfig(**NORTH_STAR, emit_skyline_points=True, ingest="host",
+                               device=device)
+            answers[device], _, walls[device] = _drive_windows(cfg, windows, 16384)
     for a, b in zip(answers[devices[0]], answers[devices[1]]):
-        pa = np.asarray(a["skyline_points"], np.float32)
-        pb = np.asarray(b["skyline_points"], np.float32)
+        pa, pb = _points(a), _points(b)
         if (a["skyline_size"], a["optimality"]) != (b["skyline_size"], b["optimality"]) \
                 or pa.tobytes() != pb.tobytes():
             raise AssertionError(
@@ -230,9 +358,11 @@ def check_parity(torch, np, n: int, devices=("cuda", "cpu")) -> dict:
     # a small window against the numpy oracle
     x = anti_correlated(rng, 4096, 4, 0, 10000)
     cfg = EngineConfig(
-        **{**NORTH_STAR, "dims": 4}, emit_skyline_points=True, device=devices[0]
+        **{**NORTH_STAR, "dims": 4}, emit_skyline_points=True, ingest="host",
+        device=devices[0],
     )
-    _, res, _ = run_window(cfg, np.arange(4096, dtype=np.int64), x)
+    with rank_gate(False):
+        _, res, _ = run_window(cfg, np.arange(4096, dtype=np.int64), x)
     want = skyline_np(x)
     got = np.asarray(res["skyline_points"], np.float64)
     if got.shape != want.shape or not np.array_equal(
@@ -246,6 +376,72 @@ def check_parity(torch, np, n: int, devices=("cuda", "cpu")) -> dict:
         "wall_s": walls,
         "oracle_points": int(want.shape[0]),
     }
+
+
+def routing_mismatch(torch, np, x: np.ndarray, dev) -> dict:
+    """Rows the card's ``partition_ids`` routes differently from the CPU's
+    and from ``partition_ids_np`` (north-star routing), with the first
+    differing row."""
+    from skyline_tpu_torch.parallel.partitioners import partition_ids, partition_ids_np
+
+    args = ("mr-angle", 2 * NORTH_STAR["parallelism"], NORTH_STAR["domain_max"])
+    card = partition_ids(torch.from_numpy(x).to(dev), *args).cpu().numpy()
+    out = {"rows": int(x.shape[0])}
+    for name, other in (
+        ("vs_cpu", partition_ids(torch.from_numpy(x), *args).numpy()),
+        ("vs_numpy", partition_ids_np(x, *args)),
+    ):
+        diff = np.nonzero(card != other)[0]
+        out[name] = int(diff.size)
+        if diff.size:
+            i = int(diff[0])
+            out[f"first_{name}"] = {
+                "row": i, "values": x[i].tolist(), "card": int(card[i]), "other": int(other[i]),
+            }
+    return out
+
+
+def check_device_parity(torch, np, n: int, devices=("cuda", "cpu")) -> dict:
+    """Device ingest, CUDA against the CPU, rank cascade on and off, over
+    two windows (the second ranks the old prefixes and runs the cleanup)."""
+    from skyline_tpu_torch.stream import EngineConfig
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    rng = np.random.default_rng(13)
+    windows = [anti_correlated(rng, n, 8, 0, 10000) for _ in range(2)]
+    routing = routing_mismatch(torch, np, np.concatenate(windows), devices[0])
+    strict = routing["vs_cpu"] == 0
+    out = {"rows_per_window": n, "routing": routing, "strict": strict}
+    for gate in (True, False):
+        runs = {}
+        with rank_gate(gate):
+            for device in devices:
+                cfg = EngineConfig(**NORTH_STAR, emit_skyline_points=True, ingest="device",
+                                   window_capacity=n, device=device)
+                runs[device] = _drive_windows(cfg, windows, 16384)
+        (ra, sa, wa), (rb, sb, wb) = runs[devices[0]], runs[devices[1]]
+        for i, (a, b) in enumerate(zip(ra, rb)):
+            pa, pb = _points(a), _points(b)
+            if a["skyline_size"] != b["skyline_size"] or _sorted_bytes(pa) != _sorted_bytes(pb):
+                raise AssertionError(
+                    f"device parity (rank {gate}) window {i}: {a['skyline_size']} vs "
+                    f"{b['skyline_size']} points, or another point set"
+                )
+            if strict and (
+                a["optimality"] != b["optimality"] or sa[i] != sb[i]
+                or pa.tobytes() != pb.tobytes()
+            ):
+                raise AssertionError(
+                    f"device parity (rank {gate}) window {i}: routing agreed but "
+                    f"optimality {a['optimality']} vs {b['optimality']}, local sizes "
+                    f"{sa[i]} vs {sb[i]}, published order equal: {pa.tobytes() == pb.tobytes()}"
+                )
+        out["rank_on" if gate else "rank_off"] = {
+            "skyline_sizes": [r["skyline_size"] for r in ra],
+            "optimality": [[r["optimality"] for r in ra], [r["optimality"] for r in rb]],
+            "local_sizes": [sa, sb], "wall_s": {devices[0]: wa, devices[1]: wb},
+        }
+    return out
 
 
 def check_answer(torch, np, x: np.ndarray, pts: np.ndarray, dev) -> None:
@@ -270,41 +466,52 @@ def check_answer(torch, np, x: np.ndarray, pts: np.ndarray, dev) -> None:
         raise AssertionError("a sampled output row is dominated by another output row")
 
 
-def main_path(torch, np, n: int, windows: int, dev="cuda"):
-    from skyline_tpu_torch.ops import dominance_kernels as dk
+def _config(path: str, n: int, **kw):
     from skyline_tpu_torch.stream import EngineConfig
+
+    ingest, _, _ = PATHS[path]
+    return EngineConfig(**NORTH_STAR, ingest=ingest, window_capacity=n, device="cuda", **kw)
+
+
+def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
+    """Path ``path``'s warm window and ``windows`` measured ones, launch
+    counts set to 0 just before and read just after."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
     from skyline_tpu_torch.workload.generators import anti_correlated
 
+    _, gate, wanted = PATHS[path]
     rng = np.random.default_rng(0)
     ids = np.arange(n, dtype=np.int64)
-    dk.reset_launches()
     warm_x = anti_correlated(rng, n, 8, 0, 10000)
-    warm_dt, warm_res, _ = run_window(
-        EngineConfig(**NORTH_STAR, emit_skyline_points=True, device=dev), ids, warm_x
-    )
-    log(f"main: warm window {warm_dt * 1e3:.1f} ms, skyline {warm_res['skyline_size']}")
-    check_answer(torch, np, warm_x, np.asarray(warm_res["skyline_points"], np.float32), dev)
     lat, rows = [], []
-    cfg = EngineConfig(**NORTH_STAR, device=dev)
-    for w in range(windows):
-        x = anti_correlated(rng, n, 8, 0, 10000)
-        dt, res, eng = run_window(cfg, ids, x)
-        lat.append(dt)
-        rows.append({
-            "window_ms": dt * 1e3, "flush_ms": eng.last_flush_ms,
-            "merge_ms": eng.last_merge_ms, "skyline_size": res["skyline_size"],
-            "local_sizes": eng.pset.sky_counts().tolist(),
-        })
-        log(f"main: window {w}: {dt * 1e3:.1f} ms (flush {eng.last_flush_ms:.1f} ms, "
-            f"merge {eng.last_merge_ms:.1f} ms), skyline {res['skyline_size']}")
-    launches = dict(dk.LAUNCHES)
-    missing = [k for k, v in launches.items() if v == 0]
+    with rank_gate(gate):
+        dk.reset_launches()
+        warm_dt, warm_res, _ = run_window(
+            _config(path, n, emit_skyline_points=True), ids, warm_x
+        )
+        for w in range(windows):
+            x = anti_correlated(rng, n, 8, 0, 10000)
+            dt, res, eng = run_window(_config(path, n), ids, x)
+            lat.append(dt)
+            rows.append({
+                "window_ms": dt * 1e3, "flush_ms": eng.last_flush_ms,
+                "merge_ms": eng.last_merge_ms, "skyline_size": res["skyline_size"],
+                "local_sizes": eng.pset.sky_counts().tolist(),
+            })
+            log(f"main ({path}): window {w}: {dt * 1e3:.1f} ms (flush "
+                f"{eng.last_flush_ms:.1f} ms, merge {eng.last_merge_ms:.1f} ms), "
+                f"skyline {res['skyline_size']}")
+        launches = dict(dk.LAUNCHES)
+    log(f"main ({path}): warm window {warm_dt * 1e3:.1f} ms, skyline {warm_res['skyline_size']}")
+    check_answer(torch, np, warm_x, np.asarray(warm_res["skyline_points"], np.float32), dev)
+    missing = [k for k in wanted if launches[k] == 0]
     if missing:
-        raise AssertionError(f"main path launched no {missing}")
-    p50 = float(np.median(lat))
+        raise AssertionError(f"main path ({path}) launched no {missing}")
     summary = {
+        "ingest": PATHS[path][0], "rank_cascade": gate,
         "rows_per_window": n, "windows_measured": windows,
-        "tuples_per_s": n * windows / sum(lat), "p50_window_ms": p50 * 1e3,
+        "tuples_per_s": n * windows / sum(lat),
+        "p50_window_ms": float(np.median(lat)) * 1e3,
         "p50_flush_ms": float(np.median([r["flush_ms"] for r in rows])),
         "p50_merge_ms": float(np.median([r["merge_ms"] for r in rows])),
         "warm_window_ms": warm_dt * 1e3, "windows": rows,
@@ -312,25 +519,27 @@ def main_path(torch, np, n: int, windows: int, dev="cuda"):
             k: v / (windows + 1) for k, v in launches.items()
         },
     }
-    log(f"main: {summary['tuples_per_s']:.0f} tuples/s, p50 window "
-        f"{summary['p50_window_ms']:.1f} ms over {windows} windows of {n} rows")
-    log(f"main: launches over {windows + 1} windows: {launches}")
+    log(f"main ({path}): {summary['tuples_per_s']:.0f} tuples/s, p50 window "
+        f"{summary['p50_window_ms']:.1f} ms (flush {summary['p50_flush_ms']:.1f}, merge "
+        f"{summary['p50_merge_ms']:.1f}) over {windows} windows of {n} rows")
+    log(f"main ({path}): launches over {windows + 1} windows: "
+        f"{ {k: launches[k] for k in wanted} }")
     return summary, eng, x
 
 
-def profile_window(torch, np, n: int) -> dict:
-    """One more main-path window under ``torch.profiler``: device time by
+def profile_window(torch, np, path: str, n: int) -> dict:
+    """One more window of ``path`` under ``torch.profiler``: device time by
     kernel name and the device's busy share of the window wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from skyline_tpu_torch.stream import EngineConfig
     from skyline_tpu_torch.workload.generators import anti_correlated
 
     x = anti_correlated(np.random.default_rng(1), n, 8, 0, 10000)
     ids = np.arange(n, dtype=np.int64)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        dt, _, eng = run_window(EngineConfig(**NORTH_STAR), ids, x)
+    with rank_gate(PATHS[path][1]):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            dt, _, eng = run_window(_config(path, n), ids, x)
     kernels = [
         (ev.self_device_time_total / 1e3, ev.count, ev.key)
         for ev in prof.key_averages()
@@ -339,13 +548,14 @@ def profile_window(torch, np, n: int) -> dict:
     kernels.sort(reverse=True)
     busy_ms = sum(k[0] for k in kernels)
     out = {
-        "window_ms": dt * 1e3, "flush_ms": eng.last_flush_ms, "merge_ms": eng.last_merge_ms,
+        "path": path, "window_ms": dt * 1e3, "flush_ms": eng.last_flush_ms,
+        "merge_ms": eng.last_merge_ms,
         "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / (dt * 1e3),
         "top_kernels": [
-            {"ms": ms, "calls": c, "name": name[:120]} for ms, c, name in kernels[:12]
+            {"ms": ms, "calls": c, "name": name[:120]} for ms, c, name in kernels[:15]
         ],
     }
-    log(f"profile: window {dt * 1e3:.1f} ms under the profiler, device busy "
+    log(f"profile ({path}): window {dt * 1e3:.1f} ms under the profiler, device busy "
         f"{busy_ms:.1f} ms (idle share {out['device_idle_share']:.3f})")
     for k in out["top_kernels"]:
         log(f"profile:   {k['ms']:9.2f} ms  {k['calls']:6d} calls  {k['name']}")
@@ -367,22 +577,74 @@ def _event_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _needed_pairs(torch, x_sums, x_valid, y_sums, dominated, wanted, self_pairs) -> int:
+def _needed_pairs(
+    torch, x_sums, x_valid, y_sums, dominated, wanted, strict: bool, self_pairs: bool
+) -> int:
     """Pairs this data needs at least, over the ``wanted`` victims: one for
     each dominated victim; for each undominated victim, every valid
-    dominator whose sum does not exceed its own (any of them could dominate
-    it, and the sum bound rules out the rest)."""
+    dominator whose sum could let it dominate — a sum no larger than the
+    victim's for values (less the victim itself in a ``self_pairs`` pass),
+    a strictly smaller one for rank sums (``strict``)."""
     xs = torch.sort(x_sums[x_valid]).values
-    cand = torch.searchsorted(xs, y_sums.contiguous(), right=True)
+    cand = torch.searchsorted(xs, y_sums.contiguous(), right=not strict)
     if self_pairs:
         cand = cand - 1  # a row is never its own dominator
     undominated = cand.clamp(min=0)[wanted & ~dominated].sum()
     return int(undominated) + int((wanted & dominated).sum())
 
 
-def kernel_timings(torch, np, eng, x_last, launches: dict, windows: int, dev="cuda") -> list:
-    from skyline_tpu_torch.ops import dominance_kernels as dk
+def _row(name, launches, windows, err, ms, plain_ms, bound, shape, pairs=None):
+    short, route, source, replaces = KERNELS[name]
+    bytes_ms, ops_ms = bound
+    row = {
+        "name": name, "route": route, "source": source, "replaces": replaces,
+        "launches": launches[name], "max_abs_err": float(err), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
+        "shape": shape,
+    }
+    if pairs is not None:
+        row["needed_pairs"] = pairs
+    log(f"timings: {short} {name} {shape}: {ms:.3f} ms (plain {plain_ms:.1f} ms, bound "
+        f"{row['bound_ms']:.4f} ms by {row['bound_by']}"
+        + (f", {pairs} pairs" if pairs is not None else "")
+        + f"), {launches[name] / windows:.1f} launches per window; library_ms n/a: "
+        "no single PyTorch call computes it")
+    return row
+
+
+def _time_pair(torch, kern, plain, what):
+    """(kernel output, its ms over 10 launches, plain ms, max abs err);
+    raises when the two disagree."""
+    out_k = kern()
+    t0 = time.perf_counter()
+    out_p = plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = int((out_k.long() - out_p.long()).abs().max()) if out_k.numel() else 0
+    if err:
+        raise AssertionError(f"{what} at its main-path shape disagrees with its plain version")
+    return out_k, _event_ms(torch, kern, reps=10), plain_ms, err
+
+
+def _heavy_block(np, pset, x_last):
+    """A late SFS round of the partition with the largest skyline: its
+    sum-sorted rows' second big block (or first, if it has only one)."""
     from skyline_tpu_torch.parallel.partitioners import partition_ids_np
+
+    counts = pset.sky_counts()
+    heavy = int(counts.argmax())
+    pids = partition_ids_np(x_last, "mr-angle", pset.num_partitions, NORTH_STAR["domain_max"])
+    rows = x_last[pids == heavy]
+    rows = rows[np.argsort(rows.sum(axis=1), kind="stable")]
+    B = pset._seq_block_size(rows.shape[0])
+    blk = rows[B : 2 * B] if rows.shape[0] >= 2 * B else rows[:B]
+    return heavy, int(counts[heavy]), np.ascontiguousarray(blk)
+
+
+def value_timings(torch, np, eng, x_last, launches: dict, windows: int, dev="cuda") -> list:
+    """K1–K3 at path (c)'s shapes."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
     from skyline_tpu_torch.stream.window import _active_bucket, gather_union
 
     pset = eng.pset
@@ -392,17 +654,10 @@ def kernel_timings(torch, np, eng, x_last, launches: dict, windows: int, dev="cu
     active = min(pset._cap, _active_bucket(max(int(counts.max()), 1)))
     union_cap = _active_bucket(max(int(counts.sum()), 1))
     u, _, uv = gather_union(pset.sky, pset._count_dev, active, union_cap)
-    # K1/K2: a late SFS round of the partition with the largest skyline: a
-    # big block of its sum-sorted rows against its skyline prefix
-    pids = partition_ids_np(x_last, "mr-angle", pset.num_partitions, 10000.0)
-    heavy = int(counts.argmax())
-    rows = x_last[pids == heavy]
-    rows = rows[np.argsort(rows.sum(axis=1), kind="stable")]
-    B = pset._seq_block_size(rows.shape[0])
-    blk = rows[B : 2 * B] if rows.shape[0] >= 2 * B else rows[:B]
+    # K1/K2: a big block of the heaviest partition against its skyline prefix
+    heavy, c, blk = _heavy_block(np, pset, x_last)
     block_t = torch.from_numpy(np.ascontiguousarray(blk.T)).to(dev)
     bvalid = torch.ones(block_t.shape[1], dtype=torch.bool, device=dev)
-    c = int(counts[heavy])
     sky_act = min(pset._cap, _active_bucket(max(c, 1)))
     sky_t = pset.sky[heavy, :sky_act].T.contiguous()
     sky_ok = torch.arange(sky_act, device=dev) < c
@@ -426,50 +681,114 @@ def kernel_timings(torch, np, eng, x_last, launches: dict, windows: int, dev="cu
     }
     table = []
     for name, (kern, plain, (xt, xv, yt, self_pairs)) in specs.items():
-        short, replaces = KERNELS[name]
-        out_k = kern()
-        t0 = time.perf_counter()
-        out_p = plain()
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        err = int((out_k.to(torch.int8) - out_p.to(torch.int8)).abs().max()) if out_k.numel() else 0
-        if err:
-            raise AssertionError(f"{short} at main-path shape disagrees with its plain version")
-        ms = _event_ms(torch, kern, reps=10)
+        out_k, ms, plain_ms, err = _time_pair(torch, kern, plain, KERNELS[name][0])
         nx, ny = xt.shape[1], yt.shape[1]
         # K3 returns survivors; only its valid rows are wanted
         dominated, wanted = (~out_k, xv) if name == "skyline_mask_kernel" else (
             out_k, torch.ones_like(out_k))
         pairs = _needed_pairs(
-            torch, xt.T.sum(-1), xv, yt.T.sum(-1), dominated, wanted, self_pairs
+            torch, xt.T.sum(-1), xv, yt.T.sum(-1), dominated, wanted, False, self_pairs
         )
         in_bytes = d * nx * 4 + nx + (0 if self_pairs else d * ny * 4)
-        bytes_ms = (in_bytes + ny) / HBM_BYTES_S * 1e3
-        ops_ms = pairs * d / FP32_FLOPS * 1e3
-        row = {
-            "name": name, "route": "cuda", "source": "skyline_tpu_torch/csrc/dominance.cu",
-            "replaces": replaces, "launches": launches[name], "max_abs_err": float(err),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
-            "shape": {"nx": nx, "ny": ny, "d": d}, "needed_pairs": pairs,
-        }
-        log(f"timings: {short} {name} nx={nx} ny={ny}: {ms:.3f} ms (plain {plain_ms:.1f} ms, "
-            f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}, {pairs} pairs), "
-            f"{launches[name] / windows:.1f} launches per window; "
-            "library_ms n/a: no single PyTorch call computes dominance")
-        table.append(row)
+        bound = ((in_bytes + ny) / HBM_BYTES_S * 1e3, pairs * d / FP32_FLOPS * 1e3)
+        table.append(_row(name, launches, windows, err, ms, plain_ms, bound,
+                          {"nx": nx, "ny": ny, "d": d}, pairs))
+    return table
+
+
+def rank_timings(torch, np, eng, x_last, launches: dict, windows: int, dev="cuda") -> list:
+    """K4–K7 at path (a)'s shapes: the last window's universe rebuilt from
+    the engine's (consumed but intact) device window."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+    from skyline_tpu_torch.stream import device_window as dw
+    from skyline_tpu_torch.stream.window import _active_bucket, _next_pow2, gather_union
+
+    pset = eng.pset
+    counts = pset.sky_counts()
+    d, P = pset.dims, pset.num_partitions
+    n = x_last.shape[0]
+    nb = _next_pow2(n)
+    ws, bounds = dw.sort_window(pset._dev_window, pset._dev_pids, n, nb, P, dw.SORT_TAIL)
+    sorted_dims, wr = dw.rank_window(ws, pset.sky, pset._count_dev, nb, 0, nb)
+    bounds = bounds.cpu().numpy()
+    # K5/K6: the heaviest partition's second big block (as the sequential
+    # rounds slice it) against its skyline prefix, in rank space
+    heavy = int(counts.argmax())
+    c = int(counts[heavy])
+    lo, hi = int(bounds[heavy]), int(bounds[heavy + 1])
+    B = min(pset._seq_block_size(hi - lo), dw.SORT_TAIL)
+    off = lo + B if hi - lo >= 2 * B else lo
+    width = min(B, hi - off)
+    bvalid = torch.arange(B, device=dev) < width
+    block_rt = torch.where(bvalid[:, None], wr[off : off + B],
+                           sorted_dims.shape[0] * (d + 1)).T.contiguous()
+    sky_act = min(pset._cap, _active_bucket(max(c, 1)))
+    sky_rt = dw._rank_rows(sorted_dims, pset.sky[heavy, :sky_act]).T.contiguous()
+    sky_ok = torch.arange(sky_act, device=dev) < c
+    # K7: the global merge's union; K4: the window's universe
+    active = min(pset._cap, _active_bucket(max(int(counts.max()), 1)))
+    union_cap = _active_bucket(max(int(counts.sum()), 1))
+    u, _, uv = gather_union(pset.sky, pset._count_dev, active, union_cap)
+    w_univ = ws[:nb].contiguous()
+    w_valid = torch.arange(nb, device=dev) < n
+
+    table = []
+    # K4 is torch ops: bytes-bound (read the rows once, write the ranks once)
+    out_k, ms, plain_ms, err = _time_pair(
+        torch, lambda: dk.rank_transform(w_univ, w_valid),
+        lambda: dk.rank_transform(w_univ.cpu(), w_valid.cpu()).to(dev), "K4",
+    )
+    bound = ((nb * d * 4 + nb + nb * (d + 1) * 4) / HBM_BYTES_S * 1e3, 0.0)
+    table.append(_row("rank_transform", launches, windows, err, ms, plain_ms, bound,
+                      {"n": nb, "d": d}))
+    specs = {
+        "dominated_by_any_rank": (
+            lambda: dk.dominated_by_any_rank(block_rt, bvalid, triangular=True),
+            lambda: dk.dominated_by_any_rank_plain(block_rt, bvalid),
+            (block_rt, bvalid, block_rt, True),
+        ),
+        "dominated_by_rank_rect": (
+            lambda: dk.dominated_by_rank_rect(sky_rt, sky_ok, block_rt),
+            lambda: dk.dominated_by_rank_rect_plain(sky_rt, sky_ok, block_rt),
+            (sky_rt, sky_ok, block_rt, False),
+        ),
+        "skyline_mask_rank_kernel": (
+            lambda: dk.skyline_mask_rank_kernel(u, uv),
+            lambda: dk.skyline_mask_rank_plain(u, uv),
+            None,
+        ),
+    }
+    for name, (kern, plain, args) in specs.items():
+        out_k, ms, plain_ms, err = _time_pair(torch, kern, plain, KERNELS[name][0])
+        if args is None:  # K7: its K5 pass over the union's own ranks
+            xt = yt = dk.rank_transform(u, uv)
+            xv, self_pairs = uv, True
+            dominated, wanted = ~out_k, uv
+        else:
+            xt, xv, yt, self_pairs = args
+            dominated, wanted = out_k, torch.ones_like(out_k)
+        nx, ny = xt.shape[1], yt.shape[1]
+        pairs = _needed_pairs(
+            torch, xt[d].long(), xv, yt[d].long(), dominated, wanted, True, False
+        )
+        in_bytes = (d + 1) * nx * 4 + nx + (0 if self_pairs else (d + 1) * ny * 4)
+        if args is None:  # K7 reads the values, not ranks
+            in_bytes = d * nx * 4 + nx
+        bound = ((in_bytes + ny) / HBM_BYTES_S * 1e3, pairs * (d + 1) / INT32_OPS * 1e3)
+        table.append(_row(name, launches, windows, err, ms, plain_ms, bound,
+                          {"nx": nx, "ny": ny, "d": d}, pairs))
     return table
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="main-path window rows")
-    ap.add_argument("--windows", type=int, default=3, help="measured windows")
+    ap.add_argument("--windows", type=int, default=3, help="measured windows per path")
     ap.add_argument("--only", nargs="*", choices=PHASES, default=list(PHASES))
     ap.add_argument("--out", type=Path, default=None, help="directory for a details JSON")
     ap.add_argument(
         "--profile", action="store_true",
-        help="after the main path, profile one more window (device time by kernel)",
+        help="after the main paths, profile one more window of each path",
     )
     args = ap.parse_args()
 
@@ -486,14 +805,19 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     card = card_line()
     log(card)
     t0 = time.perf_counter()
-    path, build_log = dk.build()
-    log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
-    regs = [ln.split(":", 1)[1].strip() for ln in build_log.splitlines() if "registers" in ln]
-    spills = [ln for ln in build_log.splitlines() if "spill" in ln and " 0 bytes spill stores" not in ln]
-    log(f"build: ptxas per instantiation: {'; '.join(regs)}; spilling: {spills or 'none'}")
+    built = dk.build()
+    log(f"build: {', '.join(p.name for p, _ in built.values())} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, (_, build_log) in built.items():
+        lines = build_log.splitlines()
+        regs = [ln.split(":", 1)[1].strip() for ln in lines if "registers" in ln]
+        spills = [ln for ln in lines if "spill" in ln and " 0 bytes spill stores" not in ln]
+        log(f"build: {name} ptxas per instantiation: {'; '.join(regs)}; "
+            f"spilling: {spills or 'none'}")
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
 
     if "kernels" in args.only:
@@ -502,16 +826,35 @@ def main() -> int:
         log(f"kernels: {n} checks equal to the plain versions in {time.perf_counter() - t0:.1f} s")
     if "parity" in args.only:
         details["parity"] = check_parity(torch, np, PARITY_ROWS)
-        log(f"parity: cuda == cpu at {PARITY_ROWS} rows x 2 windows: {details['parity']}")
+        log(f"parity: host ingest, cuda == cpu at {PARITY_ROWS} rows x 2 windows: "
+            f"{details['parity']}")
+        details["device_parity"] = check_device_parity(torch, np, DEVICE_PARITY_ROWS)
+        log(f"parity: device ingest, cuda vs cpu at {DEVICE_PARITY_ROWS} rows x 2 windows: "
+            f"{details['device_parity']}")
     table = []
     if "main" in args.only or "timings" in args.only:
-        summary, eng, x_last = main_path(torch, np, args.n, args.windows)
-        details["main"] = summary
-        table = kernel_timings(
-            torch, np, eng, x_last, summary["launches"], summary["windows_measured"] + 1
-        )
+        runs = {}
+        for path in PATHS:
+            runs[path] = main_path(torch, np, path, args.n, args.windows)
+        details["main"] = {path: r[0] for path, r in runs.items()}
+        details["routing"] = routing_mismatch(torch, np, runs["a"][2], "cuda")
+        log(f"routing: the card vs the CPU and vs partition_ids_np on the last "
+            f"{args.n}-row window of (a): {details['routing']}")
+        summary_a, eng_a, x_a = runs["a"]
+        summary_c, eng_c, x_c = runs["c"]
+        w = args.windows + 1
+        log(f"timings: bounds at {FP32_FLOPS / 1e12:.0f} TFLOP/s FP32 (K1-K3), "
+            f"{INT32_OPS / 1e12:.1f} TOP/s INT32 compares (K5-K7: 64 per clock per SM, "
+            f"CUDA C++ Programming Guide, x 132 SMs x 1.98 GHz) and "
+            f"{HBM_BYTES_S / 1e12:.2f} TB/s HBM")
+        with rank_gate(False):
+            table = value_timings(torch, np, eng_c, x_c, summary_c["launches"], w)
+        with rank_gate(True):
+            table += rank_timings(torch, np, eng_a, x_a, summary_a["launches"], w)
         if args.profile:
-            details["profile"] = profile_window(torch, np, args.n)
+            details["profile"] = {p: profile_window(torch, np, p, args.n) for p in PATHS}
+    details["wall_s"] = time.perf_counter() - t_start
+    log(f"total: {details['wall_s']:.1f} s")
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         details["kernels"] = table

@@ -1,9 +1,12 @@
 """The survivor-mask dispatch.
 
 Minimal counterpart of ``skyline_tpu/ops/dispatch.py``: a tensor on the
-card goes through the hand-written kernel (K3), a tensor on the CPU through
-the plain ``skyline_mask``. There is no variant table, profiler race or
-tuner in the port yet; every variant of the reference gives the same mask.
+card goes through a hand-written kernel — K7 (the rank cascade) when
+``SKYLINE_RANK_CASCADE`` is on, as the reference's cascade table picks
+``mask_rank_pallas`` (``skyline_tpu/ops/cascade.py``), else K3 — and a tensor
+on the CPU through the plain ``skyline_mask``. There is no variant table,
+profiler race or tuner in the port yet; every variant of the reference
+gives the same mask.
 """
 
 from __future__ import annotations
@@ -12,8 +15,12 @@ import numpy as np
 import torch
 
 from skyline_tpu_torch.ops.dominance import skyline_mask
-from skyline_tpu_torch.ops.dominance_kernels import skyline_mask_kernel
+from skyline_tpu_torch.ops.dominance_kernels import (
+    skyline_mask_kernel,
+    skyline_mask_rank_kernel,
+)
 from skyline_tpu_torch.utils.buckets import next_pow2
+from skyline_tpu_torch.utils.knobs import rank_cascade
 
 
 def on_cuda(x) -> bool:
@@ -23,9 +30,11 @@ def on_cuda(x) -> bool:
 
 
 def skyline_mask_auto(x: torch.Tensor, valid: torch.Tensor | None = None) -> torch.Tensor:
-    """Survivor mask of (N, d) points: K3 on a CUDA tensor, the plain
-    ``skyline_mask`` on a CPU tensor."""
+    """Survivor mask of (N, d) points: K7 (rank cascade on) or K3 on a CUDA
+    tensor, the plain ``skyline_mask`` on a CPU tensor."""
     if on_cuda(x):
+        if rank_cascade():
+            return skyline_mask_rank_kernel(x, valid)
         return skyline_mask_kernel(x, valid)
     return skyline_mask(x, valid)
 

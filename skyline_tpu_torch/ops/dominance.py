@@ -13,9 +13,10 @@ out of the survivors.
 
 These are the plain versions the hand-written kernels
 (``ops/dominance_kernels.py``) are held against, and what the kernel
-wrappers run when their tensors lie on the CPU. The pairwise passes are
-chunked over dominators so the (chunk, M) comparison tensors stay bounded;
-the result is the dense predicate's, bit for bit.
+wrappers run when their tensors lie on the CPU — in value space and, for
+the rank cascade, over int32 dense ranks. The pairwise passes are chunked
+over dominators so the (chunk, M) comparison tensors stay bounded; the
+result is the dense predicate's, bit for bit.
 """
 
 from __future__ import annotations
@@ -49,20 +50,47 @@ def dominance_mask(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return le & lt
 
 
+def rank_dominance_mask(xr: torch.Tensor, yr: torch.Tensor) -> torch.Tensor:
+    """Pairwise dominance over dense ranks: xr (N, d+1), yr (M, d+1) int32
+    rows of ``d`` per-dimension ranks and their sum (one rank universe) ->
+    (N, M) bool with ``dom[i, j] = all_k(xr[i, k] <= yr[j, k]) and
+    xr[i, d] < yr[j, d]`` (all-<= with equal sums forces equal ranks)."""
+    d = xr.shape[1] - 1
+    dom = xr[:, None, d] < yr[None, :, d]
+    for k in range(d):
+        dom &= xr[:, None, k] <= yr[None, :, k]
+    return dom
+
+
+def _dominated_by_any(y, x, x_valid, mask_fn) -> torch.Tensor:
+    """(M,) bool: some valid row of ``x`` dominates row j of ``y`` under
+    ``mask_fn``, chunked over the dominators."""
+    m, n = y.shape[0], x.shape[0]
+    out = torch.zeros(m, dtype=torch.bool, device=y.device)
+    step = max(1, _CHUNK_ELEMS // max(m, 1))
+    for s in range(0, n, step):
+        dom = mask_fn(x[s : s + step], y)
+        if x_valid is not None:
+            dom &= x_valid[s : s + step, None]
+        out |= dom.any(dim=0)
+    return out
+
+
 def dominated_by(
     y: torch.Tensor, x: torch.Tensor, x_valid: torch.Tensor | None = None
 ) -> torch.Tensor:
     """For each point in ``y`` (M, d): is it dominated by ANY valid point in
     ``x`` (N, d)? ``x_valid``: (N,) bool or None (all valid). Returns (M,)."""
-    m, n = y.shape[0], x.shape[0]
-    out = torch.zeros(m, dtype=torch.bool, device=y.device)
-    step = max(1, _CHUNK_ELEMS // max(m, 1))
-    for s in range(0, n, step):
-        dom = dominance_mask(x[s : s + step], y)
-        if x_valid is not None:
-            dom &= x_valid[s : s + step, None]
-        out |= dom.any(dim=0)
-    return out
+    return _dominated_by_any(y, x, x_valid, dominance_mask)
+
+
+def dominated_by_rank(
+    yr: torch.Tensor, xr: torch.Tensor, x_valid: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Rank-space ``dominated_by``: yr (M, d+1), xr (N, d+1) int32 ranks
+    plus rank sum over one universe (``rank_dominance_mask``). Returns
+    (M,)."""
+    return _dominated_by_any(yr, xr, x_valid, rank_dominance_mask)
 
 
 def skyline_mask(x: torch.Tensor, valid: torch.Tensor | None = None) -> torch.Tensor:

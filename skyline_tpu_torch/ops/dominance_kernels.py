@@ -1,7 +1,8 @@
-"""Hand-written CUDA dominance kernels (K1–K3) and their wrappers.
+"""Hand-written CUDA dominance kernels (K1–K3, K5–K7), their wrappers and
+the rank transform K4.
 
-The engine's hot op — "is row j dominated by any valid row i" — runs in one
-CUDA kernel, ``csrc/dominance.cu``, behind three entry points:
+The engine's hot op — "is row j dominated by any valid row i" — runs in two
+CUDA kernels. ``csrc/dominance.cu`` compares float32 values:
 
 - K1 ``dominated_by_any(xt, valid)``: one set against itself; replaces
   ``skyline_tpu/ops/pallas_dominance.py`` ``dominated_by_any_pallas``.
@@ -11,22 +12,38 @@ CUDA kernel, ``csrc/dominance.cu``, behind three entry points:
 - K3 ``skyline_mask_kernel(x, valid)``: stable sum-sort, K1, unsort;
   replaces ``skyline_mask_pallas``.
 
-K1 and K2 keep the TPU kernels' transposed ``(d, N)`` layout at their
-surface and take an optional leading partition dimension ``(P, d, N)`` in
-place of ``jax.vmap``. The kernel masks its ragged edges, so no shape needs
-to be a tile multiple. ``mp`` is accepted for parity with the reference and
-runs the exact f32 path (the reference's bf16 first pass is bit-exact, so
-the answer is the same; its speed is later work).
+``csrc/dominance_rank.cu`` compares int32 dense ranks (the rank cascade):
+
+- K4 ``rank_transform(x, valid)``: per-dimension dense ranks and their
+  int32 sum, ``(d+1, N)``. XLA in the reference, torch ops here (a sort and
+  a batched ``searchsorted``); no kernel of its own.
+- K5 ``dominated_by_any_rank(rt, valid)``; replaces
+  ``dominated_by_any_rank_pallas``.
+- K6 ``dominated_by_rank_rect(xt, x_valid, yt)``; replaces
+  ``dominated_by_rank_pallas``.
+- K7 ``skyline_mask_rank_kernel(x, valid)``: stable sum-sort, K4, K5,
+  unsort; replaces ``skyline_mask_rank_pallas``.
+
+The kernels keep the TPU kernels' transposed ``(d, N)`` / ``(d+1, N)``
+layout at their surface and take an optional leading partition dimension
+``(P, ·, N)`` in place of ``jax.vmap``. They mask their ragged edges, so no
+shape needs to be a tile multiple. ``mp`` is accepted for parity with the
+reference and runs the exact f32 path (the reference's bf16 first pass is
+bit-exact, so the answer is the same; its speed is later work).
+``triangular`` is accepted and changes nothing: the kernels skip only by
+their exact sum bounds, never by position.
 
 Each wrapper checks device, dtype, contiguity and shape and raises on
 anything else. On a CPU tensor it runs the plain PyTorch version beside it
 (the CPU tests' path); on a CUDA tensor it launches the kernel or raises —
 there is no fallback. ``LAUNCHES`` counts kernel launches per entry point
-(K3 counts its own launch, not K1's).
+(K3 and K7 count their own launches, not K1's or K5's; K4 counts its calls
+on the card).
 
-The kernel is built from the repository's source at first use with
-``nvcc`` into ``skyline_tpu_torch/_build/`` (keyed by a hash of source and
-flags) and bound through ``ctypes`` with a plain C interface.
+Each source is built at first use with ``nvcc`` into
+``skyline_tpu_torch/_build/`` (keyed by a hash of source and flags; one
+``nvcc`` per source, all started together) and bound through ``ctypes``
+with a plain C interface.
 """
 
 from __future__ import annotations
@@ -40,22 +57,46 @@ from pathlib import Path
 
 import torch
 
-from skyline_tpu_torch.ops.dominance import dominated_by, skyline_mask
+from skyline_tpu_torch.ops.dominance import (
+    dominated_by,
+    dominated_by_rank,
+    skyline_mask,
+)
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "dominance.cu"
+# library name -> (source, C entry point, C error-string function)
+SOURCES = {
+    "dominance": (
+        _PKG / "csrc" / "dominance.cu", "skyline_dominated", "skyline_error_string",
+    ),
+    "dominance_rank": (
+        _PKG / "csrc" / "dominance_rank.cu", "skyline_rank_dominated",
+        "skyline_rank_error_string",
+    ),
+}
 BUILD_DIR = _PKG / "_build"
 # -Xptxas -v only reports registers/shared memory/spills into the build log
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# the kernel is instantiated for these dimension counts
+# the kernels are instantiated for these dimension counts
 MAX_DIMS = 16
 
-LAUNCHES = {"dominated_by_any": 0, "dominated_by_rect": 0, "skyline_mask_kernel": 0}
+LAUNCHES = {
+    "dominated_by_any": 0, "dominated_by_rect": 0, "skyline_mask_kernel": 0,
+    "rank_transform": 0, "dominated_by_any_rank": 0, "dominated_by_rank_rect": 0,
+    "skyline_mask_rank_kernel": 0,
+}
+# entry point -> the library whose kernel it launches
+_LIBRARY_OF = {
+    "dominated_by_any": "dominance", "dominated_by_rect": "dominance",
+    "skyline_mask_kernel": "dominance", "dominated_by_any_rank": "dominance_rank",
+    "dominated_by_rank_rect": "dominance_rank",
+    "skyline_mask_rank_kernel": "dominance_rank",
+}
 
-_LIB = None
+_LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
@@ -72,52 +113,75 @@ def _nvcc() -> str:
     )
 
 
-def build() -> tuple[Path, str]:
-    """Compile ``csrc/dominance.cu`` for sm_90a unless a library built from
-    the same source and flags exists. Returns (library path, compiler log —
-    empty when the build was cached). Raises when nvcc fails."""
+def _library_path(name: str) -> Path:
+    source = SOURCES[name][0]
     tag = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    lib = BUILD_DIR / f"dominance_{tag}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"dominance_{tag}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True,
-        text=True,
-    )
-    if proc.returncode:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{proc.stderr}"
-        )
-    os.replace(tmp, lib)
-    return lib, proc.stderr
+    return BUILD_DIR / f"{name}_{tag}.so"
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
-        path, _ = build()
+def build() -> dict[str, tuple[Path, str]]:
+    """Compile every source in ``SOURCES`` for sm_90a unless a library
+    built from the same source and flags exists — one ``nvcc`` per source,
+    all started together. Returns {name: (library path, compiler log —
+    empty when the build was cached)}. Raises when an nvcc fails, after
+    every nvcc has ended."""
+    built: dict[str, tuple[Path, str]] = {}
+    running = []
+    for name in SOURCES:
+        lib = _library_path(name)
+        if lib.exists():
+            built[name] = (lib, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD_DIR / f"{lib.stem}.{os.getpid()}.tmp"
+        log = BUILD_DIR / f"{lib.stem}.{os.getpid()}.log"
+        with open(log, "w") as fh:
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name][0])],
+                stdout=subprocess.DEVNULL, stderr=fh,
+            )
+        running.append((name, lib, tmp, log, proc))
+    failures = []
+    for name, lib, tmp, log, proc in running:
+        rc = proc.wait()
+        text = log.read_text()
+        log.unlink(missing_ok=True)
+        if rc:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed on {name} with code {rc}:\n{text}")
+            continue
+        os.replace(tmp, lib)
+        built[name] = (lib, text)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return built
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    if name not in _LIBS:
+        path = build()[name][0]
         lib = ctypes.CDLL(str(path))
-        lib.skyline_dominated.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int
-        ] * 4 + [ctypes.c_void_p]
-        lib.skyline_dominated.restype = ctypes.c_int
-        lib.skyline_error_string.argtypes = [ctypes.c_int]
-        lib.skyline_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        _, entry, errstr = SOURCES[name]
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = getattr(lib, errstr)
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return _LIBS[name]
 
 
-def _batched(t: torch.Tensor, valid: torch.Tensor | None, name: str):
-    """Validate a (d, N) / (P, d, N) coordinate tensor (+ its (N,) / (P, N)
-    validity) and return 3-D/2-D views plus whether a batch dim was given."""
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: coordinates must be float32, got {t.dtype}")
+def _batched(
+    t: torch.Tensor, valid: torch.Tensor | None, name: str, dtype=torch.float32
+):
+    """Validate a (rows, N) / (P, rows, N) tensor of ``dtype`` (+ its (N,) /
+    (P, N) validity) and return 3-D/2-D views plus whether a batch dim was
+    given."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() not in (2, 3):
         raise ValueError(f"{name}: expected (d, N) or (P, d, N), got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -154,20 +218,24 @@ def _launch(
     name: str, x3: torch.Tensor, v2: torch.Tensor, y3: torch.Tensor
 ) -> torch.Tensor:
     """One kernel launch on the current stream for entry point ``name``,
-    counted in ``LAUNCHES``: (P, ny) bool."""
-    P, d, nx = x3.shape
+    counted in ``LAUNCHES``: (P, ny) bool. Rank inputs carry a sum row on
+    top of their ``d`` rank rows."""
+    P, rows, nx = x3.shape
     ny = y3.shape[2]
+    library = _LIBRARY_OF[name]
+    d = rows - 1 if library == "dominance_rank" else rows
     if not 1 <= d <= MAX_DIMS:
-        raise ValueError(f"the dominance kernel takes 1..{MAX_DIMS} dims, got {d}")
+        raise ValueError(f"the dominance kernels take 1..{MAX_DIMS} dims, got {d}")
     if max(nx, ny) >= 2**31:
-        raise ValueError("the dominance kernel takes fewer than 2^31 rows")
+        raise ValueError("the dominance kernels take fewer than 2^31 rows")
     out = torch.empty((P, ny), dtype=torch.uint8, device=x3.device)
     if P == 0 or ny == 0:
         return out.view(torch.bool)
-    lib = _lib()
+    lib = _lib(library)
+    _, entry, errstr = SOURCES[library]
     with torch.cuda.device(x3.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.skyline_dominated(
+        rc = getattr(lib, entry)(
             x3.data_ptr(),
             v2.view(torch.uint8).data_ptr(),
             y3.data_ptr(),
@@ -177,8 +245,7 @@ def _launch(
         )
     if rc:
         raise RuntimeError(
-            "dominance kernel launch failed: "
-            + lib.skyline_error_string(rc).decode()
+            f"{library} kernel launch failed: " + getattr(lib, errstr)(rc).decode()
         )
     LAUNCHES[name] += 1
     return out.view(torch.bool)
@@ -213,6 +280,80 @@ def skyline_mask_plain(x: torch.Tensor, valid: torch.Tensor | None = None) -> to
     return skyline_mask(x, valid)
 
 
+def dominated_by_any_rank_plain(rt: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Plain K5: (d+1, N) or (P, d+1, N) int32 -> (N,) or (P, N)."""
+    x3, v2, batched = _batched(rt, valid, "dominated_by_any_rank", torch.int32)
+    out = torch.zeros((x3.shape[0], x3.shape[2]), dtype=torch.bool, device=rt.device)
+    for p in range(x3.shape[0]):
+        out[p] = dominated_by_rank(x3[p].T, x3[p].T, v2[p])
+    return out if batched else out[0]
+
+
+def dominated_by_rank_rect_plain(
+    xt: torch.Tensor, x_valid: torch.Tensor, yt: torch.Tensor
+) -> torch.Tensor:
+    """Plain K6: victims (d+1, Ny) / (P, d+1, Ny) against dominators xt."""
+    x3, v2, y3, batched = _rect_args(xt, x_valid, yt, torch.int32, "dominated_by_rank_rect")
+    out = torch.zeros((y3.shape[0], y3.shape[2]), dtype=torch.bool, device=yt.device)
+    for p in range(x3.shape[0]):
+        out[p] = dominated_by_rank(y3[p].T, x3[p].T, v2[p])
+    return out if batched else out[0]
+
+
+def skyline_mask_rank_plain(
+    x: torch.Tensor, valid: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Plain K7: K4 over the whole set, then the plain rank predicate. The
+    compared universe is exactly ``x``'s valid rows, so the rank embedding
+    is exact and the mask equals the value-space skyline mask."""
+    _mask_args(x, valid, "skyline_mask_rank_kernel")
+    if valid is None:
+        valid = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    rt = rank_transform(x, valid)
+    return ~dominated_by_any_rank_plain(rt, valid) & valid
+
+
+# -- K4: the rank transform (torch ops on any device) -------------------------
+
+
+def sort_columns(x: torch.Tensor) -> torch.Tensor:
+    """(N, d) -> (d, N): each dimension's values ascending (stable, so equal
+    values such as -0.0 and 0.0 keep their order, as XLA's sort does)."""
+    return torch.sort(x.T.contiguous(), dim=1, stable=True).values
+
+
+def searchsorted_cols(sorted_t: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Per-dimension dense ranks: sorted_t (d, M) ascending rows (from
+    ``sort_columns``), q (N, d) -> (N, d) int32, the count of values of the
+    dimension strictly below each query (``side="left"``). int32 keeps rank
+    sums exact past float32's 2^24 limit."""
+    return torch.searchsorted(
+        sorted_t, q.T.contiguous(), side="left", out_int32=True
+    ).T
+
+
+def with_rank_sum(ranks: torch.Tensor) -> torch.Tensor:
+    """(N, d) int32 ranks -> (N, d+1) with their int32 sum as the last
+    column."""
+    return torch.cat([ranks, ranks.sum(dim=1, keepdim=True, dtype=torch.int32)], dim=1)
+
+
+def rank_transform(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """K4: per-dimension dense ranks plus rank sum over one point set (the
+    compared universe). x: (N, d) float32; valid: (N,) bool. Invalid rows
+    rank as +inf values: every dimension gets the count of finite entries,
+    so they are inert like +inf padding. Returns ``(d+1, N)`` int32 — ranks
+    transposed with the rank sum as the last row, the layout K5 takes."""
+    if valid is None:
+        raise ValueError("rank_transform: validity is required")
+    _mask_args(x, valid, "rank_transform")
+    xm = torch.where(valid[:, None], x, float("inf"))
+    rt = with_rank_sum(searchsorted_cols(sort_columns(xm), xm)).T.contiguous()
+    if x.device.type == "cuda":
+        LAUNCHES["rank_transform"] += 1
+    return rt
+
+
 # -- kernel entry points -------------------------------------------------------
 
 
@@ -239,12 +380,12 @@ def dominated_by_any(
     return out if batched else out[0]
 
 
-def _rect_args(xt, x_valid, yt):
-    x3, v2, batched = _batched(xt, x_valid, "dominated_by_rect")
-    y3, _, ybatched = _batched(yt, None, "dominated_by_rect")
+def _rect_args(xt, x_valid, yt, dtype=torch.float32, name="dominated_by_rect"):
+    x3, v2, batched = _batched(xt, x_valid, name, dtype)
+    y3, _, ybatched = _batched(yt, None, name, dtype)
     if ybatched != batched or y3.shape[:2] != x3.shape[:2] or yt.device != xt.device:
         raise ValueError(
-            f"dominated_by_rect: victims {tuple(yt.shape)} on {yt.device} do "
+            f"{name}: victims {tuple(yt.shape)} on {yt.device} do "
             f"not match dominators {tuple(xt.shape)} on {xt.device}"
         )
     return x3, v2, y3, batched
@@ -264,42 +405,94 @@ def dominated_by_rect(
     return out if batched else out[0]
 
 
-def _mask_args(x, valid):
+def _mask_args(x, valid, name="skyline_mask_kernel"):
     if x.dim() != 2:
-        raise ValueError(f"skyline_mask_kernel: expected (N, d), got {tuple(x.shape)}")
+        raise ValueError(f"{name}: expected (N, d), got {tuple(x.shape)}")
     if x.dtype != torch.float32:
-        raise TypeError(f"skyline_mask_kernel: points must be float32, got {x.dtype}")
+        raise TypeError(f"{name}: points must be float32, got {x.dtype}")
     if not x.is_contiguous():
-        raise ValueError("skyline_mask_kernel: points must be contiguous")
+        raise ValueError(f"{name}: points must be contiguous")
     if valid is not None and (
         valid.dtype != torch.bool
         or tuple(valid.shape) != (x.shape[0],)
         or valid.device != x.device
     ):
         raise ValueError(
-            "skyline_mask_kernel: validity must be a bool (N,) tensor on the "
-            "points' device"
+            f"{name}: validity must be a bool (N,) tensor on the points' device"
         )
+
+
+def _sum_sorted(x: torch.Tensor, valid: torch.Tensor | None):
+    """Stable sort by valid row sum, invalid rows last: (order, validity
+    in sorted order). The key (``torch.sum``) may round differently from a
+    kernel's own sums; that moves only work, never a mask, because the
+    kernels skip on their own exact sums."""
+    if valid is None:
+        valid = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    keys = torch.where(valid, x.sum(dim=-1), float("inf"))
+    order = torch.argsort(keys, stable=True)
+    return order, valid[order]
+
+
+def _unsort(order: torch.Tensor, keep_sorted: torch.Tensor) -> torch.Tensor:
+    keep = torch.empty_like(keep_sorted)
+    keep[order] = keep_sorted
+    return keep
 
 
 def skyline_mask_kernel(x: torch.Tensor, valid: torch.Tensor | None = None) -> torch.Tensor:
     """K3: survivor mask of (N, d) points — valid and dominated by no valid
     point. Stable sort by valid row sum (invalid rows last), K1 over the
     sorted set, unsort. No padding to a tile multiple: the kernel masks its
-    ragged edge. The sort key (``torch.sum``) may round differently from the
-    kernel's own sums; that moves only work, never the mask, because the
-    kernel skips on its own exact sums."""
+    ragged edge."""
     if not _device_path(x, "skyline_mask_kernel"):
         return skyline_mask_plain(x, valid)
     _mask_args(x, valid)
-    n = x.shape[0]
-    if valid is None:
-        valid = torch.ones(n, dtype=torch.bool, device=x.device)
-    keys = torch.where(valid, x.sum(dim=-1), float("inf"))
-    order = torch.argsort(keys, stable=True)
+    order, vs = _sum_sorted(x, valid)
     xs_t = x[order].T.contiguous()
-    vs = valid[order]
     dom = _launch("skyline_mask_kernel", xs_t[None], vs[None], xs_t[None])[0]
-    keep = torch.empty_like(vs)
-    keep[order] = ~dom & vs
-    return keep
+    return _unsort(order, ~dom & vs)
+
+
+def dominated_by_any_rank(
+    rt: torch.Tensor, valid: torch.Tensor, triangular: bool = False
+) -> torch.Tensor:
+    """K5: ``out[j]`` = some valid column ``i`` of ``rt`` dominates column
+    ``j`` in rank space. rt: (d+1, N) or (P, d+1, N) int32 (``d`` rank rows
+    and the rank-sum row, over one universe); valid: (N,) or (P, N) bool.
+    ``triangular`` changes nothing (see K1)."""
+    del triangular
+    if not _device_path(rt, "dominated_by_any_rank"):
+        return dominated_by_any_rank_plain(rt, valid)
+    x3, v2, batched = _batched(rt, valid, "dominated_by_any_rank", torch.int32)
+    out = _launch("dominated_by_any_rank", x3, v2, x3)
+    return out if batched else out[0]
+
+
+def dominated_by_rank_rect(
+    xt: torch.Tensor, x_valid: torch.Tensor, yt: torch.Tensor
+) -> torch.Tensor:
+    """K6: the rectangular rank twin of K2. xt: (d+1, Nx) / (P, d+1, Nx)
+    int32 dominators; x_valid: (Nx,) / (P, Nx) bool; yt: (d+1, Ny) /
+    (P, d+1, Ny) int32 victims over the same rank universe. Returns (Ny,) /
+    (P, Ny)."""
+    if not _device_path(xt, "dominated_by_rank_rect"):
+        return dominated_by_rank_rect_plain(xt, x_valid, yt)
+    x3, v2, y3, batched = _rect_args(xt, x_valid, yt, torch.int32, "dominated_by_rank_rect")
+    out = _launch("dominated_by_rank_rect", x3, v2, y3)
+    return out if batched else out[0]
+
+
+def skyline_mask_rank_kernel(
+    x: torch.Tensor, valid: torch.Tensor | None = None
+) -> torch.Tensor:
+    """K7: survivor mask of (N, d) points through the rank cascade — stable
+    sort by valid row sum, K4 over the sorted set (the compared universe is
+    exactly the valid rows), K5, unsort. The mask equals K3's."""
+    if not _device_path(x, "skyline_mask_rank_kernel"):
+        return skyline_mask_rank_plain(x, valid)
+    _mask_args(x, valid, "skyline_mask_rank_kernel")
+    order, vs = _sum_sorted(x, valid)
+    rt = rank_transform(x[order], vs)
+    dom = _launch("skyline_mask_rank_kernel", rt[None], vs[None], rt[None])[0]
+    return _unsort(order, ~dom & vs)

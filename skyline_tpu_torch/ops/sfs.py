@@ -54,13 +54,19 @@ def sfs_round(sky, counts, blocks, bvalids, active: int):
     Caller guarantees counts + B <= cap (the compacted block writes B slots;
     rows past the survivor count are +inf padding landing on virgin rows).
     Returns (sky, counts')."""
-    P, cap, d = sky.shape
-    B = blocks.shape[1]
-    ar = torch.arange(active, device=sky.device)
-    sky_ok = ar[None, :] < counts[:, None]
+    sky_ok = torch.arange(active, device=sky.device)[None, :] < counts[:, None]
     block_t = _t(blocks)
     keep = bvalids & ~dominated_by_any(block_t, bvalids, triangular=True)
     keep &= ~dominated_by_rect(_t(sky[:, :active]), sky_ok, block_t)
+    return sfs_append(sky, counts, blocks, keep)
+
+
+def sfs_append(sky, counts, blocks, keep):
+    """Append each block's kept rows, compacted stably, at ``counts[p]`` of
+    its partition's buffer, in place: sky (P, cap, d), counts (P,) int64,
+    blocks (P, B, d), keep (P, B). Returns (sky, counts')."""
+    P, _, d = sky.shape
+    B = blocks.shape[1]
     vals, _, m = compact(blocks, keep, B)
     dst = counts[:, None] + torch.arange(B, device=sky.device)
     sky.scatter_(1, dst.unsqueeze(-1).expand(P, B, d), vals)
@@ -94,15 +100,29 @@ def sfs_cleanup(sky, counts, old_counts, old_active: int, active: int):
     max counts (old_active <= active) — dominator and victim sets are sliced
     to them so a shrunken skyline in a grown buffer never pays
     full-capacity passes. Returns (sky', counts')."""
-    P, cap, d = sky.shape
-    dev = sky.device
-    ar = torch.arange(active, device=dev)
-    new_ok = (ar[None, :] >= old_counts[:, None]) & (ar[None, :] < counts[:, None])
+    new_ok = cleanup_new_rows(counts, old_counts, active)
     old_dom = dominated_by_rect(
         _t(sky[:, :active]), new_ok, _t(sky[:, :old_active])
     )
-    old_keep = (ar[None, :old_active] < old_counts[:, None]) & ~old_dom
-    keep = torch.zeros((P, cap), dtype=torch.bool, device=dev)
+    return cleanup_compact(sky, old_counts, new_ok, old_dom)
+
+
+def cleanup_new_rows(counts, old_counts, active: int):
+    """(P, active) bool: the rows a flush appended, ``old_counts[p] <= row <
+    counts[p]`` — the cleanup's dominators."""
+    ar = torch.arange(active, device=counts.device)
+    return (ar[None, :] >= old_counts[:, None]) & (ar[None, :] < counts[:, None])
+
+
+def cleanup_compact(sky, old_counts, new_ok, old_dom):
+    """Keep every new row and the old rows (prefix ``old_counts[p]``, the
+    first ``old_dom.shape[1]`` rows) that no new row dominates; compact
+    stably into a new buffer. Returns (sky', counts')."""
+    P, cap, _ = sky.shape
+    active, old_active = new_ok.shape[1], old_dom.shape[1]
+    ar = torch.arange(old_active, device=sky.device)
+    old_keep = (ar[None, :] < old_counts[:, None]) & ~old_dom
+    keep = torch.zeros((P, cap), dtype=torch.bool, device=sky.device)
     keep[:, :active] = new_ok
     keep[:, :old_active] = old_keep | new_ok[:, :old_active]
     vals, _, cnt = compact(sky, keep, cap)

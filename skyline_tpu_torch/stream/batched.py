@@ -2,20 +2,27 @@
 ``(P, cap, d)`` device buffer.
 
 Counterpart of ``skyline_tpu/stream/batched.py`` for the lazy flush policy
-with host ingest on one device and the flat global merge. The semantics are
-SkylineLocalProcessor's state model (FlinkSkyline.java:214-445): pending
-rows accumulate per partition on the host, and a query-time flush streams
-each partition's sum-sorted window through append-only SFS rounds
+on one device with the flat global merge, with host or device ingest. The
+semantics are SkylineLocalProcessor's state model (FlinkSkyline.java:
+214-445): pending rows accumulate until a query-time flush streams each
+partition's sum-sorted window through append-only SFS rounds
 (``ops/sfs.py``) — one batched round for balanced loads, per-partition
 rounds under routing skew — then prunes old rows against new ones.
 
+Host ingest (``add_batch``) keeps routed rows per partition on the host and
+assembles and uploads each block. Device ingest (``route=...``,
+``ingest_chunk``) uploads raw chunks once and routes, sorts and slices
+blocks on the device (``stream/device_window.py``); with
+``SKYLINE_RANK_CASCADE`` on, its rounds and cleanup compare dense ranks
+(K4–K7).
+
 Not ported yet (each gives results byte-identical to this flat path in the
 reference): the quantized-grid prefilter, the epoch-keyed merge cache with
-delta and tournament-tree merges, the incremental and overlap policies,
-device ingest, the mixed-precision passes and the device mesh. d <= 2 flushes
-through a sort-and-sweep in the reference (``ops/sweep2d.py``), whose state
-order differs from SFS appends, so this port refuses d <= 2 until that path
-is ported.
+delta and tournament-tree merges (and with it the epoch bump), the
+incremental and overlap policies, the mixed-precision passes and the device
+mesh. d <= 2 flushes through a sort-and-sweep in the reference
+(``ops/sweep2d.py``), whose state order differs from SFS appends, so this
+port refuses d <= 2 until that path is ported.
 
 Per-partition CPU attribution follows the reference: flush wall time is
 accounted to the set, and every partition reports the set total as its
@@ -30,6 +37,7 @@ import numpy as np
 import torch
 
 from skyline_tpu_torch.ops.sfs import sfs_cleanup, sfs_round, sfs_round_single
+from skyline_tpu_torch.stream import device_window as dw
 from skyline_tpu_torch.stream.window import (
     DEFAULT_BUFFER_SIZE,
     _MIN_CAP,
@@ -45,6 +53,10 @@ from skyline_tpu_torch.utils.devices import resolve_device
 # row-scaled block once a round's surviving count exceeds half a block.
 _PROBE_B = 8192
 
+# Device-ingest chunks are split and padded to power-of-two buckets capped
+# here.
+_CHUNK_BUCKET_MAX = 65536
+
 
 class PartitionSet:
     """Device-stacked state for ``num_partitions`` logical partitions."""
@@ -57,6 +69,8 @@ class PartitionSet:
         initial_capacity: int = 0,
         flush_policy: str = "lazy",
         device="cuda",
+        route: tuple[str, float] | None = None,
+        window_capacity: int = 0,
     ):
         """``initial_capacity``: pre-size the per-partition skyline buffers
         (rounded up to the power-of-two bucket) so a workload that knows
@@ -68,7 +82,16 @@ class PartitionSet:
         are later slices of the port.
 
         ``device``: where the skylines live and the kernels run; ``"cuda"``
-        unless the caller asks for ``"cpu"`` (the plain PyTorch path)."""
+        unless the caller asks for ``"cpu"`` (the plain PyTorch path).
+
+        ``route``: ``(algo, domain_max)`` enables DEVICE ingest: raw chunks
+        are uploaded as they arrive and partition routing, the flush-time
+        (pid, sum) sort and SFS block slicing run on the device
+        (``ingest_chunk``, stream/device_window.py). ``None`` keeps host
+        routing (the engine routes and calls ``add_batch``).
+
+        ``window_capacity``: expected rows per window (0 = unknown); pre-sizes
+        the device-ingest window so a full window never reallocates."""
         if flush_policy != "lazy":
             raise NotImplementedError(
                 f"flush_policy {flush_policy!r} is not ported yet; use 'lazy'"
@@ -84,6 +107,16 @@ class PartitionSet:
         self.buffer_size = buffer_size
         self.initial_capacity = initial_capacity
         self.flush_policy = flush_policy
+        self._route = route
+        self.window_capacity = window_capacity
+        # device-ingest accumulation state (route is not None)
+        self._dev_window: torch.Tensor | None = None  # (dev_cap, d), +inf padded
+        self._dev_pids: torch.Tensor | None = None  # (dev_cap,) int32, sentinel P
+        self._dev_cap = 0
+        self._dev_rows = 0  # valid rows accumulated
+        # per-chunk (stats (2, P) on the device, now_ms) awaiting a host
+        # bookkeeping sync: only a query barrier or a trigger needs them
+        self._chunk_stats: list[tuple] = []
         p = num_partitions
         # pending micro-batch rows awaiting a flush, per partition
         self._pending: list[list[np.ndarray]] = [[] for _ in range(p)]
@@ -136,6 +169,119 @@ class PartitionSet:
         self._pending[p].append(values)
         self._pending_rows[p] += n
 
+    @property
+    def device_ingest(self) -> bool:
+        return self._route is not None
+
+    @property
+    def has_unsynced_ingest(self) -> bool:
+        return bool(self._chunk_stats)
+
+    @property
+    def pending_rows_total(self) -> int:
+        """Un-flushed rows across both ingest paths."""
+        return int(self._pending_rows.sum()) + self._dev_rows
+
+    def _put_padded(self, arr: np.ndarray, rows: int, fill) -> torch.Tensor:
+        """Upload ``arr`` padded with ``fill`` to ``rows`` leading rows."""
+        if arr.shape[0] != rows:
+            padded = np.full((rows, *arr.shape[1:]), fill, dtype=arr.dtype)
+            padded[: arr.shape[0]] = arr
+            arr = padded
+        return self._put(np.ascontiguousarray(arr))
+
+    def ingest_chunk(self, ids: np.ndarray, values: np.ndarray, now_ms: float) -> None:
+        """Device-ingest twin of route-then-``add_batch``: upload one raw
+        micro-batch, compute its partition ids and per-partition barrier
+        stats on the device and append it to the accumulated window. The
+        host barrier/metrics bookkeeping is synced lazily
+        (``sync_ingest_bookkeeping``), so pure ingest never waits on the
+        device."""
+        n = values.shape[0]
+        if n == 0:
+            return
+        algo, domain_max = self._route
+        ids = np.asarray(ids)
+        if int(ids.max()) >= 2**31:
+            raise ValueError(
+                "device ingest tracks record ids as int32; ids >= 2^31 "
+                "need the host ingest path"
+            )
+        for s in range(0, n, _CHUNK_BUCKET_MAX):
+            chunk = np.asarray(values[s : s + _CHUNK_BUCKET_MAX], dtype=np.float32)
+            m = chunk.shape[0]
+            bucket = _next_pow2(m)
+            self._ensure_dev_capacity(self._dev_rows + bucket)
+            stats = dw.ingest_chunk(
+                self._dev_window,
+                self._dev_pids,
+                self._put_padded(chunk, bucket, np.inf),
+                self._put_padded(
+                    ids[s : s + _CHUNK_BUCKET_MAX].astype(np.int32), bucket, -1
+                ),
+                m,
+                self._dev_rows,
+                algo=algo,
+                num_partitions=self.num_partitions,
+                domain_max=domain_max,
+            )
+            self._dev_rows += m
+            self._chunk_stats.append((stats, now_ms))
+
+    def _ensure_dev_capacity(self, need: int) -> None:
+        """Allocate or double the device accumulation buffers. ``need``
+        includes the incoming chunk's padded bucket, so its write stays in
+        bounds."""
+        if self._dev_window is None:
+            # pre-size so a full expected window (plus the last chunk's
+            # padded bucket) never reallocates
+            hint = (
+                _next_pow2(self.window_capacity + _CHUNK_BUCKET_MAX)
+                if self.window_capacity
+                else 0
+            )
+            self._dev_cap = max(_next_pow2(need), hint, 131072)
+            self._dev_window = torch.full(
+                (self._dev_cap, self.dims), float("inf"), dtype=torch.float32,
+                device=self.device,
+            )
+            self._dev_pids = torch.full(
+                (self._dev_cap,), self.num_partitions, dtype=torch.int32,
+                device=self.device,
+            )
+            return
+        while self._dev_cap < need:
+            grow = self._dev_cap
+            self._dev_window = torch.cat([
+                self._dev_window,
+                torch.full((grow, self.dims), float("inf"), dtype=torch.float32,
+                           device=self.device),
+            ])
+            self._dev_pids = torch.cat([
+                self._dev_pids,
+                torch.full((grow,), self.num_partitions, dtype=torch.int32,
+                           device=self.device),
+            ])
+            self._dev_cap += grow
+
+    def sync_ingest_bookkeeping(self) -> None:
+        """Fold the queued per-chunk device stats into the host barrier and
+        metrics state (max_seen_id, records_seen, start_time_ms) — one small
+        transfer for all queued chunks; called before any barrier check,
+        never on the pure-ingest path."""
+        if not self._chunk_stats:
+            return
+        stats = self._host(torch.stack([s for s, _ in self._chunk_stats]))
+        for s, (_, now_ms) in zip(stats.astype(np.int64), self._chunk_stats):
+            counts, maxids = s[0], s[1]
+            got = counts > 0
+            self.records_seen[got] += counts[got]
+            np.maximum(self.max_seen_id, np.where(got, maxids, -1), out=self.max_seen_id)
+            for p in np.nonzero(got)[0]:
+                if self.start_time_ms[p] is None:
+                    self.start_time_ms[p] = now_ms
+        self._chunk_stats = []
+
     def _drain_pending(self) -> list[np.ndarray]:
         """Move every partition's pending micro-batches out as one (m, d)
         array per partition (empty partitions get (0, d)), clearing the
@@ -163,31 +309,45 @@ class PartitionSet:
         return block, np.arange(B) < w, w
 
     def _round_batch(self, rows: list[np.ndarray], rnd: int, B: int):
-        """Assemble round ``rnd``'s (P, B, d) padded batch + validity +
-        per-partition widths from the drained ``rows``."""
+        """Assemble round ``rnd``'s (P, B, d) padded batch + validity from
+        the drained ``rows``."""
         batch = np.full(
             (self.num_partitions, B, self.dims), np.inf, dtype=np.float32
         )
         bvalid = np.zeros((self.num_partitions, B), dtype=bool)
-        widths = np.zeros(self.num_partitions, dtype=np.int64)
         for p, r in enumerate(rows):
             part_rows = r[rnd * B : (rnd + 1) * B]
             if part_rows.shape[0]:
-                batch[p], bvalid[p], widths[p] = self._pad_block(part_rows, B)
-        return batch, bvalid, widths
+                batch[p], bvalid[p], _ = self._pad_block(part_rows, B)
+        return batch, bvalid
 
     # -- lazy flush ---------------------------------------------------------
 
     def flush_all(self) -> None:
         """Merge every partition's pending rows into its running skyline
-        (append-only SFS rounds over the sum-sorted pending windows)."""
+        (append-only SFS rounds over the sum-sorted pending windows): host
+        pending rows first, then the device accumulation window."""
         if int(self._pending_rows.sum()):
             self._flush_lazy()
+        if self._dev_rows:
+            self._flush_lazy_device()
+
+    def _vmapped_block(self, max_rows: int) -> int:
+        # bigger blocks than the buffer threshold: the cross-prune work is
+        # block-count invariant, so fewer rounds just save launches
+        return _next_pow2(min(max_rows, max(self.buffer_size, 8192)))
+
+    @staticmethod
+    def _sequential(widths: np.ndarray) -> bool:
+        # the batched round costs P lanes of (B x active) work per round
+        # whatever the lanes carry (~P * max_rows lane-rows); per-partition
+        # rounds cost ~total_rows. Under routing skew sequential wins by ~P/2.
+        return len(widths) * int(widths.max()) > 2 * int(widths.sum())
 
     def _flush_lazy(self) -> None:
-        """Sum-sort each partition's accumulated window and stream it
-        through append-only SFS rounds — one batched round for balanced
-        loads, per-partition rounds under routing skew."""
+        """Host-ingest flush: sum-sort each partition's accumulated rows and
+        stream them through append-only SFS rounds, assembling and uploading
+        each block from the host."""
         t0 = time.perf_counter_ns()
         rows = self._drain_pending()
         # the host sort fixes the SFS append order, and with it the state's
@@ -197,29 +357,96 @@ class PartitionSet:
                 order = np.argsort(r.sum(axis=1), kind="stable")
                 rows[p] = r[order]
         had_old, old_counts = self._check_had_old()
+        widths = np.array([r.shape[0] for r in rows], dtype=np.int64)
+        if self._sequential(widths):
 
-        max_rows = max(r.shape[0] for r in rows)
-        total_rows = int(sum(r.shape[0] for r in rows))
-        # the batched round costs P lanes of (B x active) work per round
-        # whatever the lanes carry (~P * max_rows lane-rows); per-partition
-        # rounds cost ~total_rows. Under routing skew sequential wins by ~P/2.
-        sequential = self.num_partitions * max_rows > 2 * total_rows
-        if sequential:
-            counts = self._sfs_sequential(rows)
+            def one_round(p, sky_p, cnt_p, off, w, B, active):
+                block, bvalid, _ = self._pad_block(rows[p][off : off + B], B)
+                return sfs_round_single(
+                    sky_p, cnt_p, self._put(block), self._put(bvalid), active
+                )
+
+            counts = self._sfs_sequential(widths, one_round)
         else:
-            counts = self._sfs_vmapped(rows, max_rows)
+            B = self._vmapped_block(int(widths.max()))
+
+            def batched_round(rnd, counts, active):
+                batch, bvalid = self._round_batch(rows, rnd, B)
+                return sfs_round(
+                    self.sky, counts, self._put(batch), self._put(bvalid), active
+                )
+
+            counts = self._sfs_vmapped(widths, B, batched_round)
         self._finish_lazy_flush(
             counts, had_old, old_counts,
             int(old_counts.max()) if had_old else 0, t0,
         )
 
-    def _sfs_vmapped(self, rows: list[np.ndarray], max_rows: int):
-        """Balanced-load SFS: one batched round for all partitions. Returns
-        the device counts vector."""
-        # bigger blocks than the buffer threshold: the cross-prune work is
-        # block-count invariant, so fewer rounds just save launches
-        B = _next_pow2(min(max_rows, max(self.buffer_size, 8192)))
-        n_rounds = -(-max_rows // B)
+    def _flush_lazy_device(self) -> None:
+        """Device-ingest flush: one (pid, sum) sort with segment bounds on
+        the device, then SFS rounds slicing their blocks straight from the
+        sorted window (stream/device_window.py) — no host routing, assembly
+        or per-block upload. With the rank cascade on, the window and the
+        live skyline prefixes are ranked once and the rounds and the cleanup
+        compare ranks. Barrier bookkeeping is not synced here."""
+        t0 = time.perf_counter_ns()
+        P = self.num_partitions
+        n_bucket = _next_pow2(self._dev_rows)
+        ws, bounds_dev = dw.sort_window(
+            self._dev_window, self._dev_pids, self._dev_rows, n_bucket, P,
+            dw.SORT_TAIL,
+        )
+        bounds = self._host(bounds_dev).astype(np.int64)
+        self._dev_rows = 0
+        had_old, old_counts = self._check_had_old()
+        old_max = int(old_counts.max()) if had_old else 0
+        rank = None
+        if dw.rank_flush_enabled():
+            active_old = (
+                min(self._cap, _active_bucket(max(old_max, 1))) if had_old else 0
+            )
+            sorted_dims, wr = dw.rank_window(
+                ws, self.sky, self._count_dev, n_bucket, active_old,
+                _next_pow2(n_bucket + P * active_old),
+            )
+            rank = (wr, sorted_dims)
+        widths = np.diff(bounds)
+        if self._sequential(widths):
+
+            def one_round(p, sky_p, cnt_p, off, w, B, active):
+                start = int(bounds[p]) + off
+                if rank is not None:
+                    return dw.sfs_round_at_rank(
+                        sky_p, cnt_p, ws, *rank, start, w, B=B, active=active
+                    )
+                return dw.sfs_round_at(sky_p, cnt_p, ws, start, w, B=B, active=active)
+
+            # blocks sliced from the sorted window must fit its tail pad
+            counts = self._sfs_sequential(widths, one_round, dw.SORT_TAIL)
+        else:
+            B = min(self._vmapped_block(int(widths.max())), dw.SORT_TAIL)
+            lo, hi = bounds_dev[:-1].long(), bounds_dev[1:].long()
+
+            def batched_round(rnd, counts, active):
+                offs = torch.minimum(lo + rnd * B, hi)
+                w = torch.clamp(hi - offs, 0, B)
+                if rank is not None:
+                    return dw.sfs_round_at_rank_vmapped(
+                        self.sky, counts, ws, *rank, offs, w, B=B, active=active
+                    )
+                return dw.sfs_round_at_vmapped(
+                    self.sky, counts, ws, offs, w, B=B, active=active
+                )
+
+            counts = self._sfs_vmapped(widths, B, batched_round)
+        self._finish_lazy_flush(counts, had_old, old_counts, old_max, t0, rank)
+
+    def _sfs_vmapped(self, widths: np.ndarray, B: int, batched_round):
+        """Balanced-load SFS: one batched round for all partitions at a
+        time, ``batched_round(rnd, counts, active) -> (sky, counts')`` over
+        each partition's rows ``[rnd * B, (rnd + 1) * B)`` (``widths``: rows
+        per partition). Returns the device counts vector."""
+        n_rounds = -(-int(widths.max()) // B)
         counts = self._count_dev
         # lag-2 tightening: the rows-streamed bound on _count_ub grows
         # linearly while the true skyline may stay tiny; the count vector
@@ -227,7 +454,7 @@ class PartitionSet:
         # the true size without stalling on the latest round
         prev: list[tuple] = []  # (counts after round, widths of round)
         for rnd in range(n_rounds):
-            batch, bvalid, widths = self._round_batch(rows, rnd, B)
+            w = np.clip(widths - rnd * B, 0, B)
             if len(prev) >= 2:
                 c2, w1 = prev[-2][0], prev[-1][1]
                 self._count_ub = np.minimum(
@@ -244,11 +471,9 @@ class PartitionSet:
             active = min(
                 self._cap, _active_bucket(max(int(self._count_ub.max()), 1))
             )
-            self.sky, counts = sfs_round(
-                self.sky, counts, self._put(batch), self._put(bvalid), active
-            )
-            prev.append((counts, widths))
-            self._count_ub = np.minimum(self._cap, self._count_ub + widths)
+            self.sky, counts = batched_round(rnd, counts, active)
+            prev.append((counts, w))
+            self._count_ub = np.minimum(self._cap, self._count_ub + w)
         self._count_dev = counts
         return counts
 
@@ -286,41 +511,48 @@ class PartitionSet:
         self._count_dev = counts
         return counts
 
-    def _sfs_sequential(self, rows: list[np.ndarray]):
+    def _sfs_sequential(self, widths: np.ndarray, one_round, max_block=None):
         """Skew-path SFS: partitions processed one at a time with their own
         block and active buckets — total work tracks each partition's own
-        rows instead of P x the heaviest. Returns the device counts."""
+        rows instead of P x the heaviest. ``one_round(p, sky_p, cnt_p, off,
+        w, B, active) -> (sky_p, cnt_p')`` runs one round over rows
+        ``[off, off + w)`` of partition ``p`` (``widths``: rows per
+        partition); blocks are capped at ``max_block``. Returns the device
+        counts."""
+
+        def block_size(rows_p: int) -> int:
+            B = self._seq_block_size(rows_p)
+            return B if max_block is None else min(B, max_block)
+
         # exact starting counts make the per-partition active buckets tight;
         # a fresh set (all upper bounds zero) provably has zero counts
         if not int(self._count_ub.max()):
             counts_host = np.zeros(self.num_partitions, dtype=np.int64)
         else:
             counts_host = self.sky_counts().astype(np.int64)
-        row_counts = np.array([r.shape[0] for r in rows], dtype=np.int64)
         # capacity grows on demand as survivor counts grow (one exact count
         # sync per doubling); start with room for existing survivors + one
         # big block
-        B_max = self._seq_block_size(int(row_counts.max()))
-        need0 = int(counts_host.max()) + B_max
+        need0 = int(counts_host.max()) + block_size(int(widths.max()))
         if need0 > self._cap:
             self._grow_cap(_next_pow2(need0))
 
         new_skies = []
         new_counts = []
         for p in range(self.num_partitions):
-            rp = rows[p]
+            n_p = int(widths[p])
             sky_p = self.sky[p]
             cap_p = sky_p.shape[0]
             cnt_p = self._count_dev[p]
             ub_p = int(counts_host[p])
-            if rp.shape[0]:
+            if n_p:
                 # start at the probe block; escalate to the big block once
                 # the running count proves the skyline is large
-                B_big = self._seq_block_size(rp.shape[0])
+                B_big = block_size(n_p)
                 B = B_big if ub_p > _PROBE_B // 2 else min(_PROBE_B, B_big)
                 prev: list[tuple] = []
                 off = 0
-                while off < rp.shape[0]:
+                while off < n_p:
                     if len(prev) >= 2:
                         c2, w1 = prev[-2][0], prev[-1][1]
                         ub_p = min(ub_p, int(c2) + w1)
@@ -335,12 +567,9 @@ class PartitionSet:
                         if ub_p + 2 * B > cap_p:
                             cap_p = _next_pow2(ub_p + 2 * B)
                             sky_p = self._pad_sky_rows(sky_p, cap_p)
-                    block, bvalid, w = self._pad_block(rp[off : off + B], B)
+                    w = min(B, n_p - off)
                     active = min(cap_p, _active_bucket(max(ub_p, 1)))
-                    sky_p, cnt_p = sfs_round_single(
-                        sky_p, cnt_p, self._put(block), self._put(bvalid),
-                        active,
-                    )
+                    sky_p, cnt_p = one_round(p, sky_p, cnt_p, off, w, B, active)
                     prev.append((cnt_p, w))
                     ub_p = min(cap_p, ub_p + w)
                     off += w
@@ -368,17 +597,27 @@ class PartitionSet:
             had_old = False
         return had_old, old_counts
 
-    def _finish_lazy_flush(self, counts, had_old, old_counts, old_max, t0) -> None:
+    def _finish_lazy_flush(
+        self, counts, had_old, old_counts, old_max, t0, rank=None
+    ) -> None:
         """Tail of the lazy flush: old-vs-new cleanup, caches, and a deferred
-        count sync for the next merge's buckets."""
+        count sync for the next merge's buckets. ``rank``: (window ranks,
+        sorted universe) from the rank-cascade device flush — the cleanup
+        then compares in rank space (old prefixes are universe members)."""
         if had_old:
             old_active = min(self._cap, _active_bucket(max(old_max, 1)))
             active = min(
                 self._cap, _active_bucket(max(int(self._count_ub.max()), 1))
             )
-            self.sky, counts = sfs_cleanup(
-                self.sky, counts, self._put(old_counts), old_active, active
-            )
+            if rank is not None:
+                self.sky, counts = dw.sfs_cleanup_rank(
+                    self.sky, counts, self._put(old_counts), rank[1],
+                    old_active, active,
+                )
+            else:
+                self.sky, counts = sfs_cleanup(
+                    self.sky, counts, self._put(old_counts), old_active, active
+                )
         self._count_dev = counts
         self._counts_cache = None
         self._host_cache = None
@@ -469,8 +708,9 @@ class PartitionSet:
 
         sky: (P, cap, d) float32 whose first ``counts[p]`` rows of each
         partition are mutually non-dominated; rows past the counts are
-        ignored (stored as +inf). Pending rows are dropped; the barrier
-        bookkeeping is replaced when given."""
+        ignored (stored as +inf). Pending rows (host lists and the device
+        window) are dropped; the barrier bookkeeping is replaced when
+        given."""
         sky = np.asarray(sky, dtype=np.float32)
         counts = np.asarray(counts, dtype=np.int64)
         P = self.num_partitions
@@ -497,6 +737,8 @@ class PartitionSet:
         self._tighten_pending = False
         self._pending = [[] for _ in range(P)]
         self._pending_rows[:] = 0
+        self._dev_rows = 0
+        self._chunk_stats = []
         if max_seen_id is not None:
             self.max_seen_id = np.asarray(max_seen_id, dtype=np.int64).copy()
         if records_seen is not None:

@@ -9,15 +9,21 @@ query broadcast becomes a loop over partitions; and
 ``GlobalSkylineAggregator`` becomes a device-side union skyline with the
 same countdown-latch semantics, timing decomposition and optimality metric.
 
+Ingest: with device ingest (the default on a card, as the reference defaults
+to it on its accelerator) raw batches are uploaded and routed, sorted and
+sliced on the device (``stream/device_window.py``), and the host barrier
+bookkeeping syncs only when a query needs it; with host ingest
+``partition_ids_np`` routes each batch on the host.
+
 Record-id barrier semantics: a trigger ``"qid,N"`` executes on a partition
 only once that partition has seen a record id >= N — or immediately if the
 partition has never seen data (``max_seen_id == -1``, FlinkSkyline.java:351).
 Pending triggers are re-evaluated whenever new data reaches the partition.
 
-This slice runs the lazy flush policy with host routing and a blocking
-flat global merge. Telemetry, snapshots, EXPLAIN, audit, query overlap and
-query timeouts are not ported; the reference documents its results as
-identical without them. Device ingest is a later slice.
+This slice runs the lazy flush policy with a blocking flat global merge.
+Telemetry, snapshots, EXPLAIN, audit, query overlap and query timeouts are
+not ported; the reference documents its results as identical without
+them.
 """
 
 from __future__ import annotations
@@ -55,8 +61,12 @@ class EngineConfig:
     # "lazy": accumulate and compute at query time via append-only SFS
     # rounds; the reference's "incremental"/"overlap" are later slices
     flush_policy: str = "lazy"
-    # "host": numpy routing in process_records; "auto" resolves to host.
-    # Device ingest ("device") is a later slice.
+    # expected rows per window (0 = unknown): pre-sizes the device-ingest
+    # window buffer
+    window_capacity: int = 0
+    # "device": routing, sort and block slicing on the device
+    # (stream/device_window.py), lazy policy only; "host": numpy routing in
+    # process_records; "auto": device on a card, host on the CPU
     ingest: str = "auto"
     # where the state lives and the kernels run: "cuda" unless the caller
     # asks for "cpu" (the plain PyTorch path)
@@ -120,9 +130,17 @@ class SkylineEngine:
     def __init__(self, config: EngineConfig):
         self.config = config
         self.device = resolve_device(config.device)
+        # device ingest needs the lazy policy (the engine is single-device)
+        device_ok = config.flush_policy == "lazy"
         if config.ingest == "device":
-            raise NotImplementedError("device ingest is not ported yet")
-        if config.ingest not in ("auto", "host"):
+            if not device_ok:
+                raise ValueError("ingest='device' requires the lazy flush policy")
+            use_device = True
+        elif config.ingest == "auto":
+            use_device = device_ok and self.device.type == "cuda"
+        elif config.ingest == "host":
+            use_device = False
+        else:
             raise ValueError(f"unknown ingest mode {config.ingest!r}")
         self.pset = PartitionSet(
             config.num_partitions,
@@ -131,6 +149,8 @@ class SkylineEngine:
             initial_capacity=config.initial_capacity,
             flush_policy=config.flush_policy,
             device=self.device,
+            route=(config.algo, config.domain_max) if use_device else None,
+            window_capacity=config.window_capacity,
         )
         self.partitions = [
             PartitionView(self.pset, i) for i in range(config.num_partitions)
@@ -155,6 +175,15 @@ class SkylineEngine:
         if now_ms is None:
             now_ms = time.time() * 1000.0
         cfg = self.config
+        if self.pset.device_ingest:
+            # routing and barrier stats on the device; the host bookkeeping
+            # syncs only when a pending query needs its barrier re-evaluated
+            self.pset.ingest_chunk(ids, values, now_ms)
+            if any(self._pending_queries.values()):
+                self.pset.sync_ingest_bookkeeping()
+                for p in range(cfg.num_partitions):
+                    now_ms = self._recheck_pending(p, now_ms)
+            return
         pids = partition_ids_np(values, cfg.algo, cfg.num_partitions, cfg.domain_max)
         # group rows by partition with one argsort (the keyBy shuffle).
         # now_ms advances through the loop: an answer's snapshot flush takes
@@ -186,6 +215,8 @@ class SkylineEngine:
         the points, when asked for) coming back to the host."""
         if now_ms is None:
             now_ms = time.time() * 1000.0
+        # the barrier checks below read per-partition max ids
+        self.pset.sync_ingest_bookkeeping()
         qid, required = parse_trigger(payload)
         q = _QueryState(qid=qid, payload=payload, required=required, dispatch_ms=now_ms)
         if all(

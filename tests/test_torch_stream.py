@@ -124,7 +124,8 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, skyline_tpu_torch, skyline_tpu_torch.stream.engine, "
         "skyline_tpu_torch.ops.dominance_kernels, skyline_tpu_torch.workload.generators, "
-        "skyline_tpu_torch.bridge.wire\n"
+        "skyline_tpu_torch.bridge.wire, skyline_tpu_torch.stream.device_window, "
+        "skyline_tpu_torch.utils.knobs\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'skyline_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -164,9 +165,25 @@ def test_unported_paths_refuse():
         PartitionSet(8, 2, device="cpu")
     with pytest.raises(NotImplementedError):
         PartitionSet(8, 4, flush_policy="incremental", device="cpu")
-    with pytest.raises(NotImplementedError):
-        SkylineEngine(EngineConfig(dims=4, ingest="device", device="cpu"))
+    # device ingest needs the lazy policy, as the reference refuses
+    # (tests/test_device_ingest.py)
+    with pytest.raises(ValueError):
+        SkylineEngine(
+            EngineConfig(dims=4, flush_policy="incremental", ingest="device", device="cpu")
+        )
     with pytest.raises(ValueError):
         SkylineEngine(EngineConfig(dims=4, ingest="bogus", device="cpu"))
     eng = SkylineEngine(EngineConfig(dims=4, ingest="auto", device="cpu"))
     assert eng.pset.device.type == "cpu"
+
+
+@pytest.mark.parametrize("ingest", ["auto", "host", "device"])
+def test_ingest_resolution(ingest, monkeypatch):
+    """"auto" is device ingest on a card and host ingest on the CPU."""
+    eng = SkylineEngine(EngineConfig(dims=4, ingest=ingest, device="cpu"))
+    assert eng.pset.device_ingest == (ingest == "device")
+    # on a card (the device check is all "auto" reads), "auto" is device
+    monkeypatch.setattr(tengine, "resolve_device", lambda d: torch.device("cuda"))
+    monkeypatch.setattr(tengine, "PartitionSet", lambda *a, **kw: kw)
+    eng = SkylineEngine(EngineConfig(dims=4, ingest=ingest, device="cpu"))
+    assert (eng.pset["route"] is not None) == (ingest != "host")
