@@ -20,6 +20,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    padding, invalid rows with finite coordinates; NaN/-inf rows and a
    dominator whose f32 sum ties its victim's (value kernels); K3 under
    other sort keys; int32 rank sums that differ by 1 at ~2^24 and ~2^25;
+   and cases aimed at the value kernel's tile and box skips (K1, K2 with
+   P = 1 and P = 3, K3; N ragged against the tile and the victim block):
+   exact copies of the victims plus one row lower in one dimension, +0.0
+   and -0.0 mixed, a tile of NaN rows, victims with NaN and +inf rows,
+   equal rows across a tile border;
 4. parity, each on CUDA and with ``device="cpu"`` (plain versions): the
    host-ingest engine over two 65,536-row 8-D anti-correlated windows
    (same sizes, optimality and point bytes) plus a small window against
@@ -41,11 +46,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    differently from ``partition_ids_np`` and from the CPU;
 6. timings: each kernel at its main path's shapes (K1–K3 from (c), K4–K7
    from (a), rebuilt from the last window's state), CUDA-event ms beside
-   the plain version's ms and the bound: needed pairs x d compares at the
-   FP32 peak (K1–K3) or x (d + 1) at the INT32 compare rate (K5–K7), or
-   bytes at the HBM rate (K4, and whichever is larger). Both peaks are
-   loose lower bounds on time (the predicates spend more than one
-   instruction per compare); the plain version must agree here too.
+   the plain version's ms (timed once per input) and the bound: needed
+   pairs x d compares at the FP32 peak (K1–K3) or x (d + 1) at the INT32
+   compare rate (K5–K7), or bytes at the HBM rate (K4, and whichever is
+   larger). Needed pairs: one per dominated victim; per undominated victim
+   the dominators whose sum could let them dominate it (values: sum no
+   larger, less the rows equal to it in every coordinate; ranks: a smaller
+   rank sum). Both peaks are loose lower bounds on time (the predicates
+   spend more than one instruction per compare); the plain version must
+   agree, and no kernel may read under its bound. K1–K3 are also timed on
+   the north-star shapes filled with uniform rows and on 65,536 distinct
+   rows of one sum (``value_inputs``), each with the share of (victim
+   block, dominator tile) pairs ``tile_skip_plain`` skips.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -57,6 +69,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -97,6 +110,38 @@ PHASES = ("kernels", "parity", "main", "timings")
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _kernel_name(mangled: str) -> str:
+    """``_ZN<n>_GLOBAL__N_...<n>dominated_kernelILi8ELi4EEEv...`` ->
+    ``dominated_kernel<8,4>``: the last component of the nested name, with
+    its integer template arguments."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    pos, name = 3, mangled
+    while (m := re.match(r"\d+", mangled[pos:])):
+        start = pos + m.end()
+        name = mangled[start : start + int(m.group())]
+        pos = start + len(name)
+    targs = re.match(r"I((?:Li-?\d+E)+)E", mangled[pos:])
+    if targs:
+        name += "<" + ",".join(re.findall(r"Li(-?\d+)E", targs.group(1))) + ">"
+    return name
+
+
+def ptxas_usage(build_log: str):
+    """From ``nvcc -Xptxas -v`` output: {kernel: "N registers, M bytes
+    smem, ..."} per instantiation, and the lines that report spills."""
+    usage, spills, cur = {}, [], None
+    for ln in build_log.splitlines():
+        m = re.search(r"entry function '([^']+)'", ln)
+        if m:
+            cur = _kernel_name(m.group(1))
+        elif cur and "Used" in ln and "registers" in ln:
+            usage[cur] = ln.split("Used", 1)[1].strip()
+        elif cur and "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln:
+            spills.append(f"{cur}: {ln.strip()}")
+    return usage, spills
 
 
 def card_line() -> str:
@@ -141,6 +186,90 @@ def _cases(torch, rng, np, dev):
         (name, torch.from_numpy(x).to(dev), torch.from_numpy(v).to(dev))
         for name, x, v in cases
     ]
+
+
+def _skip_cases(np, rng, d: int, nx: int, ny: int):
+    """Cases aimed at the value kernel's tile and box skips: (name,
+    dominators (nx, d), validity (nx,), victims (ny, d)). nx and ny are
+    ragged against the 256-row tile and the 256/512-victim block."""
+    inf, nan = np.inf, np.nan
+    y = rng.integers(0, 4, size=(ny, d)).astype(np.float32)
+    cases = []
+    # exact copies of the victims, and one row lower in a single dimension
+    x = y[rng.integers(0, ny, size=nx)]
+    lower = y[ny // 2].copy()
+    lower[d // 2] -= 1.0
+    x[rng.integers(0, nx)] = lower
+    cases.append(("copies_plus_one_lower", x, np.ones(nx, bool), y))
+    # +0.0 and -0.0 mixed in both roles
+    signed = np.array([0.0, -0.0, 1.0], np.float32)
+    x = signed[rng.integers(0, 3, size=(nx, d))]
+    cases.append(("signed_zeros", x, np.ones(nx, bool), signed[rng.integers(0, 3, size=(ny, d))]))
+    # a first tile made only of NaN rows (some all-NaN, some one NaN), then
+    # ordinary rows
+    x = rng.integers(0, 4, size=(nx, d)).astype(np.float32)
+    x[:256] = nan
+    x[1:256:2] = y[rng.integers(0, ny, size=128)]
+    x[1:256:2, 0] = nan
+    cases.append(("nan_tile", x, np.ones(nx, bool), y))
+    # a victim block with NaN rows, +inf rows and rows mixing +inf and NaN
+    yb = y.copy()
+    yb[::5] = inf
+    yb[1::7, d - 1] = nan
+    yb[2::11] = nan
+    yb[3::13, 0] = inf
+    x = rng.integers(0, 4, size=(nx, d)).astype(np.float32)
+    valid = rng.random(nx) < 0.8
+    x[~valid] = inf
+    cases.append(("nan_inf_victims", x, valid, yb))
+    # equal rows straddling a tile border, one dominator of them beyond it
+    x = rng.integers(2, 6, size=(nx, d)).astype(np.float32)
+    x[250:262] = 1.0
+    dom = np.ones(d, np.float32)
+    dom[0] = 0.0
+    x[300] = dom
+    yb = y.copy()
+    yb[250:262] = 1.0
+    cases.append(("equal_rows_across_tile_border", x, np.ones(nx, bool), yb))
+    return cases
+
+
+def check_skip_cases(torch, np, dev) -> int:
+    """K1, K2 and K3 on ``_skip_cases`` against their plain versions, with
+    no partition dimension and with P = 3 (each partition its own draw)."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+
+    def same(a, b, what):
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: kernel and plain version differ in "
+                                 f"{int((a != b).sum())} rows")
+
+    rng = np.random.default_rng(17)
+    checks = 0
+    for d, nx, ny in ((8, 1283, 1799), (3, 777, 1030), (16, 600, 517)):
+        draws = [_skip_cases(np, rng, d, nx, ny) for _ in range(3)]
+        for c, (name, _, _, _) in enumerate(draws[0]):
+            xs = [torch.from_numpy(np.ascontiguousarray(dr[c][1].T)).to(dev) for dr in draws]
+            vs = [torch.from_numpy(dr[c][2]).to(dev) for dr in draws]
+            ys = [torch.from_numpy(np.ascontiguousarray(dr[c][3].T)).to(dev) for dr in draws]
+            what = f"{name} d={d}"
+            for x3, v2, y3, tag in (
+                (xs[0], vs[0], ys[0], "P=1"),
+                (torch.stack(xs), torch.stack(vs), torch.stack(ys), "P=3"),
+            ):
+                same(dk.dominated_by_rect(x3, v2, y3), dk.dominated_by_rect_plain(x3, v2, y3),
+                     f"K2 {tag} {what}")
+                u3 = torch.cat([x3, y3], dim=-1).contiguous()
+                uv = torch.cat([v2, torch.ones_like(y3[..., 0, :], dtype=torch.bool)], dim=-1)
+                same(dk.dominated_by_any(u3, uv), dk.dominated_by_any_plain(u3, uv),
+                     f"K1 {tag} {what}")
+                checks += 2
+            u = torch.cat([xs[0], ys[0]], dim=1).T.contiguous()
+            uv = torch.cat([vs[0], torch.ones(ny, dtype=torch.bool, device=dev)])
+            same(dk.skyline_mask_kernel(u, uv), dk.skyline_mask_plain(u, uv), f"K3 {what}")
+            checks += 1
+    return checks
 
 
 def check_kernels(torch, np, dev) -> int:
@@ -577,23 +706,42 @@ def _event_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _equal_dominators(torch, xt, x_valid, yt):
+    """(Ny,) count of valid dominator columns of ``xt`` equal to each
+    victim column of ``yt`` in every coordinate under float comparison
+    (-0.0 equals 0.0; a row with a NaN equals nothing)."""
+    x = xt.T[x_valid] + 0.0  # adding +0.0 turns -0.0 into 0.0
+    x = x[~torch.isnan(x).any(-1)]
+    y = yt.T + 0.0
+    rows, inv = torch.unique(torch.cat([x, y]), dim=0, return_inverse=True)
+    per_row = torch.bincount(inv[: x.shape[0]], minlength=rows.shape[0])
+    eq = per_row[inv[x.shape[0]:]]
+    return torch.where(torch.isnan(y).any(-1), 0, eq)
+
+
 def _needed_pairs(
-    torch, x_sums, x_valid, y_sums, dominated, wanted, strict: bool, self_pairs: bool
+    torch, xt, x_valid, yt, dominated, wanted, rank_d: int | None = None
 ) -> int:
     """Pairs this data needs at least, over the ``wanted`` victims: one for
     each dominated victim; for each undominated victim, every valid
-    dominator whose sum could let it dominate — a sum no larger than the
-    victim's for values (less the victim itself in a ``self_pairs`` pass),
-    a strictly smaller one for rank sums (``strict``)."""
+    dominator whose sum could let it dominate. Values (``rank_d`` None):
+    a sum no larger than the victim's, less the dominators equal to it in
+    every coordinate (the victim itself among them), which cannot dominate
+    it. Ranks: a strictly smaller rank sum (row ``rank_d``), which equal
+    rows never have."""
+    if rank_d is None:
+        x_sums, y_sums = xt.T.sum(-1), yt.T.sum(-1)
+    else:
+        x_sums, y_sums = xt[rank_d].long(), yt[rank_d].long()
     xs = torch.sort(x_sums[x_valid]).values
-    cand = torch.searchsorted(xs, y_sums.contiguous(), right=not strict)
-    if self_pairs:
-        cand = cand - 1  # a row is never its own dominator
+    cand = torch.searchsorted(xs, y_sums.contiguous(), right=rank_d is None)
+    if rank_d is None:
+        cand = cand - _equal_dominators(torch, xt, x_valid, yt)
     undominated = cand.clamp(min=0)[wanted & ~dominated].sum()
     return int(undominated) + int((wanted & dominated).sum())
 
 
-def _row(name, launches, windows, err, ms, plain_ms, bound, shape, pairs=None):
+def _row(name, launches, windows, err, ms, plain_ms, bound, shape, pairs=None, extra=None):
     short, route, source, replaces = KERNELS[name]
     bytes_ms, ops_ms = bound
     row = {
@@ -605,11 +753,16 @@ def _row(name, launches, windows, err, ms, plain_ms, bound, shape, pairs=None):
     }
     if pairs is not None:
         row["needed_pairs"] = pairs
+    row.update(extra or {})
     log(f"timings: {short} {name} {shape}: {ms:.3f} ms (plain {plain_ms:.1f} ms, bound "
         f"{row['bound_ms']:.4f} ms by {row['bound_by']}"
         + (f", {pairs} pairs" if pairs is not None else "")
+        + (f", {row['skipped_share']:.6f} of (block, tile) pairs skipped"
+           if "skipped_share" in row else "")
         + f"), {launches[name] / windows:.1f} launches per window; library_ms n/a: "
         "no single PyTorch call computes it")
+    if row["ms"] < row["bound_ms"]:
+        raise AssertionError(f"{short} reads under its bound: {row['ms']} < {row['bound_ms']} ms")
     return row
 
 
@@ -642,57 +795,137 @@ def _heavy_block(np, pset, x_last):
     return heavy, int(counts[heavy]), np.ascontiguousarray(blk)
 
 
-def value_timings(torch, np, eng, x_last, launches: dict, windows: int, dev="cuda") -> list:
-    """K1–K3 at path (c)'s shapes."""
-    from skyline_tpu_torch.ops import dominance_kernels as dk
+PLANE_ROWS = 65536
+
+
+def plane_rows(np, rng, n: int, d: int = 8, top: int = 1000):
+    """``n`` distinct integer rows on the plane sum(x) = (d - 1) * top, in
+    random order: every f32 row sum is exactly equal, so no row dominates
+    another and no skip of any kind applies."""
+    head = rng.integers(0, top + 1, size=(2 * n, d - 1))
+    rows = np.unique(np.column_stack([head, (d - 1) * top - head.sum(1)]), axis=0)
+    return rows[rng.permutation(rows.shape[0])[:n]].astype(np.float32)
+
+
+def _sorted_t(torch, np, rows, dev):
+    """(n, d) numpy rows sorted by sum (stable) -> (d, n) on the card."""
+    rows = rows[np.argsort(rows.sum(axis=1), kind="stable")]
+    return torch.from_numpy(np.ascontiguousarray(rows.T)).to(dev)
+
+
+def value_inputs(torch, np, eng, x_last, dev="cuda") -> dict:
+    """The three inputs K1–K3 are timed on: label -> (K1 block (d, B), its
+    validity, K2 dominators (d, S), their validity, K3 union (U, d), its
+    validity).
+
+    - north_star: path (c)'s shapes — a big block of the heaviest
+      partition's last SFS rounds against its skyline prefix, and the global
+      merge's union, as the engine builds them;
+    - uniform: the same shapes filled from a seed with ``uniform(rng, n, 8,
+      0, 10000)``, blocks and dominators sum-sorted as the rounds see them;
+    - plane: ``PLANE_ROWS`` distinct rows of equal sum for all three.
+    """
     from skyline_tpu_torch.stream.window import _active_bucket, gather_union
+    from skyline_tpu_torch.workload.generators import uniform
 
     pset = eng.pset
     counts = pset.sky_counts()
-    d = pset.dims
-    # K3: the global merge's union, as global_merge_stats builds it
     active = min(pset._cap, _active_bucket(max(int(counts.max()), 1)))
     union_cap = _active_bucket(max(int(counts.sum()), 1))
     u, _, uv = gather_union(pset.sky, pset._count_dev, active, union_cap)
-    # K1/K2: a big block of the heaviest partition against its skyline prefix
     heavy, c, blk = _heavy_block(np, pset, x_last)
     block_t = torch.from_numpy(np.ascontiguousarray(blk.T)).to(dev)
-    bvalid = torch.ones(block_t.shape[1], dtype=torch.bool, device=dev)
     sky_act = min(pset._cap, _active_bucket(max(c, 1)))
     sky_t = pset.sky[heavy, :sky_act].T.contiguous()
     sky_ok = torch.arange(sky_act, device=dev) < c
 
-    specs = {
-        "dominated_by_any": (
-            lambda: dk.dominated_by_any(block_t, bvalid, triangular=True),
-            lambda: dk.dominated_by_any_plain(block_t, bvalid),
-            (block_t, bvalid, block_t, True),
+    def ones(n):
+        return torch.ones(n, dtype=torch.bool, device=dev)
+
+    rng = np.random.default_rng(21)
+    d, B, S, U = pset.dims, block_t.shape[1], sky_t.shape[1], u.shape[0]
+    plane = plane_rows(np, rng, PLANE_ROWS, d)
+    plane_t = torch.from_numpy(np.ascontiguousarray(plane.T)).to(dev)
+    return {
+        "north_star": (block_t, ones(B), sky_t, sky_ok, u, uv),
+        "uniform": (
+            _sorted_t(torch, np, uniform(rng, B, d, 0, 10000), dev), ones(B),
+            _sorted_t(torch, np, uniform(rng, S, d, 0, 10000), dev), ones(S),
+            torch.from_numpy(uniform(rng, U, d, 0, 10000)).to(dev), ones(U),
         ),
-        "dominated_by_rect": (
-            lambda: dk.dominated_by_rect(sky_t, sky_ok, block_t),
-            lambda: dk.dominated_by_rect_plain(sky_t, sky_ok, block_t),
-            (sky_t, sky_ok, block_t, False),
-        ),
-        "skyline_mask_kernel": (
-            lambda: dk.skyline_mask_kernel(u, uv),
-            lambda: dk.skyline_mask_plain(u, uv),
-            (u.T, uv, u.T, True),
-        ),
+        "plane": (plane_t, ones(PLANE_ROWS), plane_t.clone(), ones(PLANE_ROWS),
+                  torch.from_numpy(plane).to(dev), ones(PLANE_ROWS)),
     }
+
+
+def _time_value_kernel(torch, dk, name, block_t, bvalid, sky_t, sky_ok, u, uv) -> dict:
+    """One of K1–K3 on one input: its ms against the plain version's (which
+    must agree), needed pairs, the bound's two terms, and the share of
+    (victim block, dominator tile) pairs ``tile_skip_plain`` skips."""
+    if name == "dominated_by_any":
+        kern = lambda: dk.dominated_by_any(block_t, bvalid, triangular=True)  # noqa: E731
+        plain = lambda: dk.dominated_by_any_plain(block_t, bvalid)  # noqa: E731
+        xt, xv, yt = block_t, bvalid, block_t
+    elif name == "dominated_by_rect":
+        kern = lambda: dk.dominated_by_rect(sky_t, sky_ok, block_t)  # noqa: E731
+        plain = lambda: dk.dominated_by_rect_plain(sky_t, sky_ok, block_t)  # noqa: E731
+        xt, xv, yt = sky_t, sky_ok, block_t
+    else:  # K3 runs its kernel over the union in sum order
+        kern = lambda: dk.skyline_mask_kernel(u, uv)  # noqa: E731
+        plain = lambda: dk.skyline_mask_plain(u, uv)  # noqa: E731
+        order, xv = dk._sum_sorted(u, uv)
+        xt = yt = u[order].T.contiguous()
+    out_k, ms, plain_ms, err = _time_pair(torch, kern, plain, KERNELS[name][0])
+    if name == "skyline_mask_kernel":  # survivors; only valid rows are wanted
+        dominated, wanted = ~out_k[order], xv
+    else:
+        dominated, wanted = out_k, torch.ones_like(out_k)
+    d, nx = xt.shape
+    ny = yt.shape[1]
+    pairs = _needed_pairs(torch, xt, xv, yt, dominated, wanted)
+    in_bytes = d * nx * 4 + nx + (0 if yt is xt else d * ny * 4)
+    skip = dk.tile_skip_plain(xt[None], xv[None], yt[None], dk.TILE_ROWS, dk.BLOCK_VICTIMS)
+    return {
+        "ms": ms, "plain_ms": plain_ms, "err": err, "pairs": pairs,
+        "bound": ((in_bytes + ny) / HBM_BYTES_S * 1e3, pairs * d / FP32_FLOPS * 1e3),
+        "shape": {"nx": nx, "ny": ny, "d": d},
+        "skipped_share": float(skip.float().mean()) if skip.numel() else 1.0,
+    }
+
+
+def value_timings(torch, np, eng, x_last, launches: dict, windows: int, dev="cuda") -> list:
+    """K1–K3 on the three inputs of ``value_inputs``; the table's rows are
+    the north-star ones, each with the other inputs' numbers under
+    ``inputs``."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+
+    inputs = value_inputs(torch, np, eng, x_last, dev)
     table = []
-    for name, (kern, plain, (xt, xv, yt, self_pairs)) in specs.items():
-        out_k, ms, plain_ms, err = _time_pair(torch, kern, plain, KERNELS[name][0])
-        nx, ny = xt.shape[1], yt.shape[1]
-        # K3 returns survivors; only its valid rows are wanted
-        dominated, wanted = (~out_k, xv) if name == "skyline_mask_kernel" else (
-            out_k, torch.ones_like(out_k))
-        pairs = _needed_pairs(
-            torch, xt.T.sum(-1), xv, yt.T.sum(-1), dominated, wanted, False, self_pairs
-        )
-        in_bytes = d * nx * 4 + nx + (0 if self_pairs else d * ny * 4)
-        bound = ((in_bytes + ny) / HBM_BYTES_S * 1e3, pairs * d / FP32_FLOPS * 1e3)
-        table.append(_row(name, launches, windows, err, ms, plain_ms, bound,
-                          {"nx": nx, "ny": ny, "d": d}, pairs))
+    for name in VALUE_PATH:
+        got = {
+            label: _time_value_kernel(torch, dk, name, *args) for label, args in inputs.items()
+        }
+        others = {}
+        for label, r in got.items():
+            bound_ms = max(r["bound"])
+            log(f"timings: {KERNELS[name][0]} on {label} {r['shape']}: {r['ms']:.3f} ms "
+                f"(plain {r['plain_ms']:.1f} ms, bound {bound_ms:.4f} ms, {r['pairs']} "
+                f"needed pairs, {r['skipped_share']:.6f} of (block, tile) pairs skipped)")
+            if r["ms"] < bound_ms:
+                raise AssertionError(f"{name} on {label} reads under its bound")
+            if label != "north_star":
+                others[label] = {
+                    "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
+                    "bound_by": "operations" if r["bound"][1] >= r["bound"][0] else "bytes",
+                    "needed_pairs": r["pairs"], "skipped_share": r["skipped_share"],
+                    "shape": r["shape"],
+                }
+        ns = got["north_star"]
+        table.append(_row(
+            name, launches, windows, ns["err"], ns["ms"], ns["plain_ms"], ns["bound"],
+            ns["shape"], ns["pairs"],
+            {"skipped_share": ns["skipped_share"], "inputs": others},
+        ))
     return table
 
 
@@ -768,9 +1001,7 @@ def rank_timings(torch, np, eng, x_last, launches: dict, windows: int, dev="cuda
             xt, xv, yt, self_pairs = args
             dominated, wanted = out_k, torch.ones_like(out_k)
         nx, ny = xt.shape[1], yt.shape[1]
-        pairs = _needed_pairs(
-            torch, xt[d].long(), xv, yt[d].long(), dominated, wanted, True, False
-        )
+        pairs = _needed_pairs(torch, xt, xv, yt, dominated, wanted, rank_d=d)
         in_bytes = (d + 1) * nx * 4 + nx + (0 if self_pairs else (d + 1) * ny * 4)
         if args is None:  # K7 reads the values, not ranks
             in_bytes = d * nx * 4 + nx
@@ -812,17 +1043,17 @@ def main() -> int:
     built = dk.build()
     log(f"build: {', '.join(p.name for p, _ in built.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for name, (_, build_log) in built.items():
-        lines = build_log.splitlines()
-        regs = [ln.split(":", 1)[1].strip() for ln in lines if "registers" in ln]
-        spills = [ln for ln in lines if "spill" in ln and " 0 bytes spill stores" not in ln]
-        log(f"build: {name} ptxas per instantiation: {'; '.join(regs)}; "
-            f"spilling: {spills or 'none'}")
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    for name, (_, build_log) in built.items():
+        usage, spills = ptxas_usage(build_log)
+        for kernel, used in usage.items():
+            log(f"build: {name} ptxas {kernel}: {used}")
+        log(f"build: {name} spilling: {spills or 'none'}")
+        details.setdefault("ptxas", {})[name] = {"usage": usage, "spills": spills}
 
     if "kernels" in args.only:
         t0 = time.perf_counter()
-        n = check_kernels(torch, np, "cuda")
+        n = check_kernels(torch, np, "cuda") + check_skip_cases(torch, np, "cuda")
         log(f"kernels: {n} checks equal to the plain versions in {time.perf_counter() - t0:.1f} s")
     if "parity" in args.only:
         details["parity"] = check_parity(torch, np, PARITY_ROWS)

@@ -31,7 +31,13 @@ shape needs to be a tile multiple. ``mp`` is accepted for parity with the
 reference and runs the exact f32 path (the reference's bf16 first pass is
 bit-exact, so the answer is the same; its speed is later work).
 ``triangular`` is accepted and changes nothing: the kernels skip only by
-their exact sum bounds, never by position.
+exact bounds, never by position.
+
+The value kernel first runs a summary pass (per-tile coordinate minima and
+sums, per-victim-block maxima and sums) into scratch this module allocates,
+then compares each victim block only with the tiles its summary cannot rule
+out; ``tile_skip_plain`` is the plain mirror of that rule, for the tests
+and ``chip_smoke.py`` (nothing on the main path calls it).
 
 Each wrapper checks device, dtype, contiguity and shape and raises on
 anything else. On a CPU tensor it runs the plain PyTorch version beside it
@@ -41,9 +47,9 @@ there is no fallback. ``LAUNCHES`` counts kernel launches per entry point
 on the card).
 
 Each source is built at first use with ``nvcc`` into
-``skyline_tpu_torch/_build/`` (keyed by a hash of source and flags; one
-``nvcc`` per source, all started together) and bound through ``ctypes``
-with a plain C interface.
+``skyline_tpu_torch/_build/`` (keyed by a hash of the source, the local
+headers it includes and the flags; one ``nvcc`` per source, all started
+together) and bound through ``ctypes`` with a plain C interface.
 """
 
 from __future__ import annotations
@@ -82,6 +88,10 @@ NVCC_FLAGS = (
 )
 # the kernels are instantiated for these dimension counts
 MAX_DIMS = 16
+# the value kernel's geometry (csrc/dominance.cu): dominator rows per
+# shared-memory tile, and victims per block (128 threads, 2 victims each)
+TILE_ROWS = 256
+BLOCK_VICTIMS = 256
 
 LAUNCHES = {
     "dominated_by_any": 0, "dominated_by_rect": 0, "skyline_mask_kernel": 0,
@@ -113,12 +123,29 @@ def _nvcc() -> str:
     )
 
 
+def _local_includes(source: Path, seen: set[Path] | None = None) -> list[Path]:
+    """``source`` and every file it pulls in with ``#include "..."``,
+    recursively, in first-seen order."""
+    seen = set() if seen is None else seen
+    source = source.resolve()
+    if source in seen:
+        return []
+    seen.add(source)
+    files = [source]
+    for line in source.read_text().splitlines():
+        words = line.strip().split(None, 1)
+        if len(words) == 2 and words[0] == "#include" and words[1].startswith('"'):
+            files += _local_includes(source.parent / words[1].strip('"'), seen)
+    return files
+
+
 def _library_path(name: str) -> Path:
-    source = SOURCES[name][0]
-    tag = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"{name}_{tag}.so"
+    """The library's path, keyed by the bytes of its source, of every local
+    header it includes, and of the flags — so an edit anywhere rebuilds."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in _local_includes(SOURCES[name][0]):
+        digest.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build() -> dict[str, tuple[Path, str]]:
@@ -165,7 +192,9 @@ def _lib(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _, entry, errstr = SOURCES[name]
         fn = getattr(lib, entry)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        # the value kernel also takes three scratch buffers
+        pointers = 7 if name == "dominance" else 4
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = getattr(lib, errstr)
         err.argtypes = [ctypes.c_int]
@@ -233,16 +262,23 @@ def _launch(
         return out.view(torch.bool)
     lib = _lib(library)
     _, entry, errstr = SOURCES[library]
+    args = [x3.data_ptr(), v2.view(torch.uint8).data_ptr(), y3.data_ptr(), out.data_ptr()]
+    sizes = [P, d, nx, ny]
+    if library == "dominance":
+        # scratch of the summary pass: dominators row-major in whole tiles
+        # of rows padded to 16 bytes, and one summary per tile and per
+        # victim block (d bounds and a sum, padded to 16 bytes)
+        tiles, blocks = -(-nx // TILE_ROWS), -(-ny // BLOCK_VICTIMS)
+        dp, sw = -(-d // 4) * 4, -(-(d + 1) // 4) * 4
+        scratch = [
+            torch.empty((P, tiles * TILE_ROWS, dp), dtype=torch.float32, device=x3.device),
+            torch.empty((P, tiles, sw), dtype=torch.float32, device=x3.device),
+            torch.empty((P, blocks, sw), dtype=torch.float32, device=x3.device),
+        ]
+        args += [t.data_ptr() for t in scratch]
     with torch.cuda.device(x3.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, entry)(
-            x3.data_ptr(),
-            v2.view(torch.uint8).data_ptr(),
-            y3.data_ptr(),
-            out.data_ptr(),
-            P, d, nx, ny,
-            stream,
-        )
+        rc = getattr(lib, entry)(*args, *sizes, stream)
     if rc:
         raise RuntimeError(
             f"{library} kernel launch failed: " + getattr(lib, errstr)(rc).decode()
@@ -278,6 +314,60 @@ def skyline_mask_plain(x: torch.Tensor, valid: torch.Tensor | None = None) -> to
     """Plain K3: the dense ``skyline_mask``."""
     _mask_args(x, valid)
     return skyline_mask(x, valid)
+
+
+def row_sums(w: torch.Tensor) -> torch.Tensor:
+    """float32 sums over axis 1 — (N, d) -> (N,), or (P, d, N) -> (P, N) —
+    added left to right, dimension by dimension: the order XLA's
+    ``jnp.sum(axis=1)`` rounds in, so sort keys tie and break ties as in the
+    reference, and the order the value kernel adds its row sums in."""
+    s = w[:, 0]
+    for k in range(1, w.shape[1]):
+        s = s + w[:, k]
+    return s
+
+
+def _per_group(t: torch.Tensor, size: int, fill: float, reduce) -> torch.Tensor:
+    """Reduce the last axis of ``t`` in groups of ``size`` (the ragged last
+    group padded with ``fill``)."""
+    n = t.shape[-1]
+    groups = -(-n // size)
+    pad = torch.full((*t.shape[:-1], groups * size - n), fill, dtype=t.dtype, device=t.device)
+    return reduce(torch.cat([t, pad], dim=-1).reshape(*t.shape[:-1], groups, size), -1)
+
+
+def tile_skip_plain(
+    x3: torch.Tensor, v2: torch.Tensor, y3: torch.Tensor, tile: int, block: int
+) -> torch.Tensor:
+    """The value kernel's skip decisions, in plain PyTorch: (P, blocks,
+    tiles) bool, True where victim block ``b`` (``block`` victims of
+    ``y3``) never compares dominator tile ``t`` (``tile`` rows of ``x3``).
+    x3: (P, d, Nx) f32 dominators, v2: (P, Nx) bool, y3: (P, d, Ny) f32.
+
+    Summaries: a tile's per-dimension minimum ``lo`` over the rows that can
+    dominate (valid, no NaN coordinate) and its minimum valid row sum
+    (invalid +inf, NaN sum -inf); a block's per-dimension maximum ``hi``
+    over the victims that can be dominated (no NaN coordinate, invalid and
+    +inf rows included) and its maximum sum (NaN +inf). A pair is skipped
+    when ``min sum > max sum``, or ``lo_k > hi_k`` for some k, or
+    ``lo_k >= hi_k`` for every k. The proof is in ``csrc/dominance.cu``."""
+    inf = float("inf")
+    can_dom = v2 & ~torch.isnan(x3).any(dim=1)
+    lo = _per_group(torch.where(can_dom[:, None], x3, inf), tile, inf, torch.amin)
+    xs = row_sums(x3)
+    xs = torch.where(v2, torch.where(torch.isnan(xs), -inf, xs), inf)
+    tmin = _per_group(xs, tile, inf, torch.amin)
+    can_be = ~torch.isnan(y3).any(dim=1)
+    hi = _per_group(torch.where(can_be[:, None], y3, -inf), block, -inf, torch.amax)
+    ys = row_sums(y3)
+    bmax = _per_group(torch.where(torch.isnan(ys), inf, ys), block, -inf, torch.amax)
+    # (P, d, blocks, tiles) coordinate tests
+    lo4, hi4 = lo[:, :, None, :], hi[:, :, :, None]
+    return (
+        (tmin[:, None, :] > bmax[:, :, None])
+        | (lo4 > hi4).any(dim=1)
+        | (lo4 >= hi4).all(dim=1)
+    )
 
 
 def dominated_by_any_rank_plain(rt: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

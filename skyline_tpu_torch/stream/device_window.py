@@ -28,6 +28,7 @@ import torch
 from skyline_tpu_torch.ops.dominance_kernels import (
     dominated_by_any_rank,
     dominated_by_rank_rect,
+    row_sums,
     searchsorted_cols,
     sort_columns,
     with_rank_sum,
@@ -88,16 +89,6 @@ def ingest_chunk(
         0, seg, torch.where(valid, ids, -1).to(torch.int32), reduce="amax"
     )
     return torch.stack([counts[:num_partitions], maxids[:num_partitions]])
-
-
-def row_sums(w: torch.Tensor) -> torch.Tensor:
-    """float32 row sums added left to right, dimension by dimension — the
-    order XLA's ``jnp.sum(axis=1)`` rounds in, so sort keys tie and break
-    ties as in the reference."""
-    s = w[:, 0]
-    for k in range(1, w.shape[1]):
-        s = s + w[:, k]
-    return s
 
 
 def sort_window(
