@@ -20,11 +20,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    padding, invalid rows with finite coordinates; NaN/-inf rows and a
    dominator whose f32 sum ties its victim's (value kernels); K3 under
    other sort keys; int32 rank sums that differ by 1 at ~2^24 and ~2^25;
-   and cases aimed at the value kernel's tile and box skips (K1, K2 with
+   cases aimed at the value kernel's tile and box skips (K1, K2 with
    P = 1 and P = 3, K3; N ragged against the tile and the victim block):
    exact copies of the victims plus one row lower in one dimension, +0.0
    and -0.0 mixed, a tile of NaN rows, victims with NaN and +inf rows,
-   equal rows across a tile border;
+   equal rows across a tile border; and cases aimed at the rank kernel's
+   tile skip (K5, K6 with P = 1 and P = 3, K7): copies plus one row lower
+   in one dimension, equal rank sums across a tile border, sums one apart
+   near 2^25, sum rows that are not the sum of their ranks, invalid
+   dominators and invalid tail victims;
 4. parity, each on CUDA and with ``device="cpu"`` (plain versions): the
    host-ingest engine over two 65,536-row 8-D anti-correlated windows
    (same sizes, optimality and point bytes) plus a small window against
@@ -54,10 +58,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    larger, less the rows equal to it in every coordinate; ranks: a smaller
    rank sum). Both peaks are loose lower bounds on time (the predicates
    spend more than one instruction per compare); the plain version must
-   agree, and no kernel may read under its bound. K1–K3 are also timed on
-   the north-star shapes filled with uniform rows and on 65,536 distinct
-   rows of one sum (``value_inputs``), each with the share of (victim
-   block, dominator tile) pairs ``tile_skip_plain`` skips.
+   agree, and no kernel may read under its bound. K1–K3 and K5–K7 are also
+   timed on the north-star shapes filled with uniform rows (ranked by K4
+   over their union for K5/K6) and on 65,536 distinct rows: of one sum for
+   K1–K3 and K7 (``value_inputs``, ``plane_rows``), of rank sums in a band
+   of 16 for K5/K6 (``rank_plane``); each with the share of (victim block,
+   dominator tile) pairs ``tile_skip_plain`` or ``rank_tile_skip_plain``
+   skips.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -234,9 +241,54 @@ def _skip_cases(np, rng, d: int, nx: int, ny: int):
     return cases
 
 
+def _honest_ranks(np, r):
+    """(n, d) integer ranks -> (d+1, n) int32 with their sum as the last row."""
+    return np.ascontiguousarray(np.column_stack([r, r.sum(1)]).T.astype(np.int32))
+
+
+def _rank_skip_cases(np, rng, d: int, nx: int, ny: int):
+    """Cases aimed at the rank kernel's tile skip: (name, dominators (d+1,
+    nx) int32, validity (nx,), victims (d+1, ny)); nx and ny ragged against
+    the 256-row tile and the 256-victim block."""
+    y = rng.integers(0, 4, size=(ny, d))
+    cases = []
+    # exact copies of the victims, and one row lower in a single dimension
+    x = y[rng.integers(0, ny, size=nx)]
+    lower = y[ny // 2].copy()
+    lower[d // 2] -= 1
+    x[rng.integers(0, nx)] = lower
+    cases.append(("copies_plus_one_lower", _honest_ranks(np, x), np.ones(nx, bool),
+                  _honest_ranks(np, y)))
+    # equal rank sums straddling a tile border, one dominator beyond it
+    x = rng.integers(2, 6, size=(nx, d))
+    x[250:262] = 1
+    x[300] = 1
+    x[300, 0] = 0
+    yb = y.copy()
+    yb[250:262] = 1
+    cases.append(("equal_sums_across_tile_border", _honest_ranks(np, x), np.ones(nx, bool),
+                  _honest_ranks(np, yb)))
+    # sums that differ by 1 where float32 ties them (~2^25)
+    cases.append(("sums_near_2p25", _honest_ranks(np, x + 2**25 // d), np.ones(nx, bool),
+                  _honest_ranks(np, yb + 2**25 // d)))
+    # equal ranks, sum rows one apart: the lower sum row dominates
+    xr = _honest_ranks(np, y[rng.integers(0, ny, size=nx)])
+    xr[d, ::3] -= 1
+    cases.append(("sum_rows_not_their_sums", xr, np.ones(nx, bool), _honest_ranks(np, y)))
+    # invalid dominators with finite ranks; invalid tail victims carrying the
+    # round's rank U * (d + 1) in every row, sum row included
+    yr = _honest_ranks(np, y)
+    yr[:, ny - 37 :] = (nx + ny) * (d + 1)
+    cases.append(("invalid_tail_victims", _honest_ranks(np, rng.integers(0, 4, size=(nx, d))),
+                  rng.random(nx) < 0.8, yr))
+    return cases
+
+
 def check_skip_cases(torch, np, dev) -> int:
-    """K1, K2 and K3 on ``_skip_cases`` against their plain versions, with
-    no partition dimension and with P = 3 (each partition its own draw)."""
+    """K1, K2 and K3 on ``_skip_cases``, and K5, K6 and K7 on
+    ``_rank_skip_cases``, against their plain versions, with no partition
+    dimension and with P = 3 (each partition its own draw); K3 and K7 on
+    the first draw's union (K7 reads the rank rows as coordinates)."""
     from skyline_tpu_torch.ops import dominance_kernels as dk
 
     def same(a, b, what):
@@ -247,6 +299,27 @@ def check_skip_cases(torch, np, dev) -> int:
 
     rng = np.random.default_rng(17)
     checks = 0
+    for d, nx, ny in ((8, 1283, 1799), (3, 777, 1030), (16, 600, 517)):
+        draws = [_rank_skip_cases(np, rng, d, nx, ny) for _ in range(3)]
+        for c, (name, _, _, _) in enumerate(draws[0]):
+            xs, vs, ys = ([torch.from_numpy(dr[c][i]).to(dev) for dr in draws] for i in (1, 2, 3))
+            what = f"{name} d={d}"
+            for x3, v2, y3, tag in (
+                (xs[0], vs[0], ys[0], "P=1"),
+                (torch.stack(xs), torch.stack(vs), torch.stack(ys), "P=3"),
+            ):
+                same(dk.dominated_by_rank_rect(x3, v2, y3),
+                     dk.dominated_by_rank_rect_plain(x3, v2, y3), f"K6 {tag} {what}")
+                u3 = torch.cat([x3, y3], dim=-1).contiguous()
+                uv = torch.cat([v2, torch.ones_like(y3[..., 0, :], dtype=torch.bool)], dim=-1)
+                same(dk.dominated_by_any_rank(u3, uv), dk.dominated_by_any_rank_plain(u3, uv),
+                     f"K5 {tag} {what}")
+                checks += 2
+            pts = torch.cat([xs[0], ys[0]], dim=1)[:d].T.float().contiguous()
+            uv = torch.cat([vs[0], torch.ones(ny, dtype=torch.bool, device=dev)])
+            same(dk.skyline_mask_rank_kernel(pts, uv), dk.skyline_mask_rank_plain(pts, uv),
+                 f"K7 {what}")
+            checks += 1
     for d, nx, ny in ((8, 1283, 1799), (3, 777, 1030), (16, 600, 517)):
         draws = [_skip_cases(np, rng, d, nx, ny) for _ in range(3)]
         for c, (name, _, _, _) in enumerate(draws[0]):
@@ -893,6 +966,28 @@ def _time_value_kernel(torch, dk, name, block_t, bvalid, sky_t, sky_ok, u, uv) -
     }
 
 
+def _input_rows(name, got: dict) -> dict:
+    """Log each input's numbers for kernel ``name``, check none reads under
+    its bound, and return those of every input but north-star, for the
+    table row's ``inputs``."""
+    others = {}
+    for label, r in got.items():
+        bound_ms = max(r["bound"])
+        log(f"timings: {KERNELS[name][0]} on {label} {r['shape']}: {r['ms']:.3f} ms "
+            f"(plain {r['plain_ms']:.1f} ms, bound {bound_ms:.4f} ms, {r['pairs']} "
+            f"needed pairs, {r['skipped_share']:.6f} of (block, tile) pairs skipped)")
+        if r["ms"] < bound_ms:
+            raise AssertionError(f"{name} on {label} reads under its bound")
+        if label != "north_star":
+            others[label] = {
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
+                "bound_by": "operations" if r["bound"][1] >= r["bound"][0] else "bytes",
+                "needed_pairs": r["pairs"], "skipped_share": r["skipped_share"],
+                "shape": r["shape"],
+            }
+    return others
+
+
 def value_timings(torch, np, eng, x_last, launches: dict, windows: int, dev="cuda") -> list:
     """K1–K3 on the three inputs of ``value_inputs``; the table's rows are
     the north-star ones, each with the other inputs' numbers under
@@ -905,36 +1000,55 @@ def value_timings(torch, np, eng, x_last, launches: dict, windows: int, dev="cud
         got = {
             label: _time_value_kernel(torch, dk, name, *args) for label, args in inputs.items()
         }
-        others = {}
-        for label, r in got.items():
-            bound_ms = max(r["bound"])
-            log(f"timings: {KERNELS[name][0]} on {label} {r['shape']}: {r['ms']:.3f} ms "
-                f"(plain {r['plain_ms']:.1f} ms, bound {bound_ms:.4f} ms, {r['pairs']} "
-                f"needed pairs, {r['skipped_share']:.6f} of (block, tile) pairs skipped)")
-            if r["ms"] < bound_ms:
-                raise AssertionError(f"{name} on {label} reads under its bound")
-            if label != "north_star":
-                others[label] = {
-                    "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
-                    "bound_by": "operations" if r["bound"][1] >= r["bound"][0] else "bytes",
-                    "needed_pairs": r["pairs"], "skipped_share": r["skipped_share"],
-                    "shape": r["shape"],
-                }
         ns = got["north_star"]
         table.append(_row(
             name, launches, windows, ns["err"], ns["ms"], ns["plain_ms"], ns["bound"],
             ns["shape"], ns["pairs"],
-            {"skipped_share": ns["skipped_share"], "inputs": others},
+            {"skipped_share": ns["skipped_share"], "inputs": _input_rows(name, got)},
         ))
     return table
 
 
-def rank_timings(torch, np, eng, x_last, launches: dict, windows: int, dev="cuda") -> list:
-    """K4–K7 at path (a)'s shapes: the last window's universe rebuilt from
-    the engine's (consumed but intact) device window."""
+RANK_PLANE_BAND = 16
+
+
+def rank_plane(np, rng, n: int, d: int = 8, top: int = 1000, band: int = RANK_PLANE_BAND):
+    """``n`` distinct rank rows built in rank space, in random order: (d+1,
+    n) int32, d ranks and their sum, the sums ``band`` consecutive values.
+    One exact sum would let the rank kernel's sum rule skip every pair
+    (domination needs a strictly smaller sum); over a narrow band no (block,
+    tile) pair is skipped, half the pairs have a smaller dominator sum, and
+    a row dominates another only if it is lower in every rank by less than
+    ``band`` in all, which random rows spread over 0..``top`` are not. So
+    every victim walks every tile: it times the compare loop."""
+    head = rng.integers(0, top + 1, size=(2 * n, d - 1))
+    last = (d - 1) * top - head.sum(1) + rng.integers(0, band, size=2 * n)
+    rows = np.unique(np.column_stack([head, last]), axis=0)
+    rows = rows[rng.permutation(rows.shape[0])[:n]]
+    return _honest_ranks(np, rows)
+
+
+def rank_inputs(torch, np, eng, x_last, dev="cuda"):
+    """K4's window universe (rows, validity) at path (a)'s shapes, and the
+    three inputs K5–K7 are timed on: label -> (K5 block (d+1, B), its
+    validity, K6 dominators (d+1, S), their validity, K7 union (U, d)
+    values, its validity).
+
+    - north_star: path (a)'s shapes, the last window's universe rebuilt from
+      the engine's (consumed but intact) device window: the heaviest
+      partition's second big block (as the sequential rounds slice it)
+      against its skyline prefix, in rank space, and the global merge's
+      union;
+    - uniform: the same shapes filled from a seed with ``uniform(rng, n, 8,
+      0, 10000)``, block and dominators sum-sorted as the rounds see them
+      and ranked by K4 over their union (the round's universe);
+    - plane: ``PLANE_ROWS`` rows of ``rank_plane`` for K5 and K6 (victims
+      and dominators the same rows), ``plane_rows`` for K7.
+    """
     from skyline_tpu_torch.ops import dominance_kernels as dk
     from skyline_tpu_torch.stream import device_window as dw
     from skyline_tpu_torch.stream.window import _active_bucket, _next_pow2, gather_union
+    from skyline_tpu_torch.workload.generators import uniform
 
     pset = eng.pset
     counts = pset.sky_counts()
@@ -944,8 +1058,6 @@ def rank_timings(torch, np, eng, x_last, launches: dict, windows: int, dev="cuda
     ws, bounds = dw.sort_window(pset._dev_window, pset._dev_pids, n, nb, P, dw.SORT_TAIL)
     sorted_dims, wr = dw.rank_window(ws, pset.sky, pset._count_dev, nb, 0, nb)
     bounds = bounds.cpu().numpy()
-    # K5/K6: the heaviest partition's second big block (as the sequential
-    # rounds slice it) against its skyline prefix, in rank space
     heavy = int(counts.argmax())
     c = int(counts[heavy])
     lo, hi = int(bounds[heavy]), int(bounds[heavy + 1])
@@ -958,56 +1070,95 @@ def rank_timings(torch, np, eng, x_last, launches: dict, windows: int, dev="cuda
     sky_act = min(pset._cap, _active_bucket(max(c, 1)))
     sky_rt = dw._rank_rows(sorted_dims, pset.sky[heavy, :sky_act]).T.contiguous()
     sky_ok = torch.arange(sky_act, device=dev) < c
-    # K7: the global merge's union; K4: the window's universe
     active = min(pset._cap, _active_bucket(max(int(counts.max()), 1)))
     union_cap = _active_bucket(max(int(counts.sum()), 1))
     u, _, uv = gather_union(pset.sky, pset._count_dev, active, union_cap)
-    w_univ = ws[:nb].contiguous()
-    w_valid = torch.arange(nb, device=dev) < n
 
-    table = []
+    def ones(k):
+        return torch.ones(k, dtype=torch.bool, device=dev)
+
+    rng = np.random.default_rng(23)
+    S, U = sky_rt.shape[1], u.shape[0]
+    rows = [uniform(rng, k, d, 0, 10000) for k in (B, S)]
+    rows = np.concatenate([r[np.argsort(r.sum(axis=1), kind="stable")] for r in rows])
+    uni = dk.rank_transform(torch.from_numpy(rows).to(dev), ones(B + S))
+    plane = torch.from_numpy(rank_plane(np, rng, PLANE_ROWS, d)).to(dev)
+    vplane = torch.from_numpy(plane_rows(np, rng, PLANE_ROWS, d)).to(dev)
+    return (ws[:nb].contiguous(), torch.arange(nb, device=dev) < n), {
+        "north_star": (block_rt, bvalid, sky_rt, sky_ok, u, uv),
+        "uniform": (
+            uni[:, :B].contiguous(), ones(B), uni[:, B:].contiguous(), ones(S),
+            torch.from_numpy(uniform(rng, U, d, 0, 10000)).to(dev), ones(U),
+        ),
+        "plane": (plane, ones(PLANE_ROWS), plane.clone(), ones(PLANE_ROWS), vplane,
+                  ones(PLANE_ROWS)),
+    }
+
+
+def _time_rank_kernel(torch, dk, name, block_rt, bvalid, sky_rt, sky_ok, u, uv) -> dict:
+    """One of K5–K7 on one input: its ms against the plain version's (which
+    must agree), needed pairs, the bound's two terms, and the share of
+    (victim block, dominator tile) pairs ``rank_tile_skip_plain`` skips."""
+    if name == "dominated_by_any_rank":
+        kern = lambda: dk.dominated_by_any_rank(block_rt, bvalid, triangular=True)  # noqa: E731
+        plain = lambda: dk.dominated_by_any_rank_plain(block_rt, bvalid)  # noqa: E731
+        xt, xv, yt = block_rt, bvalid, block_rt
+    elif name == "dominated_by_rank_rect":
+        kern = lambda: dk.dominated_by_rank_rect(sky_rt, sky_ok, block_rt)  # noqa: E731
+        plain = lambda: dk.dominated_by_rank_rect_plain(sky_rt, sky_ok, block_rt)  # noqa: E731
+        xt, xv, yt = sky_rt, sky_ok, block_rt
+    else:  # K7 runs its kernel over the union's ranks in sum order
+        kern = lambda: dk.skyline_mask_rank_kernel(u, uv)  # noqa: E731
+        plain = lambda: dk.skyline_mask_rank_plain(u, uv)  # noqa: E731
+        order, xv = dk._sum_sorted(u, uv)
+        xt = yt = dk.rank_transform(u[order], xv)
+    out_k, ms, plain_ms, err = _time_pair(torch, kern, plain, KERNELS[name][0])
+    if name == "skyline_mask_rank_kernel":  # survivors; only valid rows are wanted
+        dominated, wanted = ~out_k[order], xv
+    else:
+        dominated, wanted = out_k, torch.ones_like(out_k)
+    d = xt.shape[0] - 1
+    nx, ny = xt.shape[1], yt.shape[1]
+    pairs = _needed_pairs(torch, xt, xv, yt, dominated, wanted, rank_d=d)
+    if name == "skyline_mask_rank_kernel":  # K7 reads the values, not ranks
+        in_bytes = d * nx * 4 + nx
+    else:
+        in_bytes = (d + 1) * nx * 4 + nx + (0 if yt is xt else (d + 1) * ny * 4)
+    skip = dk.rank_tile_skip_plain(xt[None], xv[None], yt[None], dk.TILE_ROWS, dk.BLOCK_VICTIMS)
+    return {
+        "ms": ms, "plain_ms": plain_ms, "err": err, "pairs": pairs,
+        "bound": ((in_bytes + ny) / HBM_BYTES_S * 1e3, pairs * (d + 1) / INT32_OPS * 1e3),
+        "shape": {"nx": nx, "ny": ny, "d": d},
+        "skipped_share": float(skip.float().mean()) if skip.numel() else 1.0,
+    }
+
+
+def rank_timings(torch, np, eng, x_last, launches: dict, windows: int, dev="cuda") -> list:
+    """K4 at path (a)'s window universe, and K5–K7 on the three inputs of
+    ``rank_inputs``; the table's rows are the north-star ones, each with the
+    other inputs' numbers under ``inputs``."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+
+    (w_univ, w_valid), inputs = rank_inputs(torch, np, eng, x_last, dev)
+    d, nb = w_univ.shape[1], w_univ.shape[0]
     # K4 is torch ops: bytes-bound (read the rows once, write the ranks once)
-    out_k, ms, plain_ms, err = _time_pair(
+    _, ms, plain_ms, err = _time_pair(
         torch, lambda: dk.rank_transform(w_univ, w_valid),
         lambda: dk.rank_transform(w_univ.cpu(), w_valid.cpu()).to(dev), "K4",
     )
     bound = ((nb * d * 4 + nb + nb * (d + 1) * 4) / HBM_BYTES_S * 1e3, 0.0)
-    table.append(_row("rank_transform", launches, windows, err, ms, plain_ms, bound,
-                      {"n": nb, "d": d}))
-    specs = {
-        "dominated_by_any_rank": (
-            lambda: dk.dominated_by_any_rank(block_rt, bvalid, triangular=True),
-            lambda: dk.dominated_by_any_rank_plain(block_rt, bvalid),
-            (block_rt, bvalid, block_rt, True),
-        ),
-        "dominated_by_rank_rect": (
-            lambda: dk.dominated_by_rank_rect(sky_rt, sky_ok, block_rt),
-            lambda: dk.dominated_by_rank_rect_plain(sky_rt, sky_ok, block_rt),
-            (sky_rt, sky_ok, block_rt, False),
-        ),
-        "skyline_mask_rank_kernel": (
-            lambda: dk.skyline_mask_rank_kernel(u, uv),
-            lambda: dk.skyline_mask_rank_plain(u, uv),
-            None,
-        ),
-    }
-    for name, (kern, plain, args) in specs.items():
-        out_k, ms, plain_ms, err = _time_pair(torch, kern, plain, KERNELS[name][0])
-        if args is None:  # K7: its K5 pass over the union's own ranks
-            xt = yt = dk.rank_transform(u, uv)
-            xv, self_pairs = uv, True
-            dominated, wanted = ~out_k, uv
-        else:
-            xt, xv, yt, self_pairs = args
-            dominated, wanted = out_k, torch.ones_like(out_k)
-        nx, ny = xt.shape[1], yt.shape[1]
-        pairs = _needed_pairs(torch, xt, xv, yt, dominated, wanted, rank_d=d)
-        in_bytes = (d + 1) * nx * 4 + nx + (0 if self_pairs else (d + 1) * ny * 4)
-        if args is None:  # K7 reads the values, not ranks
-            in_bytes = d * nx * 4 + nx
-        bound = ((in_bytes + ny) / HBM_BYTES_S * 1e3, pairs * (d + 1) / INT32_OPS * 1e3)
-        table.append(_row(name, launches, windows, err, ms, plain_ms, bound,
-                          {"nx": nx, "ny": ny, "d": d}, pairs))
+    table = [_row("rank_transform", launches, windows, err, ms, plain_ms, bound,
+                  {"n": nb, "d": d})]
+    for name in RANK_PATH[1:]:
+        got = {
+            label: _time_rank_kernel(torch, dk, name, *args) for label, args in inputs.items()
+        }
+        ns = got["north_star"]
+        table.append(_row(
+            name, launches, windows, ns["err"], ns["ms"], ns["plain_ms"], ns["bound"],
+            ns["shape"], ns["pairs"],
+            {"skipped_share": ns["skipped_share"], "inputs": _input_rows(name, got)},
+        ))
     return table
 
 

@@ -33,11 +33,12 @@ bit-exact, so the answer is the same; its speed is later work).
 ``triangular`` is accepted and changes nothing: the kernels skip only by
 exact bounds, never by position.
 
-The value kernel first runs a summary pass (per-tile coordinate minima and
-sums, per-victim-block maxima and sums) into scratch this module allocates,
-then compares each victim block only with the tiles its summary cannot rule
-out; ``tile_skip_plain`` is the plain mirror of that rule, for the tests
-and ``chip_smoke.py`` (nothing on the main path calls it).
+Each kernel first runs a summary pass (per-tile minima of the coordinates
+or ranks and of the sums, per-victim-block maxima) into scratch this module
+allocates, then compares each victim block only with the tiles its summary
+cannot rule out. ``tile_skip_plain`` (values) and ``rank_tile_skip_plain``
+(ranks) are the plain mirrors of the two skip rules, for the tests and
+``chip_smoke.py`` (nothing on the main path calls them).
 
 Each wrapper checks device, dtype, contiguity and shape and raises on
 anything else. On a CPU tensor it runs the plain PyTorch version beside it
@@ -88,8 +89,9 @@ NVCC_FLAGS = (
 )
 # the kernels are instantiated for these dimension counts
 MAX_DIMS = 16
-# the value kernel's geometry (csrc/dominance.cu): dominator rows per
-# shared-memory tile, and victims per block (128 threads, 2 victims each)
+# both kernels' geometry (csrc/dominance.cu, csrc/dominance_rank.cu):
+# dominator rows per shared-memory tile, and victims per block (128
+# threads, 2 victims each)
 TILE_ROWS = 256
 BLOCK_VICTIMS = 256
 
@@ -155,18 +157,23 @@ def build() -> dict[str, tuple[Path, str]]:
     empty when the build was cached)}. Raises when an nvcc fails, after
     every nvcc has ended."""
     built: dict[str, tuple[Path, str]] = {}
-    running = []
+    missing = []
     for name in SOURCES:
         lib = _library_path(name)
         if lib.exists():
             built[name] = (lib, "")
-            continue
+        else:
+            missing.append((name, lib))
+    if missing:
+        nvcc = _nvcc()  # once, before any compiler starts
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = []
+    for name, lib in missing:
         tmp = BUILD_DIR / f"{lib.stem}.{os.getpid()}.tmp"
         log = BUILD_DIR / f"{lib.stem}.{os.getpid()}.log"
         with open(log, "w") as fh:
             proc = subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name][0])],
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name][0])],
                 stdout=subprocess.DEVNULL, stderr=fh,
             )
         running.append((name, lib, tmp, log, proc))
@@ -192,9 +199,9 @@ def _lib(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _, entry, errstr = SOURCES[name]
         fn = getattr(lib, entry)
-        # the value kernel also takes three scratch buffers
-        pointers = 7 if name == "dominance" else 4
-        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        # both entry points: x, validity, y, out and three scratch buffers;
+        # P, d, nx, ny; the stream
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = getattr(lib, errstr)
         err.argtypes = [ctypes.c_int]
@@ -262,23 +269,22 @@ def _launch(
         return out.view(torch.bool)
     lib = _lib(library)
     _, entry, errstr = SOURCES[library]
+    # scratch of the summary pass, in the inputs' type: the dominators
+    # row-major in whole tiles, a row (d values, or d ranks and their sum)
+    # padded to 16 bytes; one summary per tile and per victim block (d
+    # bounds and a sum bound, padded to 16 bytes)
+    tiles, blocks = -(-nx // TILE_ROWS), -(-ny // BLOCK_VICTIMS)
+    dp, sw = -(-rows // 4) * 4, -(-(d + 1) // 4) * 4
+    scratch = [
+        torch.empty((P, tiles * TILE_ROWS, dp), dtype=x3.dtype, device=x3.device),
+        torch.empty((P, tiles, sw), dtype=x3.dtype, device=x3.device),
+        torch.empty((P, blocks, sw), dtype=x3.dtype, device=x3.device),
+    ]
     args = [x3.data_ptr(), v2.view(torch.uint8).data_ptr(), y3.data_ptr(), out.data_ptr()]
-    sizes = [P, d, nx, ny]
-    if library == "dominance":
-        # scratch of the summary pass: dominators row-major in whole tiles
-        # of rows padded to 16 bytes, and one summary per tile and per
-        # victim block (d bounds and a sum, padded to 16 bytes)
-        tiles, blocks = -(-nx // TILE_ROWS), -(-ny // BLOCK_VICTIMS)
-        dp, sw = -(-d // 4) * 4, -(-(d + 1) // 4) * 4
-        scratch = [
-            torch.empty((P, tiles * TILE_ROWS, dp), dtype=torch.float32, device=x3.device),
-            torch.empty((P, tiles, sw), dtype=torch.float32, device=x3.device),
-            torch.empty((P, blocks, sw), dtype=torch.float32, device=x3.device),
-        ]
-        args += [t.data_ptr() for t in scratch]
+    args += [t.data_ptr() for t in scratch]
     with torch.cuda.device(x3.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, entry)(*args, *sizes, stream)
+        rc = getattr(lib, entry)(*args, P, d, nx, ny, stream)
     if rc:
         raise RuntimeError(
             f"{library} kernel launch failed: " + getattr(lib, errstr)(rc).decode()
@@ -368,6 +374,28 @@ def tile_skip_plain(
         | (lo4 > hi4).any(dim=1)
         | (lo4 >= hi4).all(dim=1)
     )
+
+
+def rank_tile_skip_plain(
+    x3: torch.Tensor, v2: torch.Tensor, y3: torch.Tensor, tile: int, block: int
+) -> torch.Tensor:
+    """The rank kernel's skip decisions, in plain PyTorch: (P, blocks,
+    tiles) bool, True where victim block ``b`` (``block`` victims of
+    ``y3``) never compares dominator tile ``t`` (``tile`` rows of ``x3``).
+    x3: (P, d+1, Nx) int32 dominators, v2: (P, Nx) bool, y3: (P, d+1, Ny)
+    int32 (d rank rows and the sum row).
+
+    Summaries: a tile's per-row minimum over its valid rows (int32 max when
+    there are none) — ``lo_k`` for the rank rows, the least valid rank sum
+    for the sum row; a block's per-row maximum over its victims, invalid
+    ones included. A pair is skipped when ``min sum >= max sum``, or
+    ``lo_k > hi_k`` for some k. The proof is in ``csrc/dominance_rank.cu``."""
+    big, small = torch.iinfo(torch.int32).max, torch.iinfo(torch.int32).min
+    lo = _per_group(torch.where(v2[:, None], x3, big), tile, big, torch.amin)
+    hi = _per_group(y3, block, small, torch.amax)
+    # (P, d+1, blocks, tiles) tests
+    lo4, hi4 = lo[:, :, None, :], hi[:, :, :, None]
+    return (lo4[:, -1] >= hi4[:, -1]) | (lo4[:, :-1] > hi4[:, :-1]).any(dim=1)
 
 
 def dominated_by_any_rank_plain(rt: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

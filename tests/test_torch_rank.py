@@ -264,7 +264,8 @@ def test_mask_dispatch_picks_k7_on_the_card_only(rng, monkeypatch):
 
 def _fake_nvcc(tmp_path, fail=False):
     """A stand-in compiler: writes the ``-o`` file and a ptxas line, or
-    fails."""
+    fails. Written once per test, before any build starts: rewriting a
+    script that a running compiler is executing can fail that compiler."""
     script = tmp_path / "nvcc"
     body = (
         "echo 'nvcc: error' >&2; exit 3"
@@ -279,8 +280,10 @@ def _fake_nvcc(tmp_path, fail=False):
 
 def test_build_runs_one_compiler_per_source_and_caches(tmp_path, monkeypatch):
     monkeypatch.setattr(dk, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(dk, "_nvcc", lambda: _fake_nvcc(tmp_path))
+    nvcc, calls = _fake_nvcc(tmp_path), []
+    monkeypatch.setattr(dk, "_nvcc", lambda: calls.append(nvcc) or nvcc)
     built = dk.build()
+    assert len(calls) == 1  # resolved once for every source
     assert set(built) == set(dk.SOURCES)
     for path, log in built.values():
         assert path.exists() and "registers" in log
@@ -288,11 +291,13 @@ def test_build_runs_one_compiler_per_source_and_caches(tmp_path, monkeypatch):
     again = dk.build()
     assert {k: v[0] for k, v in again.items()} == {k: v[0] for k, v in built.items()}
     assert all(log == "" for _, log in again.values())
+    assert len(calls) == 1  # a cached build needs no compiler
 
 
 def test_build_raises_when_the_compiler_fails(tmp_path, monkeypatch):
     monkeypatch.setattr(dk, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(dk, "_nvcc", lambda: _fake_nvcc(tmp_path, fail=True))
+    nvcc = _fake_nvcc(tmp_path, fail=True)
+    monkeypatch.setattr(dk, "_nvcc", lambda: nvcc)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         dk.build()
     assert os.listdir(tmp_path / "build") == []
