@@ -28,7 +28,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    tile skip (K5, K6 with P = 1 and P = 3, K7): copies plus one row lower
    in one dimension, equal rank sums across a tile border, sums one apart
    near 2^25, sum rows that are not the sum of their ranks, invalid
-   dominators and invalid tail victims;
+   dominators and invalid tail victims; the incremental merge step's K2
+   core (``_merge_step_kernel_core``) against its plain core on P = 8
+   unsorted 8,192-row batches with ragged widths against the running sky
+   prefix, a growth round among them; the d <= 2 sweep on the card against
+   the CPU;
 4. parity, each on CUDA and with ``device="cpu"`` (plain versions): the
    host-ingest engine over two 65,536-row 8-D anti-correlated windows
    (same sizes, optimality and point bytes) plus a small window against
@@ -36,20 +40,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the rank cascade on and off (same sizes and sorted point bytes; where
    the card routes every row as the CPU does, also the same local sizes,
    optimality and published order — otherwise the first differing row is
-   printed);
-5. main paths at the north-star configuration (8-D anti-correlated, domain
-   0-10000, parallelism 4, mr-angle, lazy flush, buffer 8192, initial
-   capacity 65536, trigger "0,0") at 1,000,000 rows, each one warm window
-   and ``--windows`` measured ones: (a) device ingest with the rank
-   cascade on (K4–K7), (b) device ingest with it off (K1–K3), (c) host
-   ingest with it off (K1–K3). Each prints tuples/s (all measured rows
+   printed); then the other policies: incremental with host ingest at d = 3
+   and d = 8 and at d = 2 (the sweep), and overlap with device ingest, rank
+   cascade on and off, and at d = 2 — local sizes, optimality and point
+   bytes, strict as above;
+5. main paths at 1,000,000 rows, each one warm window and ``--windows``
+   measured ones, driven in 65,536-row chunks with the trigger "0,0". The
+   north-star configuration (8-D anti-correlated, domain 0-10000,
+   parallelism 4, mr-angle, buffer 8192, initial capacity 65536): (a)
+   lazy, device ingest with the rank cascade on (K4–K7), (b) lazy, device
+   ingest with it off (K1–K3), (c) lazy, host ingest with it off (K1–K3),
+   (e) overlap (automatic sync-free flushes every 262,144 rows), device
+   ingest, rank cascade off (K1–K3). The reference grid cell
+   ``grid_mr-angle_3d`` (``benchmarks/reference_grid.py``: 3-D
+   anti-correlated, parallelism 4, mr-angle, buffer 8192, the engine's
+   default incremental policy, host ingest): (d) at d = 3 (K2 merge steps,
+   K3), (f) at d = 2 (every flush and the merge through the sweep: no
+   dominance kernel may launch). Each prints tuples/s (all measured rows
    over the summed window walls), p50 window latency, flush and merge
    walls (the engine synchronises the card between them) and launches,
    each of its kernels > 0; its warm answer is checked on the card against
    samples of input and output. (a) also counts the rows the card routes
    differently from ``partition_ids_np`` and from the CPU;
 6. timings: each kernel at its main path's shapes (K1–K3 from (c), K4–K7
-   from (a), rebuilt from the last window's state), CUDA-event ms beside
+   from (a), rebuilt from the last window's state; K2 also on the heaviest
+   incremental round of (d), its three calls, recorded from one more
+   window), CUDA-event ms beside
    the plain version's ms (timed once per input) and the bound: needed
    pairs x d compares at the FP32 peak (K1–K3) or x (d + 1) at the INT32
    compare rate (K5–K7), or bytes at the HBM rate (K4, and whichever is
@@ -449,6 +465,101 @@ def check_kernels(torch, np, dev) -> int:
     return checks
 
 
+def check_merge_step(torch, np, dev, B: int = 8192) -> int:
+    """The incremental merge step on the card: ``merge_step_active`` (its K2
+    core) against the plain core over the same active prefix, bytes and
+    counts, round after round — P = 8, batches of 8,192 rows in arrival
+    order (not sum-sorted) with ragged widths, the sky the previous round's
+    output; d = 8 on a small integer domain (ties), d = 3 anti-correlated.
+    The second round outgrows the 8,192-row capacity."""
+    from skyline_tpu_torch.stream import window as win
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    rng = np.random.default_rng(19)
+    P = 8
+    # ragged widths per round, as shares of B (8,192 rows)
+    widths_per_round = [
+        [round(B * f) for f in fr] for fr in (
+            (1, 0.61, 0, 1, 1 / B, 0.037, 1, 0.5),
+            (1, 1, 7 / B, 0, 1, 0.122, 0.305, 1),
+            (0.012, 0, 1, 0.366, 1, 1, 1 / B, 0.0078),
+        )
+    ]
+    checks = 0
+    for d, domain in ((8, 60), (3, 10000)):
+        cap = B
+        sky = torch.full((P, cap, d), float("inf"), device=dev)
+        counts = torch.zeros(P, dtype=torch.int64, device=dev)
+        grew = False
+        for rnd, widths in enumerate(widths_per_round):
+            w = np.array(widths)
+            batch = np.full((P, B, d), np.inf, np.float32)
+            for p in range(P):
+                batch[p, : w[p]] = anti_correlated(rng, int(w[p]), d, 0, domain)
+            batch = torch.from_numpy(batch).to(dev)
+            bvalid = torch.from_numpy(np.arange(B)[None, :] < w[:, None]).to(dev)
+            c = counts.cpu().numpy()
+            active = min(cap, win._active_bucket(max(int(c.max()), 1)))
+            grow = win._next_pow2(max(int((c + w).max()), 1))
+            valid = torch.arange(cap, device=dev)[None, :] < counts[:, None]
+            vals, _, cnt = win.merge_step_active(sky, valid, batch, bvalid, active, grow)
+            pv, _, pc = win._merge_step_core(
+                sky[:, :active], valid[:, :active], batch, bvalid, grow
+            )
+            torch.cuda.synchronize()
+            if not torch.equal(cnt, pc) or not torch.equal(vals[:, :grow], pv):
+                raise AssertionError(
+                    f"merge step d={d} round {rnd}: kernel core {cnt.tolist()} rows, plain "
+                    f"{pc.tolist()}, or other bytes"
+                )
+            grew |= grow > cap
+            sky, counts, cap = vals, cnt, max(cap, grow)
+            checks += 1
+        if not grew:
+            raise AssertionError(f"merge step d={d}: no round outgrew the capacity")
+    return checks
+
+
+def check_sweep(torch, np, dev) -> int:
+    """The d <= 2 sweep's torch ops on the card against the CPU: the
+    partitioned sweep (packed state and counts) and the survivor mask, on
+    ties, signed zeros, infinities and NaN, with an empty partition."""
+    from skyline_tpu_torch.ops import sweep2d
+
+    rng = np.random.default_rng(29)
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, 2.0], np.float32)
+    checks = 0
+    for kind in ("ties", "special", "anti"):
+        n, P = 300_000, 8
+        if kind == "ties":
+            x = rng.integers(0, 50, size=(n, 2)).astype(np.float32)
+        elif kind == "special":
+            x = special[rng.integers(0, 7, size=(n, 2))]
+        else:
+            x = rng.random((n, 2)).astype(np.float32)
+            x[:, 1] = 1.0 - x[:, 0] + rng.random(n).astype(np.float32) * 0.01
+        pids = rng.integers(0, P, n).astype(np.int32)
+        pids[pids == 5] = 6
+        valid = rng.random(n) < 0.9
+        args = [torch.from_numpy(a) for a in (x, pids, valid)]
+        cpu = sweep2d.partitioned_sweep2(*args, P, 1 << 16)
+        card = sweep2d.partitioned_sweep2(*(a.to(dev) for a in args), P, 1 << 16)
+        mask = sweep2d.skyline_mask_sweep(args[0][:, :1].contiguous(), args[2])
+        mask_card = sweep2d.skyline_mask_sweep(args[0][:, :1].to(dev), args[2].to(dev))
+        if (
+            card[0].cpu().numpy().tobytes() != cpu[0].numpy().tobytes()
+            or not torch.equal(card[1].cpu(), cpu[1])
+            or not torch.equal(
+                sweep2d.skyline_mask_sweep(args[0].to(dev), args[2].to(dev)).cpu(),
+                sweep2d.skyline_mask_sweep(*args[::2]),
+            )
+            or not torch.equal(mask_card.cpu(), mask)
+        ):
+            raise AssertionError(f"sweep on the card differs from the CPU ({kind})")
+        checks += 3
+    return checks
+
+
 # -- phases 4 and 5: the engine ----------------------------------------------
 
 
@@ -456,13 +567,23 @@ NORTH_STAR = dict(
     parallelism=4, algo="mr-angle", dims=8, domain_max=10000.0,
     buffer_size=8192, initial_capacity=65536, flush_policy="lazy",
 )
+# benchmarks/reference_grid.py run_cell("mr-angle", 3, ...): the engine's
+# default (incremental) policy
+GRID_3D = dict(
+    parallelism=4, algo="mr-angle", dims=3, domain_max=10000.0,
+    buffer_size=8192, flush_policy="incremental",
+)
 PARITY_ROWS = 65536
 DEVICE_PARITY_ROWS = 32768
-# the main paths: (ingest, rank cascade) and the kernels each must launch
+# the main paths: (engine configuration, rank cascade, the kernels each must
+# launch); (f) must launch none
 PATHS = {
-    "a": ("device", True, RANK_PATH),
-    "b": ("device", False, VALUE_PATH),
-    "c": ("host", False, VALUE_PATH),
+    "a": (dict(NORTH_STAR, ingest="device"), True, RANK_PATH),
+    "b": (dict(NORTH_STAR, ingest="device"), False, VALUE_PATH),
+    "c": (dict(NORTH_STAR, ingest="host"), False, VALUE_PATH),
+    "d": (dict(GRID_3D, ingest="host"), False, ("dominated_by_rect", "skyline_mask_kernel")),
+    "e": (dict(NORTH_STAR, flush_policy="overlap", ingest="device"), False, VALUE_PATH),
+    "f": (dict(GRID_3D, dims=2, ingest="host"), False, ()),
 }
 
 
@@ -646,6 +767,83 @@ def check_device_parity(torch, np, n: int, devices=("cuda", "cpu")) -> dict:
     return out
 
 
+def _same_runs(what, runs, devices, strict: bool) -> None:
+    """Hold ``_drive_windows`` runs on two devices to each other: sizes and
+    sorted point bytes always; with ``strict`` also optimality, local sizes
+    and the published order."""
+    (ra, sa, _), (rb, sb, _) = runs[devices[0]], runs[devices[1]]
+    for i, (a, b) in enumerate(zip(ra, rb)):
+        pa, pb = _points(a), _points(b)
+        if a["skyline_size"] != b["skyline_size"] or _sorted_bytes(pa) != _sorted_bytes(pb):
+            raise AssertionError(
+                f"{what} window {i}: {a['skyline_size']} vs {b['skyline_size']} points, "
+                "or another point set"
+            )
+        if strict and (
+            a["optimality"] != b["optimality"] or sa[i] != sb[i] or pa.tobytes() != pb.tobytes()
+        ):
+            raise AssertionError(
+                f"{what} window {i}: optimality {a['optimality']} vs {b['optimality']}, "
+                f"local sizes {sa[i]} vs {sb[i]}, published order equal: "
+                f"{pa.tobytes() == pb.tobytes()}"
+            )
+
+
+# the other policies' parity legs: (name, engine configuration, rows per
+# window, rank cascade); the CPU side's plain dominance sets the sizes
+POLICY_PARITY = (
+    ("incremental_3d", dict(GRID_3D, buffer_size=2048, ingest="host"), 32768, False),
+    ("incremental_8d", dict(NORTH_STAR, flush_policy="incremental", buffer_size=512,
+                            initial_capacity=0, ingest="host"), 8192, False),
+    ("incremental_2d", dict(GRID_3D, dims=2, ingest="host"), 65536, False),
+    ("overlap_device_rank_on", dict(NORTH_STAR, flush_policy="overlap", overlap_rows=4096,
+                                    ingest="device"), 16384, True),
+    ("overlap_device_rank_off", dict(NORTH_STAR, flush_policy="overlap", overlap_rows=4096,
+                                     ingest="device"), 16384, False),
+    ("overlap_device_2d", dict(GRID_3D, dims=2, flush_policy="overlap", overlap_rows=16384,
+                               ingest="device"), 65536, False),
+)
+
+
+def check_policy_parity(torch, np, devices=("cuda", "cpu")) -> dict:
+    """The incremental and overlap policies and d = 2, CUDA against the CPU
+    over two windows each (the second merges into, or cleans up against,
+    the first's state). Host ingest is strict; device ingest is strict where
+    the card routes every row as the CPU does."""
+    from skyline_tpu_torch.stream import EngineConfig
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    rng = np.random.default_rng(37)
+    out = {}
+    for name, cfg, n, gate in POLICY_PARITY:
+        windows = [anti_correlated(rng, n, cfg["dims"], 0, 10000) for _ in range(2)]
+        strict = True
+        if cfg["ingest"] == "device":
+            from skyline_tpu_torch.parallel.partitioners import partition_ids
+
+            x = np.concatenate(windows)
+            args = (cfg["algo"], 2 * cfg["parallelism"], cfg["domain_max"])
+            strict = torch.equal(
+                partition_ids(torch.from_numpy(x).to(devices[0]), *args).cpu(),
+                partition_ids(torch.from_numpy(x), *args),
+            )
+        runs = {}
+        with rank_gate(gate):
+            for device in devices:
+                ecfg = EngineConfig(**cfg, emit_skyline_points=True, window_capacity=n,
+                                    device=device)
+                runs[device] = _drive_windows(ecfg, windows, 4096)
+        _same_runs(f"{name} parity", runs, devices, strict)
+        ra, sa, wa = runs[devices[0]]
+        out[name] = {
+            "rows_per_window": n, "strict": bool(strict),
+            "skyline_sizes": [r["skyline_size"] for r in ra], "local_sizes": sa,
+            "wall_s": {dv: runs[dv][2] for dv in devices},
+        }
+        log(f"parity: {name}, cuda == cpu over 2 windows of {n} rows: {out[name]}")
+    return out
+
+
 def check_answer(torch, np, x: np.ndarray, pts: np.ndarray, dev) -> None:
     """Sampled soundness of a full-size answer, with plain torch on the card:
     4096 input rows are each dominated by or equal to an output row, and
@@ -671,8 +869,7 @@ def check_answer(torch, np, x: np.ndarray, pts: np.ndarray, dev) -> None:
 def _config(path: str, n: int, **kw):
     from skyline_tpu_torch.stream import EngineConfig
 
-    ingest, _, _ = PATHS[path]
-    return EngineConfig(**NORTH_STAR, ingest=ingest, window_capacity=n, device="cuda", **kw)
+    return EngineConfig(**PATHS[path][0], window_capacity=n, device="cuda", **kw)
 
 
 def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
@@ -681,10 +878,11 @@ def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
     from skyline_tpu_torch.ops import dominance_kernels as dk
     from skyline_tpu_torch.workload.generators import anti_correlated
 
-    _, gate, wanted = PATHS[path]
+    cfg, gate, wanted = PATHS[path]
+    d = cfg["dims"]
     rng = np.random.default_rng(0)
     ids = np.arange(n, dtype=np.int64)
-    warm_x = anti_correlated(rng, n, 8, 0, 10000)
+    warm_x = anti_correlated(rng, n, d, 0, 10000)
     lat, rows = [], []
     with rank_gate(gate):
         dk.reset_launches()
@@ -692,7 +890,7 @@ def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
             _config(path, n, emit_skyline_points=True), ids, warm_x
         )
         for w in range(windows):
-            x = anti_correlated(rng, n, 8, 0, 10000)
+            x = anti_correlated(rng, n, d, 0, 10000)
             dt, res, eng = run_window(_config(path, n), ids, x)
             lat.append(dt)
             rows.append({
@@ -709,8 +907,11 @@ def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
     missing = [k for k in wanted if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path ({path}) launched no {missing}")
+    if not wanted and any(launches.values()):
+        raise AssertionError(f"main path ({path}) must launch no dominance kernel: {launches}")
     summary = {
-        "ingest": PATHS[path][0], "rank_cascade": gate,
+        "ingest": cfg["ingest"], "flush_policy": cfg["flush_policy"], "dims": d,
+        "rank_cascade": gate,
         "rows_per_window": n, "windows_measured": windows,
         "tuples_per_s": n * windows / sum(lat),
         "p50_window_ms": float(np.median(lat)) * 1e3,
@@ -725,7 +926,7 @@ def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
         f"{summary['p50_window_ms']:.1f} ms (flush {summary['p50_flush_ms']:.1f}, merge "
         f"{summary['p50_merge_ms']:.1f}) over {windows} windows of {n} rows")
     log(f"main ({path}): launches over {windows + 1} windows: "
-        f"{ {k: launches[k] for k in wanted} }")
+        f"{ {k: launches[k] for k in wanted} if wanted else launches}")
     return summary, eng, x
 
 
@@ -737,7 +938,7 @@ def profile_window(torch, np, path: str, n: int) -> dict:
 
     from skyline_tpu_torch.workload.generators import anti_correlated
 
-    x = anti_correlated(np.random.default_rng(1), n, 8, 0, 10000)
+    x = anti_correlated(np.random.default_rng(1), n, PATHS[path][0]["dims"], 0, 10000)
     ids = np.arange(n, dtype=np.int64)
     with rank_gate(PATHS[path][1]):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1009,6 +1210,98 @@ def value_timings(torch, np, eng, x_last, launches: dict, windows: int, dev="cud
     return table
 
 
+def heaviest_incremental_round(torch, n: int):
+    """One more window of path (d) with ``merge_step_active`` watched: the
+    inputs of its heaviest round, cloned — the most compare work, valid
+    batch rows x (batch rows + twice the active sky prefix), the last of
+    equals."""
+    import numpy as np
+
+    from skyline_tpu_torch.stream import batched
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    real = batched.merge_step_active
+    best = {"work": -1}
+
+    def watch(sky, sky_valid, batch, bvalid, active, out_active, mp=False):
+        work = int(bvalid.sum()) * (batch.shape[1] + 2 * active)
+        if work >= best["work"]:
+            best.update(
+                work=work, active=active, sky=sky[:, :active].clone(),
+                sky_valid=sky_valid[:, :active].clone(), batch=batch.clone(),
+                bvalid=bvalid.clone(),
+            )
+        return real(sky, sky_valid, batch, bvalid, active, out_active, mp)
+
+    x = anti_correlated(np.random.default_rng(2), n, PATHS["d"][0]["dims"], 0, 10000)
+    batched.merge_step_active = watch
+    try:
+        with rank_gate(False):
+            run_window(_config("d", n), np.arange(n, dtype=np.int64), x)
+    finally:
+        batched.merge_step_active = real
+    return best
+
+
+def incremental_k2(torch, np, n: int, launches: dict, windows: int) -> dict:
+    """K2 on the incremental input: the heaviest round of path (d), its three
+    calls — the batch against itself, the sky prefix against the batch, the
+    kept batch against the sky — neither side sum-sorted. Each with ms, the
+    plain version's ms, needed pairs (summed over the partitions), the
+    bound's two terms and the skipped share; plus K2's launches per window
+    on (d)."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+
+    r = heaviest_incremental_round(torch, n)
+    sky_t = r["sky"].transpose(1, 2).contiguous()
+    batch_t = r["batch"].transpose(1, 2).contiguous()
+    sv, bv = r["sky_valid"], r["bvalid"]
+    self_dom = dk.dominated_by_rect(batch_t, bv, batch_t)
+    keep_batch = bv & ~self_dom & ~dk.dominated_by_rect(sky_t, sv, batch_t)
+    calls = {
+        "batch_vs_itself": (batch_t, bv, batch_t),
+        "sky_vs_batch": (sky_t, sv, batch_t),
+        "kept_batch_vs_sky": (batch_t, keep_batch, sky_t),
+    }
+    out = {"launches_per_window": launches["dominated_by_rect"] / windows,
+           "active": r["active"], "valid_batch_rows": int(bv.sum()),
+           "valid_sky_rows": int(sv.sum()), "calls": {}}
+    total_ms = 0.0
+    for label, (xt, xv, yt) in calls.items():
+        out_k, ms, plain_ms, err = _time_pair(
+            torch, lambda: dk.dominated_by_rect(xt, xv, yt),  # noqa: B023
+            lambda: dk.dominated_by_rect_plain(xt, xv, yt), f"K2 {label}",  # noqa: B023
+        )
+        P, d, nx = xt.shape
+        ny = yt.shape[2]
+        pairs = sum(
+            _needed_pairs(torch, xt[p], xv[p], yt[p], out_k[p], torch.ones_like(out_k[p]))
+            for p in range(P)
+        )
+        in_bytes = P * (d * nx * 4 + nx + (0 if yt is xt else d * ny * 4))
+        bound = ((in_bytes + P * ny) / HBM_BYTES_S * 1e3, pairs * d / FP32_FLOPS * 1e3)
+        skip = dk.tile_skip_plain(xt, xv, yt, dk.TILE_ROWS, dk.BLOCK_VICTIMS)
+        row = {
+            "ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "needed_pairs": pairs,
+            "bound_ms": max(bound),
+            "bound_by": "operations" if bound[1] >= bound[0] else "bytes",
+            "skipped_share": float(skip.float().mean()),
+            "shape": {"P": P, "nx": nx, "ny": ny, "d": d},
+        }
+        log(f"timings: K2 incremental {label} {row['shape']}: {ms:.3f} ms (plain "
+            f"{plain_ms:.1f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}, {pairs} "
+            f"needed pairs, {row['skipped_share']:.6f} of (block, tile) pairs skipped)")
+        if ms < row["bound_ms"]:
+            raise AssertionError(f"K2 incremental {label} reads under its bound")
+        out["calls"][label] = row
+        total_ms += ms
+    out["round_ms"] = total_ms
+    log(f"timings: K2 incremental round (three calls; {out['valid_batch_rows']} batch rows, "
+        f"{out['valid_sky_rows']} sky rows) {total_ms:.3f} ms, "
+        f"{out['launches_per_window']:.1f} K2 launches per window on (d)")
+    return out
+
+
 RANK_PLANE_BAND = 16
 
 
@@ -1205,7 +1498,11 @@ def main() -> int:
     if "kernels" in args.only:
         t0 = time.perf_counter()
         n = check_kernels(torch, np, "cuda") + check_skip_cases(torch, np, "cuda")
-        log(f"kernels: {n} checks equal to the plain versions in {time.perf_counter() - t0:.1f} s")
+        m = check_merge_step(torch, np, "cuda")
+        sw = check_sweep(torch, np, "cuda")
+        log(f"kernels: {n} checks equal to the plain versions, {m} merge-step rounds equal "
+            f"to the plain core, {sw} sweep checks equal to the CPU in "
+            f"{time.perf_counter() - t0:.1f} s")
     if "parity" in args.only:
         details["parity"] = check_parity(torch, np, PARITY_ROWS)
         log(f"parity: host ingest, cuda == cpu at {PARITY_ROWS} rows x 2 windows: "
@@ -1213,6 +1510,7 @@ def main() -> int:
         details["device_parity"] = check_device_parity(torch, np, DEVICE_PARITY_ROWS)
         log(f"parity: device ingest, cuda vs cpu at {DEVICE_PARITY_ROWS} rows x 2 windows: "
             f"{details['device_parity']}")
+        details["policy_parity"] = check_policy_parity(torch, np)
     table = []
     if "main" in args.only or "timings" in args.only:
         runs = {}
@@ -1233,6 +1531,9 @@ def main() -> int:
             table = value_timings(torch, np, eng_c, x_c, summary_c["launches"], w)
         with rank_gate(True):
             table += rank_timings(torch, np, eng_a, x_a, summary_a["launches"], w)
+        with rank_gate(False):
+            inc = incremental_k2(torch, np, args.n, runs["d"][0]["launches"], w)
+        next(r for r in table if r["name"] == "dominated_by_rect")["inputs"]["incremental"] = inc
         if args.profile:
             details["profile"] = {p: profile_window(torch, np, p, args.n) for p in PATHS}
     details["wall_s"] = time.perf_counter() - t_start

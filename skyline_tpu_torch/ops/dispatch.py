@@ -1,6 +1,8 @@
 """The survivor-mask dispatch.
 
-Minimal counterpart of ``skyline_tpu/ops/dispatch.py``: a tensor on the
+Minimal counterpart of ``skyline_tpu/ops/dispatch.py``. At d <= 2 every
+device takes the sort-and-sweep (``ops/sweep2d.py``), as the reference does
+before its backend check. Above that, a tensor on the
 card goes through a hand-written kernel — K7 (the rank cascade) when
 ``SKYLINE_RANK_CASCADE`` is on, as the reference's cascade table picks
 ``mask_rank_pallas`` (``skyline_tpu/ops/cascade.py``), else K3 — and a tensor
@@ -19,6 +21,7 @@ from skyline_tpu_torch.ops.dominance_kernels import (
     skyline_mask_kernel,
     skyline_mask_rank_kernel,
 )
+from skyline_tpu_torch.ops.sweep2d import skyline_mask_sweep
 from skyline_tpu_torch.utils.buckets import next_pow2
 from skyline_tpu_torch.utils.knobs import rank_cascade
 
@@ -30,8 +33,12 @@ def on_cuda(x) -> bool:
 
 
 def skyline_mask_auto(x: torch.Tensor, valid: torch.Tensor | None = None) -> torch.Tensor:
-    """Survivor mask of (N, d) points: K7 (rank cascade on) or K3 on a CUDA
-    tensor, the plain ``skyline_mask`` on a CPU tensor."""
+    """Survivor mask of (N, d) points: the sweep at d <= 2 on every device;
+    above that K7 (rank cascade on) or K3 on a CUDA tensor, the plain
+    ``skyline_mask`` on a CPU tensor."""
+    if x.shape[1] <= 2:
+        # no pairwise work at all: sort + prefix-min sweep, O(n log n)
+        return skyline_mask_sweep(x, valid)
     if on_cuda(x):
         if rank_cascade():
             return skyline_mask_rank_kernel(x, valid)

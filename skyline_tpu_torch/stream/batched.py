@@ -1,13 +1,31 @@
 """Stacked partition-set state: all logical partitions' skylines in one
 ``(P, cap, d)`` device buffer.
 
-Counterpart of ``skyline_tpu/stream/batched.py`` for the lazy flush policy
-on one device with the flat global merge, with host or device ingest. The
-semantics are SkylineLocalProcessor's state model (FlinkSkyline.java:
-214-445): pending rows accumulate until a query-time flush streams each
-partition's sum-sorted window through append-only SFS rounds
-(``ops/sfs.py``) — one batched round for balanced loads, per-partition
-rounds under routing skew — then prunes old rows against new ones.
+Counterpart of ``skyline_tpu/stream/batched.py`` on one device with the
+flat global merge, with host or device ingest. The semantics are
+SkylineLocalProcessor's state model (FlinkSkyline.java:214-445), under one
+of three flush policies:
+
+- ``"incremental"`` (the default, as in the reference): once the largest
+  partition's pending rows reach ``buffer_size`` (the processBuffer
+  cadence, FlinkSkyline.java:232), every partition's pending rows merge
+  into its running skyline, one batched merge step per round
+  (``stream/window.py`` ``merge_step_active``, three K2 passes on a card).
+- ``"lazy"``: pending rows accumulate until a query-time flush streams each
+  partition's sum-sorted window through append-only SFS rounds
+  (``ops/sfs.py``) — one batched round for balanced loads, per-partition
+  rounds under routing skew — then prunes old rows against new ones.
+- ``"overlap"``: the lazy machinery with automatic flushes every
+  ``overlap_rows`` pending rows; on the device window those flushes read
+  no exact counts (``tighten=False``): had-old detection and buckets come
+  from the host upper bounds.
+
+At d <= 2 every policy's flush is one sort-and-sweep over the old
+skylines and all pending rows (``ops/sweep2d.py``, ``_flush_sweep``): no
+pairwise work and no dominance kernel. The three policies give the same
+answers (the merge law), though rows sit in different orders: merge order
+(incremental), sum order (lazy/overlap SFS appends) or (partition, x, y)
+order (the sweep) — each the reference's order for the same policy.
 
 Host ingest (``add_batch``) keeps routed rows per partition on the host and
 assembles and uploads each block. Device ingest (``route=...``,
@@ -19,10 +37,8 @@ blocks on the device (``stream/device_window.py``); with
 Not ported yet (each gives results byte-identical to this flat path in the
 reference): the quantized-grid prefilter, the epoch-keyed merge cache with
 delta and tournament-tree merges (and with it the epoch bump), the
-incremental and overlap policies, the mixed-precision passes and the device
-mesh. d <= 2 flushes through a sort-and-sweep in the reference
-(``ops/sweep2d.py``), whose state order differs from SFS appends, so this
-port refuses d <= 2 until that path is ported.
+mixed-precision passes (``SKYLINE_MIXED_PRECISION=1`` makes a flush raise)
+and the device mesh.
 
 Per-partition CPU attribution follows the reference: flush wall time is
 accounted to the set, and every partition reports the set total as its
@@ -37,6 +53,7 @@ import numpy as np
 import torch
 
 from skyline_tpu_torch.ops.sfs import sfs_cleanup, sfs_round, sfs_round_single
+from skyline_tpu_torch.ops.sweep2d import partitioned_sweep2_core, scatter_sweep2
 from skyline_tpu_torch.stream import device_window as dw
 from skyline_tpu_torch.stream.window import (
     DEFAULT_BUFFER_SIZE,
@@ -45,8 +62,10 @@ from skyline_tpu_torch.stream.window import (
     _next_pow2,
     global_merge_stats_device,
     global_points_device,
+    merge_step_active,
 )
 from skyline_tpu_torch.utils.devices import resolve_device
+from skyline_tpu_torch.utils.knobs import flush_stage_depth, refuse_mixed_precision
 
 # Sequential-SFS probe block: rounds start at this size so a small-skyline
 # partition never pays big-block dominance work; the loop escalates to the
@@ -67,45 +86,42 @@ class PartitionSet:
         dims: int,
         buffer_size: int = DEFAULT_BUFFER_SIZE,
         initial_capacity: int = 0,
-        flush_policy: str = "lazy",
+        flush_policy: str = "incremental",
         device="cuda",
         route: tuple[str, float] | None = None,
         window_capacity: int = 0,
+        overlap_rows: int = 262144,
     ):
         """``initial_capacity``: pre-size the per-partition skyline buffers
         (rounded up to the power-of-two bucket) so a workload that knows
         its steady-state skyline size skips every growth step.
 
-        ``flush_policy``: only ``"lazy"`` — accumulate pending rows on the
-        host and compute at query time via sum-sorted append-only SFS
-        rounds. The reference's ``"incremental"`` and ``"overlap"`` policies
-        are later slices of the port.
+        ``flush_policy``: ``"incremental"`` (default), ``"lazy"`` or
+        ``"overlap"`` (see the module docstring); ``overlap_rows`` is the
+        overlap policy's automatic flush threshold.
 
         ``device``: where the skylines live and the kernels run; ``"cuda"``
         unless the caller asks for ``"cpu"`` (the plain PyTorch path).
 
-        ``route``: ``(algo, domain_max)`` enables DEVICE ingest: raw chunks
-        are uploaded as they arrive and partition routing, the flush-time
-        (pid, sum) sort and SFS block slicing run on the device
-        (``ingest_chunk``, stream/device_window.py). ``None`` keeps host
-        routing (the engine routes and calls ``add_batch``).
+        ``route``: ``(algo, domain_max)`` enables DEVICE ingest for the
+        lazy and overlap policies: raw chunks are uploaded as they arrive
+        and partition routing, the flush-time (pid, sum) sort and SFS block
+        slicing run on the device (``ingest_chunk``,
+        stream/device_window.py). ``None`` keeps host routing (the engine
+        routes and calls ``add_batch``).
 
         ``window_capacity``: expected rows per window (0 = unknown); pre-sizes
         the device-ingest window so a full window never reallocates."""
-        if flush_policy != "lazy":
-            raise NotImplementedError(
-                f"flush_policy {flush_policy!r} is not ported yet; use 'lazy'"
-            )
-        if dims <= 2:
-            raise NotImplementedError(
-                "d <= 2 flushes through the sort-and-sweep path, which is "
-                "not ported yet"
-            )
+        if flush_policy not in ("incremental", "lazy", "overlap"):
+            raise ValueError(f"unknown flush_policy {flush_policy!r}")
+        if route is not None and flush_policy == "incremental":
+            raise ValueError("device ingest (route=...) requires a lazy/overlap PartitionSet")
         self.device = resolve_device(device)
         self.num_partitions = num_partitions
         self.dims = dims
         self.buffer_size = buffer_size
         self.initial_capacity = initial_capacity
+        self.overlap_rows = overlap_rows
         self.flush_policy = flush_policy
         self._route = route
         self.window_capacity = window_capacity
@@ -145,6 +161,15 @@ class PartitionSet:
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
+
+    def _put_async(self, arr: np.ndarray) -> torch.Tensor:
+        """Upload without waiting for the card: a pinned copy queued on the
+        current stream, so assembling the next round overlaps the kernels
+        in flight (a pageable copy would wait for them)."""
+        t = torch.from_numpy(arr)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     @staticmethod
     def _host(t: torch.Tensor) -> np.ndarray:
@@ -309,28 +334,188 @@ class PartitionSet:
         return block, np.arange(B) < w, w
 
     def _round_batch(self, rows: list[np.ndarray], rnd: int, B: int):
-        """Assemble round ``rnd``'s (P, B, d) padded batch + validity from
-        the drained ``rows``."""
+        """Assemble round ``rnd``'s (P, B, d) padded batch + validity +
+        per-partition widths from the drained ``rows``."""
         batch = np.full(
             (self.num_partitions, B, self.dims), np.inf, dtype=np.float32
         )
         bvalid = np.zeros((self.num_partitions, B), dtype=bool)
+        widths = np.zeros(self.num_partitions, dtype=np.int64)
         for p, r in enumerate(rows):
             part_rows = r[rnd * B : (rnd + 1) * B]
             if part_rows.shape[0]:
-                batch[p], bvalid[p], _ = self._pad_block(part_rows, B)
-        return batch, bvalid
+                batch[p], bvalid[p], widths[p] = self._pad_block(part_rows, B)
+        return batch, bvalid, widths
 
-    # -- lazy flush ---------------------------------------------------------
+    # -- flush ----------------------------------------------------------------
 
-    def flush_all(self) -> None:
-        """Merge every partition's pending rows into its running skyline
-        (append-only SFS rounds over the sum-sorted pending windows): host
-        pending rows first, then the device accumulation window."""
-        if int(self._pending_rows.sum()):
-            self._flush_lazy()
-        if self._dev_rows:
-            self._flush_lazy_device()
+    def maybe_flush(self) -> bool:
+        """Flush all partitions once the largest pending buffer reaches
+        ``buffer_size`` (the processBuffer threshold, FlinkSkyline.java:232,
+        applied set-wide). Returns True if a flush happened. Under the lazy
+        policy this never fires; under the overlap policy it fires, without
+        a count sync, whenever ``overlap_rows`` rows have accumulated across
+        both ingest paths."""
+        if self.flush_policy == "lazy":
+            return False
+        if self.flush_policy == "overlap":
+            if self.pending_rows_total >= self.overlap_rows:
+                self.flush_all(tighten=False)
+                return True
+            return False
+        if int(self._pending_rows.max()) >= self.buffer_size:
+            self.flush_all()
+            return True
+        return False
+
+    def flush_all(self, tighten: bool = True) -> None:
+        """Merge every partition's pending rows into its running skyline:
+        one batched merge step per round (incremental policy), or
+        append-only SFS rounds over the sum-sorted pending windows
+        (lazy/overlap — host pending rows first, then the device
+        accumulation window); at d <= 2 one sort-and-sweep for every policy.
+
+        ``tighten=False`` (overlap auto-flushes) runs the device-window
+        flush without count syncs: had-old detection and buckets come from
+        the host upper bounds, the cleanup's exact old counts stay a device
+        tensor, and the trailing count sync of the next merge is not
+        requested. Query-time flushes keep the default."""
+        refuse_mixed_precision()
+        total = int(self._pending_rows.sum())
+        if self.dims <= 2:
+            if total or self._dev_rows:
+                self._flush_sweep()
+            return
+        if self.flush_policy in ("lazy", "overlap"):
+            if total:
+                self._flush_lazy()
+            if self._dev_rows:
+                self._flush_lazy_device(tighten)
+            return
+        if total:
+            self._flush_incremental()
+
+    def _flush_incremental(self) -> None:
+        """Incremental flush: one common power-of-two batch bucket B for all
+        partitions (heavier ones take extra rounds), one batched merge step
+        per round over the live prefixes. Round r+1..r+depth are assembled
+        and uploaded after round r's merge is queued, so the host work
+        overlaps the card's; counts are read only when ``_count_ub`` plus
+        the round's widths would outgrow the capacity (log-bounded)."""
+        t0 = time.perf_counter_ns()
+        rows = self._drain_pending()
+        max_rows = max(r.shape[0] for r in rows)
+        B = _next_pow2(min(max_rows, max(self.buffer_size, _MIN_CAP)))
+        n_rounds = -(-max_rows // B)
+        depth = flush_stage_depth()
+        staged: dict[int, tuple] = {}
+
+        def _stage(r: int):
+            batch, bvalid, widths = self._round_batch(rows, r, B)
+            return self._put_async(batch), self._put_async(bvalid), widths
+
+        for rnd in range(n_rounds):
+            if rnd not in staged:
+                staged[rnd] = _stage(rnd)
+            batch_dev, bvalid_dev, widths = staged.pop(rnd)
+
+            def _grow_bucket():
+                return _next_pow2(max(int((self._count_ub + widths).max()), 1))
+
+            grow = _grow_bucket()
+            if grow > self._cap:
+                # about to grow: tighten the bounds with ONE count sync
+                self._count_ub = self._host(self._count_dev)
+                grow = _grow_bucket()
+            out_cap = max(self._cap, grow)
+            active = min(
+                self._cap, _active_bucket(max(int(self._count_ub.max()), 1))
+            )
+            sky_valid = (
+                torch.arange(self._cap, device=self.device)[None, :]
+                < self._count_dev[:, None]
+            )
+            # out_active is the bucket out_cap grew from, so the step's
+            # max(cap, out_active) is out_cap
+            self.sky, _, self._count_dev = merge_step_active(
+                self.sky, sky_valid, batch_dev, bvalid_dev, active, grow
+            )
+            self._cap = out_cap
+            self._count_ub = np.minimum(out_cap, self._count_ub + widths)
+            for s in range(rnd + 1, min(rnd + 1 + depth, n_rounds)):
+                if s not in staged:
+                    staged[s] = _stage(s)
+        self._counts_cache = None
+        self._host_cache = None
+        self.processing_ns += time.perf_counter_ns() - t0
+
+    def _flush_sweep(self) -> None:
+        """d <= 2 flush, every policy: the old skylines, the host pending
+        rows and the device accumulation window in ONE buffer, and each
+        partition's skyline by sort + segmented prefix-min sweep
+        (ops/sweep2d.py) — no pairwise dominance, no SFS rounds, exact by
+        the merge law. One count sync sizes the storage between the sweep
+        and the scatter (so the overlap policy's flushes sync here too, as
+        in the reference). d == 1 rides as (x, 0) pairs: a constant second
+        dim makes 2D dominance 1D."""
+        t0 = time.perf_counter_ns()
+        P, d = self.num_partitions, self.dims
+        rows = self._drain_pending()
+        host_vals = np.concatenate(
+            [r for r in rows if r.shape[0]] or [np.empty((0, d), np.float32)]
+        )
+        host_pids = np.repeat(np.arange(P, dtype=np.int32), [r.shape[0] for r in rows])
+        n_host = host_vals.shape[0]
+        # valid prefixes only: the device window's allocation and the sky
+        # rows past the active bucket are invalid
+        dev_bucket = (
+            min(self._dev_cap, _next_pow2(self._dev_rows)) if self._dev_rows else 0
+        )
+        sky_active = min(
+            self._cap, _active_bucket(max(int(self._count_ub.max()), 1))
+        )
+        n_in = P * sky_active + n_host + dev_bucket
+        n_bucket = _next_pow2(n_in)
+        dev = self.device
+        ar = torch.arange(sky_active, device=dev)
+        parts_v = [
+            self.sky[:, :sky_active].reshape(P * sky_active, d),
+            self._put(np.ascontiguousarray(host_vals, dtype=np.float32)),
+        ]
+        parts_p = [
+            torch.arange(P, dtype=torch.int32, device=dev).repeat_interleave(sky_active),
+            self._put(host_pids),
+        ]
+        parts_ok = [
+            (ar[None, :] < self._count_dev[:, None]).reshape(-1),
+            torch.ones((n_host,), dtype=torch.bool, device=dev),
+        ]
+        if dev_bucket:
+            parts_v.append(self._dev_window[:dev_bucket])
+            parts_p.append(self._dev_pids[:dev_bucket])
+            parts_ok.append(torch.arange(dev_bucket, device=dev) < self._dev_rows)
+        pad = n_bucket - n_in
+        if pad:
+            parts_v.append(torch.full((pad, d), float("inf"), dtype=torch.float32, device=dev))
+            parts_p.append(torch.zeros((pad,), dtype=torch.int32, device=dev))
+            parts_ok.append(torch.zeros((pad,), dtype=torch.bool, device=dev))
+        values = torch.cat(parts_v)
+        if d == 1:
+            values = torch.cat([values, torch.zeros_like(values)], dim=1)
+        srows, sp, keep, rank, counts = partitioned_sweep2_core(
+            values, torch.cat(parts_p), torch.cat(parts_ok), P
+        )
+        counts_host = self._host(counts)  # the one sync
+        new_cap = max(self._cap, _next_pow2(max(int(counts_host.max()), _MIN_CAP)))
+        sky, counts_dev = scatter_sweep2(srows, sp, keep, rank, counts, P, new_cap)
+        self.sky = sky[:, :, :1].contiguous() if d == 1 else sky
+        self._cap = new_cap
+        self._count_dev = counts_dev
+        self._count_ub = counts_host.copy()
+        self._counts_cache = None
+        self._host_cache = None
+        self._dev_rows = 0
+        self.processing_ns += time.perf_counter_ns() - t0
 
     def _vmapped_block(self, max_rows: int) -> int:
         # bigger blocks than the buffer threshold: the cross-prune work is
@@ -371,7 +556,7 @@ class PartitionSet:
             B = self._vmapped_block(int(widths.max()))
 
             def batched_round(rnd, counts, active):
-                batch, bvalid = self._round_batch(rows, rnd, B)
+                batch, bvalid, _ = self._round_batch(rows, rnd, B)
                 return sfs_round(
                     self.sky, counts, self._put(batch), self._put(bvalid), active
                 )
@@ -382,13 +567,19 @@ class PartitionSet:
             int(old_counts.max()) if had_old else 0, t0,
         )
 
-    def _flush_lazy_device(self) -> None:
+    def _flush_lazy_device(self, tighten: bool = True) -> None:
         """Device-ingest flush: one (pid, sum) sort with segment bounds on
         the device, then SFS rounds slicing their blocks straight from the
         sorted window (stream/device_window.py) — no host routing, assembly
         or per-block upload. With the rank cascade on, the window and the
         live skyline prefixes are ranked once and the rounds and the cleanup
-        compare ranks. Barrier bookkeeping is not synced here."""
+        compare ranks. Barrier bookkeeping is not synced here.
+
+        ``tighten=False``: no count syncs — had-old detection and the
+        buckets come from the host upper bounds (rows past the true counts
+        are +inf, so loose is correct), and the cleanup's exact old counts
+        stay the pre-flush DEVICE count vector. Only the segment bounds
+        (host loop control) come back."""
         t0 = time.perf_counter_ns()
         P = self.num_partitions
         n_bucket = _next_pow2(self._dev_rows)
@@ -398,8 +589,15 @@ class PartitionSet:
         )
         bounds = self._host(bounds_dev).astype(np.int64)
         self._dev_rows = 0
-        had_old, old_counts = self._check_had_old()
-        old_max = int(old_counts.max()) if had_old else 0
+        if tighten:
+            had_old, old_counts = self._check_had_old()
+            old_max = int(old_counts.max()) if had_old else 0
+        else:
+            had_old = bool((self._count_ub > 0).any())
+            # the exact old counts without a sync: the pre-flush device
+            # count vector (the rounds replace it, never write into it)
+            old_counts = self._count_dev if had_old else None
+            old_max = int(self._count_ub.max()) if had_old else 0
         rank = None
         if dw.rank_flush_enabled():
             active_old = (
@@ -422,7 +620,7 @@ class PartitionSet:
                 return dw.sfs_round_at(sky_p, cnt_p, ws, start, w, B=B, active=active)
 
             # blocks sliced from the sorted window must fit its tail pad
-            counts = self._sfs_sequential(widths, one_round, dw.SORT_TAIL)
+            counts = self._sfs_sequential(widths, one_round, dw.SORT_TAIL, tighten)
         else:
             B = min(self._vmapped_block(int(widths.max())), dw.SORT_TAIL)
             lo, hi = bounds_dev[:-1].long(), bounds_dev[1:].long()
@@ -439,7 +637,7 @@ class PartitionSet:
                 )
 
             counts = self._sfs_vmapped(widths, B, batched_round)
-        self._finish_lazy_flush(counts, had_old, old_counts, old_max, t0, rank)
+        self._finish_lazy_flush(counts, had_old, old_counts, old_max, t0, rank, tighten)
 
     def _sfs_vmapped(self, widths: np.ndarray, B: int, batched_round):
         """Balanced-load SFS: one batched round for all partitions at a
@@ -511,14 +709,18 @@ class PartitionSet:
         self._count_dev = counts
         return counts
 
-    def _sfs_sequential(self, widths: np.ndarray, one_round, max_block=None):
+    def _sfs_sequential(
+        self, widths: np.ndarray, one_round, max_block=None, tighten=True
+    ):
         """Skew-path SFS: partitions processed one at a time with their own
         block and active buckets — total work tracks each partition's own
         rows instead of P x the heaviest. ``one_round(p, sky_p, cnt_p, off,
         w, B, active) -> (sky_p, cnt_p')`` runs one round over rows
         ``[off, off + w)`` of partition ``p`` (``widths``: rows per
-        partition); blocks are capped at ``max_block``. Returns the device
-        counts."""
+        partition); blocks are capped at ``max_block``. ``tighten=False``
+        seeds the per-partition bounds from the host upper bounds instead
+        of a count sync, and syncs only under growth pressure. Returns the
+        device counts."""
 
         def block_size(rows_p: int) -> int:
             B = self._seq_block_size(rows_p)
@@ -528,12 +730,19 @@ class PartitionSet:
         # a fresh set (all upper bounds zero) provably has zero counts
         if not int(self._count_ub.max()):
             counts_host = np.zeros(self.num_partitions, dtype=np.int64)
+        elif not tighten:
+            counts_host = self._count_ub.copy()
         else:
             counts_host = self.sky_counts().astype(np.int64)
         # capacity grows on demand as survivor counts grow (one exact count
         # sync per doubling); start with room for existing survivors + one
         # big block
         need0 = int(counts_host.max()) + block_size(int(widths.max()))
+        if need0 > self._cap and not tighten:
+            # growth pressure under loose bounds: tighten with one sync only
+            # now, or capacity would track the stream, not the skyline
+            counts_host = self.sky_counts().astype(np.int64)
+            need0 = int(counts_host.max()) + block_size(int(widths.max()))
         if need0 > self._cap:
             self._grow_cap(_next_pow2(need0))
 
@@ -598,30 +807,35 @@ class PartitionSet:
         return had_old, old_counts
 
     def _finish_lazy_flush(
-        self, counts, had_old, old_counts, old_max, t0, rank=None
+        self, counts, had_old, old_counts, old_max, t0, rank=None, tighten=True
     ) -> None:
         """Tail of the lazy flush: old-vs-new cleanup, caches, and a deferred
-        count sync for the next merge's buckets. ``rank``: (window ranks,
-        sorted universe) from the rank-cascade device flush — the cleanup
-        then compares in rank space (old prefixes are universe members)."""
+        count sync for the next merge's buckets. ``old_counts``: exact
+        pre-flush counts, host array or device tensor; ``old_max``: a host
+        bound on their max (buckets only). ``rank``: (window ranks, sorted
+        universe) from the rank-cascade device flush — the cleanup then
+        compares in rank space (old prefixes are universe members).
+        ``tighten=False`` does not ask the next merge for the count sync."""
         if had_old:
+            if not isinstance(old_counts, torch.Tensor):
+                old_counts = self._put(old_counts)
             old_active = min(self._cap, _active_bucket(max(old_max, 1)))
             active = min(
                 self._cap, _active_bucket(max(int(self._count_ub.max()), 1))
             )
             if rank is not None:
                 self.sky, counts = dw.sfs_cleanup_rank(
-                    self.sky, counts, self._put(old_counts), rank[1],
-                    old_active, active,
+                    self.sky, counts, old_counts, rank[1], old_active, active,
                 )
             else:
                 self.sky, counts = sfs_cleanup(
-                    self.sky, counts, self._put(old_counts), old_active, active
+                    self.sky, counts, old_counts, old_active, active
                 )
         self._count_dev = counts
         self._counts_cache = None
         self._host_cache = None
-        self._tighten_pending = True
+        if tighten:
+            self._tighten_pending = True
         self.processing_ns += time.perf_counter_ns() - t0
 
     # -- global merge -------------------------------------------------------

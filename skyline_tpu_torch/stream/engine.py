@@ -9,21 +9,24 @@ query broadcast becomes a loop over partitions; and
 ``GlobalSkylineAggregator`` becomes a device-side union skyline with the
 same countdown-latch semantics, timing decomposition and optimality metric.
 
-Ingest: with device ingest (the default on a card, as the reference defaults
-to it on its accelerator) raw batches are uploaded and routed, sorted and
-sliced on the device (``stream/device_window.py``), and the host barrier
-bookkeeping syncs only when a query needs it; with host ingest
-``partition_ids_np`` routes each batch on the host.
+Ingest: with device ingest (the default on a card for the lazy and overlap
+policies, as the reference defaults to it on its accelerator) raw batches
+are uploaded and routed, sorted and sliced on the device
+(``stream/device_window.py``), and the host barrier bookkeeping syncs only
+when a query needs it; with host ingest (always under the incremental
+policy) ``partition_ids_np`` routes each batch on the host. After routing,
+``PartitionSet.maybe_flush`` runs the policy's automatic flush.
 
 Record-id barrier semantics: a trigger ``"qid,N"`` executes on a partition
 only once that partition has seen a record id >= N — or immediately if the
 partition has never seen data (``max_seen_id == -1``, FlinkSkyline.java:351).
 Pending triggers are re-evaluated whenever new data reaches the partition.
 
-This slice runs the lazy flush policy with a blocking flat global merge.
-Telemetry, snapshots, EXPLAIN, audit, query overlap and query timeouts are
-not ported; the reference documents its results as identical without
-them.
+Every flush policy of the reference runs (``"incremental"``, the default,
+``"lazy"`` and ``"overlap"``) with a blocking flat global merge. Telemetry,
+snapshots, EXPLAIN, audit, query overlap, query timeouts and the grid
+prefilter are not ported; the reference documents its results as identical
+without them.
 """
 
 from __future__ import annotations
@@ -46,27 +49,31 @@ from skyline_tpu_torch.utils.devices import resolve_device
 class EngineConfig:
     """Engine flags, defaults matching the reference job's
     (FlinkSkyline.java:62-76): parallelism=4 → numPartitions=8, algo
-    mr-angle, domain 1000 — except ``dims`` (the port refuses d <= 2 until
-    the sweep path is ported) and ``flush_policy`` (only ``"lazy"`` is
-    ported)."""
+    mr-angle, domain 1000, dims 2, and the reference engine's incremental
+    flush policy."""
 
     parallelism: int = 4
     algo: str = "mr-angle"
     domain_max: float = 1000.0
-    dims: int = 3
+    dims: int = 2
     buffer_size: int = DEFAULT_BUFFER_SIZE
     emit_skyline_points: bool = False
     # pre-size per-partition skyline buffers (0 = grow on demand)
     initial_capacity: int = 0
-    # "lazy": accumulate and compute at query time via append-only SFS
-    # rounds; the reference's "incremental"/"overlap" are later slices
-    flush_policy: str = "lazy"
+    # "incremental": merge pending rows at the buffer_size cadence (the
+    # reference's processBuffer model); "lazy": accumulate and compute at
+    # query time via append-only SFS rounds; "overlap": the lazy machinery
+    # flushed without count syncs every ``overlap_rows`` rows. Identical
+    # results all three ways.
+    flush_policy: str = "incremental"
+    # rows accumulated between automatic flushes under flush_policy="overlap"
+    overlap_rows: int = 262144
     # expected rows per window (0 = unknown): pre-sizes the device-ingest
     # window buffer
     window_capacity: int = 0
     # "device": routing, sort and block slicing on the device
-    # (stream/device_window.py), lazy policy only; "host": numpy routing in
-    # process_records; "auto": device on a card, host on the CPU
+    # (stream/device_window.py), lazy/overlap only; "host": numpy routing in
+    # process_records; "auto": device on a card for lazy/overlap, else host
     ingest: str = "auto"
     # where the state lives and the kernels run: "cuda" unless the caller
     # asks for "cpu" (the plain PyTorch path)
@@ -130,11 +137,12 @@ class SkylineEngine:
     def __init__(self, config: EngineConfig):
         self.config = config
         self.device = resolve_device(config.device)
-        # device ingest needs the lazy policy (the engine is single-device)
-        device_ok = config.flush_policy == "lazy"
+        # device ingest needs the lazy or overlap policy (the engine is
+        # single-device)
+        device_ok = config.flush_policy in ("lazy", "overlap")
         if config.ingest == "device":
             if not device_ok:
-                raise ValueError("ingest='device' requires the lazy flush policy")
+                raise ValueError("ingest='device' requires the lazy/overlap flush policy")
             use_device = True
         elif config.ingest == "auto":
             use_device = device_ok and self.device.type == "cuda"
@@ -151,6 +159,7 @@ class SkylineEngine:
             device=self.device,
             route=(config.algo, config.domain_max) if use_device else None,
             window_capacity=config.window_capacity,
+            overlap_rows=config.overlap_rows,
         )
         self.partitions = [
             PartitionView(self.pset, i) for i in range(config.num_partitions)
@@ -183,6 +192,7 @@ class SkylineEngine:
                 self.pset.sync_ingest_bookkeeping()
                 for p in range(cfg.num_partitions):
                     now_ms = self._recheck_pending(p, now_ms)
+            self.pset.maybe_flush()
             return
         pids = partition_ids_np(values, cfg.algo, cfg.num_partitions, cfg.domain_max)
         # group rows by partition with one argsort (the keyBy shuffle).
@@ -202,6 +212,9 @@ class SkylineEngine:
                 sorted_vals[lo:hi], int(sorted_ids[lo:hi].max()), now_ms
             )
             now_ms = self._recheck_pending(p, now_ms)
+        # the policy's automatic flush: one batched merge of every
+        # partition's pending rows (incremental), or an overlap flush
+        self.pset.maybe_flush()
 
     # -- control plane ----------------------------------------------------
 

@@ -247,7 +247,7 @@ def test_partition_set_ingest_bookkeeping_matches_jax(rng):
     x = generate("uniform", rng, 70000, d, 0, 10000)
     ids = rng.permutation(70000).astype(np.int64)
     js = JaxSet(P, d, flush_policy="lazy", route=("mr-angle", 10000.0))
-    ts = PartitionSet(P, d, route=("mr-angle", 10000.0), device="cpu")
+    ts = PartitionSet(P, d, flush_policy="lazy", route=("mr-angle", 10000.0), device="cpu")
     assert ts.device_ingest and not PartitionSet(P, d, device="cpu").device_ingest
     for s, lo, hi in ((js, 0, 1000), (ts, 0, 1000), (js, 1000, 70000), (ts, 1000, 70000)):
         s.ingest_chunk(ids[lo:hi], x[lo:hi], now_ms=float(lo))
@@ -354,7 +354,7 @@ def test_device_engine_barrier_path_matches_jax():
 
 
 def test_load_state_drops_the_device_window(rng):
-    ts = PartitionSet(4, 3, route=("mr-dim", 100.0), device="cpu")
+    ts = PartitionSet(4, 3, flush_policy="lazy", route=("mr-dim", 100.0), device="cpu")
     x = generate("uniform", rng, 500, 3, 0, 100)
     ts.ingest_chunk(np.arange(500), x, 0.0)
     ts.load_state(np.zeros((4, 16, 3), np.float32), np.zeros(4, np.int64))

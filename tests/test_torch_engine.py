@@ -111,7 +111,7 @@ def test_load_state_round_trip_from_jax():
     rng = np.random.default_rng(21)
     js, _, _ = _jax_flushed(rng, P, d, 6000)
     sky, counts = np.asarray(js.sky), js.sky_counts()
-    ts = PartitionSet(P, d, buffer_size=1024, device="cpu")
+    ts = PartitionSet(P, d, buffer_size=1024, flush_policy="lazy", device="cpu")
     ts.load_state(sky, counts, max_seen_id=js.max_seen_id, records_seen=js.records_seen)
     tsky, tcounts = ts.state_numpy()
     assert np.array_equal(tcounts, counts)
@@ -147,7 +147,7 @@ def test_partition_set_snapshot_matches_jax():
     P, d = 8, 3
     rng = np.random.default_rng(4)
     js, x, pids = _jax_flushed(rng, P, d, 5000)
-    ts = PartitionSet(P, d, buffer_size=1024, device="cpu")
+    ts = PartitionSet(P, d, buffer_size=1024, flush_policy="lazy", device="cpu")
     for p in range(P):
         if (pids == p).any():
             ts.add_batch(p, np.ascontiguousarray(x[pids == p]), 5000, 0.0)

@@ -161,29 +161,44 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 def test_unported_paths_refuse():
-    with pytest.raises(NotImplementedError):
-        PartitionSet(8, 2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        PartitionSet(8, 4, flush_policy="incremental", device="cpu")
-    # device ingest needs the lazy policy, as the reference refuses
-    # (tests/test_device_ingest.py)
+    """The refusals the reference also makes: device ingest under the
+    incremental policy (``tests/test_device_ingest.py``), an unknown ingest
+    mode or flush policy. Every policy and d <= 2 now construct."""
     with pytest.raises(ValueError):
         SkylineEngine(
             EngineConfig(dims=4, flush_policy="incremental", ingest="device", device="cpu")
         )
     with pytest.raises(ValueError):
+        PartitionSet(8, 4, flush_policy="incremental", route=("mr-dim", 100.0), device="cpu")
+    with pytest.raises(ValueError):
         SkylineEngine(EngineConfig(dims=4, ingest="bogus", device="cpu"))
+    with pytest.raises(ValueError):
+        PartitionSet(8, 4, flush_policy="eager", device="cpu")
+    for policy in ("incremental", "lazy", "overlap"):
+        for d in (1, 2, 4):
+            assert PartitionSet(8, d, flush_policy=policy, device="cpu").dims == d
     eng = SkylineEngine(EngineConfig(dims=4, ingest="auto", device="cpu"))
     assert eng.pset.device.type == "cpu"
 
 
 @pytest.mark.parametrize("ingest", ["auto", "host", "device"])
 def test_ingest_resolution(ingest, monkeypatch):
-    """"auto" is device ingest on a card and host ingest on the CPU."""
-    eng = SkylineEngine(EngineConfig(dims=4, ingest=ingest, device="cpu"))
-    assert eng.pset.device_ingest == (ingest == "device")
+    """"auto" is device ingest on a card and host ingest on the CPU, for
+    the lazy and overlap policies; the incremental policy (the default)
+    always ingests on the host, as in the reference."""
+    for policy in ("lazy", "overlap"):
+        eng = SkylineEngine(
+            EngineConfig(dims=4, ingest=ingest, flush_policy=policy, device="cpu")
+        )
+        assert eng.pset.device_ingest == (ingest == "device")
     # on a card (the device check is all "auto" reads), "auto" is device
     monkeypatch.setattr(tengine, "resolve_device", lambda d: torch.device("cuda"))
     monkeypatch.setattr(tengine, "PartitionSet", lambda *a, **kw: kw)
-    eng = SkylineEngine(EngineConfig(dims=4, ingest=ingest, device="cpu"))
-    assert (eng.pset["route"] is not None) == (ingest != "host")
+    for policy in ("lazy", "overlap"):
+        eng = SkylineEngine(
+            EngineConfig(dims=4, ingest=ingest, flush_policy=policy, device="cpu")
+        )
+        assert (eng.pset["route"] is not None) == (ingest != "host")
+    if ingest != "device":
+        eng = SkylineEngine(EngineConfig(dims=4, ingest=ingest, device="cpu"))
+        assert eng.pset["route"] is None
