@@ -32,7 +32,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    core (``_merge_step_kernel_core``) against its plain core on P = 8
    unsorted 8,192-row batches with ragged widths against the running sky
    prefix, a growth round among them; the d <= 2 sweep on the card against
-   the CPU;
+   the CPU; the tree merge's functions on the card against the CPU —
+   ``tree_pair_merge`` (two K2 launches) on signed zeros, NaN and +inf
+   rows, rows equal across its two sides, an empty side, a capacity of
+   exactly both counts and a north-star-like pair, ``compact_tagged`` and
+   ``partition_summaries_device``;
 4. parity, each on CUDA and with ``device="cpu"`` (plain versions): the
    host-ingest engine over two 65,536-row 8-D anti-correlated windows
    (same sizes, optimality and point bytes) plus a small window against
@@ -43,28 +47,41 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    printed); then the other policies: incremental with host ingest at d = 3
    and d = 8 and at d = 2 (the sweep), and overlap with device ingest, rank
    cascade on and off, and at d = 2 — local sizes, optimality and point
-   bytes, strict as above;
+   bytes, strict as above; the merge plane: on the card, the reference's
+   defaults (tree, prune, cache, query overlap) against the flat plane
+   (``PLANE_OFF``) at the north-star and the 3-D grid cell, and an
+   interleaved run (repeated triggers, chunks routed to half the
+   partitions, ingest while a merge is in flight) CUDA against the CPU,
+   answers and plane counters;
 5. main paths at 1,000,000 rows, each one warm window and ``--windows``
-   measured ones, driven in 65,536-row chunks with the trigger "0,0". The
-   north-star configuration (8-D anti-correlated, domain 0-10000,
-   parallelism 4, mr-angle, buffer 8192, initial capacity 65536): (a)
-   lazy, device ingest with the rank cascade on (K4–K7), (b) lazy, device
-   ingest with it off (K1–K3), (c) lazy, host ingest with it off (K1–K3),
-   (e) overlap (automatic sync-free flushes every 262,144 rows), device
-   ingest, rank cascade off (K1–K3). The reference grid cell
-   ``grid_mr-angle_3d`` (``benchmarks/reference_grid.py``: 3-D
+   measured ones, driven in 65,536-row chunks with the trigger "0,0", under
+   the reference's merge defaults (the pruned tree merge at d > 2, the
+   merge cache, the query overlap). The north-star configuration (8-D
+   anti-correlated, domain 0-10000, parallelism 4, mr-angle, buffer 8192,
+   initial capacity 65536): (a) lazy, device ingest with the rank cascade
+   on (K5, K6 rounds; K2 tree pairs), (b) lazy, device ingest with it off
+   (K1, K2), (c) lazy, host ingest with it off (K1, K2), (e) overlap
+   (automatic sync-free flushes every 262,144 rows), device ingest, rank
+   cascade off (K1, K2); (g) is (b) and (h) is (a) with
+   ``SKYLINE_MERGE_TREE=0``, the flat merge (K3; K4 and K7). The reference
+   grid cell ``grid_mr-angle_3d`` (``benchmarks/reference_grid.py``: 3-D
    anti-correlated, parallelism 4, mr-angle, buffer 8192, the engine's
-   default incremental policy, host ingest): (d) at d = 3 (K2 merge steps,
-   K3), (f) at d = 2 (every flush and the merge through the sweep: no
-   dominance kernel may launch). Each prints tuples/s (all measured rows
-   over the summed window walls), p50 window latency, flush and merge
-   walls (the engine synchronises the card between them) and launches,
-   each of its kernels > 0; its warm answer is checked on the card against
-   samples of input and output. (a) also counts the rows the card routes
-   differently from ``partition_ids_np`` and from the CPU;
+   default incremental policy, host ingest): (d) at d = 3 (K2 merge steps
+   and tree pairs), (f) at d = 2 (every flush and the merge through the
+   sweep: no dominance kernel may launch). Each prints tuples/s (all
+   measured rows over the summed window walls), p50 window latency, flush
+   and merge walls (the engine synchronises the card between them),
+   launches (each of its kernels > 0) and the last window's tree; its warm
+   answer is checked on the card against samples of input and output. (a)
+   also counts the rows the card routes differently from
+   ``partition_ids_np`` and from the CPU. On (b), (d) and (f) the last
+   engine measures the merge plane (``measure_plane``): a repeated trigger
+   (an exact hit, no launch), a delta trigger after a chunk routed to half
+   the partitions, and that answer against a fresh set's recompute;
 6. timings: each kernel at its main path's shapes (K1–K3 from (c), K4–K7
    from (a), rebuilt from the last window's state; K2 also on the heaviest
-   incremental round of (d), its three calls, recorded from one more
+   incremental round of (d), its three calls, and on the heaviest tree
+   pair of a north-star window, its two calls, each recorded from one more
    window), CUDA-event ms beside
    the plain version's ms (timed once per input) and the bound: needed
    pairs x d compares at the FP32 peak (K1–K3) or x (d + 1) at the INT32
@@ -560,6 +577,118 @@ def check_sweep(torch, np, dev) -> int:
     return checks
 
 
+def _skyline_of(torch, rows):
+    """The skyline rows of ``rows`` (n, d) in their order, by the plain mask
+    (on the tensor's device)."""
+    from skyline_tpu_torch.ops.dominance import skyline_mask
+
+    return rows[skyline_mask(rows)]
+
+
+def _tree_pair_cases(torch, np, rng, dev):
+    """(name, a, a's partition ids, acnt, b, b's ids, bcnt, out_cap) on the
+    card: each side a skyline in +inf-padded storage, as the tree feeds its
+    leaves. Signed zeros, NaN and +inf rows; rows equal across a and b; an
+    empty a or b; out_cap exactly acnt + bcnt; and a north-star-like pair
+    (thousands of zero-vector copies against a small anti-correlated
+    skyline)."""
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    special = np.array([0.0, -0.0, np.inf, np.nan, 1.0, 2.0], np.float32)
+
+    def side(rows, width):
+        x = torch.full((width, rows.shape[1]), float("inf"), device=dev)
+        x[: rows.shape[0]] = rows
+        return x, int(rows.shape[0])
+
+    def sky(x):
+        return _skyline_of(torch, torch.from_numpy(np.ascontiguousarray(x)).to(dev))
+
+    cases = []
+    for name, d, na, nb in (("anti", 3, 3000, 5000), ("anti", 8, 6000, 4000),
+                            ("special", 4, 2000, 2000), ("shared", 8, 3000, 3000),
+                            ("empty_a", 3, 0, 3000), ("empty_b", 8, 3000, 0)):
+        gen = (lambda n: special[rng.integers(0, 6, size=(n, d))]) if name == "special" \
+            else (lambda n: anti_correlated(rng, n, d, 0, 60))
+        ra = sky(gen(na)) if na else torch.empty((0, d), device=dev)
+        rb = sky(gen(nb)) if nb else torch.empty((0, d), device=dev)
+        if name == "shared":
+            # rows equal across a and b: both copies survive
+            rb = _skyline_of(torch, torch.cat([ra[:200], rb]))
+        for tight in (False, True):
+            wa = max(1024, 1 << max(ra.shape[0] - 1, 0).bit_length())
+            wb = max(1024, 1 << max(rb.shape[0] - 1, 0).bit_length())
+            a, acnt = side(ra, wa)
+            b, bcnt = side(rb, wb)
+            out_cap = max(acnt + bcnt, 1) if tight else wa + wb
+            cases.append((f"{name} d={d}{' tight' if tight else ''}", a,
+                          torch.full((wa,), 1, dtype=torch.int64, device=dev), acnt,
+                          b, torch.full((wb,), 5, dtype=torch.int64, device=dev), bcnt,
+                          out_cap))
+    zeros = torch.zeros((20000, 8), device=dev)
+    zeros[::7, 3] = -0.0
+    rest = sky(anti_correlated(rng, 20000, 8, 0, 10000))
+    a, acnt = side(zeros, 32768)
+    b, bcnt = side(rest, 1 << max(rest.shape[0] - 1, 0).bit_length())
+    cases.append(("north-star-like d=8", a, torch.zeros(32768, dtype=torch.int64, device=dev),
+                  acnt, b, torch.full((b.shape[0],), 3, dtype=torch.int64, device=dev), bcnt,
+                  acnt + bcnt))
+    return cases
+
+
+def check_tree(torch, np, dev) -> int:
+    """The tree merge's functions on the card against the CPU, bytes and
+    counts: ``tree_pair_merge`` (two K2 launches on the card, the plain K2
+    on the CPU) on ``_tree_pair_cases``, ``compact_tagged`` and
+    ``partition_summaries_device`` (by value: a minimum may keep -0.0 on
+    one device and +0.0 on the other, and only comparisons read it)."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+    from skyline_tpu_torch.ops.dominance import compact_tagged
+    from skyline_tpu_torch.stream import window as win
+
+    rng = np.random.default_rng(41)
+    checks = 0
+    for name, a, ap, acnt, b, bp, bcnt, out_cap in _tree_pair_cases(torch, np, rng, dev):
+        before = dk.LAUNCHES["dominated_by_rect"]
+        args = (a, ap, torch.tensor(acnt, device=dev), b, bp, torch.tensor(bcnt, device=dev))
+        card = win.tree_pair_merge(*args, out_cap)
+        torch.cuda.synchronize()
+        if dk.LAUNCHES["dominated_by_rect"] - before != 2:
+            raise AssertionError(f"tree pair {name}: launched K2 "
+                                 f"{dk.LAUNCHES['dominated_by_rect'] - before} times, not 2")
+        cpu = win.tree_pair_merge(*(t.cpu() for t in args), out_cap)
+        if card[0].cpu().numpy().tobytes() != cpu[0].numpy().tobytes() \
+                or not torch.equal(card[1].cpu(), cpu[1]) or int(card[2]) != int(cpu[2]):
+            raise AssertionError(f"tree pair {name}: the card ({int(card[2])} rows) differs "
+                                 f"from the CPU ({int(cpu[2])} rows)")
+        checks += 1
+    special = np.array([0.0, -0.0, np.inf, np.nan, 1.0], np.float32)
+    for n, cap in ((5000, 4096), (5000, 5000), (3000, 8192)):
+        x = torch.from_numpy(special[rng.integers(0, 5, size=(n, 4))])
+        tags = torch.from_numpy(rng.integers(0, 8, size=n))
+        keep = torch.from_numpy(rng.random(n) < 0.7)
+        card = compact_tagged(x.to(dev), tags.to(dev), keep.to(dev), cap)
+        cpu = compact_tagged(x, tags, keep, cap)
+        if card[0].cpu().numpy().tobytes() != cpu[0].numpy().tobytes() or not all(
+            torch.equal(c.cpu(), w) for c, w in zip(card[1:], cpu[1:])
+        ):
+            raise AssertionError(f"compact_tagged n={n} cap={cap}: the card differs")
+        checks += 1
+    for d in (3, 8):
+        P, cap, active = 8, 4096, 2560
+        counts = torch.from_numpy(np.array([0, 1, 2500, 17, 2560, 900, 0, 44]))
+        sky = torch.full((P, cap, d), float("inf"))
+        for p in range(P):
+            rows = special[rng.integers(0, 5, (int(counts[p]), d))]
+            sky[p, : counts[p]] = torch.from_numpy(rows)
+        sky[4, :1000] = torch.from_numpy(rng.integers(0, 9, (1000, d)).astype(np.float32))
+        card = win.partition_summaries_device(sky.to(dev), counts.to(dev), active).cpu().numpy()
+        cpu = win.partition_summaries_device(sky, counts, active).numpy()
+        np.testing.assert_array_equal(card, cpu, err_msg=f"partition summaries d={d}")
+        checks += 1
+    return checks
+
+
 # -- phases 4 and 5: the engine ----------------------------------------------
 
 
@@ -575,31 +704,49 @@ GRID_3D = dict(
 )
 PARITY_ROWS = 65536
 DEVICE_PARITY_ROWS = 32768
+# the flat global merge: the tree, the merge cache and the query overlap off
+# (the reference's defaults have all three on)
+PLANE_OFF = {"SKYLINE_MERGE_TREE": "0", "SKYLINE_MERGE_CACHE": "0",
+             "SKYLINE_QUERY_OVERLAP": "0"}
+# K2 in the tree merge's pairs
+TREE_K2 = ("dominated_by_rect",)
 # the main paths: (engine configuration, rank cascade, the kernels each must
-# launch); (f) must launch none
+# launch, other knobs). Under the reference's defaults the d > 2 merge is
+# the pruned tree (K2 pairs) — (a)–(e); (g) and (h) turn the tree off, so
+# K3 and K7 (with its K4) merge at full width; (f) must launch no kernel
 PATHS = {
-    "a": (dict(NORTH_STAR, ingest="device"), True, RANK_PATH),
-    "b": (dict(NORTH_STAR, ingest="device"), False, VALUE_PATH),
-    "c": (dict(NORTH_STAR, ingest="host"), False, VALUE_PATH),
-    "d": (dict(GRID_3D, ingest="host"), False, ("dominated_by_rect", "skyline_mask_kernel")),
-    "e": (dict(NORTH_STAR, flush_policy="overlap", ingest="device"), False, VALUE_PATH),
-    "f": (dict(GRID_3D, dims=2, ingest="host"), False, ()),
+    "a": (dict(NORTH_STAR, ingest="device"), True, RANK_PATH[1:3] + TREE_K2, {}),
+    "b": (dict(NORTH_STAR, ingest="device"), False, VALUE_PATH[:2], {}),
+    "c": (dict(NORTH_STAR, ingest="host"), False, VALUE_PATH[:2], {}),
+    "d": (dict(GRID_3D, ingest="host"), False, TREE_K2, {}),
+    "e": (dict(NORTH_STAR, flush_policy="overlap", ingest="device"), False, VALUE_PATH[:2], {}),
+    "f": (dict(GRID_3D, dims=2, ingest="host"), False, (), {}),
+    "g": (dict(NORTH_STAR, ingest="device"), False, VALUE_PATH, {"SKYLINE_MERGE_TREE": "0"}),
+    "h": (dict(NORTH_STAR, ingest="device"), True, RANK_PATH, {"SKYLINE_MERGE_TREE": "0"}),
 }
+# the paths whose last engine measures the merge plane (exact hit, delta)
+PLANE_PATHS = ("b", "d", "f")
 
 
 @contextlib.contextmanager
-def rank_gate(on: bool):
-    """``SKYLINE_RANK_CASCADE`` for the duration (the port reads it at
-    flush and merge time)."""
-    old = os.environ.get("SKYLINE_RANK_CASCADE")
-    os.environ["SKYLINE_RANK_CASCADE"] = "1" if on else "0"
+def knob_env(env: dict):
+    """Environment knobs for the duration (the port reads them at flush,
+    merge and trigger time)."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     try:
         yield
     finally:
-        if old is None:
-            del os.environ["SKYLINE_RANK_CASCADE"]
-        else:
-            os.environ["SKYLINE_RANK_CASCADE"] = old
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def rank_gate(on: bool, env: dict | None = None):
+    """``SKYLINE_RANK_CASCADE`` (and ``env``) for the duration."""
+    return knob_env({"SKYLINE_RANK_CASCADE": "1" if on else "0", **(env or {})})
 
 
 def run_window(cfg, ids, x, required=0, chunk=65536):
@@ -844,6 +991,110 @@ def check_policy_parity(torch, np, devices=("cuda", "cpu")) -> dict:
     return out
 
 
+# the merge plane's counters, compared between devices
+PLANE_COUNTERS = (
+    "merge_cache_hits", "merge_cache_misses", "merge_delta_merges", "merge_delta_rows",
+    "merge_tree_merges", "merge_partitions_pruned", "last_tree_info",
+    "last_dirty_fraction",
+)
+# the plane's parity legs: (name, engine configuration, rows per window)
+PLANE_PARITY = (
+    ("north_star_8d", dict(NORTH_STAR, ingest="device"), 65536),
+    ("grid_3d", dict(GRID_3D, ingest="host"), 65536),
+)
+INTERLEAVED_PARITY = (
+    ("interleaved_grid_3d", dict(GRID_3D, buffer_size=2048, ingest="host"), 16384),
+    ("interleaved_north_star_8d", dict(NORTH_STAR, initial_capacity=0, ingest="host"), 8192),
+)
+
+
+def _drive_interleaved(cfg, n: int, seed: int = 43):
+    """Four windows through one engine, each trigger repeated (an exact
+    hit) and a quarter window more landing while the merge is in flight;
+    from the second quarter window and the third window on only the rows
+    ``partition_ids_np`` routes to the lower half of the partitions are
+    kept, so the last two triggers take delta merges. Returns (results, local sizes
+    at each result's poll, the plane's counters, wall s)."""
+    import numpy as np
+
+    from skyline_tpu_torch.parallel.partitioners import partition_ids_np
+    from skyline_tpu_torch.stream import SkylineEngine
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    rng = np.random.default_rng(seed)
+    eng = SkylineEngine(cfg)
+    P = cfg.num_partitions
+    t0 = time.perf_counter()
+    out, sizes, nid = [], [], 0
+
+    def ingest(x):
+        nonlocal nid
+        ids = np.arange(nid, nid + x.shape[0], dtype=np.int64)
+        nid += x.shape[0]
+        for s in range(0, x.shape[0], 4096):
+            eng.process_records(ids[s : s + 4096], x[s : s + 4096])
+
+    def lower_half(x):
+        return np.ascontiguousarray(x[partition_ids_np(x, cfg.algo, P, cfg.domain_max) < P // 2])
+
+    for rnd in range(4):
+        x = anti_correlated(rng, n, cfg.dims, 0, 10000)
+        ingest(lower_half(x) if rnd >= 2 else x)
+        eng.process_trigger(f"q{rnd},0")
+        eng.process_trigger(f"r{rnd},0")
+        y = anti_correlated(rng, n // 4, cfg.dims, 0, 10000)
+        ingest(lower_half(y) if rnd >= 1 else y)
+        res = eng.poll_results()
+        out += res
+        sizes += [eng.pset.sky_counts().tolist()] * len(res)
+    counters = {k: getattr(eng.pset, k) for k in PLANE_COUNTERS}
+    return out, sizes, counters, time.perf_counter() - t0
+
+
+def check_plane_parity(torch, np, devices=("cuda", "cpu")) -> dict:
+    """The merge plane, strict (every run routes on the host or on one
+    device): (1) on the card, the reference's defaults (tree, prune, cache,
+    overlap) against the flat plane (``PLANE_OFF``) over two windows of the
+    north-star and of the 3-D grid cell; (2) interleaved windows, repeated
+    triggers and half-routed chunks (``_drive_interleaved``), CUDA against
+    the CPU: every answer, local size and plane counter."""
+    from skyline_tpu_torch.stream import EngineConfig
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    rng = np.random.default_rng(47)
+    out = {}
+    for name, cfg, n in PLANE_PARITY:
+        windows = [anti_correlated(rng, n, cfg["dims"], 0, 10000) for _ in range(2)]
+        ecfg = EngineConfig(**cfg, emit_skyline_points=True, window_capacity=n,
+                            device=devices[0])
+        runs = {"plane on": _drive_windows(ecfg, windows, 16384)}
+        with knob_env(PLANE_OFF):
+            runs["plane off"] = _drive_windows(ecfg, windows, 16384)
+        _same_runs(f"plane parity {name}", runs, ("plane on", "plane off"), True)
+        out[name] = {
+            "rows_per_window": n,
+            "skyline_sizes": [r["skyline_size"] for r in runs["plane on"][0]],
+            "wall_s": {k: v[2] for k, v in runs.items()},
+        }
+        log(f"parity: {name}, plane on == plane off on the card over 2 windows of {n} rows: "
+            f"{out[name]}")
+    with rank_gate(False):
+        for name, cfg, n in INTERLEAVED_PARITY:
+            runs = {dv: _drive_interleaved(EngineConfig(**cfg, emit_skyline_points=True,
+                                                        device=dv), n) for dv in devices}
+            _same_runs(f"{name} parity", {dv: (r[0], r[1], r[3]) for dv, r in runs.items()},
+                       devices, True)
+            a, b = runs[devices[0]][2], runs[devices[1]][2]
+            if a != b:
+                raise AssertionError(f"{name} parity: plane counters {a} vs {b}")
+            if not (a["merge_cache_hits"] >= 4 and a["merge_delta_merges"] >= 1):
+                raise AssertionError(f"{name} parity: no hit or no delta merge: {a}")
+            out[name] = {"rows_per_window": n, "answers": len(runs[devices[0]][0]),
+                         "counters": a, "wall_s": {dv: r[3] for dv, r in runs.items()}}
+            log(f"parity: {name}, cuda == cpu (answers, local sizes, counters): {out[name]}")
+    return out
+
+
 def check_answer(torch, np, x: np.ndarray, pts: np.ndarray, dev) -> None:
     """Sampled soundness of a full-size answer, with plain torch on the card:
     4096 input rows are each dominated by or equal to an output row, and
@@ -872,19 +1123,95 @@ def _config(path: str, n: int, **kw):
     return EngineConfig(**PATHS[path][0], window_capacity=n, device="cuda", **kw)
 
 
+def measure_plane(torch, np, path: str, eng, n: int) -> dict:
+    """The merge plane on a path's last measured engine: (1) a repeated
+    trigger, an exact hit of the merge cache that must launch no kernel;
+    (2) one 65,536-row chunk of the same generator, keeping only the rows
+    ``partition_ids_np`` routes to the lower half of the partitions, then a
+    trigger that must take the delta merge; (3) the same state loaded into
+    a fresh set with ``load_state`` and merged with the cache off, whose
+    answer must equal the delta's byte for byte. Merge walls, launches, the
+    dirty share and the tree's shape."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+    from skyline_tpu_torch.parallel.partitioners import partition_ids_np
+    from skyline_tpu_torch.stream.batched import PartitionSet
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    cfg, ps = eng.config, eng.pset
+    P, d = cfg.num_partitions, cfg.dims
+    out = {"tree_info": ps.last_tree_info, "partitions_pruned": ps.merge_partitions_pruned,
+           "prune_witness": None if ps.last_prune_witness is None
+           else ps.last_prune_witness.tolist()}
+
+    def trigger(qid, rows=None):
+        """Launch counts and wall of (ingesting ``rows``, then) a trigger."""
+        dk.reset_launches()
+        t0 = time.perf_counter()
+        if rows is not None:
+            eng.process_records(np.arange(n, n + rows.shape[0], dtype=np.int64), rows)
+        eng.process_trigger(f"{qid},0")
+        (res,) = eng.poll_results()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3, dict(dk.LAUNCHES)
+
+    hits = ps.merge_cache_hits
+    res, wall, launches = trigger("hit")
+    if ps.merge_cache_hits != hits + 1 or any(launches.values()):
+        raise AssertionError(f"plane ({path}): the repeated trigger was no exact hit "
+                             f"({ps.merge_cache_hits - hits} hits, launches {launches})")
+    out["hit"] = {"trigger_ms": wall, "merge_ms": eng.last_merge_ms,
+                  "skyline_size": res["skyline_size"]}
+    x = anti_correlated(np.random.default_rng(5), 65536, d, 0, 10000)
+    x = np.ascontiguousarray(x[partition_ids_np(x, cfg.algo, P, cfg.domain_max) < P // 2])
+    deltas, trees = ps.merge_delta_merges, ps.merge_tree_merges
+    res, wall, launches = trigger("delta", x)
+    if ps.merge_delta_merges != deltas + 1 or not 0 < ps.last_dirty_fraction <= 0.5:
+        raise AssertionError(f"plane ({path}): the chunk's trigger took no delta merge "
+                             f"(dirty share {ps.last_dirty_fraction})")
+    if (d > 2) != (ps.merge_tree_merges == trees + 1):
+        raise AssertionError(f"plane ({path}): the delta merge at d = {d} went "
+                             f"{'not ' if d > 2 else ''}through the tree")
+    if d <= 2 and any(launches.values()):
+        raise AssertionError(f"plane ({path}): the d <= 2 delta launched {launches}")
+    out["delta"] = {"rows": int(x.shape[0]), "dirty_share": ps.last_dirty_fraction,
+                    "window_ms": wall, "flush_ms": eng.last_flush_ms,
+                    "merge_ms": eng.last_merge_ms, "skyline_size": res["skyline_size"],
+                    "delta_rows": ps.merge_delta_rows, "tree_info": ps.last_tree_info,
+                    "launches": launches}
+    got = ps.global_merge_stats(emit_points=True)  # an exact hit on the delta's result
+    sky, counts = ps.state_numpy()
+    fresh = PartitionSet(P, d, cfg.buffer_size, initial_capacity=cfg.initial_capacity,
+                         flush_policy=cfg.flush_policy, device=ps.device)
+    fresh.load_state(sky, counts)
+    with knob_env({"SKYLINE_MERGE_CACHE": "0"}):
+        want = fresh.global_merge_stats(emit_points=True)
+    if got[2] != res["skyline_size"] or got[2] != want[2] \
+            or not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])) \
+            or got[3].tobytes() != want[3].tobytes():
+        raise AssertionError(f"plane ({path}): the delta answer ({got[2]} rows) differs from "
+                             f"the recompute ({want[2]} rows)")
+    log(f"plane ({path}): exact hit {out['hit']['merge_ms']:.3f} ms merge, no launch; delta "
+        f"over {x.shape[0]} rows (dirty share {ps.last_dirty_fraction}): window "
+        f"{wall:.1f} ms, flush {eng.last_flush_ms:.1f} ms, merge {eng.last_merge_ms:.1f} ms, "
+        f"{got[2]} rows = the recompute; tree {out['tree_info']}, "
+        f"{out['partitions_pruned']} partitions pruned, witness {out['prune_witness']}")
+    return out
+
+
 def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
     """Path ``path``'s warm window and ``windows`` measured ones, launch
-    counts set to 0 just before and read just after."""
+    counts set to 0 just before and read just after; on ``PLANE_PATHS`` the
+    merge plane measured on the last engine."""
     from skyline_tpu_torch.ops import dominance_kernels as dk
     from skyline_tpu_torch.workload.generators import anti_correlated
 
-    cfg, gate, wanted = PATHS[path]
+    cfg, gate, wanted, env = PATHS[path]
     d = cfg["dims"]
     rng = np.random.default_rng(0)
     ids = np.arange(n, dtype=np.int64)
     warm_x = anti_correlated(rng, n, d, 0, 10000)
     lat, rows = [], []
-    with rank_gate(gate):
+    with rank_gate(gate, env):
         dk.reset_launches()
         warm_dt, warm_res, _ = run_window(
             _config(path, n, emit_skyline_points=True), ids, warm_x
@@ -902,6 +1229,12 @@ def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
                 f"{eng.last_flush_ms:.1f} ms, merge {eng.last_merge_ms:.1f} ms), "
                 f"skyline {res['skyline_size']}")
         launches = dict(dk.LAUNCHES)
+        tree = {"tree_merges": eng.pset.merge_tree_merges,
+                "tree_info": eng.pset.last_tree_info,
+                "partitions_pruned": eng.pset.merge_partitions_pruned}
+        if tree["tree_merges"] != (1 if d > 2 and not env else 0):
+            raise AssertionError(f"main path ({path}) ran {tree['tree_merges']} tree merges")
+        plane = measure_plane(torch, np, path, eng, n) if path in PLANE_PATHS else None
     log(f"main ({path}): warm window {warm_dt * 1e3:.1f} ms, skyline {warm_res['skyline_size']}")
     check_answer(torch, np, warm_x, np.asarray(warm_res["skyline_points"], np.float32), dev)
     missing = [k for k in wanted if launches[k] == 0]
@@ -921,12 +1254,14 @@ def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
         "launches": launches, "launches_per_window": {
             k: v / (windows + 1) for k, v in launches.items()
         },
+        "merge_env": env, **tree, "plane": plane,
     }
     log(f"main ({path}): {summary['tuples_per_s']:.0f} tuples/s, p50 window "
         f"{summary['p50_window_ms']:.1f} ms (flush {summary['p50_flush_ms']:.1f}, merge "
         f"{summary['p50_merge_ms']:.1f}) over {windows} windows of {n} rows")
     log(f"main ({path}): launches over {windows + 1} windows: "
-        f"{ {k: launches[k] for k in wanted} if wanted else launches}")
+        f"{ {k: launches[k] for k in wanted} if wanted else launches}; last window's "
+        f"tree {tree['tree_info']}, {tree['partitions_pruned']} partitions pruned")
     return summary, eng, x
 
 
@@ -940,7 +1275,7 @@ def profile_window(torch, np, path: str, n: int) -> dict:
 
     x = anti_correlated(np.random.default_rng(1), n, PATHS[path][0]["dims"], 0, 10000)
     ids = np.arange(n, dtype=np.int64)
-    with rank_gate(PATHS[path][1]):
+    with rank_gate(PATHS[path][1], PATHS[path][3]):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             dt, _, eng = run_window(_config(path, n), ids, x)
     kernels = [
@@ -1302,6 +1637,93 @@ def incremental_k2(torch, np, n: int, launches: dict, windows: int) -> dict:
     return out
 
 
+def heaviest_tree_pair(torch, n: int):
+    """One more window of path (b) with ``tree_pair_merge`` watched: the
+    inputs of its heaviest pair (the largest product of the two leaves'
+    widths), cloned."""
+    import numpy as np
+
+    from skyline_tpu_torch.stream import batched
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    real = batched.tree_pair_merge
+    best = {"work": -1, "pairs": 0}
+
+    def watch(a, apids, acnt, b, bpids, bcnt, out_cap):
+        best["pairs"] += 1
+        work = a.shape[0] * b.shape[0]
+        if work >= best["work"]:
+            best.update(work=work, a=a.clone(), acnt=acnt.clone(), b=b.clone(),
+                        bcnt=bcnt.clone())
+        return real(a, apids, acnt, b, bpids, bcnt, out_cap)
+
+    x = anti_correlated(np.random.default_rng(2), n, PATHS["b"][0]["dims"], 0, 10000)
+    batched.tree_pair_merge = watch
+    try:
+        with rank_gate(False):
+            _, _, eng = run_window(_config("b", n), np.arange(n, dtype=np.int64), x)
+    finally:
+        batched.tree_pair_merge = real
+    best["tree_info"] = eng.pset.last_tree_info
+    return best
+
+
+def tree_pair_k2(torch, np, n: int, launches: dict, windows: int) -> dict:
+    """K2 on the tree input: the heaviest pair of one north-star window,
+    its two calls — the b leaf's rows against the a leaf's, then the a
+    leaf's against the kept b rows — each side a partition skyline in
+    storage order. Each with ms, the plain version's ms, needed pairs, the
+    bound's two terms and the skipped share; plus K2's launches per window
+    on (b)."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+
+    r = heaviest_tree_pair(torch, n)
+    if not r["pairs"]:
+        raise AssertionError(f"the tree merged no pair on (b): {r['tree_info']}")
+    a, b = r["a"], r["b"]
+    dev = a.device
+    av = torch.arange(a.shape[0], device=dev) < r["acnt"]
+    bv = torch.arange(b.shape[0], device=dev) < r["bcnt"]
+    at, bt = a.T.contiguous(), b.T.contiguous()
+    keep_b = bv & ~dk.dominated_by_rect(at, av, bt)
+    calls = {"b_vs_a": (at, av, bt, bv), "a_vs_kept_b": (bt, keep_b, at, av)}
+    out = {"launches_per_window": launches["dominated_by_rect"] / windows,
+           "pairs_per_window": r["pairs"], "tree_info": r["tree_info"],
+           "valid_a_rows": int(av.sum()), "valid_b_rows": int(bv.sum()), "calls": {}}
+    total_ms = 0.0
+    for label, (xt, xv, yt, wanted) in calls.items():
+        out_k, ms, plain_ms, err = _time_pair(
+            torch, lambda: dk.dominated_by_rect(xt, xv, yt),  # noqa: B023
+            lambda: dk.dominated_by_rect_plain(xt, xv, yt), f"K2 {label}",  # noqa: B023
+        )
+        d, nx = xt.shape
+        ny = yt.shape[1]
+        pairs = _needed_pairs(torch, xt, xv, yt, out_k, wanted)
+        in_bytes = d * nx * 4 + nx + d * ny * 4
+        bound = ((in_bytes + ny) / HBM_BYTES_S * 1e3, pairs * d / FP32_FLOPS * 1e3)
+        skip = dk.tile_skip_plain(xt[None], xv[None], yt[None], dk.TILE_ROWS, dk.BLOCK_VICTIMS)
+        row = {
+            "ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "needed_pairs": pairs,
+            "bound_ms": max(bound),
+            "bound_by": "operations" if bound[1] >= bound[0] else "bytes",
+            "skipped_share": float(skip.float().mean()),
+            "shape": {"nx": nx, "ny": ny, "d": d},
+        }
+        log(f"timings: K2 tree pair {label} {row['shape']}: {ms:.3f} ms (plain "
+            f"{plain_ms:.1f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}, {pairs} "
+            f"needed pairs, {row['skipped_share']:.6f} of (block, tile) pairs skipped)")
+        if ms < row["bound_ms"]:
+            raise AssertionError(f"K2 tree pair {label} reads under its bound")
+        out["calls"][label] = row
+        total_ms += ms
+    out["pair_ms"] = total_ms
+    log(f"timings: K2 tree pair ({out['valid_a_rows']} a rows, {out['valid_b_rows']} b rows) "
+        f"{total_ms:.3f} ms, {out['pairs_per_window']} pairs and "
+        f"{out['launches_per_window']:.1f} K2 launches per window on (b); tree "
+        f"{out['tree_info']}")
+    return out
+
+
 RANK_PLANE_BAND = 16
 
 
@@ -1500,8 +1922,10 @@ def main() -> int:
         n = check_kernels(torch, np, "cuda") + check_skip_cases(torch, np, "cuda")
         m = check_merge_step(torch, np, "cuda")
         sw = check_sweep(torch, np, "cuda")
+        tr = check_tree(torch, np, "cuda")
         log(f"kernels: {n} checks equal to the plain versions, {m} merge-step rounds equal "
-            f"to the plain core, {sw} sweep checks equal to the CPU in "
+            f"to the plain core, {sw} sweep checks and {tr} tree-merge checks (tree pairs "
+            f"on K2, compact_tagged, partition summaries) equal to the CPU in "
             f"{time.perf_counter() - t0:.1f} s")
     if "parity" in args.only:
         details["parity"] = check_parity(torch, np, PARITY_ROWS)
@@ -1511,6 +1935,7 @@ def main() -> int:
         log(f"parity: device ingest, cuda vs cpu at {DEVICE_PARITY_ROWS} rows x 2 windows: "
             f"{details['device_parity']}")
         details["policy_parity"] = check_policy_parity(torch, np)
+        details["plane_parity"] = check_plane_parity(torch, np)
     table = []
     if "main" in args.only or "timings" in args.only:
         runs = {}
@@ -1522,18 +1947,30 @@ def main() -> int:
             f"{args.n}-row window of (a): {details['routing']}")
         summary_a, eng_a, x_a = runs["a"]
         summary_c, eng_c, x_c = runs["c"]
+        # each kernel's launches from a path that runs it: K3, and K7 with
+        # its K4, merge only with the tree off, on (g) and (h)
+        g_launches, h_launches = runs["g"][0]["launches"], runs["h"][0]["launches"]
+        value_launches = dict(summary_c["launches"],
+                              skyline_mask_kernel=g_launches["skyline_mask_kernel"])
+        rank_launches = dict(
+            summary_a["launches"], rank_transform=h_launches["rank_transform"],
+            skyline_mask_rank_kernel=h_launches["skyline_mask_rank_kernel"],
+        )
         w = args.windows + 1
         log(f"timings: bounds at {FP32_FLOPS / 1e12:.0f} TFLOP/s FP32 (K1-K3), "
             f"{INT32_OPS / 1e12:.1f} TOP/s INT32 compares (K5-K7: 64 per clock per SM, "
             f"CUDA C++ Programming Guide, x 132 SMs x 1.98 GHz) and "
             f"{HBM_BYTES_S / 1e12:.2f} TB/s HBM")
         with rank_gate(False):
-            table = value_timings(torch, np, eng_c, x_c, summary_c["launches"], w)
+            table = value_timings(torch, np, eng_c, x_c, value_launches, w)
         with rank_gate(True):
-            table += rank_timings(torch, np, eng_a, x_a, summary_a["launches"], w)
+            table += rank_timings(torch, np, eng_a, x_a, rank_launches, w)
         with rank_gate(False):
             inc = incremental_k2(torch, np, args.n, runs["d"][0]["launches"], w)
-        next(r for r in table if r["name"] == "dominated_by_rect")["inputs"]["incremental"] = inc
+            pair = tree_pair_k2(torch, np, args.n, runs["b"][0]["launches"], w)
+        k2_inputs = next(r for r in table if r["name"] == "dominated_by_rect")["inputs"]
+        k2_inputs["incremental"] = inc
+        k2_inputs["tree_pair"] = pair
         if args.profile:
             details["profile"] = {p: profile_window(torch, np, p, args.n) for p in PATHS}
     details["wall_s"] = time.perf_counter() - t_start

@@ -137,6 +137,15 @@ def skyline_np(x: np.ndarray) -> np.ndarray:
     return x[keep]
 
 
+def _slots(keep: torch.Tensor, capacity: int):
+    """Each row's slot in a stable compaction: (slots, count). A kept row's
+    slot is its prefix-sum position; dropped rows and kept rows past
+    ``capacity`` go to the spare slot ``capacity``."""
+    pos = torch.cumsum(keep, dim=-1) - 1
+    count = pos[..., -1] + 1 if keep.shape[-1] else keep.sum(dim=-1)
+    return torch.where(keep & (pos < capacity), pos, capacity), count
+
+
 def compact(x: torch.Tensor, keep: torch.Tensor, capacity: int):
     """Pack kept rows to the front of a fixed-size buffer, stably: kept rows
     first, in their original order (the JAX package's
@@ -150,10 +159,8 @@ def compact(x: torch.Tensor, keep: torch.Tensor, capacity: int):
 
     A prefix sum gives each kept row its slot; dropped rows scatter into one
     spare slot that is cut off, so no sort is needed."""
-    n, d = x.shape[-2], x.shape[-1]
-    pos = torch.cumsum(keep, dim=-1) - 1
-    count = pos[..., -1] + 1 if n else keep.sum(dim=-1)
-    dst = torch.where(keep & (pos < capacity), pos, capacity)
+    d = x.shape[-1]
+    dst, count = _slots(keep, capacity)
     vals = torch.full(
         (*x.shape[:-2], capacity + 1, d), PAD_VALUE, dtype=x.dtype, device=x.device
     )
@@ -162,3 +169,20 @@ def compact(x: torch.Tensor, keep: torch.Tensor, capacity: int):
     slot = torch.arange(capacity, device=x.device)
     valid = slot < torch.clamp(count, max=capacity).unsqueeze(-1)
     return vals, valid, count
+
+
+def compact_tagged(x: torch.Tensor, tags: torch.Tensor, keep: torch.Tensor, capacity: int):
+    """``compact`` threading an integer tag per row through the same stable
+    prefix-sum scatter — the tournament-tree merge carries partition ids
+    beside the survivors with it, so per-partition survivor counts fall out
+    of a segment sum at the root. The values output equals
+    ``compact(x, keep, capacity)[0]`` byte for byte; padding slots get tag 0.
+
+    x: (N, d), tags: (N,), keep: (N,) bool. Returns (values (capacity, d),
+    tags (capacity,), valid (capacity,), count)."""
+    vals, valid, count = compact(x, keep, capacity)
+    dst, _ = _slots(keep, capacity)
+    tout = torch.zeros((capacity + 1,), dtype=tags.dtype, device=tags.device)
+    tout.scatter_(0, dst, tags)
+    tout = torch.where(valid, tout[:capacity], 0)
+    return vals, tout, valid, count

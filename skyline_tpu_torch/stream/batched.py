@@ -1,10 +1,9 @@
 """Stacked partition-set state: all logical partitions' skylines in one
 ``(P, cap, d)`` device buffer.
 
-Counterpart of ``skyline_tpu/stream/batched.py`` on one device with the
-flat global merge, with host or device ingest. The semantics are
-SkylineLocalProcessor's state model (FlinkSkyline.java:214-445), under one
-of three flush policies:
+Counterpart of ``skyline_tpu/stream/batched.py`` on one device, with host
+or device ingest. The semantics are SkylineLocalProcessor's state model
+(FlinkSkyline.java:214-445), under one of three flush policies:
 
 - ``"incremental"`` (the default, as in the reference): once the largest
   partition's pending rows reach ``buffer_size`` (the processBuffer
@@ -34,11 +33,21 @@ blocks on the device (``stream/device_window.py``); with
 ``SKYLINE_RANK_CASCADE`` on, its rounds and cleanup compare dense ranks
 (K4–K7).
 
-Not ported yet (each gives results byte-identical to this flat path in the
-reference): the quantized-grid prefilter, the epoch-keyed merge cache with
-delta and tournament-tree merges (and with it the epoch bump), the
-mixed-precision passes (``SKYLINE_MIXED_PRECISION=1`` makes a flush raise)
-and the device mesh.
+The global merge is the reference's default plane (``global_merge_launch``
+and ``global_merge_harvest``): every flush advances the epochs of the
+partitions it changes; a merge over an unchanged epoch vector is an exact
+hit of the epoch-keyed cache, one over few dirty partitions a delta merge
+against the cached global skyline, and at d > 2 a merge runs as a pruned
+tournament tree (a witness prefilter, then pairs of partition skylines,
+two K2 passes a pair on a card); ``SKYLINE_MERGE_TREE=0`` gives the flat
+pass (one K3 or K7), ``SKYLINE_MERGE_CACHE=0`` a full merge at every
+trigger. Every path gives the same answer bytes.
+
+Not ported yet (each gives results byte-identical to these paths in the
+reference): the quantized-grid flush prefilter, the mixed-precision passes
+(``SKYLINE_MIXED_PRECISION=1`` makes a flush raise), ``merge_points_device``
+(the multi-GPU engine's only caller), the telemetry counters, EXPLAIN and
+the device mesh.
 
 Per-partition CPU attribution follows the reference: flush wall time is
 accounted to the set, and every partition reports the set total as its
@@ -60,12 +69,27 @@ from skyline_tpu_torch.stream.window import (
     _MIN_CAP,
     _active_bucket,
     _next_pow2,
+    extract_cached_leaf,
+    extract_sky_leaf,
+    global_merge_delta_device,
     global_merge_stats_device,
     global_points_device,
     merge_step_active,
+    partition_summaries_device,
+    prune_witness_mask,
+    tree_pair_merge,
+    tree_points_device,
+    tree_stats_device,
 )
 from skyline_tpu_torch.utils.devices import resolve_device
-from skyline_tpu_torch.utils.knobs import flush_stage_depth, refuse_mixed_precision
+from skyline_tpu_torch.utils.knobs import (
+    delta_applies,
+    flush_stage_depth,
+    merge_cache_on,
+    merge_prune_enabled,
+    merge_tree_on,
+    refuse_mixed_precision,
+)
 
 # Sequential-SFS probe block: rounds start at this size so a small-skyline
 # partition never pays big-block dominance work; the loop escalates to the
@@ -75,6 +99,36 @@ _PROBE_B = 8192
 # Device-ingest chunks are split and padded to power-of-two buckets capped
 # here.
 _CHUNK_BUCKET_MAX = 65536
+
+
+class _MergeHandle:
+    """An in-flight global merge: every kernel queued, nothing waited for.
+
+    Made by ``PartitionSet.global_merge_launch`` and consumed once by
+    ``global_merge_harvest``. It keeps the launch-time epoch, so the harvest
+    knows whether flushes landed in between. ``stats`` is a host tensor (in
+    pinned memory on a card) that ``event`` marks as landed."""
+
+    __slots__ = (
+        "key", "epoch", "emit_points", "use_cache", "cached", "result", "stats",
+        "event", "union", "keep", "root_vals", "dirty", "clean_total",
+    )
+
+    def __init__(self):
+        self.cached = False
+        self.result = None
+        self.stats = None
+        self.event = None
+        self.union = None
+        self.keep = None
+        self.root_vals = None
+        self.dirty = None
+        self.clean_total = 0
+
+    def ready(self) -> bool:
+        """True once the harvest would not wait: a cache hit, a merge on the
+        CPU (computed at launch), or a card whose stats copy has landed."""
+        return self.cached or self.event is None or self.event.query()
 
 
 class PartitionSet:
@@ -158,6 +212,27 @@ class PartitionSet:
         # set by a flush: the next merge first syncs exact counts, which
         # tighten its buckets
         self._tighten_pending = False
+        # the flushed state's version: a per-partition epoch, bumped by every
+        # flush that merges rows into the partition (and by load_state); the
+        # merge cache keys on it
+        self._epoch = np.zeros(p, dtype=np.int64)
+        # the epoch-keyed merge cache: {key, epoch, counts, surv, g, pts_dev,
+        # pts_host}
+        self._gm_cache: dict | None = None
+        self.merge_cache_hits = 0
+        self.merge_cache_misses = 0
+        self.merge_delta_merges = 0
+        self.merge_delta_rows = 0
+        self.last_dirty_fraction: float | None = None
+        # the tree's prune summaries, (host tensor, event) of a (P, 2d+2)
+        # tensor queued at flush tails, and the epoch they describe
+        self._summary: tuple | None = None
+        self._summary_epoch: np.ndarray | None = None
+        self.merge_tree_merges = 0
+        self.merge_partitions_pruned = 0
+        self.last_tree_info: dict | None = None
+        # the last prefilter's witness per partition (-1: not pruned)
+        self.last_prune_witness: np.ndarray | None = None
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
@@ -170,6 +245,24 @@ class PartitionSet:
         if self.device.type != "cuda":
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
+
+    # -- state versioning -------------------------------------------------
+
+    @property
+    def epoch(self) -> np.ndarray:
+        """Per-partition flush epochs (monotone)."""
+        return self._epoch
+
+    @property
+    def epoch_key(self) -> bytes:
+        """The identity of the flushed state: equal keys mean no flush
+        touched any partition in between."""
+        return self._epoch.tobytes()
+
+    def _bump_epoch(self, which) -> None:
+        """Advance the epochs of the partitions in ``which`` (indices, a
+        boolean mask or a slice): those a flush is about to change."""
+        self._epoch[which] += 1
 
     @staticmethod
     def _host(t: torch.Tensor) -> np.ndarray:
@@ -403,6 +496,7 @@ class PartitionSet:
         overlaps the card's; counts are read only when ``_count_ub`` plus
         the round's widths would outgrow the capacity (log-bounded)."""
         t0 = time.perf_counter_ns()
+        self._bump_epoch(self._pending_rows > 0)
         rows = self._drain_pending()
         max_rows = max(r.shape[0] for r in rows)
         B = _next_pow2(min(max_rows, max(self.buffer_size, _MIN_CAP)))
@@ -447,6 +541,7 @@ class PartitionSet:
                     staged[s] = _stage(s)
         self._counts_cache = None
         self._host_cache = None
+        self._maybe_launch_summaries()
         self.processing_ns += time.perf_counter_ns() - t0
 
     def _flush_sweep(self) -> None:
@@ -459,6 +554,10 @@ class PartitionSet:
         in the reference). d == 1 rides as (x, 0) pairs: a constant second
         dim makes 2D dominance 1D."""
         t0 = time.perf_counter_ns()
+        # the dirty set without a sync: host pending rows are known per
+        # partition; a device window may touch any partition, so it dirties
+        # all (an extra bump costs only cache reuse)
+        self._bump_epoch(slice(None) if self._dev_rows > 0 else self._pending_rows > 0)
         P, d = self.num_partitions, self.dims
         rows = self._drain_pending()
         host_vals = np.concatenate(
@@ -534,6 +633,7 @@ class PartitionSet:
         stream them through append-only SFS rounds, assembling and uploading
         each block from the host."""
         t0 = time.perf_counter_ns()
+        self._bump_epoch(self._pending_rows > 0)
         rows = self._drain_pending()
         # the host sort fixes the SFS append order, and with it the state's
         # row order: the reference's exact expression
@@ -588,6 +688,7 @@ class PartitionSet:
             dw.SORT_TAIL,
         )
         bounds = self._host(bounds_dev).astype(np.int64)
+        self._bump_epoch(np.diff(bounds) > 0)
         self._dev_rows = 0
         if tighten:
             had_old, old_counts = self._check_had_old()
@@ -836,39 +937,297 @@ class PartitionSet:
         self._host_cache = None
         if tighten:
             self._tighten_pending = True
+        self._maybe_launch_summaries()
         self.processing_ns += time.perf_counter_ns() - t0
 
     # -- global merge -------------------------------------------------------
 
     def global_merge_stats(self, emit_points: bool = False):
-        """Device-side flat global merge over the (flushed) stacked state.
+        """Device-side global merge over the (flushed) stacked state.
 
         Returns ``(counts (P,), survivors_per_partition (P,), global_count,
         points | None)`` with ONE small device->host transfer for the stats
-        (plus one bounded transfer when ``emit_points``). The merge blocks
-        until its stats arrive."""
+        (plus one bounded transfer when ``emit_points``).
+
+        The reference's defaults, each with the same answer bytes as the
+        flat pass:
+
+        - the epoch-keyed cache (``SKYLINE_MERGE_CACHE``): an unchanged
+          epoch vector answers from the cache with no kernel launch; when at
+          most ``SKYLINE_DELTA_CUTOFF`` of the partitions changed, the merge
+          runs over the cached global skyline and the dirty partitions;
+        - at d > 2 the pruned tournament tree (``SKYLINE_MERGE_TREE``,
+          ``SKYLINE_MERGE_PRUNE``): whole partitions dropped by a witness
+          prefilter, the rest merged pairwise (two K2 passes a pair on a
+          card) instead of one survivor-mask pass over the union.
+
+        This is ``global_merge_launch`` then ``global_merge_harvest``; the
+        engine's overlapped query sync calls the two apart."""
+        return self.global_merge_harvest(self.global_merge_launch(emit_points))
+
+    def global_merge_launch(self, emit_points: bool = False) -> _MergeHandle:
+        """Launch the global merge without waiting for it: every kernel (tree
+        or flat, full or delta) and the stats copy to pinned host memory are
+        queued, and the handle keeps the launch-time epoch. The caller may
+        flush more rows before the harvest."""
         if self._tighten_pending:
             # exact counts halve the pairwise work through tighter buckets
             self.sky_counts()
-        active = min(
-            self._cap, _active_bucket(max(int(self._count_ub.max()), 1))
-        )
-        # the quarter-pow2 ladder on the union too: the pass costs
-        # O(union_cap^2), so a tighter bucket is less pairwise work
-        union_cap = _active_bucket(max(int(self._count_ub.sum()), 1))
-        union, keep, stats = global_merge_stats_device(
-            self.sky, self._count_dev, active, union_cap
-        )
+        h = _MergeHandle()
+        h.emit_points = emit_points
+        h.key = self.epoch_key
+        h.epoch = self._epoch.copy()
+        h.use_cache = merge_cache_on()
+        cache = self._gm_cache if h.use_cache else None
+        if cache is not None and cache["key"] == h.key:
+            # exact hit: no flush touched any partition since this result
+            self.merge_cache_hits += 1
+            self._counts_cache = cache["counts"].copy()
+            self._count_ub = cache["counts"].copy()
+            h.cached = True
+            h.result = (
+                cache["counts"].copy(), cache["surv"].copy(), cache["g"],
+                self._cached_points() if emit_points else None,
+            )
+            return h
+        self.merge_cache_misses += 1
         P = self.num_partitions
-        svec = self._host(stats)
+        dirty = None
+        if cache is not None:
+            dirty_mask = self._epoch != cache["epoch"]
+            self.last_dirty_fraction = float(dirty_mask.sum()) / P
+            if delta_applies(self.last_dirty_fraction):
+                dirty = dirty_mask
+        elif h.use_cache:
+            self.last_dirty_fraction = 1.0  # a cold miss: everything dirty
+        use_tree = merge_tree_on(self.dims)
+        stats = None
+        if dirty is not None:
+            h.dirty = dirty
+            if use_tree:
+                stats = self._merge_tree_delta(cache, dirty, h)
+            if stats is None:
+                h.union, h.keep, stats, h.clean_total = self._merge_delta(cache, dirty)
+        else:
+            if use_tree:
+                stats = self._merge_tree_full(h)
+            if stats is None:
+                # the count upper bounds need no sync (rows past a count are
+                # invalid); the union's bucket from the SUMMED bounds keeps
+                # the pass union-sized under routing skew, on the
+                # quarter-pow2 ladder (the pass costs O(union_cap^2))
+                active = min(
+                    self._cap, _active_bucket(max(int(self._count_ub.max()), 1))
+                )
+                union_cap = _active_bucket(max(int(self._count_ub.sum()), 1))
+                h.union, h.keep, stats = global_merge_stats_device(
+                    self.sky, self._count_dev, active, union_cap
+                )
+        h.stats, h.event = self._to_host_async(stats)
+        return h
+
+    def _to_host_async(self, t: torch.Tensor):
+        """Queue a copy of ``t`` to host memory: (host tensor, event) on a
+        card — a ``non_blocking`` copy into pinned memory (a pageable copy
+        would wait) with an event recorded after it — or (t, None) on the
+        CPU, where it is already there."""
+        if self.device.type != "cuda":
+            return t, None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    @staticmethod
+    def _landed(host: torch.Tensor, event) -> np.ndarray:
+        """The host bytes of a ``_to_host_async`` copy, once it has landed."""
+        if event is not None:
+            event.synchronize()
+        return host.numpy()
+
+    def global_merge_harvest(self, handle: _MergeHandle):
+        """Wait for an in-flight merge and return ``(counts, surv, g,
+        points | None)`` — the second half of ``global_merge_stats``. The
+        live count bounds are refreshed only when no flush landed between
+        launch and harvest (stale counts would undersize later buckets)."""
+        h = handle
+        if h.cached:
+            return h.result
+        P = self.num_partitions
+        svec = self._landed(h.stats, h.event).astype(np.int64)
         counts, surv, g = svec[:P].copy(), svec[P : 2 * P].copy(), int(svec[2 * P])
+        if h.dirty is not None:
+            self.merge_delta_merges += 1
+            self.merge_delta_rows += h.clean_total + int(counts[h.dirty].sum())
         pts = None
-        if emit_points:
+        if h.use_cache:
+            # compact into the cache even without points: the next delta
+            # merge reads them. A capacity of 2 * next_pow2(g) lets every
+            # clean slice of a later delta merge (start <= g, width <=
+            # next_pow2(g)) stay in bounds. Stored under the LAUNCH key: the
+            # result describes that epoch's state even if flushes landed.
+            gcap = 2 * _next_pow2(max(g, 1))
+            if h.root_vals is not None:
+                pts_dev = tree_points_device(h.root_vals, gcap)
+            else:
+                pts_dev = global_points_device(h.union, h.keep, gcap)
+            self._gm_cache = {
+                "key": h.key, "epoch": h.epoch.copy(), "counts": counts.copy(),
+                "surv": surv.copy(), "g": g, "pts_dev": pts_dev, "pts_host": None,
+            }
+            if h.emit_points:
+                pts = self._cached_points()
+        elif h.emit_points:
             out_cap = _next_pow2(max(g, 1))
-            pts = self._host(global_points_device(union, keep, out_cap))[:g]
-        self._counts_cache = counts.copy()
-        self._count_ub = counts.copy()
+            if h.root_vals is not None:
+                pts_dev = tree_points_device(h.root_vals, out_cap)
+            else:
+                pts_dev = global_points_device(h.union, h.keep, out_cap)
+            pts = self._host(pts_dev)[:g]
+        if self.epoch_key == h.key:
+            self._counts_cache = counts.copy()
+            self._count_ub = counts.copy()
         return counts, surv, g, pts
+
+    def _merge_delta(self, cache, dirty: np.ndarray):
+        """Launch the flat dirty-subset merge (``global_merge_delta_device``)
+        against the cached global points: (union, keep, stats, rows of the
+        clean segments)."""
+        surv = cache["surv"]
+        bounds = np.concatenate(([0], np.cumsum(surv))).astype(np.int64)
+        seg = np.where(dirty, 0, surv)
+        clean_total = int(seg.sum())
+        clean_active = _active_bucket(max(int(seg.max()), 1))
+        active = min(self._cap, _active_bucket(max(int(self._count_ub[dirty].max()), 1)))
+        union_cap = _active_bucket(max(clean_total + int(self._count_ub[dirty].sum()), 1))
+        union, keep, stats = global_merge_delta_device(
+            self.sky, self._count_dev, cache["pts_dev"], bounds, active, clean_active,
+            union_cap, dirty,
+        )
+        return union, keep, stats, clean_total
+
+    # -- the pruned tournament-tree merge ---------------------------------------
+
+    def _maybe_launch_summaries(self) -> None:
+        """Flush tail: queue the per-partition prune summaries (small) so the
+        next merge's prefilter finds them landed; only where the tree and
+        the prefilter are on."""
+        if merge_tree_on(self.dims) and merge_prune_enabled():
+            self._launch_summaries()
+
+    def _launch_summaries(self) -> None:
+        active = min(self._cap, _active_bucket(max(int(self._count_ub.max()), 1)))
+        self._summary = self._to_host_async(
+            partition_summaries_device(self.sky, self._count_dev, active)
+        )
+        self._summary_epoch = self._epoch.copy()
+
+    def _tree_summaries(self) -> np.ndarray:
+        """Host (P, 2d+2) prune summaries of the CURRENT epoch: usually those
+        the last flush queued, launched again when the stamp is stale."""
+        if self._summary_epoch is None or not np.array_equal(self._summary_epoch, self._epoch):
+            self._launch_summaries()
+        return self._landed(*self._summary)
+
+    def _prune_mask(self, alive: np.ndarray) -> np.ndarray:
+        """The witness prefilter (``prune_witness_mask``); keeps each
+        partition's witness on ``last_prune_witness``."""
+        pruned, self.last_prune_witness = prune_witness_mask(
+            self._tree_summaries(), alive, self.dims
+        )
+        return pruned
+
+    def _sky_leaf(self, p: int):
+        w = min(self._cap, _active_bucket(max(int(self._count_ub[p]), 1)))
+        vals, lpids, cnt = extract_sky_leaf(self.sky, self._count_dev, p, w)
+        return vals, lpids, cnt, int(self._count_ub[p])
+
+    def _merge_tree_full(self, h: _MergeHandle):
+        """Launch the pruned tree over the current partition skylines: the
+        packed stats tensor, or None for the flat pass (no live leaf)."""
+        alive = self._count_ub > 0
+        considered = int(alive.sum())
+        npruned = 0
+        leaf_mask = alive
+        if merge_prune_enabled() and considered > 1:
+            pruned = self._prune_mask(alive)
+            npruned = int(pruned.sum())
+            leaf_mask = alive & ~pruned
+        pids = np.flatnonzero(leaf_mask)
+        if pids.size == 0:
+            return None  # empty set: the flat pass answers the zero state
+        leaves = [self._sky_leaf(int(p)) for p in pids]
+        return self._run_tree(leaves, h, npruned, considered)
+
+    def _merge_tree_delta(self, cache, dirty: np.ndarray, h: _MergeHandle):
+        """The delta merge through the tree: dirty partitions feed their
+        skylines, clean ones their cached global-survivor segments, in
+        ascending partition order (so the root equals the flat delta's
+        bytes). No prefilter: the summaries describe partition skylines,
+        not cached segments."""
+        surv = cache["surv"]
+        bounds = np.concatenate(([0], np.cumsum(surv))).astype(np.int64)
+        leaves = []
+        clean_total = 0
+        for p in range(self.num_partitions):
+            if dirty[p]:
+                if self._count_ub[p] > 0:
+                    leaves.append(self._sky_leaf(p))
+                continue
+            sw = int(surv[p])
+            if sw <= 0:
+                continue
+            clean_total += sw
+            vals, lpids, cnt = extract_cached_leaf(
+                cache["pts_dev"], int(bounds[p]), sw, p, _active_bucket(sw)
+            )
+            leaves.append((vals, lpids, cnt, sw))
+        h.clean_total = clean_total
+        if not leaves:
+            return None
+        return self._run_tree(leaves, h, 0, len(leaves))
+
+    def _run_tree(self, leaves, h: _MergeHandle, npruned: int, considered: int):
+        """Pair the leaves up a binary tree (neighbours pair, an odd tail
+        passes up), so partition order — and the flat pass's bytes — hold
+        at every level. Each node's capacity covers its children's summed
+        count bounds, so the compaction never clips."""
+        levels = 0
+        cand = [len(leaves)]
+        nodes = leaves
+        while len(nodes) > 1:
+            levels += 1
+            nxt = []
+            for i in range(0, len(nodes) - 1, 2):
+                av, ap, ac, aub = nodes[i]
+                bv, bp, bc, bub = nodes[i + 1]
+                out_cap = _active_bucket(max(aub + bub, 1))
+                vals, pids_out, cnt = tree_pair_merge(av, ap, ac, bv, bp, bc, out_cap)
+                nxt.append((vals, pids_out, cnt, min(aub + bub, out_cap)))
+            if len(nodes) % 2:
+                nxt.append(nodes[-1])
+            nodes = nxt
+            cand.append(len(nodes))
+        root_vals, root_pids, root_cnt, _ = nodes[0]
+        h.root_vals = root_vals
+        self.merge_tree_merges += 1
+        self.merge_partitions_pruned += npruned
+        self.last_tree_info = {
+            "levels": levels,
+            "partitions_pruned": npruned,
+            "candidates_per_level": cand,
+            "pruned_fraction": (npruned / considered) if considered else 0.0,
+        }
+        return tree_stats_device(self._count_dev, root_pids, root_cnt, self.num_partitions)
+
+    def _cached_points(self) -> np.ndarray:
+        """Host copy of the cached global skyline points, transferred at most
+        once per cached merge."""
+        c = self._gm_cache
+        if c["pts_host"] is None:
+            c["pts_host"] = self._host(c["pts_dev"])[: c["g"]].copy()
+        return c["pts_host"].copy()
 
     # -- state access ---------------------------------------------------------
 
@@ -924,7 +1283,7 @@ class PartitionSet:
         partition are mutually non-dominated; rows past the counts are
         ignored (stored as +inf). Pending rows (host lists and the device
         window) are dropped; the barrier bookkeeping is replaced when
-        given."""
+        given. Every epoch advances and the merge cache is dropped."""
         sky = np.asarray(sky, dtype=np.float32)
         counts = np.asarray(counts, dtype=np.int64)
         P = self.num_partitions
@@ -953,6 +1312,9 @@ class PartitionSet:
         self._pending_rows[:] = 0
         self._dev_rows = 0
         self._chunk_stats = []
+        # another world: no cached merge of the old state may be reused
+        self._bump_epoch(slice(None))
+        self._gm_cache = None
         if max_seen_id is not None:
             self.max_seen_id = np.asarray(max_seen_id, dtype=np.int64).copy()
         if records_seen is not None:

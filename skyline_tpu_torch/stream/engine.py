@@ -23,10 +23,15 @@ partition has never seen data (``max_seen_id == -1``, FlinkSkyline.java:351).
 Pending triggers are re-evaluated whenever new data reaches the partition.
 
 Every flush policy of the reference runs (``"incremental"``, the default,
-``"lazy"`` and ``"overlap"``) with a blocking flat global merge. Telemetry,
-snapshots, EXPLAIN, audit, query overlap, query timeouts and the grid
-prefilter are not ported; the reference documents its results as identical
-without them.
+``"lazy"`` and ``"overlap"``), and the global merge is the reference's
+default plane (``PartitionSet.global_merge_launch``: the epoch-keyed cache,
+delta and tree merges). With ``SKYLINE_QUERY_OVERLAP`` on (the default) a
+trigger whose barriers all pass launches the merge and returns; the result
+is harvested at the next ``process_records`` once its stats have landed,
+or, waiting for them, at the next trigger or ``poll_results`` — results
+stay in trigger order, with at most one merge in flight. Telemetry,
+snapshots, EXPLAIN, audit, query timeouts and the grid prefilter are not
+ported; the reference documents its results as identical without them.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from skyline_tpu_torch.parallel.partitioners import partition_ids_np
 from skyline_tpu_torch.stream.batched import PartitionSet, PartitionView
 from skyline_tpu_torch.stream.window import DEFAULT_BUFFER_SIZE
 from skyline_tpu_torch.utils.devices import resolve_device
+from skyline_tpu_torch.utils.knobs import query_overlap_enabled
 
 
 @dataclass
@@ -132,7 +138,8 @@ class SkylineEngine:
     ``poll_results`` (each result is a dict with the reference's JSON
     fields). ``last_flush_ms`` / ``last_merge_ms`` hold the host walls of
     the last device answer's flush and global merge; the device is
-    synchronised between the two, so each wall holds its own kernels."""
+    synchronised between the two, so each wall holds its own kernels. An
+    overlapped merge's wall is its launch plus its harvest."""
 
     def __init__(self, config: EngineConfig):
         self.config = config
@@ -170,6 +177,9 @@ class SkylineEngine:
         self._results: list[dict] = []
         self.last_flush_ms: float | None = None
         self.last_merge_ms: float | None = None
+        # the overlapped merge in flight: (query, handle, now_ms, flush wall
+        # ms, launch ms)
+        self._inflight_merge: tuple | None = None
 
     # -- data plane -------------------------------------------------------
 
@@ -193,6 +203,7 @@ class SkylineEngine:
                 for p in range(cfg.num_partitions):
                     now_ms = self._recheck_pending(p, now_ms)
             self.pset.maybe_flush()
+            self._harvest_inflight(block=False)
             return
         pids = partition_ids_np(values, cfg.algo, cfg.num_partitions, cfg.domain_max)
         # group rows by partition with one argsort (the keyBy shuffle).
@@ -215,6 +226,9 @@ class SkylineEngine:
         # the policy's automatic flush: one batched merge of every
         # partition's pending rows (incremental), or an overlap flush
         self.pset.maybe_flush()
+        # an overlapped merge whose stats landed is harvested here; one still
+        # running stays in flight (ingest never waits for it)
+        self._harvest_inflight(block=False)
 
     # -- control plane ----------------------------------------------------
 
@@ -228,6 +242,9 @@ class SkylineEngine:
         the points, when asked for) coming back to the host."""
         if now_ms is None:
             now_ms = time.time() * 1000.0
+        # an earlier overlapped merge lands before a new query dispatches:
+        # results stay in trigger order, at most one merge in flight
+        self._harvest_inflight()
         # the barrier checks below read per-partition max ids
         self.pset.sync_ingest_bookkeeping()
         qid, required = parse_trigger(payload)
@@ -328,7 +345,8 @@ class SkylineEngine:
         the global merge on the device. Equivalent to _answer x P followed
         by _finalize, but local skylines never leave the device. The flush
         wall advances the arrival clock (local phase); the merge wall rides
-        on top (global phase)."""
+        on top (global phase). With the query overlap on, the merge is only
+        launched here and its handle parked for ``_harvest_inflight``."""
         t0 = time.perf_counter_ns()
         self.pset.flush_all()
         if self.device.type == "cuda":
@@ -336,15 +354,38 @@ class SkylineEngine:
             # first count read would wait for it anyway
             torch.cuda.synchronize(self.device)
         t1 = time.perf_counter_ns()
-        counts, surv, g, pts = self.pset.global_merge_stats(
-            emit_points=self.config.emit_skyline_points
-        )
-        t2 = time.perf_counter_ns()
         self.last_flush_ms = (t1 - t0) / 1e6
-        self.last_merge_ms = (t2 - t1) / 1e6
+        emit = self.config.emit_skyline_points
+        if query_overlap_enabled():
+            handle = self.pset.global_merge_launch(emit_points=emit)
+            launch_ms = (time.perf_counter_ns() - t1) / 1e6
+            self._inflight_merge = (q, handle, now_ms, self.last_flush_ms, launch_ms)
+            return
+        counts, surv, g, pts = self.pset.global_merge_stats(emit_points=emit)
+        self.last_merge_ms = (time.perf_counter_ns() - t1) / 1e6
         self._emit_device_result(
             q, now_ms, self.last_flush_ms, self.last_merge_ms, counts, surv, g, pts
         )
+
+    def _harvest_inflight(self, block: bool = True) -> bool:
+        """Land the overlapped merge, if one is in flight. ``block=False``
+        harvests only when its stats have already landed, so ingest never
+        waits. The query's merge wall is the launch plus the harvest, as
+        the reference charges it: the time in flight ran under ingest.
+        Returns True when a result was emitted."""
+        if self._inflight_merge is None:
+            return False
+        q, handle, now_ms, flush_wall_ms, launch_ms = self._inflight_merge
+        if not block and not handle.ready():
+            return False
+        self._inflight_merge = None
+        h0 = time.perf_counter_ns()
+        counts, surv, g, pts = self.pset.global_merge_harvest(handle)
+        self.last_merge_ms = launch_ms + (time.perf_counter_ns() - h0) / 1e6
+        self._emit_device_result(
+            q, now_ms, flush_wall_ms, self.last_merge_ms, counts, surv, g, pts
+        )
+        return True
 
     def _emit_device_result(
         self, q, now_ms, flush_wall_ms, merge_ms, counts, surv, g, pts
@@ -399,5 +440,6 @@ class SkylineEngine:
     # -- results ----------------------------------------------------------
 
     def poll_results(self) -> list[dict]:
+        self._harvest_inflight()
         out, self._results = self._results, []
         return out

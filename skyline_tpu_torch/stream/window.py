@@ -1,9 +1,10 @@
-"""Capacity buckets, the incremental merge step and the flat global merge
-over the stacked state.
+"""Capacity buckets, the incremental merge step and the global merges (flat,
+delta and pruned tournament tree) over the stacked state.
 
 Counterpart of the single-device part of ``skyline_tpu/stream/window.py``
-(the merge step and the flat merge). Running skylines live on the device as
-padded power-of-two-capacity buffers; compute prefixes use a finer
+(the merge step and the merges; the flush prefilter's grid summary is not
+ported yet). Running skylines live on the device as padded
+power-of-two-capacity buffers; compute prefixes use a finer
 quarter-power-of-two ladder. The bucket arithmetic is the reference's,
 constant for constant, so both packages size every pass alike.
 
@@ -19,11 +20,17 @@ from __future__ import annotations
 import functools
 import math
 
+import numpy as np
 import torch
 
 from skyline_tpu_torch.ops.dispatch import on_cuda, skyline_mask_auto
-from skyline_tpu_torch.ops.dominance import compact, dominated_by, skyline_mask
-from skyline_tpu_torch.ops.dominance_kernels import dominated_by_rect
+from skyline_tpu_torch.ops.dominance import (
+    compact,
+    compact_tagged,
+    dominated_by,
+    skyline_mask,
+)
+from skyline_tpu_torch.ops.dominance_kernels import dominated_by_rect, row_sums
 from skyline_tpu_torch.utils.buckets import next_pow2
 from skyline_tpu_torch.utils.knobs import refuse_mixed_precision
 
@@ -164,28 +171,48 @@ def merge_step_active(
     return vals, valid, cnt
 
 
+def _gather(segments, union_cap: int, width: int):
+    """Rows of ``segments`` back to back in one (union_cap, d) buffer:
+    returns (union, origin partition (union_cap,) int64, valid (union_cap,)
+    bool). Each segment is (rows (w, d) with w <= ``width``, partition id,
+    true row count — a device scalar or a host int). No host sync: each
+    segment writes all its rows at the running device-side offset, rows
+    past its true count are +inf, each write's tail is overwritten by the
+    next segment's rows, and a ``width``-row scratch tail keeps every write
+    in bounds."""
+    first = segments[0][0]
+    d, dev = first.shape[1], first.device
+    u = torch.full((union_cap + width, d), float("inf"), dtype=first.dtype, device=dev)
+    uo = torch.zeros((union_cap + width,), dtype=torch.int64, device=dev)
+    off = torch.zeros((), dtype=torch.int64, device=dev)
+    for rows, p, count in segments:
+        idx = off + torch.arange(rows.shape[0], device=dev)
+        u.index_copy_(0, idx, rows)
+        uo.index_fill_(0, idx, p)
+        off = off + count
+    uv = torch.arange(union_cap, device=dev) < off
+    return u[:union_cap], uo[:union_cap], uv
+
+
 def gather_union(sky, counts, active: int, union_cap: int):
     """Every partition's live prefix, back to back in partition order, in
     one (union_cap, d) buffer: returns (union, origin partition (union_cap,)
     int64, valid (union_cap,) bool). No host sync: each partition writes its
     full ``active`` slice at the running device-side count offset; rows >=
-    count are +inf by the storage invariant, each write's tail is
-    overwritten by the next partition's rows, and an ``active``-row scratch
-    tail keeps every write in bounds."""
-    P, cap, d = sky.shape
-    dev = sky.device
-    scratch = union_cap + active
-    u = torch.full((scratch, d), float("inf"), dtype=sky.dtype, device=dev)
-    uo = torch.zeros((scratch,), dtype=torch.int64, device=dev)
-    ar = torch.arange(active, device=dev)
-    off = torch.zeros((), dtype=torch.int64, device=dev)
-    for p in range(P):
-        idx = off + ar
-        u.index_copy_(0, idx, sky[p, :active])
-        uo.index_fill_(0, idx, p)
-        off = off + counts[p]
-    uv = torch.arange(union_cap, device=dev) < off
-    return u[:union_cap], uo[:union_cap], uv
+    count are +inf by the storage invariant (``_gather``)."""
+    segments = [(sky[p, :active], p, counts[p]) for p in range(sky.shape[0])]
+    return _gather(segments, union_cap, active)
+
+
+def _merge_stats(u, uo, uv, counts):
+    """The survivor-mask pass over a gathered union (K3 or K7 on the card,
+    the sweep at d <= 2) and the packed stats [counts (P,),
+    survivors_per_partition (P,), global_count] as one int64 vector."""
+    keep = skyline_mask_auto(u, uv)
+    surv = torch.zeros(counts.shape[0], dtype=torch.int64, device=u.device)
+    surv.scatter_add_(0, uo, keep.to(torch.int64))
+    stats = torch.cat([counts.to(torch.int64), surv, keep.sum().reshape(1)])
+    return keep, stats
 
 
 def global_merge_stats_device(sky, counts, active: int, union_cap: int):
@@ -201,13 +228,8 @@ def global_merge_stats_device(sky, counts, active: int, union_cap: int):
     Returns (union (union_cap, d), keep (union_cap,) bool, stats) with
     stats = [counts (P,), survivors_per_partition (P,), global_count] as one
     int64 vector, so the caller syncs ONE small transfer."""
-    P = sky.shape[0]
     u, uo, uv = gather_union(sky, counts, active, union_cap)
-    keep = skyline_mask_auto(u, uv)
-    surv = torch.zeros(P, dtype=torch.int64, device=sky.device)
-    surv.scatter_add_(0, uo, keep.to(torch.int64))
-    g = keep.sum().reshape(1)
-    stats = torch.cat([counts.to(torch.int64), surv, g])
+    keep, stats = _merge_stats(u, uo, uv, counts)
     return u, keep, stats
 
 
@@ -216,3 +238,193 @@ def global_points_device(union, keep, out_cap: int):
     ``global_merge_stats_device``) to the front of an (out_cap, d) buffer
     for one bounded transfer."""
     return compact(union, keep, out_cap)[0]
+
+
+def global_merge_delta_device(
+    sky, counts, gpts, clean_bounds, active: int, clean_active: int, union_cap: int,
+    dirty,
+):
+    """Dirty-subset variant of ``global_merge_stats_device``: the union is
+    ``cached global skyline ∪ dirty partitions' current skylines``, not
+    every partition's prefix.
+
+    Exact by the merge law and transitivity: a clean partition contributes
+    its cached global survivors (a point culled at cache time had a
+    dominator in some then-skyline, and a partition skyline loses points
+    only to strict dominance by current members, so a current dominator
+    exists transitively); a dirty partition contributes its whole current
+    skyline (its cached survivors may be stale, so they are left out, which
+    also keeps a stale copy from counting twice). The union keeps the full
+    merge's order — partitions ascending, clean segments in their cached
+    (storage) order — so the answer bytes equal the full merge's.
+
+    ``dirty``: per-partition bools. ``clean_bounds``: host (P+1,) row
+    offsets of each partition's segment in ``gpts`` (the cumsum of the
+    cached survivor counts). ``active`` bounds the dirty slices,
+    ``clean_active`` the clean ones (the bucket of the widest clean
+    segment, ``_cached_rows``); every slice writes its full width at the
+    device-side running offset and advances by its true width
+    (``_gather``), so nothing waits for the host.
+
+    Returns (union, keep, stats) with the full merge's shapes and
+    meanings."""
+    segments = []
+    for p in range(sky.shape[0]):
+        if dirty[p]:
+            segments.append((sky[p, :active], p, counts[p]))
+        else:
+            lo, w = int(clean_bounds[p]), int(clean_bounds[p + 1] - clean_bounds[p])
+            segments.append((_cached_rows(gpts, lo, w, clean_active), p, w))
+    u, uo, uv = _gather(segments, union_cap, max(active, clean_active))
+    keep, stats = _merge_stats(u, uo, uv, counts)
+    return u, keep, stats
+
+
+# -- the pruned tournament-tree global merge ----------------------------------
+#
+# Instead of one survivor-mask pass over the whole union, (1) a host witness
+# prefilter over tiny per-partition summaries drops whole partitions, then
+# (2) the survivors merge pairwise up a binary tree, each pair two K2 passes
+# on a card. Every step keeps the flat merge's survivor order (partitions
+# ascending, storage order within one), so the root's bytes equal the flat
+# merge's. Orchestration is in ``stream/batched.py`` ``PartitionSet``.
+
+
+def partition_summaries_device(sky, counts, active: int):
+    """Per-partition prune summaries, (P, 2d + 2) packed as
+    ``[min_corner (d) | witness (d) | min_sum | max_sum]``.
+
+    ``witness`` is a live row of the partition — the first one of least
+    row sum (``row_sums``, the reference's addition order, and
+    ``torch.argmin``, which takes the first minimum as ``jnp.argmin``
+    does). A witness that strictly dominates another partition's least
+    corner strictly dominates all of that partition. Empty partitions
+    report +inf everywhere (and -inf as ``max_sum``): they neither prune
+    nor survive."""
+    P, cap, d = sky.shape
+    s = sky[:, :active]
+    valid = torch.arange(active, device=sky.device)[None, :] < counts[:, None]
+    inf = torch.tensor(float("inf"), dtype=sky.dtype, device=sky.device)
+    min_corner = torch.where(valid[:, :, None], s, inf).amin(dim=1)
+    raw = row_sums(s.transpose(1, 2))
+    sums = torch.where(valid, raw, inf)
+    wi = torch.argmin(sums, dim=1)
+    witness = torch.gather(s, 1, wi[:, None, None].expand(P, 1, d)).reshape(P, d)
+    witness = torch.where((counts > 0)[:, None], witness, inf)
+    min_sum = sums.amin(dim=1)
+    max_sum = torch.where(valid, raw, -inf).amax(dim=1)
+    return torch.cat([min_corner, witness, min_sum[:, None], max_sum[:, None]], dim=1)
+
+
+def prune_witness_mask(summaries: np.ndarray, alive: np.ndarray, d: int):
+    """Host O(P²·d) witness prefilter over ``partition_summaries_device``'s
+    output: partition B is pruned when some alive partition A's witness (a
+    real live row, not a bound) strictly dominates B's least corner — then
+    ``witness_k < min_corner_B_k <= b_k`` in the witnessing dimension and
+    ``<=`` in all, so it strictly dominates every row of B. Strict dominance
+    is a strict partial order, so pruning all at once is acyclic: each
+    pruned partition's chain of witnesses ends at a surviving one, at least
+    one alive partition survives, and the skyline is unchanged.
+
+    Returns ``(pruned (P,) bool, witness_of (P,) int64)``: ``witness_of[b]``
+    is the lowest alive partition whose witness first pruned b, -1 when b
+    survives."""
+    P = summaries.shape[0]
+    mins = summaries[:, :d]
+    wit = summaries[:, d : 2 * d]
+    pruned = np.zeros(P, dtype=bool)
+    witness_of = np.full(P, -1, dtype=np.int64)
+    for a in np.flatnonzero(alive):
+        w = wit[a]
+        if not np.all(np.isfinite(w)):
+            continue  # empty partition: a +inf witness prunes nothing
+        dom = np.all(w[None, :] <= mins, axis=1) & np.any(w[None, :] < mins, axis=1)
+        dom[a] = False  # a witness never beats its own least corner
+        dom &= alive
+        witness_of[dom & ~pruned] = a
+        pruned |= dom
+    return pruned, witness_of
+
+
+def extract_sky_leaf(sky, counts, p: int, width: int):
+    """Partition ``p``'s live prefix as a tree leaf: (values (width, d),
+    partition ids (width,), count). ``width`` must cover the count (the
+    caller buckets its upper bound); rows past the count are +inf. The
+    values are a copy: a flush writes ``sky`` in place, and a leaf (or a
+    one-leaf root) can outlive it while an overlapped merge is in flight."""
+    vals = sky[p, :width].clone()
+    pids = torch.full((width,), p, dtype=torch.int64, device=sky.device)
+    return vals, pids, counts[p]
+
+
+def _cached_rows(gpts, lo: int, w: int, width: int):
+    """Rows [lo, lo + w) of the cached global points as a ``width``-row
+    slice masked to +inf past ``w``: the rows beyond are the next
+    partitions' survivors, not padding. ``gpts`` must hold ``lo + width``
+    rows (the cache pads to 2 * next_pow2(g)); no slice is clamped."""
+    if lo + width > gpts.shape[0]:
+        raise ValueError(
+            f"cached points of {gpts.shape[0]} rows cannot hold a {width}-row slice at {lo}"
+        )
+    tail = torch.arange(width, device=gpts.device)[:, None] >= w
+    return torch.where(tail, float("inf"), gpts[lo : lo + width])
+
+
+def extract_cached_leaf(gpts, lo: int, w: int, p: int, width: int):
+    """A clean partition's cached global-survivor segment, rows [lo, lo +
+    w) of the cached points, as a ``width``-row tree leaf for the delta
+    merge (``_cached_rows``)."""
+    dev = gpts.device
+    pids = torch.full((width,), p, dtype=torch.int64, device=dev)
+    return _cached_rows(gpts, lo, w, width), pids, torch.tensor(w, dtype=torch.int64, device=dev)
+
+
+def tree_pair_merge(a, apids, acnt, b, bpids, bcnt, out_cap: int):
+    """Merge two tree nodes — each already a skyline — and compact the
+    survivors in [a order, b order].
+
+    Two passes suffice: a b-row that dominates an a-row cannot itself be
+    dominated by any a-row (transitivity would put two rows of one skyline
+    in dominance), so every valid a-row is a correct dominator set for b,
+    and the b-rows that survive are a correct dominator set for a. On a
+    card both passes are K2 (``dominated_by_rect``) in the kernels' (d, N)
+    layout; on the CPU the same wrapper runs its plain version.
+
+    With leaves in ascending partition order every level keeps (partition,
+    storage row) order, so the root's bytes equal the flat merge's.
+    ``out_cap`` must be >= acnt + bcnt. Partition ids ride along for the
+    root's per-partition survivor counts. Returns (values (out_cap, d),
+    partition ids (out_cap,), count)."""
+    wa, wb = a.shape[0], b.shape[0]
+    av = torch.arange(wa, device=a.device) < acnt
+    bv = torch.arange(wb, device=b.device) < bcnt
+    at, bt = a.T.contiguous(), b.T.contiguous()
+    keep_b = bv & ~dominated_by_rect(at, av, bt)
+    keep_a = av & ~dominated_by_rect(bt, keep_b, at)
+    vals, pids, _, cnt = compact_tagged(
+        torch.cat([a, b]), torch.cat([apids, bpids]), torch.cat([keep_a, keep_b]), out_cap
+    )
+    return vals, pids, cnt
+
+
+def tree_stats_device(counts, root_pids, root_cnt, num_partitions: int):
+    """The tree root in the flat merge's stats layout ``[counts (P,) |
+    survivors_per_partition (P,) | global_count]`` (int64), so the caller's
+    harvest and cache are shared. Pruned and empty partitions report 0
+    survivors."""
+    valid = torch.arange(root_pids.shape[0], device=root_pids.device) < root_cnt
+    surv = torch.zeros(num_partitions, dtype=torch.int64, device=root_pids.device)
+    surv.scatter_add_(0, torch.where(valid, root_pids, 0), valid.to(torch.int64))
+    return torch.cat([counts.to(torch.int64), surv, root_cnt.reshape(1).to(torch.int64)])
+
+
+def tree_points_device(vals, out_cap: int):
+    """The tree root's values cut or padded to ``out_cap`` rows. Rows past
+    the survivor count are already +inf (the compaction, or the sky storage
+    invariant for a one-leaf root), so this gives ``global_points_device``'s
+    bytes."""
+    w, d = vals.shape
+    if out_cap <= w:
+        return vals[:out_cap]
+    pad = torch.full((out_cap - w, d), float("inf"), dtype=vals.dtype, device=vals.device)
+    return torch.cat([vals, pad])

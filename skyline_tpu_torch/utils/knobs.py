@@ -1,9 +1,10 @@
 """Environment knobs of the port.
 
 The port's own copy of the JAX package's knob parsing
-(``skyline_tpu/analysis/registry.py`` ``parse_bool``/``env_bool``/``env_int``,
-same truthy and falsy words) and the knobs the port reads. Knobs are read
-lazily, when a flush or a merge runs, never at import.
+(``skyline_tpu/analysis/registry.py`` ``parse_bool``, ``env_bool``,
+``env_int`` and ``env_float``, same truthy and falsy words) and the knobs
+the port reads. Knobs are read lazily, when a flush or a merge runs, never
+at import.
 """
 
 from __future__ import annotations
@@ -43,22 +44,33 @@ def env_bool(name: str, default=False):
     return parse_bool(v, default)
 
 
-def env_int(name: str, default=0):
-    """The integer environment variable ``name``; an unparsable value warns
-    once and gives ``default``."""
+def _env_parsed(name: str, default, parse, what: str):
+    """The environment variable ``name`` read by ``parse``; an unset or
+    blank value gives ``default``, an unparsable one warns once (it is not
+    ``what``) and gives ``default``."""
     v = os.environ.get(name)
     if v is None or v.strip() == "":
         return default
     try:
-        return int(v)
+        return parse(v)
     except ValueError:
         if name not in _warned:
             _warned.add(name)
             warnings.warn(
-                f"ignoring {name}={v!r}: not an integer; using the default",
-                stacklevel=2,
+                f"ignoring {name}={v!r}: not {what}; using the default",
+                stacklevel=3,
             )
         return default
+
+
+def env_int(name: str, default=0):
+    """The integer environment variable ``name``."""
+    return _env_parsed(name, default, int, "an integer")
+
+
+def env_float(name: str, default=0.0):
+    """The float environment variable ``name``."""
+    return _env_parsed(name, default, float, "a number")
 
 
 def rank_cascade() -> bool:
@@ -96,3 +108,78 @@ def refuse_mixed_precision(mp: bool | None = None) -> None:
             "passes); run with it off — the passes are exact, so off changes no "
             "answer"
         )
+
+
+# -- the global-merge plane ---------------------------------------------------
+#
+# The reference reads these through its dispatch table (``skyline_tpu/ops/
+# cascade.py`` ``merge_cache_on``, ``delta_applies``, ``merge_tree_on``,
+# ``gate("partition_prune")``), where a tuner may override a knob the
+# environment left unset. The port has no tuner yet (ROADMAP.md, queue 1
+# item 9), so the environment value is the effective value.
+
+
+def merge_cache_enabled() -> bool:
+    """``SKYLINE_MERGE_CACHE``: the epoch-keyed global-merge cache — a
+    repeated trigger over unchanged state answers from the cache with no
+    kernel launch, and a partly dirty state merges the cached global skyline
+    with the dirty partitions. On by default, as in the reference; the
+    answer bytes are the same either way."""
+    return env_bool("SKYLINE_MERGE_CACHE", True)
+
+
+def delta_dirty_cutoff() -> float:
+    """``SKYLINE_DELTA_CUTOFF``: the largest share of dirty partitions the
+    delta merge takes; above it the full merge runs. 0.75 by default, as in
+    the reference; 0 turns the delta merge off and keeps the exact hit."""
+    return env_float("SKYLINE_DELTA_CUTOFF", 0.75)
+
+
+def merge_tree_enabled() -> bool:
+    """``SKYLINE_MERGE_TREE``: the pruned tournament-tree global merge at
+    d > 2 (pairs of partition skylines, two K2 passes each on a card) in
+    place of one survivor-mask pass over the whole union. On by default, as
+    in the reference; ``0`` gives the flat merge (K3 or K7 on a card) with
+    the same answer bytes."""
+    return env_bool("SKYLINE_MERGE_TREE", True)
+
+
+def merge_prune_enabled() -> bool:
+    """``SKYLINE_MERGE_PRUNE``: the witness prefilter ahead of the tree —
+    a partition whose least corner another partition's witness row strictly
+    dominates is dropped whole. On by default, as in the reference."""
+    return env_bool("SKYLINE_MERGE_PRUNE", True)
+
+
+def query_overlap_enabled() -> bool:
+    """``SKYLINE_QUERY_OVERLAP``: a trigger launches the global merge and
+    returns; the engine harvests it at the next ingest (if its stats have
+    landed), trigger or result poll. On by default, as in the reference;
+    ``0`` blocks at every trigger. The results are the same either way."""
+    return env_bool("SKYLINE_QUERY_OVERLAP", True)
+
+
+def merge_cache_on() -> bool:
+    """Whether this merge reads and fills the cache (the port's set is never
+    meshed)."""
+    return merge_cache_enabled()
+
+
+def delta_applies(dirty_fraction: float) -> bool:
+    """Whether a merge with this share of dirty partitions takes the delta
+    path."""
+    return 0.0 < dirty_fraction <= delta_dirty_cutoff()
+
+
+def merge_tree_on(d: int) -> bool:
+    """Whether the tree replaces the flat merge: d > 2 only (at d <= 2 the
+    flat merge is the sweep, cheaper than any pairwise work)."""
+    return d > 2 and merge_tree_enabled()
+
+
+def merge_path(use_tree: bool, delta: bool) -> str:
+    """The name of one merge launch's path (an exact hit is decided before
+    any of these)."""
+    if delta:
+        return "tree_delta" if use_tree else "delta"
+    return "tree" if use_tree else "flat"

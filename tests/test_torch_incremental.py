@@ -306,6 +306,18 @@ def test_engine_defaults_are_the_reference_defaults():
     assert (t.dims, t.flush_policy, t.overlap_rows) == (2, "incremental", 262144)
     eng = SkylineEngine(EngineConfig(device="cpu"))
     assert eng.pset.flush_policy == "incremental" and not eng.pset.device_ingest
+    # the global-merge plane's knobs under an empty environment
+    plane = ("SKYLINE_MERGE_CACHE", "SKYLINE_DELTA_CUTOFF", "SKYLINE_MERGE_TREE",
+             "SKYLINE_MERGE_PRUNE", "SKYLINE_QUERY_OVERLAP")
+    with pytest.MonkeyPatch.context() as mp:
+        for name in plane:
+            mp.delenv(name, raising=False)
+        for fn in ("merge_cache_enabled", "delta_dirty_cutoff", "merge_tree_enabled",
+                   "merge_prune_enabled", "query_overlap_enabled"):
+            assert getattr(knobs, fn)() == getattr(jdispatch, fn)(), fn
+        assert (knobs.merge_cache_enabled(), knobs.delta_dirty_cutoff(),
+                knobs.merge_tree_enabled(), knobs.merge_prune_enabled(),
+                knobs.query_overlap_enabled()) == (True, 0.75, True, True, True)
 
 
 # -- state across packages --------------------------------------------------------
