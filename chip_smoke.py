@@ -36,7 +36,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``tree_pair_merge`` (two K2 launches) on signed zeros, NaN and +inf
    rows, rows equal across its two sides, an empty side, a capacity of
    exactly both counts and a north-star-like pair, ``compact_tagged`` and
-   ``partition_summaries_device``;
+   ``partition_summaries_device``; the mixed-precision variants of K1–K3
+   against their plain versions and their own f32 launch, and the bf16 row
+   pre-drop kernel against its plain version (mask and count), for d in
+   {3, 8, 16} on those cases and on rows aimed at the bf16 margin (one bf16
+   ulp and the 2^-7/2^-6 bands either side, ties, signed zeros, NaN,
+   infinities, subnormals, values that round to bf16 infinity, the
+   north-star's zero rows), the merge step with ``mp`` too;
 4. parity, each on CUDA and with ``device="cpu"`` (plain versions): the
    host-ingest engine over two 65,536-row 8-D anti-correlated windows
    (same sizes, optimality and point bytes) plus a small window against
@@ -52,7 +58,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (``PLANE_OFF``) at the north-star and the 3-D grid cell, and an
    interleaved run (repeated triggers, chunks routed to half the
    partitions, ingest while a merge is in flight) CUDA against the CPU,
-   answers and plane counters;
+   answers and plane counters; the flush cascade (``CASCADE_PARITY``): the
+   card under its defaults (mp on, the grid prefilter on at d >= 3) against
+   the CPU with ``SKYLINE_MIXED_PRECISION=1`` — answers and
+   ``flush_cascade_stats()`` — for the incremental policy and both ingests
+   of the lazy and overlap policies at d = 3 and 8, and the card's cascade
+   on against off (``CASCADE_OFF``), answers;
 5. main paths at 1,000,000 rows, each one warm window and ``--windows``
    measured ones, driven in 65,536-row chunks with the trigger "0,0", under
    the reference's merge defaults (the pruned tree merge at d > 2, the
@@ -68,7 +79,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    anti-correlated, parallelism 4, mr-angle, buffer 8192, the engine's
    default incremental policy, host ingest): (d) at d = 3 (K2 merge steps
    and tree pairs), (f) at d = 2 (every flush and the merge through the
-   sweep: no dominance kernel may launch). Each prints tuples/s (all
+   sweep: no dominance kernel may launch). Under the defaults on a card the
+   value flush rounds are mixed-precision (the pre-drop kernel, K1/K2 mp)
+   and (g)'s K3 too; (i) is (b) and (k) is (g) with
+   ``SKYLINE_MIXED_PRECISION=0`` (K1/K2 and K3 in f32), (j) is (d) with the
+   flush cascade off (no grid prefilter, no bf16 pass). Each prints each
+   window's ``flush_cascade_stats()`` and the host ms of the grid
+   prefilter, tuples/s (all
    measured rows over the summed window walls), p50 window latency, flush
    and merge walls (the engine synchronises the card between them),
    launches (each of its kernels > 0) and the last window's tree; its warm
@@ -97,7 +114,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    K1–K3 and K7 (``value_inputs``, ``plane_rows``), of rank sums in a band
    of 16 for K5/K6 (``rank_plane``); each with the share of (victim block,
    dominator tile) pairs ``tile_skip_plain`` or ``rank_tile_skip_plain``
-   skips.
+   skips. The mp variants of K1–K3 are timed right after their f32 launch
+   on the same inputs (and K2 mp on (d)'s heaviest round), the pre-drop
+   kernel at the north-star round's shape (P = 8, 512 x 65,536, d = 8;
+   bound: bytes, or 5 f32 operations per tested pair and dimension).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -139,8 +159,19 @@ KERNELS = {
     "dominated_by_any_rank": ("K5", "cuda", _RANK_CU, f"{_PALLAS}:301"),
     "dominated_by_rank_rect": ("K6", "cuda", _RANK_CU, f"{_PALLAS}:335"),
     "skyline_mask_rank_kernel": ("K7", "cuda", _RANK_CU, f"{_PALLAS}:512"),
+    # the mixed-precision variants (the TPU kernels' mp, _dom_tile_mp at
+    # pallas_dominance.py:85) and the bf16 row pre-drop (XLA in the
+    # reference: ops/dominance.py strictly_dominated_bf16)
+    "dominated_by_any_mp": ("K1 mp", "cuda", _VALUE_CU, f"{_PALLAS}:380"),
+    "dominated_by_rect_mp": ("K2 mp", "cuda", _VALUE_CU, f"{_PALLAS}:418"),
+    "skyline_mask_kernel_mp": ("K3 mp", "cuda", _VALUE_CU, f"{_PALLAS}:467"),
+    "strictly_dominated_bf16_kernel": (
+        "pre-drop", "cuda", _VALUE_CU, "skyline_tpu/ops/dominance.py:87",
+    ),
 }
 VALUE_PATH = ("dominated_by_any", "dominated_by_rect", "skyline_mask_kernel")
+MP_PATH = ("dominated_by_any_mp", "dominated_by_rect_mp", "skyline_mask_kernel_mp")
+PREDROP = "strictly_dominated_bf16_kernel"
 RANK_PATH = (
     "rank_transform", "dominated_by_any_rank", "dominated_by_rank_rect",
     "skyline_mask_rank_kernel",
@@ -153,9 +184,9 @@ def log(msg: str) -> None:
 
 
 def _kernel_name(mangled: str) -> str:
-    """``_ZN<n>_GLOBAL__N_...<n>dominated_kernelILi8ELi4EEEv...`` ->
-    ``dominated_kernel<8,4>``: the last component of the nested name, with
-    its integer template arguments."""
+    """``_ZN<n>_GLOBAL__N_...<n>dominated_kernelILi8ELb1EEEv...`` ->
+    ``dominated_kernel<8,1>``: the last component of the nested name, with
+    its integer and bool template arguments."""
     if not mangled.startswith("_ZN"):
         return mangled
     pos, name = 3, mangled
@@ -163,9 +194,9 @@ def _kernel_name(mangled: str) -> str:
         start = pos + m.end()
         name = mangled[start : start + int(m.group())]
         pos = start + len(name)
-    targs = re.match(r"I((?:Li-?\d+E)+)E", mangled[pos:])
+    targs = re.match(r"I((?:L[ib]-?\d+E)+)E", mangled[pos:])
     if targs:
-        name += "<" + ",".join(re.findall(r"Li(-?\d+)E", targs.group(1))) + ">"
+        name += "<" + ",".join(re.findall(r"L[ib](-?\d+)E", targs.group(1))) + ">"
     return name
 
 
@@ -482,13 +513,116 @@ def check_kernels(torch, np, dev) -> int:
     return checks
 
 
+def _margin_rows(np, rng, d: int):
+    """(n, d) f32 rows aimed at the bf16 margin of the mp passes: a base
+    block and rows that differ from it, in one dimension or in all, by less
+    than, at and just beyond one bf16 ulp and the 2^-7 and 2^-6 bands; exact
+    ties and one-f32-ulp neighbours; -0.0/+0.0, NaN, +-inf; subnormals and
+    values just above the 1e-30 absolute term; values near the f32 maximum
+    (some round to bf16 infinity); and duplicate zero rows."""
+    f32 = np.float32
+    base = rng.uniform(1.0, 100.0, size=(64, d)).astype(f32)
+    parts = [base, base.copy(), np.nextafter(base, f32(np.inf))]
+    for scale in (2.0**-9, 2.0**-8, 2.0**-7, 2.0**-6, 2.0**-5):
+        for f in (1.0 - 2.0**-12, 1.0, 1.0 + 2.0**-12):
+            step = (base * f32(scale * f)).astype(f32)
+            one = base.copy()
+            one[:, rng.integers(0, d)] += step[:, 0]
+            parts += [base + step, base - step, one, np.nextafter(base + step, f32(np.inf))]
+    zeros = np.zeros((300, d), f32)
+    zeros[::3, 0] = -0.0
+    sub = np.full((8, d), f32(2.0**-130))
+    sub[::2] *= f32(3.0)
+    big = np.full((8, d), f32(3.39e38))
+    big[::2] = np.finfo(f32).max
+    special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1.0], f32)
+    parts += [zeros, sub, np.full((8, d), f32(1.5e-30)), np.full((8, d), f32(1e-29)), big,
+              special[rng.integers(0, 6, size=(64, d))]]
+    x = np.concatenate(parts)
+    return x[rng.permutation(x.shape[0])]
+
+
+def check_mp_kernels(torch, np, dev) -> int:
+    """The mixed-precision variants of K1, K2 and K3 against their plain
+    versions and against their own ``mp=False`` launch, exact equality, for
+    d in {3, 8, 16}, on ``_cases`` and the margin-adversarial
+    ``_margin_rows`` (alone and appended to the north-star's zero rows);
+    K1 and K2 also with P = 3; and the pre-drop kernel against its plain
+    version (``strictly_dominated_bf16``) — mask and count — on the same
+    rows, victims against the first 512 rows of the sum-sorted set, as an
+    SFS round passes them."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+
+    def same(a, b, what):
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: differ in {int((a != b).sum())} rows")
+
+    rng = np.random.default_rng(23)
+    checks = 0
+    cases = [(n, x, v) for n, x, v in _cases(torch, rng, np, dev) if x.shape[1] in (3, 8, 16)]
+    for d in (3, 8, 16):
+        m = _margin_rows(np, rng, d)
+        z = np.zeros((2000, d), np.float32)
+        for name, rows in (("margin", m), ("zeros_margin", np.concatenate([z, m[:700]]))):
+            valid = rng.random(rows.shape[0]) < 0.9
+            cases.append((f"{name}_d{d}", torch.from_numpy(rows).to(dev),
+                          torch.from_numpy(valid).to(dev)))
+    for name, x, valid in cases:
+        xt = x.T.contiguous()
+        plain = dk.dominated_by_any_plain(xt, valid)
+        same(dk.dominated_by_any(xt, valid, mp=True), plain, f"K1 mp vs plain {name}")
+        same(dk.dominated_by_any(xt, valid, mp=True), dk.dominated_by_any(xt, valid),
+             f"K1 mp vs f32 {name}")
+        keys = torch.where(valid, x.sum(-1), float("inf"))
+        order = torch.argsort(keys, stable=True)
+        st, sv = x[order].T.contiguous(), valid[order]
+        same(dk.dominated_by_any(st, sv, triangular=True, mp=True),
+             dk.dominated_by_any(st, sv, triangular=True), f"K1 mp tri vs f32 {name}")
+        cut = x.shape[0] // 3 + 1
+        xd, vd, yv = x[:cut].T.contiguous(), valid[:cut].contiguous(), x[cut:].T.contiguous()
+        k2 = dk.dominated_by_rect(xd, vd, yv, mp=True)
+        same(k2, dk.dominated_by_rect_plain(xd, vd, yv), f"K2 mp vs plain {name}")
+        same(k2, dk.dominated_by_rect(xd, vd, yv), f"K2 mp vs f32 {name}")
+        keep = dk.skyline_mask_kernel(x, valid, mp=True)
+        same(keep, dk.skyline_mask_plain(x, valid), f"K3 mp vs plain {name}")
+        same(keep, dk.skyline_mask_kernel(x, valid), f"K3 mp vs f32 {name}")
+        # the pre-drop: victims against the sum-sorted set's first 512 rows
+        dom, dv = x[order][:512].contiguous(), valid[order][:512].contiguous()
+        pre = dk.strictly_dominated_bf16_kernel(x, dom, dv)
+        want = dk.strictly_dominated_bf16_plain(x, dom, dv)
+        same(pre, want, f"pre-drop vs plain {name}")
+        if int(pre.sum()) != int(want.sum()):
+            raise AssertionError(f"pre-drop count {name}")
+        checks += 9
+    for d, P, nx, ny in ((3, 3, 777, 2049), (8, 3, 4096, 3000), (16, 3, 257, 511)):
+        rows = _margin_rows(np, rng, d)
+        xs = torch.from_numpy(rows[rng.integers(0, rows.shape[0], P * nx)]).to(dev)
+        ys = torch.from_numpy(rows[rng.integers(0, rows.shape[0], P * ny)]).to(dev)
+        x3 = xs.reshape(P, nx, d).transpose(1, 2).contiguous()
+        y3 = ys.reshape(P, ny, d).transpose(1, 2).contiguous()
+        v2 = torch.from_numpy(rng.random((P, nx)) < 0.8).to(dev)
+        same(dk.dominated_by_rect(x3, v2, y3, mp=True), dk.dominated_by_rect_plain(x3, v2, y3),
+             f"K2 mp P={P} d={d}")
+        same(dk.dominated_by_any(x3, v2, mp=True), dk.dominated_by_any_plain(x3, v2),
+             f"K1 mp P={P} d={d}")
+        # all nx dominators: more than one 512-row chunk of shared memory
+        pre = dk.strictly_dominated_bf16_kernel(ys.reshape(P, ny, d), xs.reshape(P, nx, d), v2)
+        same(pre, dk.strictly_dominated_bf16_plain(ys.reshape(P, ny, d), xs.reshape(P, nx, d), v2),
+             f"pre-drop P={P} d={d} nx={nx}")
+        checks += 3
+    return checks
+
+
 def check_merge_step(torch, np, dev, B: int = 8192) -> int:
     """The incremental merge step on the card: ``merge_step_active`` (its K2
     core) against the plain core over the same active prefix, bytes and
     counts, round after round — P = 8, batches of 8,192 rows in arrival
     order (not sum-sorted) with ragged widths, the sky the previous round's
-    output; d = 8 on a small integer domain (ties), d = 3 anti-correlated.
-    The second round outgrows the 8,192-row capacity."""
+    output; d = 8 on a small integer domain (ties), d = 3 anti-correlated;
+    with and without ``mp`` (the pre-drop kernel and K2 mp against the
+    plain pre-drop and core: bytes, counts and certified drops). The second
+    round outgrows the 8,192-row capacity."""
     from skyline_tpu_torch.stream import window as win
     from skyline_tpu_torch.workload.generators import anti_correlated
 
@@ -503,7 +637,8 @@ def check_merge_step(torch, np, dev, B: int = 8192) -> int:
         )
     ]
     checks = 0
-    for d, domain in ((8, 60), (3, 10000)):
+    for d, domain, mp in ((8, 60, False), (3, 10000, False), (8, 60, True), (3, 10000, True)):
+        certified = 0
         cap = B
         sky = torch.full((P, cap, d), float("inf"), device=dev)
         counts = torch.zeros(P, dtype=torch.int64, device=dev)
@@ -519,21 +654,28 @@ def check_merge_step(torch, np, dev, B: int = 8192) -> int:
             active = min(cap, win._active_bucket(max(int(c.max()), 1)))
             grow = win._next_pow2(max(int((c + w).max()), 1))
             valid = torch.arange(cap, device=dev)[None, :] < counts[:, None]
-            vals, _, cnt = win.merge_step_active(sky, valid, batch, bvalid, active, grow)
-            pv, _, pc = win._merge_step_core(
-                sky[:, :active], valid[:, :active], batch, bvalid, grow
+            vals, _, cnt, res = win.merge_step_active(
+                sky, valid, batch, bvalid, active, grow, mp
+            )
+            pv, _, pc, pres = win._merge_step_core(
+                sky[:, :active], valid[:, :active], batch, bvalid, grow, mp
             )
             torch.cuda.synchronize()
-            if not torch.equal(cnt, pc) or not torch.equal(vals[:, :grow], pv):
+            if not torch.equal(cnt, pc) or not torch.equal(vals[:, :grow], pv) \
+                    or not torch.equal(res, pres):
                 raise AssertionError(
-                    f"merge step d={d} round {rnd}: kernel core {cnt.tolist()} rows, plain "
-                    f"{pc.tolist()}, or other bytes"
+                    f"merge step d={d} mp={mp} round {rnd}: kernel core {cnt.tolist()} rows "
+                    f"({res.tolist()} certified), plain {pc.tolist()} ({pres.tolist()}), or "
+                    "other bytes"
                 )
             grew |= grow > cap
+            certified += int(res.sum())
             sky, counts, cap = vals, cnt, max(cap, grow)
             checks += 1
         if not grew:
             raise AssertionError(f"merge step d={d}: no round outgrew the capacity")
+        if mp and not certified:
+            raise AssertionError(f"merge step d={d} mp: the pre-drop certified nothing")
     return checks
 
 
@@ -710,20 +852,38 @@ PLANE_OFF = {"SKYLINE_MERGE_TREE": "0", "SKYLINE_MERGE_CACHE": "0",
              "SKYLINE_QUERY_OVERLAP": "0"}
 # K2 in the tree merge's pairs
 TREE_K2 = ("dominated_by_rect",)
+# the mixed-precision SFS rounds: the pre-drop, then K1 and K2 with mp
+MP_ROUNDS = (PREDROP,) + MP_PATH[:2]
+# the flush cascade off: the bf16 passes, and the grid prefilter
+MP_OFF = {"SKYLINE_MIXED_PRECISION": "0"}
+CASCADE_OFF = {"SKYLINE_MIXED_PRECISION": "0", "SKYLINE_FLUSH_PREFILTER": "0"}
 # the main paths: (engine configuration, rank cascade, the kernels each must
 # launch, other knobs). Under the reference's defaults the d > 2 merge is
-# the pruned tree (K2 pairs) — (a)–(e); (g) and (h) turn the tree off, so
-# K3 and K7 (with its K4) merge at full width; (f) must launch no kernel
+# the pruned tree (K2 pairs, no mp: the reference's tree runs mp=False) —
+# (a)–(e) — and the value flush rounds are mixed-precision on a card (the
+# pre-drop, K1/K2 mp); (g) and (h) turn the tree off, so K3 (mp) and K7
+# (with its K4) merge at full width; (f) must launch no kernel; (i) is (b)
+# and (k) is (g) with the bf16 passes off, (j) is (d) with the whole flush
+# cascade off
 PATHS = {
     "a": (dict(NORTH_STAR, ingest="device"), True, RANK_PATH[1:3] + TREE_K2, {}),
-    "b": (dict(NORTH_STAR, ingest="device"), False, VALUE_PATH[:2], {}),
-    "c": (dict(NORTH_STAR, ingest="host"), False, VALUE_PATH[:2], {}),
-    "d": (dict(GRID_3D, ingest="host"), False, TREE_K2, {}),
-    "e": (dict(NORTH_STAR, flush_policy="overlap", ingest="device"), False, VALUE_PATH[:2], {}),
+    "b": (dict(NORTH_STAR, ingest="device"), False, MP_ROUNDS + TREE_K2, {}),
+    "c": (dict(NORTH_STAR, ingest="host"), False, MP_ROUNDS + TREE_K2, {}),
+    "d": (dict(GRID_3D, ingest="host"), False, (PREDROP, MP_PATH[1]) + TREE_K2, {}),
+    "e": (dict(NORTH_STAR, flush_policy="overlap", ingest="device"), False,
+          MP_ROUNDS + TREE_K2, {}),
     "f": (dict(GRID_3D, dims=2, ingest="host"), False, (), {}),
-    "g": (dict(NORTH_STAR, ingest="device"), False, VALUE_PATH, {"SKYLINE_MERGE_TREE": "0"}),
+    "g": (dict(NORTH_STAR, ingest="device"), False, MP_ROUNDS + MP_PATH[2:],
+          {"SKYLINE_MERGE_TREE": "0"}),
     "h": (dict(NORTH_STAR, ingest="device"), True, RANK_PATH, {"SKYLINE_MERGE_TREE": "0"}),
+    "i": (dict(NORTH_STAR, ingest="device"), False, VALUE_PATH[:2], MP_OFF),
+    "j": (dict(GRID_3D, ingest="host"), False, TREE_K2, CASCADE_OFF),
+    "k": (dict(NORTH_STAR, ingest="device"), False, VALUE_PATH,
+          {"SKYLINE_MERGE_TREE": "0", **MP_OFF}),
 }
+# kernels a path must NOT launch (the knobs that turn them off)
+FORBIDDEN = {"i": MP_ROUNDS + MP_PATH[2:], "j": MP_ROUNDS + MP_PATH[2:],
+             "k": MP_ROUNDS + MP_PATH[2:]}
 # the paths whose last engine measures the merge plane (exact hit, delta)
 PLANE_PATHS = ("b", "d", "f")
 
@@ -767,9 +927,10 @@ def run_window(cfg, ids, x, required=0, chunk=65536):
     return time.perf_counter() - t0, result, eng
 
 
-def _drive_windows(cfg, windows, chunk):
+def _drive_windows(cfg, windows, chunk, cascade: list | None = None):
     """Windows back to back through one engine, a trigger after each:
-    (results, local sizes after each trigger, wall s)."""
+    (results, local sizes after each trigger, wall s); the set's
+    ``flush_cascade_stats()`` at the end appended to ``cascade`` if given."""
     import numpy as np
 
     from skyline_tpu_torch.stream import SkylineEngine
@@ -787,6 +948,8 @@ def _drive_windows(cfg, windows, chunk):
         eng.process_trigger(f"q{i},0")
         out += eng.poll_results()
         sizes.append(eng.pset.sky_counts().tolist())
+    if cascade is not None:
+        cascade.append(eng.pset.flush_cascade_stats())
     return out, sizes, time.perf_counter() - t0
 
 
@@ -988,6 +1151,68 @@ def check_policy_parity(torch, np, devices=("cuda", "cpu")) -> dict:
             "wall_s": {dv: runs[dv][2] for dv in devices},
         }
         log(f"parity: {name}, cuda == cpu over 2 windows of {n} rows: {out[name]}")
+    return out
+
+
+# the flush cascade's parity legs: (name, engine configuration, rows per
+# window); both ingests under the lazy and overlap policies, d = 3 and 8
+CASCADE_PARITY = tuple(
+    (f"{policy}_{ingest}_{d}d",
+     dict(GRID_3D if d == 3 else NORTH_STAR, flush_policy=policy, ingest=ingest,
+          buffer_size=2048 if d == 3 else 512, overlap_rows=4096, initial_capacity=0),
+     16384 if d == 3 else 8192)
+    for policy, ingests in (("incremental", ("host",)), ("lazy", ("host", "device")),
+                            ("overlap", ("host", "device")))
+    for ingest in ingests for d in (3, 8)
+)
+
+
+def check_cascade_parity(torch, np, devices=("cuda", "cpu")) -> dict:
+    """The flush cascade over two windows in one engine (the second flushes
+    against the first's grid summary): the card under its defaults (mp on,
+    the prefilter on at d >= 3) against the CPU with
+    ``SKYLINE_MIXED_PRECISION=1`` — answers strict and ``flush_cascade_stats``
+    equal (device ingest: where the card routes every row as the CPU does);
+    and on the card the cascade on against ``CASCADE_OFF``, answers strict."""
+    from skyline_tpu_torch.parallel.partitioners import partition_ids
+    from skyline_tpu_torch.stream import EngineConfig
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    rng = np.random.default_rng(53)
+    out = {}
+    with rank_gate(False):
+        for name, cfg, n in CASCADE_PARITY:
+            windows = [anti_correlated(rng, n, cfg["dims"], 0, 10000) for _ in range(2)]
+            strict = True
+            if cfg["ingest"] == "device":
+                x = torch.from_numpy(np.concatenate(windows))
+                args = (cfg["algo"], 2 * cfg["parallelism"], cfg["domain_max"])
+                strict = torch.equal(partition_ids(x.to(devices[0]), *args).cpu(),
+                                     partition_ids(x, *args))
+            runs, stats = {}, {}
+            for label, device, env in (("card", devices[0], {}),
+                                       ("cpu", devices[1], {"SKYLINE_MIXED_PRECISION": "1"}),
+                                       ("card off", devices[0], CASCADE_OFF)):
+                cascade = []
+                with knob_env(env):
+                    ecfg = EngineConfig(**cfg, emit_skyline_points=True, window_capacity=n,
+                                        device=device)
+                    runs[label] = _drive_windows(ecfg, windows, 4096, cascade)
+                stats[label] = cascade[0]
+            _same_runs(f"cascade {name} parity", runs, ("card", "cpu"), strict)
+            _same_runs(f"cascade {name} on vs off", runs, ("card", "card off"), True)
+            if strict and stats["card"] != stats["cpu"]:
+                raise AssertionError(f"cascade {name}: counters {stats['card']} on the card, "
+                                     f"{stats['cpu']} on the CPU")
+            if not stats["card"]["mixed_precision"] or stats["card off"]["bf16_resolved"]:
+                raise AssertionError(f"cascade {name}: the defaults {stats['card']}, off "
+                                     f"{stats['card off']}")
+            out[name] = {"rows_per_window": n, "strict": bool(strict), "counters": stats,
+                         "skyline_sizes": [r["skyline_size"] for r in runs["card"][0]],
+                         "wall_s": {k: v[2] for k, v in runs.items()}}
+            log(f"parity: cascade {name} over 2 windows of {n} rows, card defaults == cpu "
+                f"mp=1 (answers{', counters' if strict else ''}) == card cascade off "
+                f"(answers): counters {stats['card']}, sizes {out[name]['skyline_sizes']}")
     return out
 
 
@@ -1198,10 +1423,34 @@ def measure_plane(torch, np, path: str, eng, n: int) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def prefilter_timer():
+    """Host ms spent in the grid prefilter (``PartitionSet._prefilter_rows``,
+    numpy over every pending host row) for the duration: yields a list that
+    collects one wall per call."""
+    from skyline_tpu_torch.stream.batched import PartitionSet
+
+    real, walls = PartitionSet._prefilter_rows, []
+
+    def timed(self, rows):
+        t0 = time.perf_counter()
+        try:
+            return real(self, rows)
+        finally:
+            walls.append((time.perf_counter() - t0) * 1e3)
+
+    PartitionSet._prefilter_rows = timed
+    try:
+        yield walls
+    finally:
+        PartitionSet._prefilter_rows = real
+
+
 def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
     """Path ``path``'s warm window and ``windows`` measured ones, launch
-    counts set to 0 just before and read just after; on ``PLANE_PATHS`` the
-    merge plane measured on the last engine."""
+    counts set to 0 just before and read just after; each window's flush
+    cascade counters (``flush_cascade_stats``) and grid-prefilter host ms;
+    on ``PLANE_PATHS`` the merge plane measured on the last engine."""
     from skyline_tpu_torch.ops import dominance_kernels as dk
     from skyline_tpu_torch.workload.generators import anti_correlated
 
@@ -1211,28 +1460,33 @@ def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
     ids = np.arange(n, dtype=np.int64)
     warm_x = anti_correlated(rng, n, d, 0, 10000)
     lat, rows = [], []
-    with rank_gate(gate, env):
+    with rank_gate(gate, env), prefilter_timer() as pre_ms:
         dk.reset_launches()
         warm_dt, warm_res, _ = run_window(
             _config(path, n, emit_skyline_points=True), ids, warm_x
         )
         for w in range(windows):
             x = anti_correlated(rng, n, d, 0, 10000)
+            calls = len(pre_ms)
             dt, res, eng = run_window(_config(path, n), ids, x)
             lat.append(dt)
+            cascade = eng.pset.flush_cascade_stats()
             rows.append({
                 "window_ms": dt * 1e3, "flush_ms": eng.last_flush_ms,
                 "merge_ms": eng.last_merge_ms, "skyline_size": res["skyline_size"],
-                "local_sizes": eng.pset.sky_counts().tolist(),
+                "local_sizes": eng.pset.sky_counts().tolist(), "flush_cascade": cascade,
+                "prefilter_ms": sum(pre_ms[calls:]), "prefilter_calls": len(pre_ms) - calls,
             })
             log(f"main ({path}): window {w}: {dt * 1e3:.1f} ms (flush "
-                f"{eng.last_flush_ms:.1f} ms, merge {eng.last_merge_ms:.1f} ms), "
-                f"skyline {res['skyline_size']}")
+                f"{eng.last_flush_ms:.1f} ms, merge {eng.last_merge_ms:.1f} ms, "
+                f"flush/prefilter {rows[-1]['prefilter_ms']:.1f} ms host in "
+                f"{rows[-1]['prefilter_calls']} flushes), skyline {res['skyline_size']}; "
+                f"flush cascade {cascade}")
         launches = dict(dk.LAUNCHES)
         tree = {"tree_merges": eng.pset.merge_tree_merges,
                 "tree_info": eng.pset.last_tree_info,
                 "partitions_pruned": eng.pset.merge_partitions_pruned}
-        if tree["tree_merges"] != (1 if d > 2 and not env else 0):
+        if tree["tree_merges"] != (1 if d > 2 and env.get("SKYLINE_MERGE_TREE") != "0" else 0):
             raise AssertionError(f"main path ({path}) ran {tree['tree_merges']} tree merges")
         plane = measure_plane(torch, np, path, eng, n) if path in PLANE_PATHS else None
     log(f"main ({path}): warm window {warm_dt * 1e3:.1f} ms, skyline {warm_res['skyline_size']}")
@@ -1242,6 +1496,9 @@ def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
         raise AssertionError(f"main path ({path}) launched no {missing}")
     if not wanted and any(launches.values()):
         raise AssertionError(f"main path ({path}) must launch no dominance kernel: {launches}")
+    stray = [k for k in FORBIDDEN.get(path, ()) if launches[k]]
+    if stray:
+        raise AssertionError(f"main path ({path}) under {env} launched {stray}")
     summary = {
         "ingest": cfg["ingest"], "flush_policy": cfg["flush_policy"], "dims": d,
         "rank_cascade": gate,
@@ -1250,6 +1507,8 @@ def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
         "p50_window_ms": float(np.median(lat)) * 1e3,
         "p50_flush_ms": float(np.median([r["flush_ms"] for r in rows])),
         "p50_merge_ms": float(np.median([r["merge_ms"] for r in rows])),
+        "p50_prefilter_ms": float(np.median([r["prefilter_ms"] for r in rows])),
+        "flush_cascade": rows[-1]["flush_cascade"],
         "warm_window_ms": warm_dt * 1e3, "windows": rows,
         "launches": launches, "launches_per_window": {
             k: v / (windows + 1) for k, v in launches.items()
@@ -1258,7 +1517,9 @@ def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
     }
     log(f"main ({path}): {summary['tuples_per_s']:.0f} tuples/s, p50 window "
         f"{summary['p50_window_ms']:.1f} ms (flush {summary['p50_flush_ms']:.1f}, merge "
-        f"{summary['p50_merge_ms']:.1f}) over {windows} windows of {n} rows")
+        f"{summary['p50_merge_ms']:.1f}, flush/prefilter {summary['p50_prefilter_ms']:.1f} "
+        f"host) over {windows} windows of {n} rows under {env or 'the defaults'}; last "
+        f"window's flush cascade {summary['flush_cascade']}")
     log(f"main ({path}): launches over {windows + 1} windows: "
         f"{ {k: launches[k] for k in wanted} if wanted else launches}; last window's "
         f"tree {tree['tree_info']}, {tree['partitions_pruned']} partitions pruned")
@@ -1468,24 +1729,27 @@ def value_inputs(torch, np, eng, x_last, dev="cuda") -> dict:
 
 
 def _time_value_kernel(torch, dk, name, block_t, bvalid, sky_t, sky_ok, u, uv) -> dict:
-    """One of K1–K3 on one input: its ms against the plain version's (which
-    must agree), needed pairs, the bound's two terms, and the share of
-    (victim block, dominator tile) pairs ``tile_skip_plain`` skips."""
-    if name == "dominated_by_any":
-        kern = lambda: dk.dominated_by_any(block_t, bvalid, triangular=True)  # noqa: E731
+    """One of K1–K3 (``name`` ending in ``_mp``: its mixed-precision
+    variant) on one input: its ms against the plain version's (which must
+    agree), needed pairs, the bound's two terms, and the share of (victim
+    block, dominator tile) pairs ``tile_skip_plain`` skips."""
+    mp = name.endswith("_mp")
+    base = name.removesuffix("_mp")
+    if base == "dominated_by_any":
+        kern = lambda: dk.dominated_by_any(block_t, bvalid, triangular=True, mp=mp)  # noqa: E731
         plain = lambda: dk.dominated_by_any_plain(block_t, bvalid)  # noqa: E731
         xt, xv, yt = block_t, bvalid, block_t
-    elif name == "dominated_by_rect":
-        kern = lambda: dk.dominated_by_rect(sky_t, sky_ok, block_t)  # noqa: E731
+    elif base == "dominated_by_rect":
+        kern = lambda: dk.dominated_by_rect(sky_t, sky_ok, block_t, mp=mp)  # noqa: E731
         plain = lambda: dk.dominated_by_rect_plain(sky_t, sky_ok, block_t)  # noqa: E731
         xt, xv, yt = sky_t, sky_ok, block_t
     else:  # K3 runs its kernel over the union in sum order
-        kern = lambda: dk.skyline_mask_kernel(u, uv)  # noqa: E731
+        kern = lambda: dk.skyline_mask_kernel(u, uv, mp=mp)  # noqa: E731
         plain = lambda: dk.skyline_mask_plain(u, uv)  # noqa: E731
         order, xv = dk._sum_sorted(u, uv)
         xt = yt = u[order].T.contiguous()
     out_k, ms, plain_ms, err = _time_pair(torch, kern, plain, KERNELS[name][0])
-    if name == "skyline_mask_kernel":  # survivors; only valid rows are wanted
+    if base == "skyline_mask_kernel":  # survivors; only valid rows are wanted
         dominated, wanted = ~out_k[order], xv
     else:
         dominated, wanted = out_k, torch.ones_like(out_k)
@@ -1525,14 +1789,14 @@ def _input_rows(name, got: dict) -> dict:
 
 
 def value_timings(torch, np, eng, x_last, launches: dict, windows: int, dev="cuda") -> list:
-    """K1–K3 on the three inputs of ``value_inputs``; the table's rows are
-    the north-star ones, each with the other inputs' numbers under
-    ``inputs``."""
+    """K1–K3 and their mp variants, in turns (f32, mp) on each kernel, on
+    the three inputs of ``value_inputs``; the table's rows are the
+    north-star ones, each with the other inputs' numbers under ``inputs``."""
     from skyline_tpu_torch.ops import dominance_kernels as dk
 
     inputs = value_inputs(torch, np, eng, x_last, dev)
     table = []
-    for name in VALUE_PATH:
+    for name in (n for pair in zip(VALUE_PATH, MP_PATH) for n in pair):
         got = {
             label: _time_value_kernel(torch, dk, name, *args) for label, args in inputs.items()
         }
@@ -1616,25 +1880,88 @@ def incremental_k2(torch, np, n: int, launches: dict, windows: int) -> dict:
         in_bytes = P * (d * nx * 4 + nx + (0 if yt is xt else d * ny * 4))
         bound = ((in_bytes + P * ny) / HBM_BYTES_S * 1e3, pairs * d / FP32_FLOPS * 1e3)
         skip = dk.tile_skip_plain(xt, xv, yt, dk.TILE_ROWS, dk.BLOCK_VICTIMS)
+        # the mp variant on the same call, right after
+        mp_out = dk.dominated_by_rect(xt, xv, yt, mp=True)
+        if not torch.equal(mp_out, out_k):
+            raise AssertionError(f"K2 mp incremental {label} differs from K2")
+        mp_ms = _event_ms(torch, lambda: dk.dominated_by_rect(xt, xv, yt, mp=True), 10)  # noqa: B023
         row = {
-            "ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "needed_pairs": pairs,
-            "bound_ms": max(bound),
+            "ms": ms, "mp_ms": mp_ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "needed_pairs": pairs, "bound_ms": max(bound),
             "bound_by": "operations" if bound[1] >= bound[0] else "bytes",
             "skipped_share": float(skip.float().mean()),
             "shape": {"P": P, "nx": nx, "ny": ny, "d": d},
         }
-        log(f"timings: K2 incremental {label} {row['shape']}: {ms:.3f} ms (plain "
-            f"{plain_ms:.1f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}, {pairs} "
-            f"needed pairs, {row['skipped_share']:.6f} of (block, tile) pairs skipped)")
-        if ms < row["bound_ms"]:
+        log(f"timings: K2 incremental {label} {row['shape']}: {ms:.3f} ms, mp {mp_ms:.3f} ms "
+            f"(plain {plain_ms:.1f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+            f"{pairs} needed pairs, {row['skipped_share']:.6f} of (block, tile) pairs skipped)")
+        if min(ms, mp_ms) < row["bound_ms"]:
             raise AssertionError(f"K2 incremental {label} reads under its bound")
         out["calls"][label] = row
         total_ms += ms
+        out["round_mp_ms"] = out.get("round_mp_ms", 0.0) + mp_ms
     out["round_ms"] = total_ms
+    out["launches_mp_per_window"] = launches["dominated_by_rect_mp"] / windows
     log(f"timings: K2 incremental round (three calls; {out['valid_batch_rows']} batch rows, "
-        f"{out['valid_sky_rows']} sky rows) {total_ms:.3f} ms, "
-        f"{out['launches_per_window']:.1f} K2 launches per window on (d)")
+        f"{out['valid_sky_rows']} sky rows) {total_ms:.3f} ms, mp {out['round_mp_ms']:.3f} ms; "
+        f"{out['launches_per_window']:.1f} K2 and {out['launches_mp_per_window']:.1f} K2 mp "
+        "launches per window on (d)")
     return out
+
+
+def _predrop_tested(torch, y, x, xv) -> int:
+    """Pairs the pre-drop kernel tests on this data: each victim against the
+    dominator rows up to its first certifying one, all of them when none
+    certifies (``strictly_dominated_bf16``'s arithmetic, the matrix kept).
+    y (P, B, d), x (P, L, d), xv (P, L)."""
+    from skyline_tpu_torch.ops.dominance import bf16_round
+
+    eps = torch.tensor(2.0**-7, device=y.device)
+    tiny = torch.tensor(1e-30, device=y.device)
+    tested = 0
+    for p in range(y.shape[0]):
+        xb, yb = bf16_round(x[p]), bf16_round(y[p])
+        cert = xv[p][:, None].expand(x.shape[1], y.shape[1]).clone()
+        for k in range(y.shape[2]):
+            margin = (xb[:, None, k].abs() + yb[None, :, k].abs()) * eps + tiny
+            cert &= (yb[None, :, k] - xb[:, None, k]) > margin
+        first = torch.where(cert.any(0), cert.int().argmax(0) + 1, x.shape[1])
+        tested += int(first.sum())
+    return tested
+
+
+def predrop_timing(torch, np, eng, x_last, launches: dict, windows: int, dev="cuda") -> dict:
+    """The pre-drop kernel at the north-star round's shape: P = 8
+    partitions of 65,536 victims (each partition's second 65,536-row block
+    of its sum-sorted rows of the last window, +inf padded as the rounds
+    pad) against the first 512 rows of its skyline (path (c)'s state). ms
+    against the plain version's; bound: the bytes, or 5 f32 operations per
+    tested pair and dimension (``_predrop_tested``)."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+    from skyline_tpu_torch.parallel.partitioners import partition_ids_np
+
+    pset = eng.pset
+    P, d, B, L = pset.num_partitions, pset.dims, 65536, 512
+    pids = partition_ids_np(x_last, "mr-angle", P, NORTH_STAR["domain_max"])
+    y = np.full((P, B, d), np.inf, np.float32)
+    for p in range(P):
+        rows = x_last[pids == p]
+        rows = rows[np.argsort(rows.sum(axis=1), kind="stable")]
+        blk = rows[B : 2 * B] if rows.shape[0] >= 2 * B else rows[:B]
+        y[p, : blk.shape[0]] = blk
+    yt = torch.from_numpy(y).to(dev)
+    x = pset.sky[:, :L].contiguous()
+    xv = (torch.arange(L, device=dev)[None, :] < pset._count_dev[:, None]).contiguous()
+    out_k, ms, plain_ms, err = _time_pair(
+        torch, lambda: dk.strictly_dominated_bf16_kernel(yt, x, xv),
+        lambda: dk.strictly_dominated_bf16_plain(yt, x, xv), "pre-drop",
+    )
+    tested = _predrop_tested(torch, yt, x, xv)
+    bound = ((P * (B * d * 4 + L * d * 4 + L + B)) / HBM_BYTES_S * 1e3,
+             tested * d * 5 / FP32_FLOPS * 1e3)
+    return _row(PREDROP, launches, windows, err, ms, plain_ms, bound,
+                {"P": P, "nx": L, "ny": B, "d": d}, tested,
+                {"certified": int(out_k.sum())})
 
 
 def heaviest_tree_pair(torch, n: int):
@@ -1920,10 +2247,13 @@ def main() -> int:
     if "kernels" in args.only:
         t0 = time.perf_counter()
         n = check_kernels(torch, np, "cuda") + check_skip_cases(torch, np, "cuda")
+        mpn = check_mp_kernels(torch, np, "cuda")
         m = check_merge_step(torch, np, "cuda")
         sw = check_sweep(torch, np, "cuda")
         tr = check_tree(torch, np, "cuda")
-        log(f"kernels: {n} checks equal to the plain versions, {m} merge-step rounds equal "
+        log(f"kernels: {n} checks equal to the plain versions, {mpn} mixed-precision checks "
+            f"(K1-K3 mp equal to the plain versions and to their f32 launches, the pre-drop "
+            f"equal to its plain version), {m} merge-step rounds (with and without mp) equal "
             f"to the plain core, {sw} sweep checks and {tr} tree-merge checks (tree pairs "
             f"on K2, compact_tagged, partition summaries) equal to the CPU in "
             f"{time.perf_counter() - t0:.1f} s")
@@ -1936,6 +2266,7 @@ def main() -> int:
             f"{details['device_parity']}")
         details["policy_parity"] = check_policy_parity(torch, np)
         details["plane_parity"] = check_plane_parity(torch, np)
+        details["cascade_parity"] = check_cascade_parity(torch, np)
     table = []
     if "main" in args.only or "timings" in args.only:
         runs = {}
@@ -1947,11 +2278,18 @@ def main() -> int:
             f"{args.n}-row window of (a): {details['routing']}")
         summary_a, eng_a, x_a = runs["a"]
         summary_c, eng_c, x_c = runs["c"]
-        # each kernel's launches from a path that runs it: K3, and K7 with
-        # its K4, merge only with the tree off, on (g) and (h)
-        g_launches, h_launches = runs["g"][0]["launches"], runs["h"][0]["launches"]
-        value_launches = dict(summary_c["launches"],
-                              skyline_mask_kernel=g_launches["skyline_mask_kernel"])
+        # each kernel's launches from a path that runs it: the mp variants
+        # and the pre-drop from (c) (K3 mp from (g)); K1/K2 f32 from (i),
+        # K3 f32 from (k) — the bf16 passes off; K7 with its K4 from (h)
+        launches_of = {p: runs[p][0]["launches"] for p in runs}
+        g_launches, h_launches = launches_of["g"], launches_of["h"]
+        value_launches = dict(
+            summary_c["launches"],
+            dominated_by_any=launches_of["i"]["dominated_by_any"],
+            dominated_by_rect=launches_of["i"]["dominated_by_rect"],
+            skyline_mask_kernel=launches_of["k"]["skyline_mask_kernel"],
+            skyline_mask_kernel_mp=g_launches["skyline_mask_kernel_mp"],
+        )
         rank_launches = dict(
             summary_a["launches"], rank_transform=h_launches["rank_transform"],
             skyline_mask_rank_kernel=h_launches["skyline_mask_rank_kernel"],
@@ -1963,14 +2301,21 @@ def main() -> int:
             f"{HBM_BYTES_S / 1e12:.2f} TB/s HBM")
         with rank_gate(False):
             table = value_timings(torch, np, eng_c, x_c, value_launches, w)
+            table.append(predrop_timing(torch, np, eng_c, x_c, value_launches, w))
         with rank_gate(True):
             table += rank_timings(torch, np, eng_a, x_a, rank_launches, w)
         with rank_gate(False):
-            inc = incremental_k2(torch, np, args.n, runs["d"][0]["launches"], w)
-            pair = tree_pair_k2(torch, np, args.n, runs["b"][0]["launches"], w)
-        k2_inputs = next(r for r in table if r["name"] == "dominated_by_rect")["inputs"]
-        k2_inputs["incremental"] = inc
-        k2_inputs["tree_pair"] = pair
+            inc = incremental_k2(torch, np, args.n, launches_of["d"], w)
+            pair = tree_pair_k2(torch, np, args.n, launches_of["b"], w)
+        rows = {r["name"]: r for r in table}
+        rows["dominated_by_rect"]["inputs"]["incremental"] = inc
+        rows["dominated_by_rect"]["inputs"]["tree_pair"] = pair
+        rows["dominated_by_rect_mp"]["inputs"]["incremental"] = {
+            "round_ms": inc["round_mp_ms"], "round_f32_ms": inc["round_ms"],
+            "launches_per_window": inc["launches_mp_per_window"],
+            "calls": {k: {"ms": c["mp_ms"], "f32_ms": c["ms"], "bound_ms": c["bound_ms"]}
+                      for k, c in inc["calls"].items()},
+        }
         if args.profile:
             details["profile"] = {p: profile_window(torch, np, p, args.n) for p in PATHS}
     details["wall_s"] = time.perf_counter() - t_start

@@ -14,6 +14,13 @@
 // The layout at the surface follows the TPU kernels: coordinates transposed
 // as (P, d, N), validity one uint8 per dominator.
 //
+// The mixed-precision variant (MP = true; the TPU kernels' static mp flag,
+// pallas_dominance.py _tile_body and _dom_tile_mp) classifies each pair
+// first with a packed bf16 margin test and runs the f32 predicate only for
+// the pairs it leaves undecided (step 7 below). The same source holds the
+// row pre-drop of the mixed-precision flush (predrop_kernel, step 8), the
+// reference's strictly_dominated_bf16 (XLA there, ops/dominance.py).
+//
 // What bounds it: FP32 compares over the pairs the data needs — d compares
 // a pair for all(<=), and d more for any(<) only in the rows where some lane
 // of the warp found all(<=) — for the pairs no summary can rule out; the
@@ -80,11 +87,43 @@
 //    victims are decided. Nothing is carried between blocks, so the output
 //    needs no atomics.
 //
+// 7. MP: the thread's two victims are the two halves of a __nv_bfloat162,
+//    so one packed subtract, add and multiply serve both pairs. Per
+//    dimension, with xb, yb the values rounded to bf16 (round to nearest
+//    even), t = xb - yb and m = 2^-6 * |xb| + c_y, c_y = 2^-6 * |yb| + tiny
+//    (per victim, once), all rounded to bf16:
+//      certain        t < -m in every dimension  -> x dominates y;
+//      decided-false  t > m in some dimension    -> x does not;
+//      undecided      anything else              -> the f32 predicate.
+//    Soundness. Rounding to bf16 moves a value by at most u = 2^-8 of its
+//    magnitude (a subnormal by 2^-134; 2^-126 were it flushed), and each
+//    bf16 operation is correctly rounded, so t = (xb - yb)(1 + e), |e| <= u,
+//    and m >= (2^-6 S + tiny)(1 - u)^2 with S = |xb| + |yb|. Then
+//    t < -m gives x_k - y_k <= t / (1 + u) + u S + 2^-125
+//              < -m / (1 + u) + u S + 2^-125
+//              <= -(0.988 * 2^-6 - 2^-8) S - 0.98 tiny + 2^-125 < 0,
+//    so x_k < y_k in f32 in every dimension: x dominates y. t > m gives
+//    x_k > y_k the same way, which fails all(<=). An overflow of t to
+//    +-inf keeps its sign and |t| > 2^-8 S. Any infinite xb or yb (a finite
+//    f32 near its maximum can round to bf16 infinity) makes m infinite and
+//    the pair undecided, and NaN fails every comparison: undecided. tiny is
+//    bf16(1e-30) = 9.984e-31 (bits 0x0DA2); 2^-6 is 4x the 2^-8 bound, the
+//    TPU kernel's _BF16_K_EPS. So the output equals the f32 kernel's, bit
+//    for bit; the summary pass, the skip rule and the ring are shared.
+// 8. predrop_kernel: the ≤ 512-row dominator prefix, rounded to bf16, in
+//    shared memory (16 KB at d = 8); one victim a thread, the reference's
+//    f32 arithmetic on the rounded values operation for operation
+//    (__fadd_rn/__fmul_rn/__fsub_rn, so nothing is contracted), stopping at
+//    the first certifying row. It writes one uint8 a victim. Bound: bytes
+//    when the first rows certify (the north-star zeros), else the 5 f32
+//    operations of each tested pair and dimension.
+//
 // Semantics match the plain PyTorch predicate (ops/dominance.py) bit for
 // bit, NaN and infinities included: the predicate is written as
 // all(<=) && any(<), never as min/max of differences. Build without
 // --use_fast_math: flush-to-zero would turn a tiny x_k < y_k into equality.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -98,6 +137,16 @@ constexpr int WARPS = THREADS / 32;
 constexpr int STAGES = 3;     // tiles in flight in the shared-memory ring
 constexpr int CHUNK = 2048;   // tile indices scanned per survivor list
 constexpr unsigned FULL = 0xffffffffu;
+// the bf16 margin of step 7: 2^-6 and bf16(1e-30), as bit patterns
+constexpr unsigned short MP_EPS_BITS = 0x3C80;
+constexpr unsigned short MP_TINY_BITS = 0x0DA2;
+// the pre-drop (step 8): threads a block, dominator rows a shared chunk,
+// and its f32 margin, the reference's _BF16_EPS and _BF16_TINY
+constexpr int PRE_THREADS = 256;
+constexpr int PRE_ROWS = 512;
+constexpr float PRE_EPS = 0.0078125f;  // 2^-7
+constexpr float PRE_TINY = 1e-30f;
+static_assert(V == 2, "the bf16 first pass packs two victims a thread");
 
 // floats per dominator row in shared memory (16-byte rows), and per summary
 // (d bounds, then the sum, 16-byte aligned)
@@ -259,11 +308,45 @@ __device__ __forceinline__ bool skip_tile(const float* lo, const float* hi) {
   return gt | ge;
 }
 
-// Step 5: every row of one tile against this thread's V victims; a warp
-// whose victims are all decided stops (checked every 32 rows).
+__device__ __forceinline__ __nv_bfloat162 bf16x2_of(unsigned short bits) {
+  return __bfloat162bfloat162(__ushort_as_bfloat16(bits));
+}
+
+// Step 7: the bf16 classification of one dominator row a[] against the
+// thread's two victims (yb: their bf16 values, low half victim 0; cy: their
+// 2^-6 |yb| + tiny). Certain pairs set dom; need marks the undecided pairs
+// of victims not yet dominated.
 template <int D>
+__device__ __forceinline__ void mp_classify(const float* a, const __nv_bfloat162 (&yb)[D],
+                                            const __nv_bfloat162 (&cy)[D], bool (&dom)[V],
+                                            bool (&need)[V]) {
+  const __nv_bfloat162 eps = bf16x2_of(MP_EPS_BITS);
+  bool lt0 = true, lt1 = true, gt0 = false, gt1 = false;
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    const __nv_bfloat162 xb = __float2bfloat162_rn(a[k]);
+    const __nv_bfloat162 m = __hadd2(__hmul2(__habs2(xb), eps), cy[k]);
+    const __nv_bfloat162 nm = __hneg2(m);
+    const __nv_bfloat162 t = __hsub2(xb, yb[k]);
+    lt0 = lt0 & __hlt(__low2bfloat16(t), __low2bfloat16(nm));
+    lt1 = lt1 & __hlt(__high2bfloat16(t), __high2bfloat16(nm));
+    gt0 = gt0 | __hgt(__low2bfloat16(t), __low2bfloat16(m));
+    gt1 = gt1 | __hgt(__high2bfloat16(t), __high2bfloat16(m));
+  }
+  dom[0] = dom[0] | lt0;
+  dom[1] = dom[1] | lt1;
+  need[0] = !(lt0 | gt0) & !dom[0];
+  need[1] = !(lt1 | gt1) & !dom[1];
+}
+
+// Step 5: every row of one tile against this thread's V victims; a warp
+// whose victims are all decided stops (checked every 32 rows). MP: the bf16
+// classification first, the f32 predicate for the undecided pairs only.
+template <int D, bool MP>
 __device__ __forceinline__ void compare_tile(const float4* __restrict__ tile,
                                              const float (&yv)[V][D + 1],
+                                             const __nv_bfloat162 (&yb)[D],
+                                             const __nv_bfloat162 (&cy)[D],
                                              const bool (&open)[V], bool (&dom)[V],
                                              bool& pending) {
   constexpr int Q = Geo<D>::DP / 4;
@@ -280,25 +363,42 @@ __device__ __forceinline__ void compare_tile(const float4* __restrict__ tile,
         a[4 * q + 2] = f.z;
         a[4 * q + 3] = f.w;
       }
-      // all(<=) first; any(<) only where some lane of the warp found one:
-      // on data that is not mostly duplicates that is rare, and d compares
-      // a pair are saved
-      bool le[V];
-      bool any_le = false;
+      if constexpr (MP) {
+        bool need[V];
+        mp_classify<D>(a, yb, cy, dom, need);
+        if (__any_sync(FULL, need[0] | need[1])) {
 #pragma unroll
-      for (int v = 0; v < V; ++v) {
-        le[v] = true;
+          for (int v = 0; v < V; ++v) {
+            bool le = need[v], lt = false;
 #pragma unroll
-        for (int k = 0; k < D; ++k) le[v] = le[v] & (a[k] <= yv[v][k]);
-        any_le = any_le | le[v];
-      }
-      if (__any_sync(FULL, any_le)) {
+            for (int k = 0; k < D; ++k) {
+              le = le & (a[k] <= yv[v][k]);
+              lt = lt | (a[k] < yv[v][k]);
+            }
+            dom[v] = dom[v] | (le & lt);
+          }
+        }
+      } else {
+        // all(<=) first; any(<) only where some lane of the warp found one:
+        // on data that is not mostly duplicates that is rare, and d compares
+        // a pair are saved
+        bool le[V];
+        bool any_le = false;
 #pragma unroll
         for (int v = 0; v < V; ++v) {
-          bool lt = false;
+          le[v] = true;
 #pragma unroll
-          for (int k = 0; k < D; ++k) lt = lt | (a[k] < yv[v][k]);
-          dom[v] = dom[v] | (le[v] & lt);
+          for (int k = 0; k < D; ++k) le[v] = le[v] & (a[k] <= yv[v][k]);
+          any_le = any_le | le[v];
+        }
+        if (__any_sync(FULL, any_le)) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            bool lt = false;
+#pragma unroll
+            for (int k = 0; k < D; ++k) lt = lt | (a[k] < yv[v][k]);
+            dom[v] = dom[v] | (le[v] & lt);
+          }
         }
       }
     }
@@ -327,7 +427,7 @@ constexpr size_t smem_bytes() {
 // the tile's summary against each of its undecided victims alone (a set of
 // one: the proof of step 2 holds for it), and a warp compares a tile only
 // when some lane found a victim the summary does not rule out.
-template <int D>
+template <int D, bool MP>
 __global__ void __launch_bounds__(THREADS)
 dominated_kernel(const float* __restrict__ xr, const float* __restrict__ tsum,
                  const float* __restrict__ bsum, const float* __restrict__ y,
@@ -370,6 +470,17 @@ dominated_kernel(const float* __restrict__ xr, const float* __restrict__ tsum,
     yv[v][D] = isnan(s) ? INFINITY : s;
     dom[v] = false;
     pending = pending | open[v];
+  }
+  // MP: the victims' bf16 values, packed (low half victim 0), and their
+  // share of the margin, 2^-6 |yb| + tiny (step 7)
+  __nv_bfloat162 yb[D], cy[D];
+  if constexpr (MP) {
+    const __nv_bfloat162 eps = bf16x2_of(MP_EPS_BITS), tiny = bf16x2_of(MP_TINY_BITS);
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      yb[k] = __floats2bfloat162_rn(yv[0][k], yv[1][k]);
+      cy[k] = __hadd2(__hmul2(__habs2(yb[k]), eps), tiny);
+    }
   }
   float hi[SW];
   load_summary<D>(bs, hi);
@@ -422,7 +533,8 @@ dominated_kernel(const float* __restrict__ xr, const float* __restrict__ tsum,
       for (int v = 0; v < V; ++v)
         need = need | (open[v] & !dom[v] & !skip_tile<D>(lo, yv[v]));
       if (__any_sync(FULL, need))
-        compare_tile<D>(ring + (it % STAGES) * TILE_F4, yv, open, dom, pending);
+        compare_tile<D, MP>(ring + (it % STAGES) * TILE_F4, yv, yb, cy, open, dom,
+                            pending);
       // also the barrier before stage (it % STAGES) is refilled
       if (!__syncthreads_or(pending)) break;
     }
@@ -436,9 +548,23 @@ dominated_kernel(const float* __restrict__ xr, const float* __restrict__ tsum,
   }
 }
 
+template <int D, bool MP>
+cudaError_t launch_compare(const float* xr, const float* tsum, const float* bsum,
+                           const float* y, uint8_t* out, int P, int ny, int ntiles,
+                           int nblocks, cudaStream_t stream) {
+  // above 48 KB, dynamic shared memory must be asked for
+  const size_t smem = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      dominated_kernel<D, MP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dominated_kernel<D, MP><<<dim3(nblocks, P), THREADS, smem, stream>>>(
+      xr, tsum, bsum, y, out, ny, ntiles, nblocks);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch(const float* x, const uint8_t* xv, const float* y, uint8_t* out,
-                   float* xr, float* tsum, float* bsum, int P, int nx, int ny,
+                   float* xr, float* tsum, float* bsum, int P, int nx, int ny, bool mp,
                    cudaStream_t stream) {
   const int ntiles = (nx + TILE - 1) / TILE;
   const int nblocks = (ny + V * THREADS - 1) / (V * THREADS);
@@ -446,13 +572,64 @@ cudaError_t launch(const float* x, const uint8_t* xv, const float* y, uint8_t* o
       x, xv, y, xr, tsum, bsum, nx, ny, ntiles, nblocks, V * THREADS);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  // above 48 KB, dynamic shared memory must be asked for
-  const size_t smem = smem_bytes<D>();
-  err = cudaFuncSetAttribute(dominated_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dominated_kernel<D><<<dim3(nblocks, P), THREADS, smem, stream>>>(
-      xr, tsum, bsum, y, out, ny, ntiles, nblocks);
+  return mp ? launch_compare<D, true>(xr, tsum, bsum, y, out, P, ny, ntiles, nblocks,
+                                      stream)
+            : launch_compare<D, false>(xr, tsum, bsum, y, out, P, ny, ntiles, nblocks,
+                                       stream);
+}
+
+// Step 8. grid (ceil(ny / PRE_THREADS), P): victim j of partition p is
+// certainly strictly dominated by a valid dominator row, by the reference's
+// strictly_dominated_bf16 arithmetic. y (P, ny, D) and x (P, nx, D)
+// row-major; an invalid dominator's first coordinate is stored as NaN,
+// which fails every margin test.
+template <int D>
+__global__ void __launch_bounds__(PRE_THREADS)
+predrop_kernel(const float* __restrict__ y, const float* __restrict__ x,
+               const uint8_t* __restrict__ xv, uint8_t* __restrict__ out, int nx, int ny) {
+  __shared__ float xs[PRE_ROWS * D];
+  const int p = blockIdx.y;
+  const int j = blockIdx.x * PRE_THREADS + threadIdx.x;
+  y += (size_t)p * ny * D;
+  x += (size_t)p * nx * D;
+  xv += (size_t)p * nx;
+  const bool live = j < ny;
+  float yb[D], ay[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    yb[k] = live ? __bfloat162float(__float2bfloat16_rn(y[(size_t)j * D + k])) : NAN;
+    ay[k] = fabsf(yb[k]);
+  }
+  bool found = false;
+  for (int c0 = 0; c0 < nx; c0 += PRE_ROWS) {
+    const int rows = min(PRE_ROWS, nx - c0);
+    __syncthreads();  // every thread is done with the previous chunk
+    for (int e = threadIdx.x; e < rows * D; e += PRE_THREADS) {
+      float v = __bfloat162float(__float2bfloat16_rn(x[(size_t)c0 * D + e]));
+      if (e % D == 0 && !xv[c0 + e / D]) v = NAN;
+      xs[e] = v;
+    }
+    __syncthreads();
+    for (int i = 0; i < rows && !found; ++i) {
+      bool all = true;
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        const float xb = xs[i * D + k];
+        const float m =
+            __fadd_rn(__fmul_rn(PRE_EPS, __fadd_rn(fabsf(xb), ay[k])), PRE_TINY);
+        all = all & (__fsub_rn(yb[k], xb) > m);
+      }
+      found = all;
+    }
+  }
+  if (live) out[(size_t)p * ny + j] = found ? 1 : 0;
+}
+
+template <int D>
+cudaError_t launch_predrop(const float* y, const float* x, const uint8_t* xv, uint8_t* out,
+                           int P, int nx, int ny, cudaStream_t stream) {
+  const int blocks = (ny + PRE_THREADS - 1) / PRE_THREADS;
+  predrop_kernel<D><<<dim3(blocks, P), PRE_THREADS, 0, stream>>>(y, x, xv, out, nx, ny);
   return cudaGetLastError();
 }
 
@@ -462,17 +639,50 @@ cudaError_t launch(const float* x, const uint8_t* xv, const float* y, uint8_t* o
 // uint8, all contiguous on the device. Scratch, allocated by the caller:
 // xr (P, ceil(nx / 256) * 256, dp) f32 with dp = d rounded up to 4; tsum
 // (P, ceil(nx / 256), sw) and bsum (P, ceil(ny / 256), sw) f32 with sw =
-// d + 1 rounded up to 4. Launches the summary pass and the compare kernel
-// on ``stream`` without synchronising and returns cudaGetLastError() of the
-// launches.
+// d + 1 rounded up to 4. mp != 0 launches the mixed-precision compare
+// kernel. Launches the summary pass and the compare kernel on ``stream``
+// without synchronising and returns cudaGetLastError() of the launches.
 extern "C" int skyline_dominated(const float* x, const uint8_t* xv, const float* y,
                                  uint8_t* out, float* xr, float* tsum, float* bsum,
-                                 int P, int d, int nx, int ny, void* stream) {
+                                 int P, int d, int nx, int ny, int mp, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
 #define SKYLINE_CASE(D) \
   case D:               \
-    return (int)launch<D>(x, xv, y, out, xr, tsum, bsum, P, nx, ny, s);
+    return (int)launch<D>(x, xv, y, out, xr, tsum, bsum, P, nx, ny, mp != 0, s);
+    SKYLINE_CASE(1)
+    SKYLINE_CASE(2)
+    SKYLINE_CASE(3)
+    SKYLINE_CASE(4)
+    SKYLINE_CASE(5)
+    SKYLINE_CASE(6)
+    SKYLINE_CASE(7)
+    SKYLINE_CASE(8)
+    SKYLINE_CASE(9)
+    SKYLINE_CASE(10)
+    SKYLINE_CASE(11)
+    SKYLINE_CASE(12)
+    SKYLINE_CASE(13)
+    SKYLINE_CASE(14)
+    SKYLINE_CASE(15)
+    SKYLINE_CASE(16)
+#undef SKYLINE_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The row pre-drop: y (P, ny, d) f32 victims and x (P, nx, d) f32
+// dominators, row-major, xv (P, nx) uint8 validity, out (P, ny) uint8, all
+// contiguous on the device. Launches on ``stream`` without synchronising
+// and returns cudaGetLastError() of the launch.
+extern "C" int skyline_predrop(const float* y, const float* x, const uint8_t* xv,
+                               uint8_t* out, int P, int d, int nx, int ny, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+#define SKYLINE_CASE(D) \
+  case D:               \
+    return (int)launch_predrop<D>(y, x, xv, out, P, nx, ny, s);
     SKYLINE_CASE(1)
     SKYLINE_CASE(2)
     SKYLINE_CASE(3)

@@ -5,10 +5,11 @@ device takes the sort-and-sweep (``ops/sweep2d.py``), as the reference does
 before its backend check. Above that, a tensor on the
 card goes through a hand-written kernel — K7 (the rank cascade) when
 ``SKYLINE_RANK_CASCADE`` is on, as the reference's cascade table picks
-``mask_rank_pallas`` (``skyline_tpu/ops/cascade.py``), else K3 — and a tensor
-on the CPU through the plain ``skyline_mask``. There is no variant table,
-profiler race or tuner in the port yet; every variant of the reference
-gives the same mask.
+``mask_rank_pallas`` (``skyline_tpu/ops/cascade.py``), else K3 with its bf16
+first pass when ``SKYLINE_MIXED_PRECISION`` is on (the default on a card) —
+and a tensor on the CPU through the plain ``skyline_mask``. There is no
+variant table, profiler race or tuner in the port yet; every variant of the
+reference gives the same mask.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from skyline_tpu_torch.ops.dominance_kernels import (
 )
 from skyline_tpu_torch.ops.sweep2d import skyline_mask_sweep
 from skyline_tpu_torch.utils.buckets import next_pow2
-from skyline_tpu_torch.utils.knobs import rank_cascade
+from skyline_tpu_torch.utils.knobs import mixed_precision_enabled, rank_cascade
 
 
 def on_cuda(x) -> bool:
@@ -34,7 +35,8 @@ def on_cuda(x) -> bool:
 
 def skyline_mask_auto(x: torch.Tensor, valid: torch.Tensor | None = None) -> torch.Tensor:
     """Survivor mask of (N, d) points: the sweep at d <= 2 on every device;
-    above that K7 (rank cascade on) or K3 on a CUDA tensor, the plain
+    above that K7 (rank cascade on) or K3 (``mp`` from
+    ``SKYLINE_MIXED_PRECISION``) on a CUDA tensor, the plain
     ``skyline_mask`` on a CPU tensor."""
     if x.shape[1] <= 2:
         # no pairwise work at all: sort + prefix-min sweep, O(n log n)
@@ -42,7 +44,7 @@ def skyline_mask_auto(x: torch.Tensor, valid: torch.Tensor | None = None) -> tor
     if on_cuda(x):
         if rank_cascade():
             return skyline_mask_rank_kernel(x, valid)
-        return skyline_mask_kernel(x, valid)
+        return skyline_mask_kernel(x, valid, mp=mixed_precision_enabled(x.device))
     return skyline_mask(x, valid)
 
 

@@ -17,6 +17,12 @@ wrappers run when their tensors lie on the CPU — in value space and, for
 the rank cascade, over int32 dense ranks. The pairwise passes are chunked
 over dominators so the (chunk, M) comparison tensors stay bounded; the
 result is the dense predicate's, bit for bit.
+
+``strictly_dominated_bf16`` is the row pre-drop of the mixed-precision
+flush (``SKYLINE_MIXED_PRECISION``): a certificate of strict dominance from
+values rounded to bf16, with an explicit error margin. It is the plain
+version of the pre-drop kernel (``ops/dominance_kernels.py``
+``strictly_dominated_bf16_kernel``).
 """
 
 from __future__ import annotations
@@ -91,6 +97,60 @@ def dominated_by_rank(
     plus rank sum over one universe (``rank_dominance_mask``). Returns
     (M,)."""
     return _dominated_by_any(yr, xr, x_valid, rank_dominance_mask)
+
+
+# The bf16 margin of the row pre-drop (``skyline_tpu/ops/dominance.py``
+# _BF16_EPS, _BF16_TINY). bf16 round-to-nearest has unit roundoff 2^-8; a
+# pair comparison sees both operands' representation error, bounded by
+# u/(1-u) < 2^-7.9 of each bf16 magnitude, so 2^-7 strictly exceeds it (the
+# margin arithmetic runs in f32 on exactly-converted bf16 values); the tiny
+# term covers the absolute error of subnormals. An over-wide margin only
+# leaves more rows to the exact passes — it never certifies a wrong drop.
+_BF16_EPS = 2.0 ** -7
+_BF16_TINY = 1e-30
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 values rounded to bf16 (round to nearest even, as XLA's
+    convert and the card's ``__float2bfloat16_rn`` round) and back."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def strictly_dominated_bf16(
+    y: torch.Tensor, x: torch.Tensor, x_valid: torch.Tensor | None = None
+) -> torch.Tensor:
+    """For each row of ``y`` (M, d): is it CERTAINLY strictly dominated
+    (strict in every dimension) by some valid row of ``x`` (N, d), certified
+    from bf16 values with an explicit error margin? ``x_valid``: (N,) bool or
+    None (all valid). Returns (M,) bool.
+
+    The reference's arithmetic, operation by operation in float32 on the
+    bf16-rounded values: ``(yb - xb) > 2^-7 * (|xb| + |yb|) + 1e-30`` in
+    every dimension. True is a proof of f32 strict dominance; False means
+    "unknown" — callers re-check False rows exactly. NaN rows and
+    +inf-vs-+inf pairs fail every margin test, so they are never certified.
+    Chunked over victims, one dimension at a time, so no temporary passes
+    ``_CHUNK_ELEMS`` elements (64 MB of float32)."""
+    m, n, d = y.shape[0], x.shape[0], y.shape[1]
+    out = torch.zeros(m, dtype=torch.bool, device=y.device)
+    if m == 0 or n == 0:
+        return out
+    eps = torch.tensor(_BF16_EPS, dtype=torch.float32, device=y.device)
+    tiny = torch.tensor(_BF16_TINY, dtype=torch.float32, device=y.device)
+    xb, yb = bf16_round(x), bf16_round(y)
+    ax, ay = xb.abs(), yb.abs()
+    step = max(1, _CHUNK_ELEMS // n)
+    for s in range(0, m, step):
+        yc, ac = yb[s : s + step], ay[s : s + step]
+        dom = None
+        for k in range(d):
+            margin = (ax[:, None, k] + ac[None, :, k]) * eps + tiny
+            lt = (yc[None, :, k] - xb[:, None, k]) > margin
+            dom = lt if dom is None else dom & lt
+        if x_valid is not None:
+            dom &= x_valid[:, None]
+        out[s : s + step] = dom.any(dim=0)
+    return out
 
 
 def skyline_mask(x: torch.Tensor, valid: torch.Tensor | None = None) -> torch.Tensor:

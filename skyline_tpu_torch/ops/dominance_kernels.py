@@ -11,6 +11,14 @@ CUDA kernels. ``csrc/dominance.cu`` compares float32 values:
   not clash with the plain ``ops.dominance.dominated_by``).
 - K3 ``skyline_mask_kernel(x, valid)``: stable sum-sort, K1, unsort;
   replaces ``skyline_mask_pallas``.
+- ``mp=True`` on K1–K3 launches the kernel's mixed-precision variant (the
+  TPU kernels' ``mp``, ``_dom_tile_mp``): a packed bf16 margin pass decides
+  most pairs and only the pairs inside the margin band run the f32
+  predicate, so the mask is the f32 kernel's, bit for bit.
+- ``strictly_dominated_bf16_kernel(y, x, x_valid)``: the row pre-drop of
+  the mixed-precision flush (XLA in the reference,
+  ``skyline_tpu/ops/dominance.py`` ``strictly_dominated_bf16``), in the
+  same source.
 
 ``csrc/dominance_rank.cu`` compares int32 dense ranks (the rank cascade):
 
@@ -27,11 +35,8 @@ CUDA kernels. ``csrc/dominance.cu`` compares float32 values:
 The kernels keep the TPU kernels' transposed ``(d, N)`` / ``(d+1, N)``
 layout at their surface and take an optional leading partition dimension
 ``(P, ·, N)`` in place of ``jax.vmap``. They mask their ragged edges, so no
-shape needs to be a tile multiple. ``mp`` is accepted for parity with the
-reference and runs the exact f32 path (the reference's bf16 first pass is
-bit-exact, so the answer is the same; its speed is later work).
-``triangular`` is accepted and changes nothing: the kernels skip only by
-exact bounds, never by position.
+shape needs to be a tile multiple. ``triangular`` is accepted and changes
+nothing: the kernels skip only by exact bounds, never by position.
 
 Each kernel first runs a summary pass (per-tile minima of the coordinates
 or ranks and of the sums, per-victim-block maxima) into scratch this module
@@ -45,7 +50,8 @@ anything else. On a CPU tensor it runs the plain PyTorch version beside it
 (the CPU tests' path); on a CUDA tensor it launches the kernel or raises —
 there is no fallback. ``LAUNCHES`` counts kernel launches per entry point
 (K3 and K7 count their own launches, not K1's or K5's; K4 counts its calls
-on the card).
+on the card); a K1–K3 launch with ``mp`` counts under the entry point's
+name with ``_mp`` appended.
 
 Each source is built at first use with ``nvcc`` into
 ``skyline_tpu_torch/_build/`` (keyed by a hash of the source, the local
@@ -68,16 +74,25 @@ from skyline_tpu_torch.ops.dominance import (
     dominated_by,
     dominated_by_rank,
     skyline_mask,
+    strictly_dominated_bf16,
 )
 
 _PKG = Path(__file__).resolve().parents[1]
-# library name -> (source, C entry point, C error-string function)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# library name -> (source, {C entry point: argument types}, C error-string
+# function). The compare entry points: x, validity, y, out and three scratch
+# buffers; P, d, nx, ny (and mp for the value kernel); the stream. The
+# pre-drop: y, x, validity, out; P, d, nx, ny; the stream.
 SOURCES = {
     "dominance": (
-        _PKG / "csrc" / "dominance.cu", "skyline_dominated", "skyline_error_string",
+        _PKG / "csrc" / "dominance.cu",
+        {"skyline_dominated": [_P] * 7 + [_I] * 5 + [_P],
+         "skyline_predrop": [_P] * 4 + [_I] * 4 + [_P]},
+        "skyline_error_string",
     ),
     "dominance_rank": (
-        _PKG / "csrc" / "dominance_rank.cu", "skyline_rank_dominated",
+        _PKG / "csrc" / "dominance_rank.cu",
+        {"skyline_rank_dominated": [_P] * 7 + [_I] * 4 + [_P]},
         "skyline_rank_error_string",
     ),
 }
@@ -97,6 +112,8 @@ BLOCK_VICTIMS = 256
 
 LAUNCHES = {
     "dominated_by_any": 0, "dominated_by_rect": 0, "skyline_mask_kernel": 0,
+    "dominated_by_any_mp": 0, "dominated_by_rect_mp": 0, "skyline_mask_kernel_mp": 0,
+    "strictly_dominated_bf16_kernel": 0,
     "rank_transform": 0, "dominated_by_any_rank": 0, "dominated_by_rank_rect": 0,
     "skyline_mask_rank_kernel": 0,
 }
@@ -197,12 +214,11 @@ def _lib(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         path = build()[name][0]
         lib = ctypes.CDLL(str(path))
-        _, entry, errstr = SOURCES[name]
-        fn = getattr(lib, entry)
-        # both entry points: x, validity, y, out and three scratch buffers;
-        # P, d, nx, ny; the stream
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        _, entries, errstr = SOURCES[name]
+        for entry, argtypes in entries.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         err = getattr(lib, errstr)
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
@@ -250,12 +266,26 @@ def _device_path(t: torch.Tensor, name: str) -> bool:
     raise ValueError(f"{name}: unsupported device {t.device}")
 
 
+def _call(library: str, entry: str, args: list) -> None:
+    """Call C entry point ``entry`` of ``library`` on the current stream of
+    the device, raising with the CUDA error when it reports one."""
+    lib = _lib(library)
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = getattr(lib, entry)(*args, stream)
+    if rc:
+        raise RuntimeError(
+            f"{library} kernel launch failed: "
+            + getattr(lib, SOURCES[library][2])(rc).decode()
+        )
+
+
 def _launch(
-    name: str, x3: torch.Tensor, v2: torch.Tensor, y3: torch.Tensor
+    name: str, x3: torch.Tensor, v2: torch.Tensor, y3: torch.Tensor, mp: bool = False
 ) -> torch.Tensor:
     """One kernel launch on the current stream for entry point ``name``,
-    counted in ``LAUNCHES``: (P, ny) bool. Rank inputs carry a sum row on
-    top of their ``d`` rank rows."""
+    counted in ``LAUNCHES`` (under ``name + "_mp"`` with ``mp``, the value
+    kernel's mixed-precision variant): (P, ny) bool. Rank inputs carry a
+    sum row on top of their ``d`` rank rows."""
     P, rows, nx = x3.shape
     ny = y3.shape[2]
     library = _LIBRARY_OF[name]
@@ -267,8 +297,6 @@ def _launch(
     out = torch.empty((P, ny), dtype=torch.uint8, device=x3.device)
     if P == 0 or ny == 0:
         return out.view(torch.bool)
-    lib = _lib(library)
-    _, entry, errstr = SOURCES[library]
     # scratch of the summary pass, in the inputs' type: the dominators
     # row-major in whole tiles, a row (d values, or d ranks and their sum)
     # padded to 16 bytes; one summary per tile and per victim block (d
@@ -281,15 +309,15 @@ def _launch(
         torch.empty((P, blocks, sw), dtype=x3.dtype, device=x3.device),
     ]
     args = [x3.data_ptr(), v2.view(torch.uint8).data_ptr(), y3.data_ptr(), out.data_ptr()]
-    args += [t.data_ptr() for t in scratch]
+    args += [t.data_ptr() for t in scratch] + [P, d, nx, ny]
+    if library == "dominance":
+        args.append(int(mp))
+    elif mp:
+        raise ValueError(f"{name}: the rank kernel has no mixed-precision variant")
     with torch.cuda.device(x3.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, entry)(*args, P, d, nx, ny, stream)
-    if rc:
-        raise RuntimeError(
-            f"{library} kernel launch failed: " + getattr(lib, errstr)(rc).decode()
-        )
-    LAUNCHES[name] += 1
+        _call(library, "skyline_dominated" if library == "dominance"
+              else "skyline_rank_dominated", args)
+    LAUNCHES[name + ("_mp" if mp else "")] += 1
     return out.view(torch.bool)
 
 
@@ -374,6 +402,38 @@ def tile_skip_plain(
         | (lo4 > hi4).any(dim=1)
         | (lo4 >= hi4).all(dim=1)
     )
+
+
+# the mp kernels' bf16 margin (csrc/dominance.cu, step 7): 2^-6, and the
+# absolute term 1e-30, which rounds to 9.984e-31 in bf16
+MP_EPS = 2.0 ** -6
+MP_TINY = 1e-30
+
+
+def mp_trilean_plain(x: torch.Tensor, y: torch.Tensor):
+    """The mp kernels' pair classification, in plain PyTorch bf16: x (N, d)
+    dominators, y (M, d) victims -> (certain, decided_false), each (N, M)
+    bool. With t = xb - yb and m = 2^-6 |xb| + (2^-6 |yb| + tiny), all in
+    bf16: certain when t < -m in every dimension (x strictly below y in f32
+    in every dimension), decided-false when t > m in some dimension (x
+    above y there); the kernels run the f32 predicate on every other pair.
+    For the tests and ``chip_smoke.py``; nothing on the main path calls it.
+    The card rounds each bf16 operation once; PyTorch's CPU bf16 operations
+    round through float32 first — both inside the soundness proof's slack."""
+    bf = torch.bfloat16
+    eps = torch.tensor(MP_EPS, dtype=bf, device=x.device)
+    tiny = torch.tensor(MP_TINY, device=x.device).to(bf)
+    xb, yb = x.to(bf), y.to(bf)
+    cy = yb.abs() * eps + tiny
+    n, m = x.shape[0], y.shape[0]
+    certain = torch.ones((n, m), dtype=torch.bool, device=x.device)
+    false = torch.zeros((n, m), dtype=torch.bool, device=x.device)
+    for k in range(x.shape[1]):
+        margin = (xb[:, None, k].abs() * eps) + cy[None, :, k]
+        t = xb[:, None, k] - yb[None, :, k]
+        certain &= t < -margin
+        false |= t > margin
+    return certain, false
 
 
 def rank_tile_skip_plain(
@@ -489,12 +549,13 @@ def dominated_by_any(
     reference's tile-index skip requires. The kernel never skips by
     position — only by the exact in-kernel sum bound, which on sum-sorted
     input drops the same tiles and stays exact whatever the sort key's
-    rounding — so the flag changes nothing here."""
-    del triangular, mp
+    rounding — so the flag changes nothing here. ``mp`` launches the
+    mixed-precision variant (the same mask)."""
+    del triangular
     if not _device_path(xt, "dominated_by_any"):
         return dominated_by_any_plain(xt, valid)
     x3, v2, batched = _batched(xt, valid, "dominated_by_any")
-    out = _launch("dominated_by_any", x3, v2, x3)
+    out = _launch("dominated_by_any", x3, v2, x3, mp)
     return out if batched else out[0]
 
 
@@ -514,12 +575,12 @@ def dominated_by_rect(
 ) -> torch.Tensor:
     """K2: ``out[j]`` = some valid dominator column of ``xt`` dominates
     victim column ``j`` of ``yt``. xt: (d, Nx) / (P, d, Nx); x_valid: (Nx,)
-    / (P, Nx) bool; yt: (d, Ny) / (P, d, Ny). Returns (Ny,) / (P, Ny)."""
-    del mp
+    / (P, Nx) bool; yt: (d, Ny) / (P, d, Ny). Returns (Ny,) / (P, Ny).
+    ``mp`` launches the mixed-precision variant (the same mask)."""
     if not _device_path(xt, "dominated_by_rect"):
         return dominated_by_rect_plain(xt, x_valid, yt)
     x3, v2, y3, batched = _rect_args(xt, x_valid, yt)
-    out = _launch("dominated_by_rect", x3, v2, y3)
+    out = _launch("dominated_by_rect", x3, v2, y3, mp)
     return out if batched else out[0]
 
 
@@ -558,18 +619,89 @@ def _unsort(order: torch.Tensor, keep_sorted: torch.Tensor) -> torch.Tensor:
     return keep
 
 
-def skyline_mask_kernel(x: torch.Tensor, valid: torch.Tensor | None = None) -> torch.Tensor:
+def skyline_mask_kernel(
+    x: torch.Tensor, valid: torch.Tensor | None = None, mp: bool = False
+) -> torch.Tensor:
     """K3: survivor mask of (N, d) points — valid and dominated by no valid
     point. Stable sort by valid row sum (invalid rows last), K1 over the
     sorted set, unsort. No padding to a tile multiple: the kernel masks its
-    ragged edge."""
+    ragged edge. ``mp`` launches the mixed-precision variant."""
     if not _device_path(x, "skyline_mask_kernel"):
         return skyline_mask_plain(x, valid)
     _mask_args(x, valid)
     order, vs = _sum_sorted(x, valid)
     xs_t = x[order].T.contiguous()
-    dom = _launch("skyline_mask_kernel", xs_t[None], vs[None], xs_t[None])[0]
+    dom = _launch("skyline_mask_kernel", xs_t[None], vs[None], xs_t[None], mp)[0]
     return _unsort(order, ~dom & vs)
+
+
+# -- the bf16 row pre-drop -----------------------------------------------------
+
+
+def _rows_args(t: torch.Tensor, name: str, batched: bool):
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32 rows, got {t.dtype}")
+    if t.dim() != (3 if batched else 2) or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: expected contiguous {'(P, N, d)' if batched else '(N, d)'} rows, "
+            f"got {tuple(t.shape)}"
+        )
+
+
+def strictly_dominated_bf16_plain(y, x, x_valid):
+    """Plain pre-drop: ``ops.dominance.strictly_dominated_bf16`` per
+    partition. y (B, d) / (P, B, d), x (L, d) / (P, L, d), x_valid (L,) /
+    (P, L) -> (B,) / (P, B) bool."""
+    if y.dim() == 2:
+        return strictly_dominated_bf16(y, x, x_valid)
+    out = torch.zeros(y.shape[:2], dtype=torch.bool, device=y.device)
+    for p in range(y.shape[0]):
+        out[p] = strictly_dominated_bf16(y[p], x[p], x_valid[p])
+    return out
+
+
+def strictly_dominated_bf16_kernel(
+    y: torch.Tensor, x: torch.Tensor, x_valid: torch.Tensor
+) -> torch.Tensor:
+    """The bf16 row pre-drop: ``out[j]`` = some valid row of ``x`` certainly
+    strictly dominates row ``j`` of ``y`` by the bf16 margin test of
+    ``strictly_dominated_bf16``, its arithmetic operation for operation.
+    y: (B, d) / (P, B, d) contiguous float32 victims, row-major as the flush
+    blocks are; x: (L, d) / (P, L, d) dominators; x_valid: (L,) / (P, L)
+    bool. Returns (B,) / (P, B) bool. On the card: one launch; the
+    dominators pass through shared memory 512 rows at a time (the flush
+    passes at most 512, ``ops.sfs._MP_PREFIX``)."""
+    name = "strictly_dominated_bf16_kernel"
+    if not _device_path(y, name):
+        return strictly_dominated_bf16_plain(y, x, x_valid)
+    batched = y.dim() == 3
+    _rows_args(y, name, batched)
+    _rows_args(x, name, batched)
+    y3, x3 = (y, x) if batched else (y[None], x[None])
+    v2 = x_valid if batched else x_valid[None]
+    if (
+        x3.shape[0] != y3.shape[0] or x3.shape[2] != y3.shape[2]
+        or v2.dtype != torch.bool or tuple(v2.shape) != tuple(x3.shape[:2])
+        or not v2.is_contiguous() or not (x.device == y.device == x_valid.device)
+    ):
+        raise ValueError(
+            f"{name}: victims {tuple(y.shape)}, dominators {tuple(x.shape)} and validity "
+            f"{tuple(x_valid.shape)} {x_valid.dtype} do not match"
+        )
+    P, ny, d = y3.shape
+    nx = x3.shape[1]
+    if not 1 <= d <= MAX_DIMS:
+        raise ValueError(f"{name} takes 1..{MAX_DIMS} dims, got {d}")
+    out = torch.empty((P, ny), dtype=torch.uint8, device=y.device)
+    if P and ny:
+        with torch.cuda.device(y.device):
+            _call("dominance", "skyline_predrop", [
+                y3.data_ptr(), x3.data_ptr(), v2.view(torch.uint8).data_ptr(),
+                out.data_ptr(), P, d, nx, ny,
+            ])
+        LAUNCHES[name] += 1
+    out = out.view(torch.bool)
+    return out if batched else out[0]
 
 
 def dominated_by_any_rank(

@@ -19,7 +19,13 @@ The reference's jits donate the sky buffer so an append round updates it in
 place; here the append round writes the block survivors into ``sky`` in
 place (``scatter_``) and returns the same tensor — callers treat the passed
 buffer as updated. The cleanup compacts into a new buffer, as the
-reference's does. The mixed-precision pre-drop (``mp``) is not ported yet.
+reference's does.
+
+``mp`` (the mixed-precision flush, ``SKYLINE_MIXED_PRECISION``) first drops
+the block rows a bf16 margin test certifies as strictly dominated by one of
+the skyline's first ``_MP_PREFIX`` rows (``mp_predrop``, the pre-drop
+kernel on a card), then runs K1 and K2 with their bf16 first pass. Both are
+exact: the appended rows and their order are those of ``mp=False``.
 """
 
 from __future__ import annotations
@@ -30,7 +36,15 @@ from skyline_tpu_torch.ops.dominance import compact
 from skyline_tpu_torch.ops.dominance_kernels import (
     dominated_by_any,
     dominated_by_rect,
+    strictly_dominated_bf16_kernel,
 )
+
+# Dominator-prefix length of the bf16 row pre-drop: block rows certainly
+# strictly dominated by one of the first _MP_PREFIX skyline rows are dropped
+# (masked to +inf) before the exact kernels. Sum-sorted skylines put the
+# strongest dominators first, so a short prefix catches most dominated rows
+# at O(B * prefix) cost.
+_MP_PREFIX = 512
 
 
 def _t(x: torch.Tensor) -> torch.Tensor:
@@ -38,7 +52,24 @@ def _t(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).contiguous()
 
 
-def sfs_round(sky, counts, blocks, bvalids, active: int):
+def mp_predrop(dom, dom_ok, block, bvalid):
+    """The bf16 row pre-drop for all partitions: dom (P, L, d) dominator
+    rows with validity dom_ok (P, L), block (P, B, d) with bvalid (P, B).
+    Rows of the block a valid dominator certainly strictly dominates
+    (``strictly_dominated_bf16``) leave the block: invalid and masked to
+    +inf, which only moves a row's sum up, so sum-sorted callers stay
+    sorted for the rows that count. Returns (block', bvalid', resolved
+    (P,) int32, the certified drops)."""
+    pre = strictly_dominated_bf16_kernel(
+        block.contiguous(), dom.contiguous(), dom_ok.contiguous()
+    )
+    pre = pre & bvalid
+    resolved = pre.sum(dim=-1, dtype=torch.int32)
+    bvalid = bvalid & ~pre
+    return torch.where(bvalid[..., None], block, float("inf")), bvalid, resolved
+
+
+def sfs_round(sky, counts, blocks, bvalids, active: int, mp: bool = False):
     """One SFS append round for all partitions: sky (P, cap, d) buffers whose
     first ``counts[p]`` rows are a skyline, counts (P,) int64, blocks
     (P, B, d) sum-sorted ascending (invalid rows +inf at the end) with all
@@ -49,16 +80,25 @@ def sfs_round(sky, counts, blocks, bvalids, active: int):
     full-capacity passes. One launch per kernel for the whole set — right
     when partitions carry comparable row counts (every partition computes
     the full (B x active) passes whether its block is real or padding; see
-    ``sfs_round_single`` for skew).
+    ``sfs_round_single`` for skew). ``mp``: the bf16 pre-drop against
+    ``min(active, _MP_PREFIX)`` prefix rows, then K1 and K2 with their bf16
+    first pass — the same appends.
 
     Caller guarantees counts + B <= cap (the compacted block writes B slots;
     rows past the survivor count are +inf padding landing on virgin rows).
-    Returns (sky, counts')."""
+    Returns (sky, counts', resolved (P,) int32 — bf16-certified drops, 0
+    without ``mp``)."""
     sky_ok = torch.arange(active, device=sky.device)[None, :] < counts[:, None]
+    resolved = torch.zeros(sky.shape[0], dtype=torch.int32, device=sky.device)
+    if mp:
+        limit = min(active, _MP_PREFIX)
+        blocks, bvalids, resolved = mp_predrop(
+            sky[:, :limit], sky_ok[:, :limit], blocks, bvalids
+        )
     block_t = _t(blocks)
-    keep = bvalids & ~dominated_by_any(block_t, bvalids, triangular=True)
-    keep &= ~dominated_by_rect(_t(sky[:, :active]), sky_ok, block_t)
-    return sfs_append(sky, counts, blocks, keep)
+    keep = bvalids & ~dominated_by_any(block_t, bvalids, triangular=True, mp=mp)
+    keep &= ~dominated_by_rect(_t(sky[:, :active]), sky_ok, block_t, mp=mp)
+    return (*sfs_append(sky, counts, blocks, keep), resolved)
 
 
 def sfs_append(sky, counts, blocks, keep):
@@ -73,16 +113,17 @@ def sfs_append(sky, counts, blocks, keep):
     return sky, counts + m
 
 
-def sfs_round_core(sky_p, count, block, bvalid, active: int):
+def sfs_round_core(sky_p, count, block, bvalid, active: int, mp: bool = False):
     """One partition's round: sky_p (cap, d), count () int64, block (B, d),
-    bvalid (B,) -> (sky_p', count'), ``sky_p`` updated in place. Under
-    routing skew (mr-angle at 8D anti-correlated routes ~96% of rows to 2 of
-    8 partitions) the batched round pays P lanes of work for one real lane;
-    processing heavy partitions one at a time costs exactly their own rows."""
-    sky, counts = sfs_round(
-        sky_p[None], count.reshape(1), block[None], bvalid[None], active
+    bvalid (B,) -> (sky_p', count', resolved () int32), ``sky_p`` updated
+    in place. Under routing skew (mr-angle at 8D anti-correlated routes ~96%
+    of rows to 2 of 8 partitions) the batched round pays P lanes of work for
+    one real lane; processing heavy partitions one at a time costs exactly
+    their own rows."""
+    sky, counts, res = sfs_round(
+        sky_p[None], count.reshape(1), block[None], bvalid[None], active, mp
     )
-    return sky[0], counts[0]
+    return sky[0], counts[0], res[0]
 
 
 # the reference jits the core under this name for the skew path

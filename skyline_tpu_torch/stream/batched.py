@@ -43,11 +43,19 @@ two K2 passes a pair on a card); ``SKYLINE_MERGE_TREE=0`` gives the flat
 pass (one K3 or K7), ``SKYLINE_MERGE_CACHE=0`` a full merge at every
 trigger. Every path gives the same answer bytes.
 
+The flush dominance cascade is the reference's too, both stages exact:
+(1) the quantized-grid prefilter (``SKYLINE_FLUSH_PREFILTER``, on at d >= 3)
+drops pending host rows whose grid cell a representative cell of their
+partition's skyline strictly dominates, before any merge kernel — the grid
+summary is launched at each flush tail and copied to pinned memory behind a
+CUDA event; (2) the mixed-precision passes (``SKYLINE_MIXED_PRECISION``, on
+by default on a card, off on the CPU) — the bf16 row pre-drop ahead of each
+SFS and merge round, and K1–K3 with their bf16 first pass.
+``flush_cascade_stats`` reports both stages' counters.
+
 Not ported yet (each gives results byte-identical to these paths in the
-reference): the quantized-grid flush prefilter, the mixed-precision passes
-(``SKYLINE_MIXED_PRECISION=1`` makes a flush raise), ``merge_points_device``
-(the multi-GPU engine's only caller), the telemetry counters, EXPLAIN and
-the device mesh.
+reference): ``merge_points_device`` (the multi-GPU engine's only caller),
+the telemetry counters, EXPLAIN and the device mesh.
 
 Per-partition CPU attribution follows the reference: flush wall time is
 accounted to the set, and every partition reports the set total as its
@@ -66,6 +74,7 @@ from skyline_tpu_torch.ops.sweep2d import partitioned_sweep2_core, scatter_sweep
 from skyline_tpu_torch.stream import device_window as dw
 from skyline_tpu_torch.stream.window import (
     DEFAULT_BUFFER_SIZE,
+    GRID_BINS,
     _MIN_CAP,
     _active_bucket,
     _next_pow2,
@@ -74,6 +83,7 @@ from skyline_tpu_torch.stream.window import (
     global_merge_delta_device,
     global_merge_stats_device,
     global_points_device,
+    grid_summary_device,
     merge_step_active,
     partition_summaries_device,
     prune_witness_mask,
@@ -84,11 +94,12 @@ from skyline_tpu_torch.stream.window import (
 from skyline_tpu_torch.utils.devices import resolve_device
 from skyline_tpu_torch.utils.knobs import (
     delta_applies,
+    flush_prefilter_on,
     flush_stage_depth,
     merge_cache_on,
     merge_prune_enabled,
     merge_tree_on,
-    refuse_mixed_precision,
+    mixed_precision_enabled,
 )
 
 # Sequential-SFS probe block: rounds start at this size so a small-skyline
@@ -99,6 +110,62 @@ _PROBE_B = 8192
 # Device-ingest chunks are split and padded to power-of-two buckets capped
 # here.
 _CHUNK_BUCKET_MAX = 65536
+
+# Host rows per step of the grid prefilter's cell coding: the (chunk,
+# GRID_REPS, d) comparison stays ~10 MB at d = 8 whatever the pending window.
+_PREFILTER_CHUNK = 16384
+
+
+def _codes(ladder: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """``#(ladder <= y)`` for each value of ``y`` (m,) f32 against one
+    dimension's ladder (GRID_BINS + 1,) f32 — the reference's cell code
+    plus one; 0 for NaN. An estimate from the ladder's span, moved a step
+    up or down, kept where ``ladder[c - 1] <= y < ladder[c]`` holds (a
+    binary search for the few rows it does not settle): the count for a strictly
+    increasing ladder, and some value in [0, GRID_BINS + 1] for any other
+    (whose dimension never certifies)."""
+    n = ladder.shape[0]
+    pad = np.concatenate([[-np.inf], ladder, [np.inf]]).astype(np.float32)
+    with np.errstate(all="ignore"):
+        est = (y - ladder[0]) * np.float32((n - 1) / (ladder[-1] - ladder[0]))
+        est = np.nan_to_num(np.clip(est, -1.0, n - 1), nan=-1.0)
+    c = np.floor(est).astype(np.int64) + 1
+    c = np.minimum(c + (pad[c + 1] <= y), n)
+    c = np.maximum(c - (pad[c] > y), 0)
+    settled = (pad[c] <= y) & (y < pad[c + 1])
+    nan = np.isnan(y)
+    rest = ~settled & ~nan
+    if rest.any():
+        c[rest] = np.searchsorted(ladder, y[rest], side="right")
+    c[nan] = 0
+    return c
+
+
+def grid_drop(bounds: np.ndarray, ux: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """The grid prefilter's test for one partition: (m,) bool, True where
+    some representative's cell code is below row y's in every dimension.
+    bounds (GRID_BINS + 1, d) is the partition's ladder, ux (R, d) the
+    representatives' codes (R <= 64; GRID_BINS + 1 never certifies), y
+    (m, d) the pending rows.
+
+    The reference's test, computed another way: y's code in a dimension is
+    ``vy = #(bounds <= y) - 1`` (``_codes``; -1 for NaN), and ``masks[v +
+    1, k]`` holds one bit per representative with ``ux[r, k] < v``, so a
+    row is dropped iff the AND of its d masks is not 0 — d lookups a row in
+    place of an (R, d) comparison. In a dimension whose ladder failed the
+    host check every code is GRID_BINS + 1, its masks are 0 and the row's
+    code there does not matter."""
+    yt = np.ascontiguousarray(np.asarray(y, np.float32).T)  # one dimension a row
+    R, d = ux.shape
+    bit = np.left_shift(np.uint64(1), np.arange(R, dtype=np.uint64))
+    levels = np.arange(-1, GRID_BINS + 1)[:, None, None]  # v = -1 .. GRID_BINS
+    masks = np.bitwise_or.reduce(
+        np.where(ux[None, :, :] < levels, bit[None, :, None], np.uint64(0)), axis=1
+    )  # (GRID_BINS + 2, d)
+    acc = np.full(yt.shape[1], ~np.uint64(0))
+    for k in range(d):
+        acc &= masks[_codes(bounds[:, k], yt[k]), k]
+    return acc != 0
 
 
 class _MergeHandle:
@@ -233,6 +300,20 @@ class PartitionSet:
         self.last_tree_info: dict | None = None
         # the last prefilter's witness per partition (-1: not pruned)
         self.last_prune_witness: np.ndarray | None = None
+        # the flush cascade. Stage 1, the grid prefilter: the (bounds, cell
+        # codes) summary queued at flush tails as ((host tensor, event),
+        # (host tensor, event)), its validated host copy and the epoch it
+        # describes; a stale summary is sound (a removed skyline row leaves a
+        # strict dominator behind), a replaced world is not (load_state).
+        # Stage 2, mixed precision: a running device int32 of bf16-certified
+        # drops, read only by flush_cascade_stats.
+        self._grid = None
+        self._grid_host = None
+        self._grid_epoch: np.ndarray | None = None
+        self.prefilter_seen = 0
+        self.prefilter_dropped = 0
+        self._mp_resolved: torch.Tensor | None = None
+        self.bf16_resolved = 0
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
@@ -473,7 +554,6 @@ class PartitionSet:
         the host upper bounds, the cleanup's exact old counts stay a device
         tensor, and the trailing count sync of the next merge is not
         requested. Query-time flushes keep the default."""
-        refuse_mixed_precision()
         total = int(self._pending_rows.sum())
         if self.dims <= 2:
             if total or self._dev_rows:
@@ -496,8 +576,9 @@ class PartitionSet:
         overlaps the card's; counts are read only when ``_count_ub`` plus
         the round's widths would outgrow the capacity (log-bounded)."""
         t0 = time.perf_counter_ns()
+        mp = mixed_precision_enabled(self.device)
         self._bump_epoch(self._pending_rows > 0)
-        rows = self._drain_pending()
+        rows = self._prefilter_rows(self._drain_pending())
         max_rows = max(r.shape[0] for r in rows)
         B = _next_pow2(min(max_rows, max(self.buffer_size, _MIN_CAP)))
         n_rounds = -(-max_rows // B)
@@ -531,9 +612,11 @@ class PartitionSet:
             )
             # out_active is the bucket out_cap grew from, so the step's
             # max(cap, out_active) is out_cap
-            self.sky, _, self._count_dev = merge_step_active(
-                self.sky, sky_valid, batch_dev, bvalid_dev, active, grow
+            self.sky, _, self._count_dev, res = merge_step_active(
+                self.sky, sky_valid, batch_dev, bvalid_dev, active, grow, mp
             )
+            if mp:
+                self._accum_resolved(res)
             self._cap = out_cap
             self._count_ub = np.minimum(out_cap, self._count_ub + widths)
             for s in range(rnd + 1, min(rnd + 1 + depth, n_rounds)):
@@ -542,6 +625,7 @@ class PartitionSet:
         self._counts_cache = None
         self._host_cache = None
         self._maybe_launch_summaries()
+        self._maybe_launch_grid()
         self.processing_ns += time.perf_counter_ns() - t0
 
     def _flush_sweep(self) -> None:
@@ -633,8 +717,12 @@ class PartitionSet:
         stream them through append-only SFS rounds, assembling and uploading
         each block from the host."""
         t0 = time.perf_counter_ns()
+        mp = mixed_precision_enabled(self.device)
         self._bump_epoch(self._pending_rows > 0)
-        rows = self._drain_pending()
+        # the prefilter before the sum sort: dropped rows skip the sort, and
+        # a stable sort of the surviving subset keeps the order a drop after
+        # the sort would (the same appends)
+        rows = self._prefilter_rows(self._drain_pending())
         # the host sort fixes the SFS append order, and with it the state's
         # row order: the reference's exact expression
         for p, r in enumerate(rows):
@@ -648,20 +736,20 @@ class PartitionSet:
             def one_round(p, sky_p, cnt_p, off, w, B, active):
                 block, bvalid, _ = self._pad_block(rows[p][off : off + B], B)
                 return sfs_round_single(
-                    sky_p, cnt_p, self._put(block), self._put(bvalid), active
+                    sky_p, cnt_p, self._put(block), self._put(bvalid), active, mp
                 )
 
-            counts = self._sfs_sequential(widths, one_round)
+            counts = self._sfs_sequential(widths, one_round, mp=mp)
         else:
             B = self._vmapped_block(int(widths.max()))
 
             def batched_round(rnd, counts, active):
                 batch, bvalid, _ = self._round_batch(rows, rnd, B)
                 return sfs_round(
-                    self.sky, counts, self._put(batch), self._put(bvalid), active
+                    self.sky, counts, self._put(batch), self._put(bvalid), active, mp
                 )
 
-            counts = self._sfs_vmapped(widths, B, batched_round)
+            counts = self._sfs_vmapped(widths, B, batched_round, mp)
         self._finish_lazy_flush(
             counts, had_old, old_counts,
             int(old_counts.max()) if had_old else 0, t0,
@@ -681,6 +769,7 @@ class PartitionSet:
         stay the pre-flush DEVICE count vector. Only the segment bounds
         (host loop control) come back."""
         t0 = time.perf_counter_ns()
+        mp = mixed_precision_enabled(self.device)
         P = self.num_partitions
         n_bucket = _next_pow2(self._dev_rows)
         ws, bounds_dev = dw.sort_window(
@@ -715,13 +804,17 @@ class PartitionSet:
             def one_round(p, sky_p, cnt_p, off, w, B, active):
                 start = int(bounds[p]) + off
                 if rank is not None:
-                    return dw.sfs_round_at_rank(
+                    return (*dw.sfs_round_at_rank(
                         sky_p, cnt_p, ws, *rank, start, w, B=B, active=active
-                    )
-                return dw.sfs_round_at(sky_p, cnt_p, ws, start, w, B=B, active=active)
+                    ), None)
+                return dw.sfs_round_at(
+                    sky_p, cnt_p, ws, start, w, B=B, active=active, mp=mp
+                )
 
             # blocks sliced from the sorted window must fit its tail pad
-            counts = self._sfs_sequential(widths, one_round, dw.SORT_TAIL, tighten)
+            counts = self._sfs_sequential(
+                widths, one_round, dw.SORT_TAIL, tighten, mp and rank is None
+            )
         else:
             B = min(self._vmapped_block(int(widths.max())), dw.SORT_TAIL)
             lo, hi = bounds_dev[:-1].long(), bounds_dev[1:].long()
@@ -730,21 +823,22 @@ class PartitionSet:
                 offs = torch.minimum(lo + rnd * B, hi)
                 w = torch.clamp(hi - offs, 0, B)
                 if rank is not None:
-                    return dw.sfs_round_at_rank_vmapped(
+                    return (*dw.sfs_round_at_rank_vmapped(
                         self.sky, counts, ws, *rank, offs, w, B=B, active=active
-                    )
+                    ), None)
                 return dw.sfs_round_at_vmapped(
-                    self.sky, counts, ws, offs, w, B=B, active=active
+                    self.sky, counts, ws, offs, w, B=B, active=active, mp=mp
                 )
 
-            counts = self._sfs_vmapped(widths, B, batched_round)
+            counts = self._sfs_vmapped(widths, B, batched_round, mp and rank is None)
         self._finish_lazy_flush(counts, had_old, old_counts, old_max, t0, rank, tighten)
 
-    def _sfs_vmapped(self, widths: np.ndarray, B: int, batched_round):
+    def _sfs_vmapped(self, widths: np.ndarray, B: int, batched_round, mp: bool = False):
         """Balanced-load SFS: one batched round for all partitions at a
-        time, ``batched_round(rnd, counts, active) -> (sky, counts')`` over
-        each partition's rows ``[rnd * B, (rnd + 1) * B)`` (``widths``: rows
-        per partition). Returns the device counts vector."""
+        time, ``batched_round(rnd, counts, active) -> (sky, counts',
+        resolved or None)`` over each partition's rows ``[rnd * B, (rnd + 1)
+        * B)`` (``widths``: rows per partition); with ``mp`` the rounds'
+        certified drops are added up. Returns the device counts vector."""
         n_rounds = -(-int(widths.max()) // B)
         counts = self._count_dev
         # lag-2 tightening: the rows-streamed bound on _count_ub grows
@@ -770,7 +864,9 @@ class PartitionSet:
             active = min(
                 self._cap, _active_bucket(max(int(self._count_ub.max()), 1))
             )
-            self.sky, counts = batched_round(rnd, counts, active)
+            self.sky, counts, res = batched_round(rnd, counts, active)
+            if mp:
+                self._accum_resolved(res)
             prev.append((counts, w))
             self._count_ub = np.minimum(self._cap, self._count_ub + w)
         self._count_dev = counts
@@ -811,17 +907,19 @@ class PartitionSet:
         return counts
 
     def _sfs_sequential(
-        self, widths: np.ndarray, one_round, max_block=None, tighten=True
+        self, widths: np.ndarray, one_round, max_block=None, tighten=True, mp=False
     ):
         """Skew-path SFS: partitions processed one at a time with their own
         block and active buckets — total work tracks each partition's own
         rows instead of P x the heaviest. ``one_round(p, sky_p, cnt_p, off,
-        w, B, active) -> (sky_p, cnt_p')`` runs one round over rows
+        w, B, active) -> (sky_p, cnt_p', resolved or None)`` runs one round
+        over rows
         ``[off, off + w)`` of partition ``p`` (``widths``: rows per
         partition); blocks are capped at ``max_block``. ``tighten=False``
         seeds the per-partition bounds from the host upper bounds instead
-        of a count sync, and syncs only under growth pressure. Returns the
-        device counts."""
+        of a count sync, and syncs only under growth pressure. With ``mp``
+        the rounds' certified drops are added up. Returns the device
+        counts."""
 
         def block_size(rows_p: int) -> int:
             B = self._seq_block_size(rows_p)
@@ -879,7 +977,9 @@ class PartitionSet:
                             sky_p = self._pad_sky_rows(sky_p, cap_p)
                     w = min(B, n_p - off)
                     active = min(cap_p, _active_bucket(max(ub_p, 1)))
-                    sky_p, cnt_p = one_round(p, sky_p, cnt_p, off, w, B, active)
+                    sky_p, cnt_p, res = one_round(p, sky_p, cnt_p, off, w, B, active)
+                    if mp:
+                        self._accum_resolved(res)
                     prev.append((cnt_p, w))
                     ub_p = min(cap_p, ub_p + w)
                     off += w
@@ -920,10 +1020,15 @@ class PartitionSet:
         if had_old:
             if not isinstance(old_counts, torch.Tensor):
                 old_counts = self._put(old_counts)
-            old_active = min(self._cap, _active_bucket(max(old_max, 1)))
             active = min(
                 self._cap, _active_bucket(max(int(self._count_ub.max()), 1))
             )
+            # the rounds only append, so every old count is at most its
+            # partition's final count bound: the old prefixes fit ``active``.
+            # ``old_max`` may exceed it when it is the loose bound of a
+            # sync-free flush whose rounds tightened the bounds (the
+            # reference then fails on mismatched shapes; ROADMAP.md queue 3)
+            old_active = min(active, _active_bucket(max(old_max, 1)))
             if rank is not None:
                 self.sky, counts = dw.sfs_cleanup_rank(
                     self.sky, counts, old_counts, rank[1], old_active, active,
@@ -938,7 +1043,102 @@ class PartitionSet:
         if tighten:
             self._tighten_pending = True
         self._maybe_launch_summaries()
+        self._maybe_launch_grid()
         self.processing_ns += time.perf_counter_ns() - t0
+
+    # -- the flush dominance cascade (grid prefilter + mixed precision) ------
+
+    def _accum_resolved(self, res) -> None:
+        """Fold one round's bf16-certified drop counts into the running
+        device int32 (no sync; read only by ``flush_cascade_stats``)."""
+        s = res.sum(dtype=torch.int32)
+        self._mp_resolved = s if self._mp_resolved is None else self._mp_resolved + s
+
+    def _prefilter_on(self) -> bool:
+        """The grid prefilter for this set: d >= 3, one device, the knob."""
+        return flush_prefilter_on(self.dims)
+
+    def _maybe_launch_grid(self) -> None:
+        """Flush tail: queue the grid summary of the state just flushed and
+        its copy to pinned host memory, so the next flush's prefilter reads
+        landed bytes instead of waiting on the card."""
+        if not self._prefilter_on():
+            return
+        active = min(self._cap, _active_bucket(max(int(self._count_ub.max()), 1)))
+        bounds, ux = grid_summary_device(self.sky, self._count_dev, active)
+        self._grid = (self._to_host_async(bounds), self._to_host_async(ux))
+        self._grid_host = None
+        self._grid_epoch = self._epoch.copy()
+
+    def _grid_summaries(self):
+        """The validated host copy of the last queued grid summary, or None
+        before the first one. A partition's ladder that f32 rounding failed
+        to keep strictly increasing in some dimension gets every code set to
+        GRID_BINS + 1 there, so it never certifies (the certificate needs
+        every dimension): no drops for that partition. An empty partition's
+        NaN ladder fails the same check."""
+        if self._grid is None:
+            return None
+        if self._grid_host is None:
+            bounds = self._landed(*self._grid[0])
+            ux = self._landed(*self._grid[1]).copy()
+            with np.errstate(invalid="ignore"):  # the NaN ladder of an empty partition
+                bad = ~np.all(np.diff(bounds, axis=1) > 0, axis=1)  # (P, d)
+            if bad.any():
+                ux[np.broadcast_to(bad[:, None, :], ux.shape)] = GRID_BINS + 1
+            self._grid_host = (bounds, ux)
+        return self._grid_host
+
+    def _prefilter_rows(self, rows: list[np.ndarray]) -> list[np.ndarray]:
+        """Stage 1 of the flush cascade: drop pending rows whose grid cell a
+        representative cell of their partition's skyline strictly dominates
+        (``grid_drop``), on the host, before any merge kernel.
+
+        Sound: a row y coded ``vy`` and a representative x coded ``ux``
+        with ``ux < vy`` in every dimension satisfy ``x <= bounds[ux] <
+        bounds[vy] <= y``, so x strictly dominates y. x was a live skyline
+        row when the summary was queued; if a later flush removed it, its
+        chain of removers ends at a current row that still strictly
+        dominates y, so the exact merge drops y anyway — and every pending
+        row y would have pruned is strictly dominated by the same chain.
+        The survivors and their order are those of the prefilter off. NaN
+        rows code to -1 and are never dropped; +inf rows may be."""
+        if not self._prefilter_on():
+            return rows
+        grid = self._grid_summaries()
+        seen = int(sum(r.shape[0] for r in rows))
+        dropped = 0
+        if grid is not None and seen:
+            bounds, ux = grid
+            for p, r in enumerate(rows):
+                if r.shape[0] == 0 or not (ux[p] <= GRID_BINS).all(axis=1).any():
+                    continue  # nothing to code, or no representative can certify
+                drop = np.concatenate([
+                    grid_drop(bounds[p], ux[p], r[s : s + _PREFILTER_CHUNK])
+                    for s in range(0, r.shape[0], _PREFILTER_CHUNK)
+                ])
+                if drop.any():
+                    dropped += int(drop.sum())
+                    rows[p] = r[~drop]
+        self.prefilter_seen += seen
+        self.prefilter_dropped += dropped
+        return rows
+
+    def flush_cascade_stats(self) -> dict:
+        """The flush cascade's counters: the grid prefilter's (host-exact)
+        and the bf16 pre-drop's certified drops — a device total, read (one
+        sync) here and nowhere on the flush path."""
+        if self._mp_resolved is not None:
+            self.bf16_resolved = int(self._mp_resolved.item())
+        seen = self.prefilter_seen
+        return {
+            "prefilter_enabled": self._prefilter_on(),
+            "mixed_precision": mixed_precision_enabled(self.device),
+            "prefilter_seen": seen,
+            "prefilter_dropped": self.prefilter_dropped,
+            "prefilter_drop_fraction": self.prefilter_dropped / seen if seen else 0.0,
+            "bf16_resolved": self.bf16_resolved,
+        }
 
     # -- global merge -------------------------------------------------------
 
@@ -1312,9 +1512,14 @@ class PartitionSet:
         self._pending_rows[:] = 0
         self._dev_rows = 0
         self._chunk_stats = []
-        # another world: no cached merge of the old state may be reused
+        # another world: no cached merge of the old state may be reused, and
+        # the grid summary described the replaced skylines (its staleness
+        # argument covers evolved state, not a swapped one)
         self._bump_epoch(slice(None))
         self._gm_cache = None
+        self._grid = None
+        self._grid_host = None
+        self._grid_epoch = None
         if max_seen_id is not None:
             self.max_seen_id = np.asarray(max_seen_id, dtype=np.int64).copy()
         if records_seen is not None:

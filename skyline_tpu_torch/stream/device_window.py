@@ -253,19 +253,24 @@ def sfs_cleanup_rank(sky, counts, old_counts, sorted_dims, old_active: int, acti
     return cleanup_compact(sky, old_counts, new_ok, old_dom)
 
 
-def sfs_round_at(sky_p, count, win, off: int, width: int, *, B: int, active: int):
+def sfs_round_at(
+    sky_p, count, win, off: int, width: int, *, B: int, active: int, mp: bool = False
+):
     """One partition's value-space SFS round over ``win[off : off + B]``,
     rows past ``width`` masked to +inf (inert as dominators, never
-    appended): the device-window twin of ``ops.sfs.sfs_round_single``."""
+    appended): the device-window twin of ``ops.sfs.sfs_round_single``;
+    ``mp`` threads the bf16 passes. Returns (sky_p, count', resolved)."""
     bvalid = torch.arange(B, device=win.device) < width
     block = torch.where(bvalid[:, None], win[off : off + B], float("inf"))
-    return sfs_round_single(sky_p, count, block, bvalid, active)
+    return sfs_round_single(sky_p, count, block, bvalid, active, mp)
 
 
-def sfs_round_at_vmapped(sky, counts, win, offs, widths, *, B: int, active: int):
+def sfs_round_at_vmapped(
+    sky, counts, win, offs, widths, *, B: int, active: int, mp: bool = False
+):
     """``sfs_round_at`` for all partitions in one pass per kernel, each
     slicing its own block of the shared sorted window: offs/widths (P,)
-    int64 on the device."""
+    int64 on the device. Returns (sky, counts', resolved (P,))."""
     blocks, bvalid = _blocks_at(win, offs, widths, B)
     blocks = torch.where(bvalid[..., None], blocks, float("inf"))
-    return sfs_round(sky, counts, blocks, bvalid, active)
+    return sfs_round(sky, counts, blocks, bvalid, active, mp)

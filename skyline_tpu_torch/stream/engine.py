@@ -29,9 +29,12 @@ delta and tree merges). With ``SKYLINE_QUERY_OVERLAP`` on (the default) a
 trigger whose barriers all pass launches the merge and returns; the result
 is harvested at the next ``process_records`` once its stats have landed,
 or, waiting for them, at the next trigger or ``poll_results`` — results
-stay in trigger order, with at most one merge in flight. Telemetry,
-snapshots, EXPLAIN, audit, query timeouts and the grid prefilter are not
-ported; the reference documents its results as identical without them.
+stay in trigger order, with at most one merge in flight. Flushes run the
+reference's flush dominance cascade (the grid prefilter and, on a card by
+default, the mixed-precision passes; ``PartitionSet.flush_cascade_stats``).
+Telemetry (the engine's ``stats()`` and its ``flush_cascade`` block),
+snapshots, EXPLAIN, audit and query timeouts are not ported; the reference
+documents its results as identical without them.
 """
 
 from __future__ import annotations

@@ -2,10 +2,9 @@
 delta and pruned tournament tree) over the stacked state.
 
 Counterpart of the single-device part of ``skyline_tpu/stream/window.py``
-(the merge step and the merges; the flush prefilter's grid summary is not
-ported yet). Running skylines live on the device as padded
-power-of-two-capacity buffers; compute prefixes use a finer
-quarter-power-of-two ladder. The bucket arithmetic is the reference's,
+(the merge step, the merges and the flush prefilter's grid summary).
+Running skylines live on the device as padded power-of-two-capacity
+buffers; compute prefixes use a finer quarter-power-of-two ladder. The bucket arithmetic is the reference's,
 constant for constant, so both packages size every pass alike.
 
 The merge step is the incremental policy's flush: one masked dominance pass
@@ -31,8 +30,8 @@ from skyline_tpu_torch.ops.dominance import (
     skyline_mask,
 )
 from skyline_tpu_torch.ops.dominance_kernels import dominated_by_rect, row_sums
+from skyline_tpu_torch.ops.sfs import _MP_PREFIX, mp_predrop
 from skyline_tpu_torch.utils.buckets import next_pow2
-from skyline_tpu_torch.utils.knobs import refuse_mixed_precision
 
 # Reference flushes its input buffer at 5000 tuples (BUFFER_SIZE,
 # FlinkSkyline.java:232); the default is the nearest power of two.
@@ -78,6 +77,20 @@ def _active_bucket(n: int) -> int:
     return p
 
 
+def _mp_predrop(sky, sky_valid, batch, batch_valid):
+    """bf16-margin pre-drop of batch rows certainly strictly dominated by a
+    row of the skyline's first ``_MP_PREFIX`` rows (``mp_predrop``), shared
+    by both merge cores: sky (P, S, d), sky_valid (P, S), batch (P, B, d),
+    batch_valid (P, B).
+
+    Exact: a certified row y has a valid sky row x with x < y in every
+    dimension, so the sky-vs-batch pass drops y anyway, and any batch row q
+    that y would have pruned satisfies x < y <= q — x strictly dominates q
+    too. Returns (batch', batch_valid', resolved (P,) int32)."""
+    limit = min(sky.shape[1], _MP_PREFIX)
+    return mp_predrop(sky[:, :limit], sky_valid[:, :limit], batch, batch_valid)
+
+
 def _merge_step_core(sky, sky_valid, batch, batch_valid, out_cap: int, mp: bool = False):
     """One windowed-BNL step for every partition, in plain PyTorch: merge a
     new batch into a running skyline and compact survivors into a fresh
@@ -93,11 +106,14 @@ def _merge_step_core(sky, sky_valid, batch, batch_valid, out_cap: int, mp: bool 
       dropped batch dominator's own dominator chain ends at a kept point
       that also dominates the victim).
 
-    Survivors keep their order: sky rows first, then batch rows. Returns
-    (values (P, out_cap, d), valid (P, out_cap), count (P,)). ``out_cap``
-    must be >= survivor count + batch rows. ``mp`` raises: the bf16
-    pre-drop is not ported."""
-    refuse_mixed_precision(mp)
+    ``mp`` first runs the bf16 pre-drop (``_mp_predrop``) — exact either
+    way. Survivors keep their order: sky rows first, then batch rows.
+    Returns (values (P, out_cap, d), valid (P, out_cap), count (P,),
+    resolved (P,) int32 — the bf16-certified drops, 0 without ``mp``).
+    ``out_cap`` must be >= survivor count + batch rows."""
+    resolved = torch.zeros(sky.shape[0], dtype=torch.int32, device=sky.device)
+    if mp:
+        batch, batch_valid, resolved = _mp_predrop(sky, sky_valid, batch, batch_valid)
     keep_sky = torch.empty_like(sky_valid)
     keep_batch = torch.empty_like(batch_valid)
     for p in range(sky.shape[0]):
@@ -106,7 +122,7 @@ def _merge_step_core(sky, sky_valid, batch, batch_valid, out_cap: int, mp: bool 
         keep_sky[p] = sky_valid[p] & ~dominated_by(sky[p], batch[p], x_valid=keep_batch[p])
     x = torch.cat([sky, batch], dim=1)
     keep = torch.cat([keep_sky, keep_batch], dim=1)
-    return compact(x, keep, out_cap)
+    return (*compact(x, keep, out_cap), resolved)
 
 
 def _t(x: torch.Tensor) -> torch.Tensor:
@@ -120,20 +136,23 @@ def _merge_step_kernel_core(
     """``_merge_step_core`` with its three dominance passes in K2
     (``dominated_by_rect``), one launch each for all partitions: the batch
     against itself, the sky against the batch, and the kept batch against
-    the sky — the reference's ``_merge_step_pallas_core``. Neither the
-    batch (arrival order) nor the sky (merge order) is sum-sorted; the
-    kernel's skip rules assume no order. On a CPU tensor the wrappers run
-    their plain versions."""
-    refuse_mixed_precision(mp)
-    sky_t, batch_t = _t(sky), _t(batch)
+    the sky — the reference's ``_merge_step_pallas_core``. ``mp`` runs the
+    pre-drop kernel first and the three K2 launches with their bf16 first
+    pass. Neither the batch (arrival order) nor the sky (merge order) is
+    sum-sorted; the kernel's skip rules assume no order. On a CPU tensor
+    the wrappers run their plain versions."""
     # the kernels take contiguous validity; an active-prefix slice is not
     sky_valid, batch_valid = sky_valid.contiguous(), batch_valid.contiguous()
-    batch_local = batch_valid & ~dominated_by_rect(batch_t, batch_valid, batch_t)
-    keep_batch = batch_local & ~dominated_by_rect(sky_t, sky_valid, batch_t)
-    keep_sky = sky_valid & ~dominated_by_rect(batch_t, keep_batch, sky_t)
+    resolved = torch.zeros(sky.shape[0], dtype=torch.int32, device=sky.device)
+    if mp:
+        batch, batch_valid, resolved = _mp_predrop(sky, sky_valid, batch, batch_valid)
+    sky_t, batch_t = _t(sky), _t(batch)
+    batch_local = batch_valid & ~dominated_by_rect(batch_t, batch_valid, batch_t, mp=mp)
+    keep_batch = batch_local & ~dominated_by_rect(sky_t, sky_valid, batch_t, mp=mp)
+    keep_sky = sky_valid & ~dominated_by_rect(batch_t, keep_batch, sky_t, mp=mp)
     x = torch.cat([sky, batch], dim=1)
     keep = torch.cat([keep_sky, keep_batch], dim=1)
-    return compact(x, keep, out_cap)
+    return (*compact(x, keep, out_cap), resolved)
 
 
 def merge_step_active(
@@ -149,13 +168,13 @@ def merge_step_active(
 
     sky (P, cap, d), sky_valid (P, cap), batch (P, B, d), bvalid (P, B).
     The kernel core runs on a CUDA tensor, the plain core on a CPU tensor,
-    as the reference picks its Pallas core on its accelerator. Returns
-    (values (P, out_cap, d), valid (P, out_cap), count (P,) int64)."""
-    refuse_mixed_precision(mp)
+    as the reference picks its Pallas core on its accelerator; ``mp``
+    threads the bf16 passes. Returns (values (P, out_cap, d), valid
+    (P, out_cap), count (P,) int64, resolved (P,) int32)."""
     P, cap, d = sky.shape
     core = _merge_step_kernel_core if on_cuda(sky) else _merge_step_core
-    vals, valid, cnt = core(
-        sky[:, :active], sky_valid[:, :active], batch, bvalid, out_active
+    vals, valid, cnt, res = core(
+        sky[:, :active], sky_valid[:, :active], batch, bvalid, out_active, mp
     )
     out_cap = max(cap, out_active)
     if out_active < out_cap:
@@ -168,7 +187,7 @@ def merge_step_active(
             valid,
             torch.zeros((P, out_cap - out_active), dtype=torch.bool, device=valid.device),
         ], dim=1)
-    return vals, valid, cnt
+    return vals, valid, cnt, res
 
 
 def _gather(segments, union_cap: int, width: int):
@@ -344,6 +363,93 @@ def prune_witness_mask(summaries: np.ndarray, alive: np.ndarray, d: int):
         witness_of[dom & ~pruned] = a
         pruned |= dom
     return pruned, witness_of
+
+
+# The quantized-grid flush prefilter: GRID_BINS boundary steps per
+# dimension, GRID_REPS representative skyline rows per partition. The
+# summary is tiny — (P, GRID_BINS + 1, d) f32 boundaries and (P, R, d)
+# int32 cell codes — against the skylines it summarises.
+GRID_BINS = 32
+GRID_REPS = 64
+
+
+# The dimension counts at which XLA's CPU code leaves the grid ladder's
+# last dimension unfused (``_ladder``).
+_UNFUSED_LAST_DIM = (3, 7)
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add. In
+    float64 the product of a small integer ``a`` and a float32 ``b`` is
+    exact, TwoSum gives the sum's exact error, and rounding to odd before
+    the float32 rounding keeps the double rounding from ever differing
+    from one rounding."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf")).to(s.dtype)
+    odd = torch.where((err != 0) & even & torch.isfinite(s), torch.nextafter(s, toward), s)
+    return odd.float()
+
+
+def _ladder(lo: torch.Tensor, step: torch.Tensor, d: int) -> torch.Tensor:
+    """The grid's boundaries ``lo + i * step``, i = 0..GRID_BINS, (P,
+    GRID_BINS + 1, d), rounded as the reference's CPU build rounds them:
+    XLA contracts the expression into a fused multiply-add in every
+    dimension but the last at d = 3 and d = 7, where the product and the
+    sum round apart (measured on the JAX package's CPU backend; the tests
+    hold the twin to it bit for bit)."""
+    ladder = torch.arange(GRID_BINS + 1, dtype=lo.dtype, device=lo.device)[None, :, None]
+    lo3, step3 = lo[:, None, :], step[:, None, :]
+    bounds = _fma_f32(ladder, step3, lo3)
+    if d in _UNFUSED_LAST_DIM:
+        bounds[..., -1] = (lo3 + ladder * step3)[..., -1]
+    return bounds
+
+
+def grid_summary_device(sky, counts, active: int):
+    """Per-partition quantized grid summary for the flush prefilter:
+    ``(bounds (P, GRID_BINS + 1, d) f32, ux (P, R, d) int32)`` with
+    R = min(active, GRID_REPS), the reference's operations in its order.
+
+    ``bounds[p, :, k]`` is an ascending ladder ``lo + i * step`` over
+    dimension k's finite live range (``_ladder``), shipped to the host
+    verbatim so host and device quantize against the same f32 values. ``ux`` are the
+    representatives' cell codes ``#(bounds < x)``: the smallest index with
+    ``x <= bounds[ux]``. The host codes a pending row y as ``vy = #(bounds
+    <= y) - 1`` and drops it iff ``ux < vy`` in every dimension: then
+    ``x <= bounds[ux] < bounds[vy] <= y``, so the representative — a live
+    skyline row — strictly dominates y (the host checks that the ladder
+    increases strictly). Representatives are the first R rows of the live
+    prefix; non-finite or out-of-count ones get code GRID_BINS + 1, which
+    never certifies. An empty partition gives a NaN ladder, which fails
+    the host's check: no drops."""
+    P, cap, d = sky.shape
+    dev = sky.device
+    s = sky[:, :active]
+    inf = torch.tensor(float("inf"), dtype=sky.dtype, device=dev)
+    valid = torch.arange(active, device=dev)[None, :] < counts[:, None]
+    finite = torch.isfinite(s) & valid[:, :, None]
+    lo = torch.where(finite, s, inf).amin(dim=1)  # (P, d)
+    hi = torch.where(finite, s, -inf).amax(dim=1)
+    # step > 0 even for a single-value dimension, so the ladder increases
+    # strictly whenever lo is finite and the step survives f32 addition
+    floor = torch.maximum(lo.abs(), torch.ones_like(lo)) * torch.tensor(
+        1e-6, dtype=sky.dtype, device=dev
+    )
+    step = torch.maximum((hi - lo) / GRID_BINS, floor)
+    bounds = _ladder(lo, step, d)
+    r = min(active, GRID_REPS)
+    reps = s[:, :r]
+    rep_ok = (torch.arange(r, device=dev)[None, :] < counts[:, None]) & torch.isfinite(
+        reps
+    ).all(dim=2)
+    ux = (bounds[:, None, :, :] < reps[:, :, None, :]).sum(dim=2, dtype=torch.int32)
+    ux = torch.where(rep_ok[:, :, None], ux, GRID_BINS + 1)
+    return bounds, ux
 
 
 def extract_sky_leaf(sky, counts, p: int, width: int):

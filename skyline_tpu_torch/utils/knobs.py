@@ -88,26 +88,34 @@ def flush_stage_depth() -> int:
     return max(0, env_int("SKYLINE_STAGE_DEPTH", 1))
 
 
-def mixed_precision_enabled() -> bool:
-    """``SKYLINE_MIXED_PRECISION`` asks for the bf16 margin passes of the
-    flush kernels. Off by default on every device in the port; the passes
-    are exact either way, so off changes no answer. The flush refuses the
-    knob when it is on, since the passes are not ported yet (ROADMAP.md,
-    queue 1: the ``mp`` bf16 passes)."""
-    return env_bool("SKYLINE_MIXED_PRECISION", False)
+def mixed_precision_enabled(device=None) -> bool:
+    """``SKYLINE_MIXED_PRECISION``: the bf16 margin passes of the flush —
+    the row pre-drop (``strictly_dominated_bf16``) and the kernels' bf16
+    first pass (K1–K3 ``mp``), both exact, so the answer is the same either
+    way. An explicit value wins on every device; otherwise it is on where
+    ``device`` is a CUDA card and off on the CPU — the reference's
+    ``on_tpu()`` default carried to the port's accelerator
+    (``skyline_tpu/ops/dispatch.py``)."""
+    # a torch.device, or a string such as "cuda:0"
+    on_card = str(getattr(device, "type", device)).split(":", 1)[0] == "cuda"
+    return env_bool("SKYLINE_MIXED_PRECISION", on_card)
 
 
-def refuse_mixed_precision(mp: bool | None = None) -> None:
-    """Raise when the bf16 passes are asked for — by ``mp``, or when it is
-    None by ``SKYLINE_MIXED_PRECISION`` — instead of ignoring the request."""
-    asked = mixed_precision_enabled() if mp is None else mp
-    if asked:
-        raise NotImplementedError(
-            "mixed precision (SKYLINE_MIXED_PRECISION=1 or mp=True): the bf16 "
-            "margin passes are not ported yet (ROADMAP.md, queue 1: the mp bf16 "
-            "passes); run with it off — the passes are exact, so off changes no "
-            "answer"
-        )
+def flush_prefilter_enabled() -> bool:
+    """``SKYLINE_FLUSH_PREFILTER``: the quantized-grid prefilter ahead of
+    the flush — pending host rows whose grid cell a representative cell of
+    their partition's skyline strictly dominates are dropped before any
+    merge kernel. On by default, as in the reference; the answer bytes are
+    the same either way."""
+    return env_bool("SKYLINE_FLUSH_PREFILTER", True)
+
+
+def flush_prefilter_on(d: int) -> bool:
+    """The reference's ``flush_prefilter`` row (``skyline_tpu/ops/
+    cascade.py``): d >= 3 (the d <= 2 sweep has no merge kernel to save)
+    and the knob; the row's other condition, no mesh, always holds for the
+    port's set."""
+    return d >= 3 and flush_prefilter_enabled()
 
 
 # -- the global-merge plane ---------------------------------------------------

@@ -90,17 +90,18 @@ def _merge_inputs(rng, d, grow):
 def test_merge_step_active_matches_jax(rng, d, grow):
     sky, valid, batch, bvalid, active, out_active = _merge_inputs(rng, d, grow)
     assert (out_active > sky.shape[1]) == grow
-    jv, jval, jc, _ = jwin.merge_step_active(
+    jv, jval, jc, jres = jwin.merge_step_active(
         jnp.asarray(sky), jnp.asarray(valid), jnp.asarray(batch), jnp.asarray(bvalid),
         active, out_active,
     )
-    tv, tval, tc = twin.merge_step_active(
+    tv, tval, tc, tres = twin.merge_step_active(
         torch.from_numpy(sky), torch.from_numpy(valid), torch.from_numpy(batch),
         torch.from_numpy(bvalid), active, out_active,
     )
     assert tv.numpy().tobytes() == np.asarray(jv).tobytes()
     assert np.array_equal(tval.numpy(), np.asarray(jval))
     assert np.array_equal(tc.numpy(), np.asarray(jc))
+    assert np.array_equal(tres.numpy(), np.asarray(jres))
     assert tv.shape[1] == max(sky.shape[1], out_active)
 
 
@@ -118,7 +119,7 @@ def test_merge_step_kernel_core_matches_pallas(rng, grow, interpret):
         jnp.asarray(sky[:, :active]), jnp.asarray(valid[:, :active]), jnp.asarray(batch),
         jnp.asarray(bvalid), out_active,
     )
-    tv, tval, tc = twin._merge_step_kernel_core(
+    tv, tval, tc, _ = twin._merge_step_kernel_core(
         torch.from_numpy(sky[:, :active]), torch.from_numpy(valid[:, :active]),
         torch.from_numpy(batch), torch.from_numpy(bvalid), out_active,
     )
@@ -146,22 +147,35 @@ def test_merge_step_cores_agree_on_special_values(rng):
     assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
 
 
-def test_mixed_precision_is_refused(rng, monkeypatch):
-    """``mp=True`` and ``SKYLINE_MIXED_PRECISION=1`` raise: the bf16 passes
-    are not ported, and the knob is never silently ignored."""
+def test_mixed_precision_matches_jax(rng, monkeypatch):
+    """``mp=True`` and ``SKYLINE_MIXED_PRECISION=1`` run the bf16 passes
+    and give the JAX package's results: the merge step's bytes, counts and
+    certified drops, and a set's flushed state and cascade counters."""
     sky, valid, batch, bvalid, active, out_active = _merge_inputs(rng, 3, False)
-    args = [torch.from_numpy(a) for a in (sky, valid, batch, bvalid)]
-    with pytest.raises(NotImplementedError, match="mp bf16"):
-        twin.merge_step_active(*args, active, out_active, mp=True)
-    ps = PartitionSet(2, 3, device="cpu")
-    ps.add_batch(0, np.ones((4, 3), np.float32), 3, 0.0)
+    jout = jwin.merge_step_active(
+        *(jnp.asarray(a) for a in (sky, valid, batch, bvalid)), active, out_active, mp=True
+    )
+    tout = twin.merge_step_active(
+        *(torch.from_numpy(a) for a in (sky, valid, batch, bvalid)), active, out_active,
+        mp=True,
+    )
+    assert tout[0].numpy().tobytes() == np.asarray(jout[0]).tobytes()
+    for t, j in zip(tout[1:], jout[1:]):
+        assert np.array_equal(t.numpy(), np.asarray(j))
+    assert int(tout[3].sum()) > 0  # the pre-drop certified some rows
     monkeypatch.setenv("SKYLINE_MIXED_PRECISION", "1")
-    assert knobs.mixed_precision_enabled()
-    with pytest.raises(NotImplementedError, match="SKYLINE_MIXED_PRECISION"):
-        ps.flush_all()
-    monkeypatch.setenv("SKYLINE_MIXED_PRECISION", "0")
-    ps.flush_all()
-    assert ps.sky_counts().tolist() == [4, 0]
+    assert knobs.mixed_precision_enabled("cpu")
+    x = generate("anti_correlated", rng, 3000, 3, 0, 10000)
+    states = []
+    for ps in (PartitionSet(2, 3, buffer_size=256, device="cpu"), JaxSet(2, 3, buffer_size=256)):
+        for s in range(0, 3000, 500):
+            ps.add_batch(s // 500 % 2, x[s : s + 500], s + 499, 0.0)
+            ps.flush_all()
+        counts = np.asarray(ps.sky_counts())
+        states.append((counts.tolist(), [np.asarray(ps.sky[p, : counts[p]]).tobytes()
+                                         for p in range(2)], ps.flush_cascade_stats()))
+    assert states[0] == states[1]
+    assert states[0][2]["bf16_resolved"] > 0 and states[0][2]["mixed_precision"]
 
 
 @pytest.mark.parametrize("raw", [None, "", "0", "1", "3", "-2", "two"])
@@ -321,6 +335,30 @@ def test_engine_defaults_are_the_reference_defaults():
 
 
 # -- state across packages --------------------------------------------------------
+
+
+def test_overlap_device_cleanup_after_tightened_bounds():
+    """A sync-free overlap flush of the device window whose rounds tighten
+    the count bounds under growth pressure: the cleanup's old prefix comes
+    from the loose pre-flush bound, which the JAX package then slices past
+    its final bucket and fails on mismatched shapes (2048 against 1024
+    rows here; recorded in ROADMAP.md queue 3). The port clamps the old
+    prefix to the final bucket — the old rows all lie in it — and answers
+    each window as the numpy oracle does."""
+    from skyline_tpu_torch.ops.dominance import skyline_np
+
+    rng = np.random.default_rng(53)
+    windows = [generate("anti_correlated", rng, 4096, 3, 0, 10000) for _ in range(2)]
+    jcfg, tcfg = _configs(3, "mr-angle", "overlap", ingest="device", buffer_size=512,
+                          overlap_rows=1024)
+    with pytest.raises(TypeError, match="incompatible shapes"):
+        _drive(JaxEngine(jcfg), windows, 1024)
+    results, _ = _drive(SkylineEngine(tcfg), windows, 1024)
+    for i, r in enumerate(results):
+        want = skyline_np(np.concatenate(windows[: i + 1]))
+        got = np.asarray(r["skyline_points"], np.float64)
+        assert r["skyline_size"] == want.shape[0]
+        assert np.array_equal(got[np.lexsort(got.T[::-1])], want[np.lexsort(want.T[::-1])])
 
 
 @pytest.mark.parametrize("d", [2, 4])

@@ -1,0 +1,450 @@
+"""The mixed-precision flush (``SKYLINE_MIXED_PRECISION``) against the JAX
+package on the CPU: the bf16 row pre-drop ``strictly_dominated_bf16``
+(mask and certified count) on seeded and margin-adversarial inputs,
+``_mp_predrop``, the merge step and the SFS rounds with ``mp`` — against
+the reference's Pallas cores in interpret mode, which reach the TPU
+kernels' ``mp`` body — the grid summary of the flush prefilter bit for bit,
+the soundness of the bf16 trilean the card's kernels classify pairs with,
+and the knobs. Every comparison is exact (bytes, masks, counts); no test
+has a tolerance. The ``cuda``-marked tests hold the ``mp`` kernels and the
+pre-drop kernel to their plain versions on a card and skip here."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from skyline_tpu.ops import cascade as jcascade
+from skyline_tpu.ops import dispatch as jdispatch
+from skyline_tpu.ops import sfs as jsfs
+from skyline_tpu.ops.dominance import strictly_dominated_bf16 as j_predrop
+from skyline_tpu.stream import device_window as jdw
+from skyline_tpu.stream import window as jwin
+from skyline_tpu_torch.ops import dominance_kernels as dk
+from skyline_tpu_torch.ops import sfs as tsfs
+from skyline_tpu_torch.ops.dominance import bf16_round, strictly_dominated_bf16
+from skyline_tpu_torch.stream import device_window as tdw
+from skyline_tpu_torch.stream import window as twin
+from skyline_tpu_torch.utils import knobs
+
+torch.set_num_threads(1)
+
+F32 = np.float32
+TINY_SUB = F32(2.0**-130)  # a float32 subnormal, kept by bf16 rounding
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    """The JAX side's Pallas kernels in interpret mode on the CPU."""
+    monkeypatch.setenv("SKYLINE_PALLAS_INTERPRET", "1")
+
+
+@pytest.fixture
+def cuda_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def adversarial_pairs(rng, d: int):
+    """(dominators (n, d), victims (m, d)) f32 aimed at the bf16 margin: a
+    base row and victims that differ from it, in one dimension or in all,
+    by less than, at and just beyond one bf16 ulp and the 2^-7 / 2^-6
+    bands; exact ties; -0.0/+0.0; NaN; +-inf; subnormals; values near the
+    f32 maximum that round to bf16 infinity; and duplicate zero rows (the
+    north-star's)."""
+    base = rng.uniform(1.0, 100.0, size=(16, d)).astype(F32)
+    xs, ys = [base], []
+    for scale in (2.0**-9, 2.0**-8, 2.0**-7, 2.0**-6, 2.0**-5, 2.0**-4):
+        for f in (1.0 - 2.0**-12, 1.0, 1.0 + 2.0**-12):
+            step = (base * F32(scale * f)).astype(F32)
+            ys.append(base + step)  # worse in every dimension
+            one = base.copy()
+            one[:, rng.integers(0, d)] += step[:, 0]
+            ys.append(one)  # worse in one dimension only
+            ys.append(np.nextafter(base + step, F32(np.inf)))
+    ys.append(base.copy())  # exact ties
+    ys.append(np.nextafter(base, F32(np.inf)))  # one f32 ulp worse
+    zeros = np.zeros((8, d), F32)
+    zeros[::2, 0] = -0.0
+    xs.append(zeros)
+    ys.append(zeros[::-1].copy())
+    ys.append(np.full((4, d), TINY_SUB, F32))  # subnormals above a zero row
+    ys.append(np.full((4, d), 1e-29, F32))  # just above the absolute term
+    sub = np.full((4, d), TINY_SUB, F32)
+    sub[1] *= F32(3.0)
+    xs.append(sub)
+    ys.append(np.full((4, d), F32(1e-30) * F32(1.5)))
+    big = np.full((4, d), F32(3.39e38))
+    big[1] = np.finfo(F32).max
+    xs.append(big)
+    ys.append(np.full((4, d), np.finfo(F32).max))
+    ys.append(np.full((4, d), F32(3.3e38)))
+    special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1.0], F32)
+    xs.append(special[rng.integers(0, 6, size=(24, d))])
+    ys.append(special[rng.integers(0, 6, size=(24, d))])
+    return np.concatenate(xs), np.concatenate(ys)
+
+
+def _predrop_both(y, x, xv):
+    want = np.asarray(j_predrop(jnp.asarray(y), jnp.asarray(x), jnp.asarray(xv)))
+    got = strictly_dominated_bf16(
+        torch.from_numpy(y), torch.from_numpy(x), torch.from_numpy(xv)
+    ).numpy()
+    return want, got
+
+
+# -- the row pre-drop ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d", [1, 3, 8, 16])
+def test_predrop_matches_jax_seeded(rng, d):
+    x = rng.uniform(0, 100, size=(300, d)).astype(F32)
+    y = rng.uniform(0, 120, size=(700, d)).astype(F32)
+    xv = rng.random(300) < 0.8
+    want, got = _predrop_both(y, x, xv)
+    assert np.array_equal(got, want)
+    assert got.sum() == want.sum() > 0
+
+
+@pytest.mark.parametrize("d", [2, 3, 8])
+def test_predrop_matches_jax_adversarial(rng, d):
+    x, y = adversarial_pairs(rng, d)
+    xv = np.ones(x.shape[0], bool)
+    xv[::7] = False
+    want, got = _predrop_both(y, x, xv)
+    assert np.array_equal(got, want)
+    # the margin decides some rows and refuses others (ties, in-band rows)
+    assert 0 < got.sum() < got.size
+
+
+def test_predrop_rounding_decides_the_margin():
+    """A case where the bf16 rounding decides the verdict: y = x + 2^-7|x|
+    in f32 is beyond the margin 2^-7 (|x| + |y|) only once y rounds up to
+    the next bf16 value (1 + 2^-8 + 2^-20 rounds up; 1 + 2^-8 is a tie and
+    rounds to even, down to 1). JAX's CPU run rounds at the converts (no
+    excess precision), so both packages certify the same rows."""
+    x = np.ones((1, 2), F32)
+    y = np.array([[1 + 2**-8, 1 + 2**-8], [1 + 2**-8 + 2**-20] * 2, [1.03125, 1.03125],
+                  [1.0234375, 1.0234375]], F32)
+    want, got = _predrop_both(y, x, np.ones(1, bool))
+    assert np.array_equal(got, want)
+    assert got.tolist() == [False, False, True, True]
+    assert bf16_round(torch.from_numpy(y[:2, 0])).tolist() == [1.0, 1.0078125]
+
+
+def test_predrop_is_sound_and_never_certifies_ties(rng):
+    """A certified row has an f32 strict dominator; a row and itself, or
+    a row sharing one coordinate, never certify."""
+    x = rng.random((400, 6)).astype(F32)
+    y = rng.random((500, 6)).astype(F32)
+    xv = rng.random(400) < 0.8
+    got = strictly_dominated_bf16(torch.from_numpy(y), torch.from_numpy(x),
+                                  torch.from_numpy(xv)).numpy()
+    strict = (x[xv][:, None, :] < y[None, :, :]).all(axis=2).any(axis=0)
+    assert not (got & ~strict).any() and got.sum() > 0
+    pair = torch.tensor([[1.0, 2.0, 3.0], [1.0, 30.0, 40.0]])
+    assert not strictly_dominated_bf16(pair, pair).any()
+
+
+def test_predrop_chunks_over_victims(rng, monkeypatch):
+    """A chunk smaller than the victim count gives the same mask."""
+    from skyline_tpu_torch.ops import dominance
+
+    x = rng.uniform(0, 10, size=(50, 4)).astype(F32)
+    y = rng.uniform(0, 12, size=(333, 4)).astype(F32)
+    full = strictly_dominated_bf16(torch.from_numpy(y), torch.from_numpy(x))
+    monkeypatch.setattr(dominance, "_CHUNK_ELEMS", 50 * 7)
+    assert torch.equal(strictly_dominated_bf16(torch.from_numpy(y), torch.from_numpy(x)), full)
+
+
+def test_predrop_wrapper_batches_and_checks(rng):
+    P, d = 3, 4
+    x = torch.from_numpy(rng.uniform(0, 10, size=(P, 40, d)).astype(F32))
+    y = torch.from_numpy(rng.uniform(0, 12, size=(P, 90, d)).astype(F32))
+    xv = torch.from_numpy(rng.random((P, 40)) < 0.7)
+    got = dk.strictly_dominated_bf16_kernel(y, x, xv)
+    assert got.shape == (P, 90)
+    for p in range(P):
+        assert torch.equal(got[p], strictly_dominated_bf16(y[p], x[p], xv[p]))
+        assert torch.equal(dk.strictly_dominated_bf16_kernel(y[p], x[p], xv[p]), got[p])
+
+
+def test_mp_predrop_matches_jax(rng):
+    P, S, B, d = 3, 1024, 512, 4
+    sky = rng.uniform(0, 40, size=(P, S, d)).astype(F32)
+    sv = np.arange(S)[None, :] < np.array([0, 300, 1024])[:, None]
+    batch = rng.uniform(0, 60, size=(P, B, d)).astype(F32)
+    bv = rng.random((P, B)) < 0.9
+    want = jax.vmap(jwin._mp_predrop)(*(jnp.asarray(a) for a in (sky, sv, batch, bv)))
+    got = twin._mp_predrop(*(torch.from_numpy(a) for a in (sky, sv, batch, bv)))
+    assert got[0].numpy().tobytes() == np.asarray(want[0]).tobytes()
+    for g, w in zip(got[1:], want[1:]):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    assert got[2].dtype == torch.int32 and got[2][1] > 0 and got[2][0] == 0
+
+
+# -- the merge step and the SFS rounds with mp --------------------------------------
+
+
+def _merge_case(rng, d, grow):
+    from test_torch_incremental import _merge_inputs
+
+    return _merge_inputs(rng, d, grow)
+
+
+@pytest.mark.parametrize("grow", [False, True])
+@pytest.mark.parametrize("d", [3, 8])
+def test_merge_step_active_mp_matches_jax(rng, d, grow):
+    sky, valid, batch, bvalid, active, out_active = _merge_case(rng, d, grow)
+    want = jwin.merge_step_active(
+        *(jnp.asarray(a) for a in (sky, valid, batch, bvalid)), active, out_active, mp=True
+    )
+    got = twin.merge_step_active(
+        *(torch.from_numpy(a) for a in (sky, valid, batch, bvalid)), active, out_active, True
+    )
+    assert got[0].numpy().tobytes() == np.asarray(want[0]).tobytes()
+    for g, w in zip(got[1:], want[1:]):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    off = twin.merge_step_active(
+        *(torch.from_numpy(a) for a in (sky, valid, batch, bvalid)), active, out_active
+    )
+    assert torch.equal(off[0], got[0]) and int(off[3].sum()) == 0
+
+
+def test_merge_step_kernel_core_mp_matches_pallas(rng, interpret):
+    """The K2 core with ``mp`` against ``_merge_step_pallas_core(mp=True)``
+    in interpret mode (the TPU kernel's bf16 tile body)."""
+    sky, valid, batch, bvalid, active, out_active = _merge_case(rng, 3, False)
+    core = jax.jit(
+        jax.vmap(lambda s, v, b, bv: jwin._merge_step_pallas_core(s, v, b, bv, out_active,
+                                                                  mp=True))
+    )
+    want = core(*(jnp.asarray(a) for a in (sky[:, :active], valid[:, :active], batch, bvalid)))
+    got = twin._merge_step_kernel_core(
+        *(torch.from_numpy(a) for a in (sky[:, :active], valid[:, :active], batch, bvalid)),
+        out_active, mp=True,
+    )
+    assert got[0].numpy().tobytes() == np.asarray(want[0]).tobytes()
+    for g, w in zip(got[1:], want[1:]):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+def _sfs_state(rng, P, cap, d, counts):
+    """(P, cap, d) sum-sorted skylines of ``counts`` rows, +inf padded."""
+    from skyline_tpu_torch.ops.dominance import skyline_mask
+
+    sky = np.full((P, cap, d), np.inf, F32)
+    for p in range(P):
+        x = rng.integers(0, 30, size=(4 * counts[p] + 64, d)).astype(F32)
+        rows = x[skyline_mask(torch.from_numpy(x)).numpy()][: counts[p]]
+        sky[p, : rows.shape[0]] = rows[np.argsort(rows.sum(1), kind="stable")]
+        counts[p] = rows.shape[0]
+    return sky, counts
+
+
+@pytest.mark.parametrize("d", [3, 8])
+def test_sfs_round_core_mp_matches_pallas(rng, d, interpret):
+    """One partition's round with the pre-drop and K1/K2 ``mp``, against
+    ``sfs_round_core(..., use_pallas=True, interp=True, mp=True)``."""
+    cap, B, active = 2048, 512, 1024
+    sky, counts = _sfs_state(rng, 1, cap, d, np.array([600]))
+    block = rng.integers(0, 40, size=(B, d)).astype(F32)
+    block = block[np.argsort(block.sum(1), kind="stable")]
+    bvalid = np.arange(B) < 450
+    block[~bvalid] = np.inf
+    want = jsfs.sfs_round_core(
+        jnp.asarray(sky[0]), jnp.asarray(counts[0], jnp.int32), jnp.asarray(block),
+        jnp.asarray(bvalid), active, True, True, True,
+    )
+    got = tsfs.sfs_round_core(
+        torch.from_numpy(sky[0].copy()), torch.tensor(counts[0]), torch.from_numpy(block),
+        torch.from_numpy(bvalid), active, mp=True,
+    )
+    assert got[0].numpy().tobytes() == np.asarray(want[0]).tobytes()
+    assert int(got[1]) == int(want[1]) and int(got[2]) == int(want[2]) > 0
+
+
+@pytest.mark.parametrize("d", [3, 8])
+def test_sfs_round_mp_matches_jax(rng, d):
+    P, cap, B, active = 4, 1024, 256, 768
+    sky, counts = _sfs_state(rng, P, cap, d, np.array([0, 50, 700, 300]))
+    blocks = rng.integers(0, 40, size=(P, B, d)).astype(F32)
+    for p in range(P):
+        blocks[p] = blocks[p][np.argsort(blocks[p].sum(1), kind="stable")]
+    bvalid = np.arange(B)[None, :] < np.array([256, 10, 0, 200])[:, None]
+    blocks[~bvalid] = np.inf
+    want = jsfs.sfs_round(
+        jnp.asarray(sky), jnp.asarray(counts, jnp.int32), jnp.asarray(blocks),
+        jnp.asarray(bvalid), active, mp=True,
+    )
+    got = tsfs.sfs_round(
+        torch.from_numpy(sky.copy()), torch.from_numpy(counts), torch.from_numpy(blocks),
+        torch.from_numpy(bvalid), active, mp=True,
+    )
+    assert got[0].numpy().tobytes() == np.asarray(want[0]).tobytes()
+    assert np.array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert np.array_equal(got[2].numpy(), np.asarray(want[2]))
+    assert got[2].sum() > 0
+
+
+@pytest.mark.parametrize("d", [3, 8])
+def test_sfs_round_at_mp_matches_jax(rng, d):
+    """The device-window rounds with ``mp``, single and all partitions."""
+    P, cap, B, active = 3, 2048, 512, 1024
+    sky, counts = _sfs_state(rng, P, cap, d, np.array([400, 0, 900]))
+    n = 1500
+    ws = rng.integers(0, 40, size=(n + 1024, d)).astype(F32)
+    ws[n:] = np.inf
+    bounds = np.array([0, 600, 601, n])
+    for p in range(P):
+        seg = ws[bounds[p] : bounds[p + 1]]
+        ws[bounds[p] : bounds[p + 1]] = seg[np.argsort(seg.sum(1), kind="stable")]
+    jc = counts.astype(np.int32)
+    for p in range(P):
+        off, width = int(bounds[p]), min(B, int(bounds[p + 1] - bounds[p]))
+        want = jdw.sfs_round_at(jnp.asarray(sky[p]), jc[p], jnp.asarray(ws), off, width,
+                                B=B, active=active, mp=True)
+        got = tdw.sfs_round_at(torch.from_numpy(sky[p].copy()), torch.tensor(counts[p]),
+                               torch.from_numpy(ws), off, width, B=B, active=active, mp=True)
+        assert got[0].numpy().tobytes() == np.asarray(want[0]).tobytes()
+        assert int(got[1]) == int(want[1]) and int(got[2]) == int(want[2])
+    offs, widths = bounds[:-1], np.clip(np.diff(bounds), 0, B)
+    want = jdw.sfs_round_at_vmapped(
+        jnp.asarray(sky), jnp.asarray(jc), jnp.asarray(ws), jnp.asarray(offs.astype(np.int32)),
+        jnp.asarray(widths.astype(np.int32)), B=B, active=active, mp=True,
+    )
+    got = tdw.sfs_round_at_vmapped(
+        torch.from_numpy(sky.copy()), torch.from_numpy(counts), torch.from_numpy(ws),
+        torch.from_numpy(offs), torch.from_numpy(widths), B=B, active=active, mp=True,
+    )
+    assert got[0].numpy().tobytes() == np.asarray(want[0]).tobytes()
+    assert np.array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert np.array_equal(got[2].numpy(), np.asarray(want[2])) and got[2].sum() > 0
+
+
+# -- the grid summary ------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d", [3, 4, 8])
+def test_grid_summary_matches_jax_bit_for_bit(rng, d):
+    """``(bounds, ux)`` equal to JAX's bytes: ragged counts, an empty
+    partition, a single-value dimension, non-finite rows and values far
+    from 1 (the 1e-6 step floor)."""
+    P, cap = 5, 1024
+    counts = np.array([0, 1, 37, 700, 1024])
+    sky = np.full((P, cap, d), np.inf, F32)
+    for p in range(P):
+        sky[p, : counts[p]] = rng.uniform(-50, 5000, size=(counts[p], d))
+    sky[2, :, 1] = F32(7.25)  # one value in a dimension
+    sky[3, 5] = np.nan
+    sky[3, 9, 0] = -np.inf
+    sky[4, :, 0] *= F32(1e-7)
+    sky[4, :, d - 1] += F32(3e7)
+    for active in (1024, 40):
+        want = jwin.grid_summary_device(jnp.asarray(sky), jnp.asarray(counts, jnp.int32), active)
+        got = twin.grid_summary_device(torch.from_numpy(sky), torch.from_numpy(counts), active)
+        assert got[0].numpy().tobytes() == np.asarray(want[0]).tobytes()
+        assert got[1].dtype == torch.int32
+        assert got[1].numpy().tobytes() == np.asarray(want[1]).tobytes()
+
+
+def test_grid_codes_are_sound(rng):
+    """Whenever every dimension has representative code < victim code, the
+    representative strictly dominates the victim in f32."""
+    d, cap, count = 5, 1024, 200
+    sky = np.full((1, cap, d), np.inf, F32)
+    rows = rng.random((count, d)).astype(F32)
+    sky[0, :count] = rows
+    bounds, ux = twin.grid_summary_device(torch.from_numpy(sky), torch.tensor([count]), cap)
+    bounds, ux = bounds.numpy()[0], ux.numpy()[0]
+    assert np.all(np.diff(bounds, axis=0) > 0)
+    r = min(cap, twin.GRID_REPS)
+    assert (ux[:count] <= twin.GRID_BINS).all() and ux.shape == (r, d)
+    y = rng.random((800, d)).astype(F32) * F32(1.5)
+    vy = (bounds[None, :, :] <= y[:, None, :]).sum(axis=1) - 1
+    dropped = np.any(np.all(ux[None, :, :] < vy[:, None, :], axis=2), axis=1)
+    strict = (rows[:r][None, :, :] < y[:, None, :]).all(axis=2).any(axis=1)
+    assert not (dropped & ~strict).any() and dropped.sum() > 0
+
+
+# -- the bf16 trilean of the mp kernels ------------------------------------------------
+
+
+def test_mp_trilean_is_sound(rng):
+    """The classification the mp kernels make (``mp_trilean_plain``, the
+    kernel's steps in torch bf16): certain => f32 strict dominance in every
+    dimension; decided-false => some f32 x_k > y_k. Torch's CPU bf16
+    operations round through float32 first, the card's round once; both
+    stay within the proof's slack (csrc/dominance.cu, step 7)."""
+    for d in (1, 3, 8):
+        x, y = adversarial_pairs(rng, d)
+        x = np.concatenate([x, rng.uniform(0, 100, size=(200, d)).astype(F32)])
+        y = np.concatenate([y, rng.uniform(0, 110, size=(300, d)).astype(F32)])
+        certain, false = dk.mp_trilean_plain(torch.from_numpy(x), torch.from_numpy(y))
+        certain, false = certain.numpy(), false.numpy()
+        assert not (certain & false).any()
+        lt_all = (x[:, None, :] < y[None, :, :]).all(axis=2)
+        gt_any = (x[:, None, :] > y[None, :, :]).any(axis=2)
+        assert not (certain & ~lt_all).any(), "certified a pair without strict dominance"
+        assert not (false & ~gt_any).any(), "decided false a pair with no greater dimension"
+        # and it decides most pairs of ordinary data
+        assert (certain | false).mean() > 0.5
+
+
+def test_mp_trilean_leaves_margin_pairs_undecided():
+    """Ties, one-ulp differences, NaN and infinities are never decided."""
+    x = torch.tensor([[1.0, 2.0], [float("nan"), 0.0], [float("inf"), 0.0], [0.0, 0.0]])
+    y = torch.tensor([[1.0, 2.0], [float(np.nextafter(F32(1.0), F32(2.0))), 2.5],
+                      [0.0, 0.0], [3.4e38, 3.4e38]])
+    certain, false = dk.mp_trilean_plain(x, y)
+    undecided = ~(certain | false)
+    assert undecided[0, 0] and undecided[0, 1] and undecided[3, 2]
+    assert undecided[1].all() and undecided[:, 3].all()
+
+
+# -- the knobs ---------------------------------------------------------------------------
+
+
+def test_knob_defaults(monkeypatch):
+    monkeypatch.delenv("SKYLINE_MIXED_PRECISION", raising=False)
+    monkeypatch.delenv("SKYLINE_FLUSH_PREFILTER", raising=False)
+    assert knobs.mixed_precision_enabled(torch.device("cuda"))
+    assert knobs.mixed_precision_enabled("cuda:0")
+    assert not knobs.mixed_precision_enabled("cpu")
+    assert not knobs.mixed_precision_enabled()
+    # the reference's default off its accelerator
+    assert knobs.mixed_precision_enabled("cpu") == jdispatch.mixed_precision_enabled()
+    for d in (1, 2, 3, 8):
+        assert knobs.flush_prefilter_on(d) == jcascade.applies("flush_prefilter", d=d)
+    for raw, want in (("1", True), ("0", False), ("off", False), ("yes", True)):
+        monkeypatch.setenv("SKYLINE_MIXED_PRECISION", raw)
+        assert knobs.mixed_precision_enabled("cpu") == want
+        assert knobs.mixed_precision_enabled("cuda") == want
+        assert jdispatch.mixed_precision_enabled() == want
+        monkeypatch.setenv("SKYLINE_FLUSH_PREFILTER", raw)
+        assert knobs.flush_prefilter_on(4) == want == jcascade.applies("flush_prefilter", d=4)
+
+
+# -- on the card -------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 8, 16])
+def test_mp_kernels_match_plain_on_card(rng, cuda_card, d):
+    x, y = adversarial_pairs(rng, d)
+    pts = torch.from_numpy(np.concatenate([x, y])).to(cuda_card)
+    v = torch.ones(pts.shape[0], dtype=torch.bool, device=cuda_card)
+    pt = pts.T.contiguous()
+    want = dk.dominated_by_any_plain(pt, v)
+    assert torch.equal(dk.dominated_by_any(pt, v, mp=True), want)
+    assert torch.equal(dk.dominated_by_any(pt, v, mp=False), want)
+    yt = torch.from_numpy(np.ascontiguousarray(y.T)).to(cuda_card)
+    assert torch.equal(dk.dominated_by_rect(pt, v, yt, mp=True),
+                       dk.dominated_by_rect_plain(pt, v, yt))
+    assert torch.equal(dk.skyline_mask_kernel(pts, v, mp=True), dk.skyline_mask_plain(pts, v))
+    xs, ys = torch.from_numpy(x).to(cuda_card), torch.from_numpy(y).to(cuda_card)
+    xv = torch.ones(xs.shape[0], dtype=torch.bool, device=cuda_card)
+    assert torch.equal(dk.strictly_dominated_bf16_kernel(ys, xs, xv),
+                       strictly_dominated_bf16(ys, xs, xv))

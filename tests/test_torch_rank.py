@@ -251,12 +251,14 @@ def test_mask_dispatch_picks_k7_on_the_card_only(rng, monkeypatch):
     v = torch.ones(300, dtype=torch.bool)
     calls = []
     monkeypatch.setattr(tdispatch, "on_cuda", lambda t: True)
-    monkeypatch.setattr(tdispatch, "skyline_mask_kernel", lambda *a: calls.append("K3"))
+    monkeypatch.setattr(tdispatch, "skyline_mask_kernel",
+                        lambda *a, mp: calls.append(("K3", mp)))
     monkeypatch.setattr(tdispatch, "skyline_mask_rank_kernel", lambda *a: calls.append("K7"))
+    monkeypatch.setenv("SKYLINE_MIXED_PRECISION", "1")
     for gate in ("1", "0"):
         monkeypatch.setenv("SKYLINE_RANK_CASCADE", gate)
         tdispatch.skyline_mask_auto(x, v)
-    assert calls == ["K7", "K3"]
+    assert calls == ["K7", ("K3", True)]
     monkeypatch.undo()
     monkeypatch.setenv("SKYLINE_RANK_CASCADE", "1")
     assert torch.equal(tdispatch.skyline_mask_auto(x, v), skyline_mask(x, v))

@@ -43,16 +43,17 @@ def test_sfs_round_matches_jax(rng, d):
     blocks, bvalids = zip(*[_sorted_block(rng, B, int(w), d) for w in (128, 70, 0, 5)])
     blocks, bvalids = np.stack(blocks), np.stack(bvalids)
     active = 256
-    jsky, jc, _ = jsfs.sfs_round(
+    jsky, jc, jres = jsfs.sfs_round(
         jnp.asarray(sky), jnp.asarray(counts, jnp.int32), jnp.asarray(blocks),
         jnp.asarray(bvalids), active,
     )
-    tsky, tc = tsfs.sfs_round(
+    tsky, tc, tres = tsfs.sfs_round(
         torch.from_numpy(sky.copy()), torch.from_numpy(counts), torch.from_numpy(blocks),
         torch.from_numpy(bvalids), active,
     )
     assert tsky.numpy().tobytes() == np.asarray(jsky).tobytes()
     assert np.array_equal(tc.numpy(), np.asarray(jc))
+    assert np.array_equal(tres.numpy(), np.asarray(jres))
 
 
 @pytest.mark.parametrize("d", [3, 8])
@@ -66,7 +67,7 @@ def test_sfs_round_single_matches_jax(rng, d, w):
         jnp.asarray(bvalid), 512,
     )
     t_in = torch.from_numpy(sky[0].copy())
-    tsky, tc = tsfs.sfs_round_single(
+    tsky, tc, _ = tsfs.sfs_round_single(
         t_in, torch.tensor(counts[0]), torch.from_numpy(block), torch.from_numpy(bvalid), 512
     )
     assert tsky.numpy().tobytes() == np.asarray(jsky).tobytes()
@@ -92,7 +93,7 @@ def test_repeated_rounds_match_jax(rng):
             blk[p, : len(part)] = part
             bv[p, : len(part)] = True
         jsky, jc, _ = jsfs.sfs_round(jsky, jc, jnp.asarray(blk), jnp.asarray(bv), 1024)
-        tsky, tc = tsfs.sfs_round(tsky, tc, torch.from_numpy(blk), torch.from_numpy(bv), 1024)
+        tsky, tc, _ = tsfs.sfs_round(tsky, tc, torch.from_numpy(blk), torch.from_numpy(bv), 1024)
         assert tsky.numpy().tobytes() == np.asarray(jsky).tobytes()
         assert np.array_equal(tc.numpy(), np.asarray(jc))
     for p in range(P):
