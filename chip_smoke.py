@@ -42,7 +42,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    {3, 8, 16} on those cases and on rows aimed at the bf16 margin (one bf16
    ulp and the 2^-7/2^-6 bands either side, ties, signed zeros, NaN,
    infinities, subnormals, values that round to bf16 infinity, the
-   north-star's zero rows), the merge step with ``mp`` too;
+   north-star's zero rows), the merge step with ``mp`` too; the device
+   sorted dominance cascade (``device_cascade_mask``: K1 over each block's
+   full square, K2 over the survivor buffer and the band, the pre-drop)
+   against its CPU version and K3, ``mp`` off and on, on those cases at
+   d in {3, 8, 16}, signed-zero duplicates, NaN and mixed +/-inf rows and a
+   north-star block, and its core at block 8 on the 2^24 equal-key band;
+   ``skyline_large`` on the ``--n``-row north-star window against K3's
+   survivors in sum order, timed;
 4. parity, each on CUDA and with ``device="cpu"`` (plain versions): the
    host-ingest engine over two 65,536-row 8-D anti-correlated windows
    (same sizes, optimality and point bytes) plus a small window against
@@ -63,7 +70,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the CPU with ``SKYLINE_MIXED_PRECISION=1`` — answers and
    ``flush_cascade_stats()`` — for the incremental policy and both ingests
    of the lazy and overlap policies at d = 3 and 8, and the card's cascade
-   on against off (``CASCADE_OFF``), answers;
+   on against off (``CASCADE_OFF``), answers — the lazy flush pinned to
+   the SFS rounds (``ROUNDS_ONLY``); the lazy flush race
+   (``RACE_PARITY``): the lazy engine with host ingest at d = 3 and 8 over
+   three windows, the card with the device cascade forced and under the
+   defaults (the SFS rounds raced against the device cascade) against the
+   CPU with the host sorted cascade forced, strict;
 5. main paths at 1,000,000 rows, each one warm window and ``--windows``
    measured ones, driven in 65,536-row chunks with the trigger "0,0", under
    the reference's merge defaults (the pruned tree merge at d > 2, the
@@ -83,7 +95,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    value flush rounds are mixed-precision (the pre-drop kernel, K1/K2 mp)
    and (g)'s K3 too; (i) is (b) and (k) is (g) with
    ``SKYLINE_MIXED_PRECISION=0`` (K1/K2 and K3 in f32), (j) is (d) with the
-   flush cascade off (no grid prefilter, no bf16 pass). Each prints each
+   flush cascade off (no grid prefilter, no bf16 pass); (l) is (c) and (m)
+   is (g) with ``SKYLINE_DEVICE_CASCADE=on``: every lazy flush of (l) is a
+   survivor mask of old ∪ new through the device cascade, (m)'s flat merge
+   masks its union through it (neither may launch K3). Each window's
+   engine takes over the lazy flush race's profiler of the window before,
+   as one long-lived engine keeps it, and each window prints the path its
+   flush took and the race's EMAs. Each prints each
    window's ``flush_cascade_stats()`` and the host ms of the grid
    prefilter, tuples/s (all
    measured rows over the summed window walls), p50 window latency, flush
@@ -117,7 +135,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    skips. The mp variants of K1–K3 are timed right after their f32 launch
    on the same inputs (and K2 mp on (d)'s heaviest round), the pre-drop
    kernel at the north-star round's shape (P = 8, 512 x 65,536, d = 8;
-   bound: bytes, or 5 f32 operations per tested pair and dimension).
+   bound: bytes, or 5 f32 operations per tested pair and dimension). The
+   device cascade at the north-star flat-merge union (K3's input), ``mp``
+   on and off: its wall beside K3's and the CPU cascade's, its launches,
+   and each launch site's device ms and bound (``cascade_sites``); then the
+   same sites over one more window of (l).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -831,6 +853,119 @@ def check_tree(torch, np, dev) -> int:
     return checks
 
 
+def _cascade_cases(torch, np, rng, dev):
+    """(name, x (N, d), valid (N,)) on the card for the device cascade:
+    ``_cases`` at d in {3, 8, 16} and its NaN/infinity and sum-tie rows,
+    signed-zero duplicates, mixed +/-inf rows (NaN keys: a band to the
+    end), all-NaN and partly NaN rows, and a 65,536-row north-star block
+    (~44% zero vectors, some of them -0.0)."""
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    cases = [c for c in _cases(torch, rng, np, dev)
+             if c[1].shape[1] in (3, 8, 16) and not c[0].startswith("d4_")]
+    inf, nan = np.inf, np.nan
+    extra = {
+        "signed_zero": np.array([[-0.0, 0, 1], [0, -0.0, 1], [0, 0, 1], [1, 1, 1],
+                                 [-0.0, -0.0, 1]] * 40, np.float32),
+        "mixed_inf": np.array([[inf, -inf, 0], [-inf, inf, 0], [-inf, -inf, -inf],
+                               [0, 0, 0], [inf, -inf, 1], [nan, nan, nan],
+                               [2, nan, 0], [inf, inf, inf]] * 300, np.float32),
+    }
+    ns = anti_correlated(rng, 65536, 8, 0, 10000)
+    ns[rng.integers(0, 65536, 64)] = -0.0
+    extra["north_star_block"] = ns
+    for name, x in extra.items():
+        cases.append((name, torch.from_numpy(x).to(dev),
+                      torch.from_numpy(rng.random(x.shape[0]) < 0.95).to(dev)))
+    return cases
+
+
+# the 2^24 band: every f32 row sum is 2^24 (fl(2^24 + c) = 2^24 for c < 1),
+# the three trailing rows tie the key with different exact sums
+BAND_ROWS = [(16777216.0 - j, float(j), 0.0) for j in range(2, 22)] + [
+    (16777216.0, 0.5, 0.0), (16777216.0, 1.0, 0.0), (16777216.0, 0.75, 0.0)]
+
+
+def check_cascade(torch, np, dev) -> int:
+    """The device sorted dominance cascade (``ops/device_cascade.py``) on the
+    card against its CPU version and against K3, exact masks, with
+    ``SKYLINE_MIXED_PRECISION`` off and on, on ``_cascade_cases`` (the
+    card's sizes: 1,024-row blocks and padding); and its core at block 8 on
+    the 2^24 equal-key band (``BAND_ROWS``, padded to 32 rows), card
+    against CPU and K3. Each card call must launch K1 (the full square)."""
+    from skyline_tpu_torch.ops import device_cascade as tdc
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+
+    rng = np.random.default_rng(61)
+    checks = 0
+    cases = _cascade_cases(torch, np, rng, dev)
+    band = np.array(BAND_ROWS + [(np.inf,) * 3] * (32 - len(BAND_ROWS)), np.float32)
+    band_ok = np.arange(32) < len(BAND_ROWS)
+    for mp in (False, True):
+        with knob_env({"SKYLINE_MIXED_PRECISION": "1" if mp else "0"}):
+            k1 = "dominated_by_any" + ("_mp" if mp else "")
+            for name, x, v in cases:
+                before = dk.LAUNCHES[k1]
+                card = tdc.device_cascade_mask(x, v)
+                if dk.LAUNCHES[k1] == before:
+                    raise AssertionError(f"cascade {name}: no K1 launch on the card")
+                cpu = tdc.device_cascade_mask(x.cpu(), v.cpu())
+                k3 = dk.skyline_mask_kernel(x, v, mp=mp)
+                if not (torch.equal(card.cpu(), cpu) and torch.equal(card, k3)):
+                    raise AssertionError(
+                        f"cascade {name} mp={mp}: card {int(card.sum())}, CPU "
+                        f"{int(cpu.sum())}, K3 {int(k3.sum())} survivors")
+                checks += 1
+            xb, vb = torch.from_numpy(band), torch.from_numpy(band_ok)
+            card = tdc._cascade_core(xb.to(dev), vb.to(dev), 8, mp)
+            cpu = tdc._cascade_core(xb, vb, 8, mp)
+            k3 = dk.skyline_mask_kernel(xb.to(dev), vb.to(dev), mp=mp)
+            if not (torch.equal(card.cpu(), cpu) and torch.equal(card, k3)) \
+                    or not card[20] or card[21] or card[22]:
+                raise AssertionError(f"cascade 2^24 band mp={mp}: card {card.tolist()}")
+            checks += 1
+    return checks
+
+
+def check_skyline_large(torch, np, n: int, dev) -> dict:
+    """``skyline_large`` on an n-row north-star window (8-D anti-correlated,
+    0-10000) on the card: its rows and their order equal K3's survivors in
+    the host's stable sum order. The second call is timed (host sort, the
+    SFS rounds, the final count read and download); its bound is K3's for
+    the same function: the window read and the skyline written once at the
+    HBM rate, or the needed pairs x d at the FP32 peak."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+    from skyline_tpu_torch.ops.block_skyline import skyline_large
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    x = anti_correlated(np.random.default_rng(67), n, 8, 0, 10000)
+    got = skyline_large(x, device=dev)
+    xd = torch.from_numpy(x).to(dev)
+    keep_d = dk.skyline_mask_kernel(xd, mp=True)
+    keep = keep_d.cpu().numpy()
+    xt = xd.T.contiguous()
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    pairs = _needed_pairs(torch, xt, ones, xt, ~keep_d, ones)
+    bound = max((x.nbytes + int(keep.sum()) * x.shape[1] * 4) / HBM_BYTES_S * 1e3,
+                pairs * x.shape[1] / FP32_FLOPS * 1e3)
+    order = np.argsort(x.sum(axis=1), kind="stable")
+    want = x[order][keep[order]]
+    if got.shape != want.shape or got.tobytes() != want.tobytes():
+        raise AssertionError(f"skyline_large: {got.shape[0]} rows, K3 keeps {want.shape[0]}")
+    dk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    skyline_large(x, device=dev)
+    wall = (time.perf_counter() - t0) * 1e3
+    out = {"rows": n, "skyline_rows": int(got.shape[0]), "wall_ms": wall,
+           "bound_ms": bound, "needed_pairs": pairs,
+           "launches": {k: v for k, v in dk.LAUNCHES.items() if v}}
+    log(f"kernels: skyline_large on the {n}-row north-star window = K3's survivors in sum "
+        f"order ({got.shape[0]} rows); a second call {wall:.1f} ms (bound {bound:.4f} ms, "
+        f"{pairs} needed pairs), launches {out['launches']}")
+    return out
+
+
 # -- phases 4 and 5: the engine ----------------------------------------------
 
 
@@ -857,8 +992,15 @@ MP_ROUNDS = (PREDROP,) + MP_PATH[:2]
 # the flush cascade off: the bf16 passes, and the grid prefilter
 MP_OFF = {"SKYLINE_MIXED_PRECISION": "0"}
 CASCADE_OFF = {"SKYLINE_MIXED_PRECISION": "0", "SKYLINE_FLUSH_PREFILTER": "0"}
+# the dispatch race's rows: the device sorted cascade forced, and the SFS
+# rounds alone (no race: the legs that compare the rounds' counters)
+CASCADE_ON = {"SKYLINE_DEVICE_CASCADE": "on"}
+ROUNDS_ONLY = {"SKYLINE_SORTED_SFS": "off", "SKYLINE_DEVICE_CASCADE": "off"}
 # the main paths: (engine configuration, rank cascade, the kernels each must
-# launch, other knobs). Under the reference's defaults the d > 2 merge is
+# launch, other knobs). (l) is (c) and (m) is (g) with the device sorted
+# cascade forced: (l)'s every lazy flush is a survivor mask of old ∪ new on
+# the card (pre-drop, K1 and K2 mp), (m)'s flat merge masks its union through
+# the cascade instead of K3. Under the reference's defaults the d > 2 merge is
 # the pruned tree (K2 pairs, no mp: the reference's tree runs mp=False) —
 # (a)–(e) — and the value flush rounds are mixed-precision on a card (the
 # pre-drop, K1/K2 mp); (g) and (h) turn the tree off, so K3 (mp) and K7
@@ -880,10 +1022,17 @@ PATHS = {
     "j": (dict(GRID_3D, ingest="host"), False, TREE_K2, CASCADE_OFF),
     "k": (dict(NORTH_STAR, ingest="device"), False, VALUE_PATH,
           {"SKYLINE_MERGE_TREE": "0", **MP_OFF}),
+    "l": (dict(NORTH_STAR, ingest="host"), False, MP_ROUNDS + TREE_K2, CASCADE_ON),
+    "m": (dict(NORTH_STAR, ingest="device"), False, MP_ROUNDS,
+          {"SKYLINE_MERGE_TREE": "0", **CASCADE_ON}),
 }
-# kernels a path must NOT launch (the knobs that turn them off)
+# kernels a path must NOT launch (the knobs that turn them off); (l) and
+# (m) run the device cascade where K3 could run
+K3_ANY = (VALUE_PATH[2], MP_PATH[2])
 FORBIDDEN = {"i": MP_ROUNDS + MP_PATH[2:], "j": MP_ROUNDS + MP_PATH[2:],
-             "k": MP_ROUNDS + MP_PATH[2:]}
+             "k": MP_ROUNDS + MP_PATH[2:], "l": K3_ANY, "m": K3_ANY}
+# the lazy flush path every window of a path must take
+FLUSH_PATH = {"l": "device_cascade"}
 # the paths whose last engine measures the merge plane (exact hit, delta)
 PLANE_PATHS = ("b", "d", "f")
 
@@ -909,14 +1058,17 @@ def rank_gate(on: bool, env: dict | None = None):
     return knob_env({"SKYLINE_RANK_CASCADE": "1" if on else "0", **(env or {})})
 
 
-def run_window(cfg, ids, x, required=0, chunk=65536):
+def run_window(cfg, ids, x, required=0, chunk=65536, flush_prof=None):
     """One tumbling window through a fresh engine, as ``bench.py`` drives
-    the reference: ingest in chunks, one trigger, one result."""
+    the reference: ingest in chunks, one trigger, one result.
+    ``flush_prof``: a lazy flush race's profiler from an earlier window's
+    engine, handed on as one long-lived engine keeps it."""
     from skyline_tpu_torch.stream import SkylineEngine
 
     import torch
 
     eng = SkylineEngine(cfg)
+    eng.pset._flush_prof = flush_prof
     t0 = time.perf_counter()
     for i in range(0, x.shape[0], chunk):
         eng.process_records(ids[i : i + chunk], x[i : i + chunk])
@@ -927,10 +1079,12 @@ def run_window(cfg, ids, x, required=0, chunk=65536):
     return time.perf_counter() - t0, result, eng
 
 
-def _drive_windows(cfg, windows, chunk, cascade: list | None = None):
+def _drive_windows(cfg, windows, chunk, cascade: list | None = None,
+                   engines: list | None = None):
     """Windows back to back through one engine, a trigger after each:
     (results, local sizes after each trigger, wall s); the set's
-    ``flush_cascade_stats()`` at the end appended to ``cascade`` if given."""
+    ``flush_cascade_stats()`` at the end appended to ``cascade`` and the
+    engine to ``engines`` if given."""
     import numpy as np
 
     from skyline_tpu_torch.stream import SkylineEngine
@@ -950,6 +1104,8 @@ def _drive_windows(cfg, windows, chunk, cascade: list | None = None):
         sizes.append(eng.pset.sky_counts().tolist())
     if cascade is not None:
         cascade.append(eng.pset.flush_cascade_stats())
+    if engines is not None:
+        engines.append(eng)
     return out, sizes, time.perf_counter() - t0
 
 
@@ -1173,7 +1329,8 @@ def check_cascade_parity(torch, np, devices=("cuda", "cpu")) -> dict:
     the prefilter on at d >= 3) against the CPU with
     ``SKYLINE_MIXED_PRECISION=1`` — answers strict and ``flush_cascade_stats``
     equal (device ingest: where the card routes every row as the CPU does);
-    and on the card the cascade on against ``CASCADE_OFF``, answers strict."""
+    and on the card the cascade on against ``CASCADE_OFF``, answers strict.
+    The lazy flush takes the SFS rounds (``ROUNDS_ONLY``) in every leg."""
     from skyline_tpu_torch.parallel.partitioners import partition_ids
     from skyline_tpu_torch.stream import EngineConfig
     from skyline_tpu_torch.workload.generators import anti_correlated
@@ -1194,7 +1351,9 @@ def check_cascade_parity(torch, np, devices=("cuda", "cpu")) -> dict:
                                        ("cpu", devices[1], {"SKYLINE_MIXED_PRECISION": "1"}),
                                        ("card off", devices[0], CASCADE_OFF)):
                 cascade = []
-                with knob_env(env):
+                # the SFS rounds on both devices: the counters count their
+                # pre-drop (the race's other paths are RACE_PARITY's)
+                with knob_env({**ROUNDS_ONLY, **env}):
                     ecfg = EngineConfig(**cfg, emit_skyline_points=True, window_capacity=n,
                                         device=device)
                     runs[label] = _drive_windows(ecfg, windows, 4096, cascade)
@@ -1213,6 +1372,58 @@ def check_cascade_parity(torch, np, devices=("cuda", "cpu")) -> dict:
             log(f"parity: cascade {name} over 2 windows of {n} rows, card defaults == cpu "
                 f"mp=1 (answers{', counters' if strict else ''}) == card cascade off "
                 f"(answers): counters {stats['card']}, sizes {out[name]['skyline_sizes']}")
+    return out
+
+
+# the lazy flush race's legs: (name, engine configuration, rows per window);
+# three windows through one engine, so the card's race explores both paths
+# and then follows its EMAs
+RACE_PARITY = tuple(
+    (f"lazy_host_{d}d", dict(NORTH_STAR, dims=d, ingest="host", initial_capacity=0), n)
+    for d, n in ((3, 32768), (8, 8192))
+)
+
+
+def check_race_parity(torch, np, devices=("cuda", "cpu")) -> dict:
+    """The lazy engine with host ingest, strict: the card with the device
+    cascade forced (``CASCADE_ON``) and under the defaults (the race of the
+    SFS rounds and the device cascade) against the CPU with the host sorted
+    cascade forced (``SKYLINE_SORTED_SFS=on``) — answers, local sizes,
+    published order."""
+    from skyline_tpu_torch.stream import EngineConfig
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    rng = np.random.default_rng(71)
+    out = {}
+    with rank_gate(False):
+        for name, cfg, n in RACE_PARITY:
+            windows = [anti_correlated(rng, n, cfg["dims"], 0, 10000) for _ in range(3)]
+            runs, paths = {}, {}
+            for label, device, env in (
+                ("cpu sorted", devices[1], {"SKYLINE_SORTED_SFS": "on"}),
+                ("card cascade", devices[0], CASCADE_ON),
+                ("card race", devices[0], {"SKYLINE_SORTED_SFS": "auto",
+                                           "SKYLINE_DEVICE_CASCADE": "auto"}),
+            ):
+                engines = []
+                with knob_env(env):
+                    ecfg = EngineConfig(**cfg, emit_skyline_points=True, device=device)
+                    runs[label] = _drive_windows(ecfg, windows, 8192, engines=engines)
+                paths[label] = dict(engines[0].pset.flush_paths)
+            want = {"cpu sorted": {"sorted_sfs": 3}, "card cascade": {"device_cascade": 3}}
+            for label, p in want.items():
+                if paths[label] != p:
+                    raise AssertionError(f"race {name}: {label} flushed by {paths[label]}")
+            if "device_cascade" not in paths["card race"]:
+                raise AssertionError(f"race {name}: the card's race never explored the "
+                                     f"device cascade: {paths['card race']}")
+            _same_runs(f"race {name} cascade", runs, ("cpu sorted", "card cascade"), True)
+            _same_runs(f"race {name} defaults", runs, ("cpu sorted", "card race"), True)
+            out[name] = {"rows_per_window": n, "flush_paths": paths,
+                         "skyline_sizes": [r["skyline_size"] for r in runs["cpu sorted"][0]],
+                         "wall_s": {k: v[2] for k, v in runs.items()}}
+            log(f"parity: race {name} over 3 windows of {n} rows, cpu sorted cascade == card "
+                f"device cascade == card race (answers, sizes, order): {out[name]}")
     return out
 
 
@@ -1446,11 +1657,35 @@ def prefilter_timer():
         PartitionSet._prefilter_rows = real
 
 
+def flush_race(path: str, window, eng) -> dict | None:
+    """The lazy host flush's race in one window's engine: the paths its
+    flushes took and, per signature of the race's profiler (handed on from
+    window to window), calls and EMA ms. Raises where ``FLUSH_PATH`` fixes
+    the path and a flush took another. None where no flush raced or was
+    forced."""
+    ps = eng.pset
+    want = FLUSH_PATH.get(path)
+    if want is not None and set(ps.flush_paths) != {want}:
+        raise AssertionError(f"main path ({path}) flushed by {ps.flush_paths}, not {want}")
+    if ps._flush_prof is None:
+        return None
+    out = {"paths": dict(ps.flush_paths), "signatures": [
+        {"variant": r["variant"], "n_bucket": r["n_bucket"], "calls": r["calls"],
+         "ema_ms": r["ema_ms"], "first_call_ms": r["first_call_ms"]}
+        for r in ps._flush_prof.doc()["kernels"]]}
+    log(f"main ({path}): window {window}: flush race took {out['paths']}; EMAs "
+        + ", ".join(f"{r['variant']}@{r['n_bucket']} {r['ema_ms']:.1f} ms ({r['calls']} calls)"
+                    for r in out["signatures"]))
+    return out
+
+
 def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
     """Path ``path``'s warm window and ``windows`` measured ones, launch
     counts set to 0 just before and read just after; each window's flush
     cascade counters (``flush_cascade_stats``) and grid-prefilter host ms;
-    on ``PLANE_PATHS`` the merge plane measured on the last engine."""
+    on ``PLANE_PATHS`` the merge plane measured on the last engine. Each
+    window's engine takes over the lazy flush race's profiler of the one
+    before (``flush_race``)."""
     from skyline_tpu_torch.ops import dominance_kernels as dk
     from skyline_tpu_torch.workload.generators import anti_correlated
 
@@ -1462,20 +1697,24 @@ def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
     lat, rows = [], []
     with rank_gate(gate, env), prefilter_timer() as pre_ms:
         dk.reset_launches()
-        warm_dt, warm_res, _ = run_window(
+        warm_dt, warm_res, eng = run_window(
             _config(path, n, emit_skyline_points=True), ids, warm_x
         )
+        race = [flush_race(path, "warm", eng)]
         for w in range(windows):
             x = anti_correlated(rng, n, d, 0, 10000)
             calls = len(pre_ms)
-            dt, res, eng = run_window(_config(path, n), ids, x)
+            dt, res, eng = run_window(_config(path, n), ids, x,
+                                      flush_prof=eng.pset._flush_prof)
             lat.append(dt)
             cascade = eng.pset.flush_cascade_stats()
+            race.append(flush_race(path, w, eng))
             rows.append({
                 "window_ms": dt * 1e3, "flush_ms": eng.last_flush_ms,
                 "merge_ms": eng.last_merge_ms, "skyline_size": res["skyline_size"],
                 "local_sizes": eng.pset.sky_counts().tolist(), "flush_cascade": cascade,
                 "prefilter_ms": sum(pre_ms[calls:]), "prefilter_calls": len(pre_ms) - calls,
+                "flush_race": race[-1],
             })
             log(f"main ({path}): window {w}: {dt * 1e3:.1f} ms (flush "
                 f"{eng.last_flush_ms:.1f} ms, merge {eng.last_merge_ms:.1f} ms, "
@@ -1513,7 +1752,7 @@ def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
         "launches": launches, "launches_per_window": {
             k: v / (windows + 1) for k, v in launches.items()
         },
-        "merge_env": env, **tree, "plane": plane,
+        "merge_env": env, **tree, "plane": plane, "flush_race": race,
     }
     log(f"main ({path}): {summary['tuples_per_s']:.0f} tuples/s, p50 window "
         f"{summary['p50_window_ms']:.1f} ms (flush {summary['p50_flush_ms']:.1f}, merge "
@@ -2051,6 +2290,181 @@ def tree_pair_k2(torch, np, n: int, launches: dict, windows: int) -> dict:
     return out
 
 
+# the device cascade's launch sites: per block with candidates the pre-drop
+# (mp, a non-empty buffer), K2 over the buffer, K1 over the block (the full
+# square) and K2 over the band of later blocks
+CASCADE_SITES = ("predrop", "buffer", "full_square", "band")
+
+
+@contextlib.contextmanager
+def cascade_sites(torch):
+    """For the duration, every launch of ``ops/device_cascade.py`` is
+    bracketed by CUDA events and kept with its wrapper, inputs and output,
+    by site. A K2 launch is the band's when its victims are the tensor the
+    last K1 launch compared (its block), else the buffer's. Yields the dict
+    of site -> [(start, end, wrapper, args, kwargs, out)]."""
+    from skyline_tpu_torch.ops import device_cascade as tdc
+
+    names = ("dominated_by_any", "dominated_by_rect", "strictly_dominated_bf16_kernel")
+    real = {k: getattr(tdc, k) for k in names}
+    sites = {k: [] for k in CASCADE_SITES}
+    last_block = [None]
+
+    def timed(site, name, args, kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real[name](*args, **kw)
+        end.record()
+        sites[site].append((start, end, real[name], args, kw, out))
+        return out
+
+    def k1(*args, **kw):
+        last_block[0] = args[0]
+        return timed("full_square", "dominated_by_any", args, kw)
+
+    def k2(*args, **kw):
+        site = "band" if args[2] is last_block[0] else "buffer"
+        return timed(site, "dominated_by_rect", args, kw)
+
+    def pre(*args, **kw):
+        return timed("predrop", "strictly_dominated_bf16_kernel", args, kw)
+
+    for k, f in zip(names, (k1, k2, pre)):
+        setattr(tdc, k, f)
+    try:
+        yield sites
+    finally:
+        for k in names:
+            setattr(tdc, k, real[k])
+
+
+def site_numbers(torch, sites) -> dict:
+    """Per site: launches; ``ms``, each launch timed again alone on its
+    inputs (``_event_ms``, 3 runs, the mean), summed; ``in_flow_ms``, the
+    CUDA events that bracketed each launch where the caller made it,
+    summed — host gaps before the kernel included; and the summed
+    per-launch bound — max(bytes at the HBM rate, operations at the FP32
+    peak): needed pairs x d for K1/K2 (``_needed_pairs``; NaN victims, the
+    non-candidates, need none), tested pairs x d x 5 for the pre-drop."""
+    torch.cuda.synchronize()
+    out = {}
+    for site, calls in sites.items():
+        ms = in_flow = bytes_ms = ops_ms = bound_ms = 0.0
+        pairs = 0
+        for start, end, fn, args, kw, dom in calls:
+            in_flow += start.elapsed_time(end)
+            ms += _event_ms(torch, lambda: fn(*args, **kw), reps=3)
+            if site == "predrop":
+                y, x, xv = args
+                p = _predrop_tested(torch, y[None], x[None], xv[None])
+                b = (y.numel() + x.numel()) * 4 + xv.numel() + y.shape[0]
+                o = p * y.shape[1] * 5 / FP32_FLOPS * 1e3
+            else:
+                xt, xv = args[0], args[1]
+                yt = args[0] if site == "full_square" else args[2]
+                b = xt.numel() * 4 + xv.numel() + (0 if yt is xt else yt.numel() * 4) \
+                    + yt.shape[1]
+                # NaN rows (non-candidates) neither dominate nor need a pair;
+                # they stay out of _needed_pairs' row sort and unique
+                real = ~torch.isnan(yt).any(0)
+                p = _needed_pairs(torch, xt, xv & ~torch.isnan(xt).any(0),
+                                  yt[:, real].contiguous(), dom[real],
+                                  torch.ones_like(dom[real]))
+                o = p * xt.shape[0] / FP32_FLOPS * 1e3
+            pairs += p
+            bytes_ms += b / HBM_BYTES_S * 1e3
+            ops_ms += o
+            bound_ms += max(b / HBM_BYTES_S * 1e3, o)
+        out[site] = {"launches": len(calls), "ms": ms, "in_flow_ms": in_flow,
+                     "bound_ms": bound_ms, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                     "pairs": pairs}
+    return out
+
+
+def _wall_ms(torch, fn, reps: int = 3) -> float:
+    """Mean host wall of ``fn`` over ``reps`` calls, each ended by a
+    synchronise (the cascade reads one summary to the host a call)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def cascade_timings(torch, np, eng, x_last, windows: int, launches_l: dict,
+                    launches_m: dict, dev="cuda") -> dict:
+    """The device cascade at the north-star flat-merge union (path (c)'s
+    last engine, the union K3's north-star row masks; 524,288 rows after
+    padding), with ``SKYLINE_MIXED_PRECISION`` on and off: the whole call's
+    host wall beside K3's on the same input (CUDA events) and the CPU
+    cascade's; its launches; each launch site's device ms and bound
+    (``cascade_sites``). Then one more window of path (l) with its sites
+    watched: the cascade as the flush runs it, per window. Launches per
+    window of (l) and (m) from their main-path runs."""
+    from skyline_tpu_torch.ops import device_cascade as tdc
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+    from skyline_tpu_torch.stream.window import _active_bucket, gather_union
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    pset = eng.pset
+    counts = pset.sky_counts()
+    active = min(pset._cap, _active_bucket(max(int(counts.max()), 1)))
+    union_cap = _active_bucket(max(int(counts.sum()), 1))
+    u, _, uv = gather_union(pset.sky, pset._count_dev, active, union_cap)
+    out = {"union_rows": int(u.shape[0]), "valid_rows": int(uv.sum())}
+    t0 = time.perf_counter()
+    cpu_keep = tdc.device_cascade_mask(u.cpu(), uv.cpu())
+    out["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    # the bound of the function itself, K3's on this input
+    ut = u.T.contiguous()
+    pairs = _needed_pairs(torch, ut, uv, ut, ~cpu_keep.to(dev), uv)
+    out["bound_ms"] = max((u.numel() * 4 + 2 * u.shape[0]) / HBM_BYTES_S * 1e3,
+                          pairs * u.shape[1] / FP32_FLOPS * 1e3)
+    for mp in (True, False):
+        key = "mp" if mp else "f32"
+        with knob_env({"SKYLINE_MIXED_PRECISION": "1" if mp else "0"}):
+            keep = tdc.device_cascade_mask(u, uv)
+            k3 = dk.skyline_mask_kernel(u, uv, mp=mp)
+            if not (torch.equal(keep, k3) and torch.equal(keep.cpu(), cpu_keep)):
+                raise AssertionError(f"cascade ({key}) at the north-star union differs from K3")
+            ms = _wall_ms(torch, lambda: tdc.device_cascade_mask(u, uv))
+            k3_ms = _event_ms(torch, lambda: dk.skyline_mask_kernel(u, uv, mp=mp), reps=10)
+            dk.reset_launches()
+            with cascade_sites(torch) as sites:
+                tdc.device_cascade_mask(u, uv)
+            launches = {k: v for k, v in dk.LAUNCHES.items() if v}
+            out[key] = {"ms": ms, "k3_ms": k3_ms, "sites": site_numbers(torch, sites),
+                        "launches": launches}
+            got = out[key]["sites"]
+        log(f"timings: device cascade ({key}) at the north-star union ({out['union_rows']} "
+            f"rows, {out['valid_rows']} valid): {ms:.2f} ms wall against K3 {k3_ms:.3f} ms "
+            f"and the CPU cascade {out['plain_ms']:.1f} ms (bound {out['bound_ms']:.4f} ms); "
+            f"launches "
+            f"{out[key]['launches']}; sites "
+            + "; ".join(f"{k} {v['launches']} x, {v['ms']:.3f} ms ({v['in_flow_ms']:.3f} ms in the "
+                    f"flow), bound {v['bound_ms']:.6f} ms"
+                        for k, v in got.items()))
+    # one more window of (l), its flush's cascade watched
+    x = anti_correlated(np.random.default_rng(2), x_last.shape[0], 8, 0, 10000)
+    cfg, gate, _, env = PATHS["l"]
+    with rank_gate(gate, env), cascade_sites(torch) as sites:
+        run_window(_config("l", x.shape[0]), np.arange(x.shape[0], dtype=np.int64), x)
+    out["flush_l"] = site_numbers(torch, sites)
+    for p, launches in (("l", launches_l), ("m", launches_m)):
+        out[f"launches_per_window_{p}"] = {
+            k: v / windows for k, v in launches.items() if v}
+    log("timings: device cascade in one more window of (l): "
+        + "; ".join(f"{k} {v['launches']} x, {v['ms']:.3f} ms ({v['in_flow_ms']:.3f} ms in the "
+                    f"flow), bound {v['bound_ms']:.6f} ms"
+                    for k, v in out["flush_l"].items())
+        + f"; launches per window (l) {out['launches_per_window_l']}, (m) "
+        f"{out['launches_per_window_m']}")
+    return out
+
+
 RANK_PLANE_BAND = 16
 
 
@@ -2251,12 +2665,15 @@ def main() -> int:
         m = check_merge_step(torch, np, "cuda")
         sw = check_sweep(torch, np, "cuda")
         tr = check_tree(torch, np, "cuda")
+        dc = check_cascade(torch, np, "cuda")
         log(f"kernels: {n} checks equal to the plain versions, {mpn} mixed-precision checks "
             f"(K1-K3 mp equal to the plain versions and to their f32 launches, the pre-drop "
             f"equal to its plain version), {m} merge-step rounds (with and without mp) equal "
             f"to the plain core, {sw} sweep checks and {tr} tree-merge checks (tree pairs "
-            f"on K2, compact_tagged, partition summaries) equal to the CPU in "
+            f"on K2, compact_tagged, partition summaries) equal to the CPU, {dc} device "
+            f"cascade checks (mp off and on) equal to the CPU cascade and to K3 in "
             f"{time.perf_counter() - t0:.1f} s")
+        details["skyline_large"] = check_skyline_large(torch, np, args.n, "cuda")
     if "parity" in args.only:
         details["parity"] = check_parity(torch, np, PARITY_ROWS)
         log(f"parity: host ingest, cuda == cpu at {PARITY_ROWS} rows x 2 windows: "
@@ -2267,11 +2684,15 @@ def main() -> int:
         details["policy_parity"] = check_policy_parity(torch, np)
         details["plane_parity"] = check_plane_parity(torch, np)
         details["cascade_parity"] = check_cascade_parity(torch, np)
+        details["race_parity"] = check_race_parity(torch, np)
+        log(f"parity: done at {time.perf_counter() - t_start:.1f} s")
     table = []
     if "main" in args.only or "timings" in args.only:
         runs = {}
         for path in PATHS:
+            t0 = time.perf_counter()
             runs[path] = main_path(torch, np, path, args.n, args.windows)
+            log(f"main ({path}): {time.perf_counter() - t0:.1f} s in all")
         details["main"] = {path: r[0] for path, r in runs.items()}
         details["routing"] = routing_mismatch(torch, np, runs["a"][2], "cuda")
         log(f"routing: the card vs the CPU and vs partition_ids_np on the last "
@@ -2310,6 +2731,18 @@ def main() -> int:
         rows = {r["name"]: r for r in table}
         rows["dominated_by_rect"]["inputs"]["incremental"] = inc
         rows["dominated_by_rect"]["inputs"]["tree_pair"] = pair
+        casc = cascade_timings(torch, np, eng_c, x_c, w, launches_of["l"],
+                               launches_of["m"])
+        details["device_cascade"] = casc
+        for name, site in (("dominated_by_any", "full_square"), ("dominated_by_rect", "buffer"),
+                           ("dominated_by_rect", "band"), (PREDROP, "predrop")):
+            for key, kname in (("f32", name), ("mp", name if name == PREDROP else name + "_mp")):
+                if key == "f32" and name == PREDROP:
+                    continue
+                rows[kname].setdefault("inputs", {})[f"cascade_{site}"] = {
+                    "north_star_union": casc[key]["sites"][site],
+                    **({"flush_l_window": casc["flush_l"][site]} if key == "mp" else {}),
+                }
         rows["dominated_by_rect_mp"]["inputs"]["incremental"] = {
             "round_ms": inc["round_mp_ms"], "round_f32_ms": inc["round_ms"],
             "launches_per_window": inc["launches_mp_per_window"],

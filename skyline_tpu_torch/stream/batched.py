@@ -53,6 +53,15 @@ by default on a card, off on the CPU) — the bf16 row pre-drop ahead of each
 SFS and merge round, and K1–K3 with their bf16 first pass.
 ``flush_cascade_stats`` reports both stages' counters.
 
+The host-ingest lazy flush races its paths as the reference's does
+(``_choose_lazy_path``, ``ops/cascade.py`` ``resolve_flush``): under
+``auto`` the SFS rounds against the host sorted cascade on the CPU, and
+against the device sorted cascade on a card, each whole flush timed under
+its path's signature and the least EMA wins once each has run;
+``SKYLINE_SORTED_SFS`` and ``SKYLINE_DEVICE_CASCADE`` force or exclude a
+path. The merge plane's and the prefilter's gates read through the cascade
+table, so a tuner override acts where the environment leaves a knob unset.
+
 Not ported yet (each gives results byte-identical to these paths in the
 reference): ``merge_points_device`` (the multi-GPU engine's only caller),
 the telemetry counters, EXPLAIN and the device mesh.
@@ -69,7 +78,10 @@ import time
 import numpy as np
 import torch
 
+from skyline_tpu_torch.ops import cascade
+from skyline_tpu_torch.ops.device_cascade import device_cascade_keep
 from skyline_tpu_torch.ops.sfs import sfs_cleanup, sfs_round, sfs_round_single
+from skyline_tpu_torch.ops.sorted_sfs import sorted_sfs_keep
 from skyline_tpu_torch.ops.sweep2d import partitioned_sweep2_core, scatter_sweep2
 from skyline_tpu_torch.stream import device_window as dw
 from skyline_tpu_torch.stream.window import (
@@ -91,16 +103,9 @@ from skyline_tpu_torch.stream.window import (
     tree_points_device,
     tree_stats_device,
 )
-from skyline_tpu_torch.utils.devices import resolve_device
-from skyline_tpu_torch.utils.knobs import (
-    delta_applies,
-    flush_prefilter_on,
-    flush_stage_depth,
-    merge_cache_on,
-    merge_prune_enabled,
-    merge_tree_on,
-    mixed_precision_enabled,
-)
+from skyline_tpu_torch.utils.devices import resolve_device, upload_async
+from skyline_tpu_torch.telemetry.profiler import KernelProfiler
+from skyline_tpu_torch.utils.knobs import flush_stage_depth, mixed_precision_enabled
 
 # Sequential-SFS probe block: rounds start at this size so a small-skyline
 # partition never pays big-block dominance work; the loop escalates to the
@@ -314,18 +319,17 @@ class PartitionSet:
         self.prefilter_dropped = 0
         self._mp_resolved: torch.Tensor | None = None
         self.bf16_resolved = 0
+        # the lazy flush's path race (``_choose_lazy_path``): the profiler
+        # its whole-flush walls land in, made when a race is first in play,
+        # and the flushes each path took
+        self._flush_prof: KernelProfiler | None = None
+        self.flush_paths: dict[str, int] = {}
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
 
     def _put_async(self, arr: np.ndarray) -> torch.Tensor:
-        """Upload without waiting for the card: a pinned copy queued on the
-        current stream, so assembling the next round overlaps the kernels
-        in flight (a pageable copy would wait for them)."""
-        t = torch.from_numpy(arr)
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        return upload_async(arr, self.device)
 
     # -- state versioning -------------------------------------------------
 
@@ -714,8 +718,13 @@ class PartitionSet:
 
     def _flush_lazy(self) -> None:
         """Host-ingest flush: sum-sort each partition's accumulated rows and
-        stream them through append-only SFS rounds, assembling and uploading
-        each block from the host."""
+        merge them by the path the race picks (``_choose_lazy_path``) —
+        append-only SFS rounds, each block assembled and uploaded from the
+        host (batched for balanced loads, per partition under skew), or a
+        survivor mask of old ∪ new from the host or the device cascade
+        (``_sfs_keep_flush``). Every path appends the same rows in the same
+        order; while a race is in play each flush's wall is recorded under
+        its path."""
         t0 = time.perf_counter_ns()
         mp = mixed_precision_enabled(self.device)
         self._bump_epoch(self._pending_rows > 0)
@@ -731,16 +740,22 @@ class PartitionSet:
                 rows[p] = r[order]
         had_old, old_counts = self._check_had_old()
         widths = np.array([r.shape[0] for r in rows], dtype=np.int64)
-        if self._sequential(widths):
+        total_rows = int(widths.sum())
+        sequential = self._sequential(widths)
+        device_variant = "sequential" if sequential else "vmapped"
+        path = self._choose_lazy_path(device_variant, total_rows)
+        self.flush_paths[path] = self.flush_paths.get(path, 0) + 1
 
-            def one_round(p, sky_p, cnt_p, off, w, B, active):
-                block, bvalid, _ = self._pad_block(rows[p][off : off + B], B)
-                return sfs_round_single(
-                    sky_p, cnt_p, self._put(block), self._put(bvalid), active, mp
-                )
+        def sfs_rounds():
+            if sequential:
 
-            counts = self._sfs_sequential(widths, one_round, mp=mp)
-        else:
+                def one_round(p, sky_p, cnt_p, off, w, B, active):
+                    block, bvalid, _ = self._pad_block(rows[p][off : off + B], B)
+                    return sfs_round_single(
+                        sky_p, cnt_p, self._put(block), self._put(bvalid), active, mp
+                    )
+
+                return self._sfs_sequential(widths, one_round, mp=mp)
             B = self._vmapped_block(int(widths.max()))
 
             def batched_round(rnd, counts, active):
@@ -749,11 +764,83 @@ class PartitionSet:
                     self.sky, counts, self._put(batch), self._put(bvalid), active, mp
                 )
 
-            counts = self._sfs_vmapped(widths, B, batched_round, mp)
+            return self._sfs_vmapped(widths, B, batched_round, mp)
+
+        if path in ("sorted_sfs", "device_cascade"):
+            keep_fn = sorted_sfs_keep if path == "sorted_sfs" else (
+                lambda r, old: device_cascade_keep(r, old, self.device))
+            with self._flush_prof.record("flush_" + path, self.dims, total_rows):
+                counts = self._sfs_keep_flush(rows, keep_fn)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)  # the uploads land
+        elif self._flush_prof is not None:
+            # a race is in play: time the rounds end to end, their counts
+            # read back, so the walls compare
+            with self._flush_prof.record("flush_sfs_" + device_variant, self.dims, total_rows):
+                counts = sfs_rounds()
+                self._host(counts)
+        else:
+            counts = sfs_rounds()
         self._finish_lazy_flush(
             counts, had_old, old_counts,
             int(old_counts.max()) if had_old else 0, t0,
         )
+
+    def _choose_lazy_path(self, device_variant: str, total_rows: int) -> str:
+        """The host-ingest lazy flush's path: ``"sorted_sfs"`` (the host
+        cascade, ``ops/sorted_sfs.py``), ``"device_cascade"``
+        (``ops/device_cascade.py``) or the SFS rounds' ``device_variant``,
+        resolved by the cascade table (``ops/cascade.py`` ``resolve_flush``).
+        Under ``auto`` each candidate's whole-flush wall is recorded once per
+        (d, N-bucket, backend) signature and the least EMA decides
+        thereafter. On the CPU the host cascade and the rounds race (the
+        device cascade joins only with ``SKYLINE_SORTED_SFS=off``); on a
+        card the rounds and the device cascade."""
+        if cascade.flush_chooser_active(False, self.device) and self._flush_prof is None:
+            self._flush_prof = KernelProfiler(backend=self.device.type)
+        return cascade.resolve_flush(
+            device_variant, self.dims, total_rows, False, self._flush_prof,
+            device=self.device,
+        )
+
+    def _sfs_keep_flush(self, rows: list[np.ndarray], keep_fn):
+        """A lazy flush by survivor mask: per partition with pending rows,
+        ``keep_fn(rows_p, old_p)`` (``sorted_sfs_keep`` on the host or
+        ``device_cascade_keep`` on the set's device) selects the rows of
+        old ∪ new that survive among the new ones, and they are appended
+        after the old prefix in arrival (sum) order — the rows and order
+        the SFS rounds append, since the cascades only select. One exact
+        count read, one download of each old prefix and one upload of each
+        rebuilt buffer; ``_finish_lazy_flush``'s cleanup then runs as after
+        the rounds. Returns the device counts."""
+        if not int(self._count_ub.max()):
+            counts_host = np.zeros(self.num_partitions, dtype=np.int64)
+        else:
+            counts_host = self.sky_counts().astype(np.int64)
+        new_skies = []
+        new_counts = []
+        for p in range(self.num_partitions):
+            rp = rows[p]
+            sky_p = self.sky[p]
+            cnt_p = self._count_dev[p]
+            old_n = int(counts_host[p])
+            if rp.shape[0]:
+                old = (
+                    sky_p[:old_n].cpu().numpy()
+                    if old_n else np.empty((0, self.dims), dtype=np.float32)
+                )
+                surv = rp[keep_fn(rp, old)]
+                need = old_n + surv.shape[0]
+                cap_p = max(sky_p.shape[0], _next_pow2(max(need, 1)))
+                buf = np.full((cap_p, self.dims), np.inf, dtype=np.float32)
+                buf[:old_n] = old
+                buf[old_n:need] = surv
+                sky_p = self._put_async(buf)
+                cnt_p = torch.tensor(need, dtype=torch.int64, device=self.device)
+                self._count_ub[p] = need
+            new_skies.append(sky_p)
+            new_counts.append(cnt_p)
+        return self._restack_skies(new_skies, new_counts)
 
     def _flush_lazy_device(self, tighten: bool = True) -> None:
         """Device-ingest flush: one (pid, sum) sort with segment bounds on
@@ -1056,7 +1143,7 @@ class PartitionSet:
 
     def _prefilter_on(self) -> bool:
         """The grid prefilter for this set: d >= 3, one device, the knob."""
-        return flush_prefilter_on(self.dims)
+        return cascade.applies("flush_prefilter", d=self.dims)
 
     def _maybe_launch_grid(self) -> None:
         """Flush tail: queue the grid summary of the state just flushed and
@@ -1177,7 +1264,7 @@ class PartitionSet:
         h.emit_points = emit_points
         h.key = self.epoch_key
         h.epoch = self._epoch.copy()
-        h.use_cache = merge_cache_on()
+        h.use_cache = cascade.merge_cache_on(False)
         cache = self._gm_cache if h.use_cache else None
         if cache is not None and cache["key"] == h.key:
             # exact hit: no flush touched any partition since this result
@@ -1196,11 +1283,11 @@ class PartitionSet:
         if cache is not None:
             dirty_mask = self._epoch != cache["epoch"]
             self.last_dirty_fraction = float(dirty_mask.sum()) / P
-            if delta_applies(self.last_dirty_fraction):
+            if cascade.delta_applies(self.last_dirty_fraction):
                 dirty = dirty_mask
         elif h.use_cache:
             self.last_dirty_fraction = 1.0  # a cold miss: everything dirty
-        use_tree = merge_tree_on(self.dims)
+        use_tree = cascade.merge_tree_on(False, self.dims)
         stats = None
         if dirty is not None:
             h.dirty = dirty
@@ -1313,7 +1400,7 @@ class PartitionSet:
         """Flush tail: queue the per-partition prune summaries (small) so the
         next merge's prefilter finds them landed; only where the tree and
         the prefilter are on."""
-        if merge_tree_on(self.dims) and merge_prune_enabled():
+        if cascade.merge_tree_on(False, self.dims) and cascade.gate("partition_prune"):
             self._launch_summaries()
 
     def _launch_summaries(self) -> None:
@@ -1350,7 +1437,7 @@ class PartitionSet:
         considered = int(alive.sum())
         npruned = 0
         leaf_mask = alive
-        if merge_prune_enabled() and considered > 1:
+        if cascade.gate("partition_prune") and considered > 1:
             pruned = self._prune_mask(alive)
             npruned = int(pruned.sum())
             leaf_mask = alive & ~pruned

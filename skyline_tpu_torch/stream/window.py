@@ -37,6 +37,30 @@ from skyline_tpu_torch.utils.buckets import next_pow2
 # FlinkSkyline.java:232); the default is the nearest power of two.
 DEFAULT_BUFFER_SIZE = 4096
 
+# The profiler's variant names (``telemetry/profiler.py``), a closed
+# vocabulary for readers of its signatures (``skyline_tpu/stream/window.py``
+# KERNEL_VARIANTS, the rows the port runs). The flush_* and mask_* names are
+# the dispatch race's signatures, recorded into ``PartitionSet._flush_prof``
+# and the dispatch's mask profiler.
+KERNEL_VARIANTS = {
+    "sorted_sfs": "host sorted-order SFS cascade, one partition's flush "
+                  "(ops/sorted_sfs.py: dedup + f64 sum-sort + blocked scan)",
+    "device_cascade": "device sorted dominance cascade, one partition's "
+                      "flush (ops/device_cascade.py: on-device dedup + f32 "
+                      "sum-key sort + blocked prefix/band scan)",
+    "flush_sorted_sfs": "whole lazy flush via the host sorted cascade",
+    "flush_sfs_sequential": "whole lazy flush via per-partition SFS rounds",
+    "flush_sfs_vmapped": "whole lazy flush via batched SFS rounds",
+    "flush_device_cascade": "whole lazy flush via the device sorted "
+                            "dominance cascade",
+    "sorted_sfs_mask": "skyline_mask_auto host path (concrete CPU d>2)",
+    "mask_scan": "skyline_mask_auto chunked scan (the CPU fallback)",
+    "mask_device_cascade": "skyline_mask_auto device sorted dominance "
+                           "cascade (every device)",
+    "mask_pallas": "skyline_mask_auto K3 sum-sorted tiles (the card)",
+    "mask_rank_pallas": "skyline_mask_auto K7 rank-cascade tiles (the card)",
+}
+
 # Minimum buffer capacity.
 _MIN_CAP = 1024
 
@@ -224,10 +248,12 @@ def gather_union(sky, counts, active: int, union_cap: int):
 
 
 def _merge_stats(u, uo, uv, counts):
-    """The survivor-mask pass over a gathered union (K3 or K7 on the card,
-    the sweep at d <= 2) and the packed stats [counts (P,),
-    survivors_per_partition (P,), global_count] as one int64 vector."""
-    keep = skyline_mask_auto(u, uv)
+    """The survivor-mask pass over a gathered union and the packed stats
+    [counts (P,), survivors_per_partition (P,), global_count] as one int64
+    vector. A merge-time call site of the dispatch (the reference's call
+    under ``jax.jit``): on a card K3 or K7, or the device cascade when
+    forced or when measured faster; the sweep at d <= 2."""
+    keep = skyline_mask_auto(u, uv, traced=True)
     surv = torch.zeros(counts.shape[0], dtype=torch.int64, device=u.device)
     surv.scatter_add_(0, uo, keep.to(torch.int64))
     stats = torch.cat([counts.to(torch.int64), surv, keep.sum().reshape(1)])

@@ -12,6 +12,8 @@ from __future__ import annotations
 import os
 import warnings
 
+from skyline_tpu_torch.utils.devices import device_type
+
 _TRUTHY = frozenset(("1", "true", "yes", "on"))
 _FALSY = frozenset(("0", "false", "no", "off"))
 
@@ -96,9 +98,7 @@ def mixed_precision_enabled(device=None) -> bool:
     ``device`` is a CUDA card and off on the CPU — the reference's
     ``on_tpu()`` default carried to the port's accelerator
     (``skyline_tpu/ops/dispatch.py``)."""
-    # a torch.device, or a string such as "cuda:0"
-    on_card = str(getattr(device, "type", device)).split(":", 1)[0] == "cuda"
-    return env_bool("SKYLINE_MIXED_PRECISION", on_card)
+    return env_bool("SKYLINE_MIXED_PRECISION", device_type(device) == "cuda")
 
 
 def flush_prefilter_enabled() -> bool:
@@ -110,21 +110,12 @@ def flush_prefilter_enabled() -> bool:
     return env_bool("SKYLINE_FLUSH_PREFILTER", True)
 
 
-def flush_prefilter_on(d: int) -> bool:
-    """The reference's ``flush_prefilter`` row (``skyline_tpu/ops/
-    cascade.py``): d >= 3 (the d <= 2 sweep has no merge kernel to save)
-    and the knob; the row's other condition, no mesh, always holds for the
-    port's set."""
-    return d >= 3 and flush_prefilter_enabled()
-
-
 # -- the global-merge plane ---------------------------------------------------
 #
-# The reference reads these through its dispatch table (``skyline_tpu/ops/
-# cascade.py`` ``merge_cache_on``, ``delta_applies``, ``merge_tree_on``,
-# ``gate("partition_prune")``), where a tuner may override a knob the
-# environment left unset. The port has no tuner yet (ROADMAP.md, queue 1
-# item 9), so the environment value is the effective value.
+# These read the environment only. The set reads the plane through the
+# dispatch table (``ops/cascade.py`` ``merge_cache_on``, ``delta_applies``,
+# ``merge_tree_on``, ``gate("partition_prune")``), where a tuner override
+# acts on a knob the environment left unset.
 
 
 def merge_cache_enabled() -> bool:
@@ -159,6 +150,20 @@ def merge_prune_enabled() -> bool:
     return env_bool("SKYLINE_MERGE_PRUNE", True)
 
 
+def chip_prune_enabled() -> bool:
+    """``SKYLINE_CHIP_PRUNE``: the chip-level witness prefilter of the
+    multi-card merge (not ported yet; its table row is declared). On by
+    default, as in the reference."""
+    return env_bool("SKYLINE_CHIP_PRUNE", True)
+
+
+def host_prune_enabled() -> bool:
+    """``SKYLINE_CLUSTER_HOST_PRUNE``: the host-level witness prefilter of
+    the cluster merge (not ported yet; its table row is declared). On by
+    default, as in the reference."""
+    return env_bool("SKYLINE_CLUSTER_HOST_PRUNE", True)
+
+
 def query_overlap_enabled() -> bool:
     """``SKYLINE_QUERY_OVERLAP``: a trigger launches the global merge and
     returns; the engine harvests it at the next ingest (if its stats have
@@ -167,27 +172,44 @@ def query_overlap_enabled() -> bool:
     return env_bool("SKYLINE_QUERY_OVERLAP", True)
 
 
-def merge_cache_on() -> bool:
-    """Whether this merge reads and fills the cache (the port's set is never
-    meshed)."""
-    return merge_cache_enabled()
+# -- the dispatch cascade's modes ----------------------------------------------
 
 
-def delta_applies(dirty_fraction: float) -> bool:
-    """Whether a merge with this share of dirty partitions takes the delta
-    path."""
-    return 0.0 < dirty_fraction <= delta_dirty_cutoff()
+def _mode(name: str) -> str:
+    """An ``auto|on|off`` knob, exact lower case; any other value reads as
+    ``auto``, as the reference's readers do (``skyline_tpu/ops/
+    dispatch.py``)."""
+    v = os.environ.get(name)
+    return v if v in ("auto", "on", "off") else "auto"
 
 
-def merge_tree_on(d: int) -> bool:
-    """Whether the tree replaces the flat merge: d > 2 only (at d <= 2 the
-    flat merge is the sweep, cheaper than any pairwise work)."""
-    return d > 2 and merge_tree_enabled()
+def sorted_sfs_mode() -> str:
+    """``SKYLINE_SORTED_SFS``: the host sorted-order SFS cascade
+    (``ops/sorted_sfs.py``) at d > 2. ``auto`` (the default) races it
+    against the other candidates on measured walls, ``on`` forces it,
+    ``off`` excludes it. Host numpy, so only concrete calls on the CPU
+    ever take it."""
+    return _mode("SKYLINE_SORTED_SFS")
 
 
-def merge_path(use_tree: bool, delta: bool) -> str:
-    """The name of one merge launch's path (an exact hit is decided before
-    any of these)."""
-    if delta:
-        return "tree_delta" if use_tree else "delta"
-    return "tree" if use_tree else "flat"
+def device_cascade_mode() -> str:
+    """``SKYLINE_DEVICE_CASCADE``: the device sorted dominance cascade
+    (``ops/device_cascade.py``). ``auto`` (the default) races it on
+    measured walls — concrete calls explore and record, merge-time calls
+    swap it in only on evidence already measured — ``on`` forces it
+    everywhere, ``off`` excludes it."""
+    return _mode("SKYLINE_DEVICE_CASCADE")
+
+
+def sorted_sfs_block() -> int:
+    """``SKYLINE_SORTED_SFS_BLOCK``: the host cascade's largest scan block
+    (rows per in-block exact tile), at least 64; 8192 by default."""
+    return max(64, env_int("SKYLINE_SORTED_SFS_BLOCK", 8192))
+
+
+def device_cascade_block() -> int:
+    """``SKYLINE_DEVICE_CASCADE_BLOCK``: the device cascade's scan block,
+    rounded up to a power of two, at least 8; 2048 by default."""
+    from skyline_tpu_torch.utils.buckets import next_pow2
+
+    return next_pow2(max(1, env_int("SKYLINE_DEVICE_CASCADE_BLOCK", 2048)), min_cap=8)

@@ -24,6 +24,7 @@ from skyline_tpu_torch.stream import EngineConfig, SkylineEngine
 from skyline_tpu_torch.stream import batched as tbatched
 from skyline_tpu_torch.stream import window as twin
 from skyline_tpu_torch.stream.batched import PartitionSet
+from skyline_tpu_torch.ops import cascade
 from skyline_tpu_torch.utils import knobs
 
 from test_torch_merge_tree import assert_same_counters, assert_same_merge, merge_of
@@ -425,10 +426,10 @@ def test_plane_knobs_match_jax(monkeypatch, env, raw):
 
 
 def test_plane_rules():
-    assert not knobs.delta_applies(0.0) and knobs.delta_applies(0.75)
-    assert not knobs.delta_applies(0.76)
-    assert not knobs.merge_tree_on(2) and knobs.merge_tree_on(3)
-    assert [knobs.merge_path(t, dl) for t in (True, False) for dl in (True, False)] == [
+    assert not cascade.delta_applies(0.0) and cascade.delta_applies(0.75)
+    assert not cascade.delta_applies(0.76)
+    assert not cascade.merge_tree_on(False, 2) and cascade.merge_tree_on(False, 3)
+    assert [cascade.merge_path(t, dl) for t in (True, False) for dl in (True, False)] == [
         "tree_delta", "tree", "delta", "flat"]
 
 

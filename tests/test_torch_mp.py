@@ -26,6 +26,7 @@ from skyline_tpu_torch.ops import sfs as tsfs
 from skyline_tpu_torch.ops.dominance import bf16_round, strictly_dominated_bf16
 from skyline_tpu_torch.stream import device_window as tdw
 from skyline_tpu_torch.stream import window as twin
+from skyline_tpu_torch.ops import cascade
 from skyline_tpu_torch.utils import knobs
 
 torch.set_num_threads(1)
@@ -417,14 +418,16 @@ def test_knob_defaults(monkeypatch):
     # the reference's default off its accelerator
     assert knobs.mixed_precision_enabled("cpu") == jdispatch.mixed_precision_enabled()
     for d in (1, 2, 3, 8):
-        assert knobs.flush_prefilter_on(d) == jcascade.applies("flush_prefilter", d=d)
+        assert cascade.applies("flush_prefilter", d=d) == jcascade.applies("flush_prefilter", d=d)
     for raw, want in (("1", True), ("0", False), ("off", False), ("yes", True)):
         monkeypatch.setenv("SKYLINE_MIXED_PRECISION", raw)
         assert knobs.mixed_precision_enabled("cpu") == want
         assert knobs.mixed_precision_enabled("cuda") == want
         assert jdispatch.mixed_precision_enabled() == want
         monkeypatch.setenv("SKYLINE_FLUSH_PREFILTER", raw)
-        assert knobs.flush_prefilter_on(4) == want == jcascade.applies("flush_prefilter", d=4)
+        assert cascade.applies("flush_prefilter", d=4) == want == jcascade.applies(
+            "flush_prefilter", d=4
+        )
 
 
 # -- on the card -------------------------------------------------------------------------

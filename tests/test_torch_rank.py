@@ -255,6 +255,9 @@ def test_mask_dispatch_picks_k7_on_the_card_only(rng, monkeypatch):
                         lambda *a, mp: calls.append(("K3", mp)))
     monkeypatch.setattr(tdispatch, "skyline_mask_rank_kernel", lambda *a: calls.append("K7"))
     monkeypatch.setenv("SKYLINE_MIXED_PRECISION", "1")
+    # the quadratic kernel alone: under auto a concrete call on a card races
+    # it against the device cascade
+    monkeypatch.setenv("SKYLINE_DEVICE_CASCADE", "off")
     for gate in ("1", "0"):
         monkeypatch.setenv("SKYLINE_RANK_CASCADE", gate)
         tdispatch.skyline_mask_auto(x, v)
