@@ -49,7 +49,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    d in {3, 8, 16}, signed-zero duplicates, NaN and mixed +/-inf rows and a
    north-star block, and its core at block 8 on the 2^24 equal-key band;
    ``skyline_large`` on the ``--n``-row north-star window against K3's
-   survivors in sum order, timed;
+   survivors in sum order, timed; K3 over a partition batch (the sliding
+   slide step's form: one launch over (P, N, d)) against its plain version
+   and against K3 on each partition alone, P in {1, 3, 8}, d in {3, 4, 8,
+   16}, N ragged, with duplicates, signed zeros, NaN and +inf rows,
+   invalid rows with finite coordinates, a partition with no valid rows,
+   one whose first half is invalid, the north-star's zero block and an
+   empty batch;
 4. parity, each on CUDA and with ``device="cpu"`` (plain versions): the
    host-ingest engine over two 65,536-row 8-D anti-correlated windows
    (same sizes, optimality and point bytes) plus a small window against
@@ -75,7 +81,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (``RACE_PARITY``): the lazy engine with host ingest at d = 3 and 8 over
    three windows, the card with the device cascade forced and under the
    defaults (the SFS rounds raced against the device cascade) against the
-   CPU with the host sorted cascade forced, strict;
+   CPU with the host sorted cascade forced, strict; the sliding windows
+   (``SLIDING_PARITY``): ``SlidingEngine`` at d in {2, 3, 4, 8} under
+   mr-angle, mr-grid and mr-dim, windows 4,096/1,024, 2,048/256 and
+   8,192/2,048 or 1,024, two streams that grow the ring (one across the K3
+   gate), per-slide emission, mid-slide triggers, a barrier trigger and a
+   timeout under an injected clock — every result's fields and point bytes,
+   strict; the card must take each leg's branch (sweep, scan, K3 with two
+   launches a slide step) — and ``SlidingSkyline`` every slide and
+   ``current_skyline`` with rows pending, d = 3 and 8;
 5. main paths at 1,000,000 rows, each one warm window and ``--windows``
    measured ones, driven in 65,536-row chunks with the trigger "0,0", under
    the reference's merge defaults (the pruned tree merge at d > 2, the
@@ -112,7 +126,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``partition_ids_np`` and from the CPU. On (b), (d) and (f) the last
    engine measures the merge plane (``measure_plane``): a repeated trigger
    (an exact hit, no launch), a delta trigger after a chunk routed to half
-   the partitions, and that answer against a fresh set's recompute;
+   the partitions, and that answer against a fresh set's recompute. Two
+   sliding paths: (n) the sliding north-star
+   (``benchmarks/sliding_northstar.py``: 8-D anti-correlated, window
+   1,048,576, K = 8, parallelism 4, mr-angle, a trigger at every slide
+   close; K warm slides, then max(8, 4 x ``--windows``) measured), its
+   first full window's answer checked against samples of input and output;
+   (o) ``sliding_4d_anticorrelated`` (``benchmarks/run_configs.py``: 4-D,
+   window 200,000, slide 50,000, 800,000 rows in 65,536-row chunks,
+   per-slide emission). Each prints slide p50/p90, slides/s, tuples/s
+   (slide / p50), the skyline size p50, the host ms of routing, the slide
+   step's device ms (CUDA events), the answer's ms, K3 launches per slide
+   (must be 2), the rings' capacity and the bytes moved to the host per
+   answer;
 6. timings: each kernel at its main path's shapes (K1–K3 from (c), K4–K7
    from (a), rebuilt from the last window's state; K2 also on the heaviest
    incremental round of (d), its three calls, and on the heaviest tree
@@ -139,7 +165,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    device cascade at the north-star flat-merge union (K3's input), ``mp``
    on and off: its wall beside K3's and the CPU cascade's, its launches,
    and each launch site's device ms and bound (``cascade_sites``); then the
-   same sites over one more window of (l).
+   same sites over one more window of (l). K3 over a partition batch at
+   (n)'s and (o)'s two slide-step shapes (the bucket and window passes of
+   the last slide): the wrapper's and its launch's ms, the plain
+   version's, the bound and the skipped share. ``--profile`` also profiles
+   one more slide of (n) and (o).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2618,6 +2648,548 @@ def rank_timings(torch, np, eng, x_last, launches: dict, windows: int, dev="cuda
     return table
 
 
+# -- the sliding windows: K3 over a partition batch, parity, (n), (o) --------
+
+
+def _batch_k3_cases(torch, np, rng, dev):
+    """(name, x (P, N, d) f32, valid (P, N)) on the card: P in {1, 3, 8},
+    d in {3, 4, 8, 16}, N ragged against the 256-row tile and victim block;
+    duplicate rows, +0.0 and -0.0 mixed, NaN and +inf rows, invalid rows
+    with finite coordinates, a partition with no valid rows and one whose
+    first half is invalid; the north-star's zero block; an empty batch."""
+    from skyline_tpu_torch.workload.generators import anti_correlated, uniform
+
+    cases = []
+    for P, n in ((1, 4097), (3, 3001), (8, 1000)):
+        for d in (3, 4, 8, 16):
+            flat = (anti_correlated(rng, P * n, d, 0, 40) if d <= 8
+                    else uniform(rng, P * n, d, 0, 20))
+            x = flat.reshape(P, n, d).copy()
+            valid = rng.random((P, n)) < 0.9
+            x[:, 10:60] = x[:, :50]
+            x[:, 100:140] = 0.0
+            x[:, 140:160] = -0.0
+            x[:, 150:160, 1:] = 0.0
+            x[:, 160:170, 0] = np.nan
+            x[:, 170:180] = np.inf
+            x[:, 180:190, 1] = np.inf
+            x[:, 200:260] = rng.integers(0, 5, size=(P, 60, d))
+            valid[:, 200:260] = False
+            if P > 1:
+                valid[1] = False
+            if P > 2:
+                valid[2, : n // 2] = False
+            cases.append((f"P={P} d={d} N={n}", x, valid))
+    x = anti_correlated(rng, 8 * 8192, 8, 0, 10000).reshape(8, 8192, 8).copy()
+    x[0, :5000] = 0.0
+    x[0, 5000:5020, :4] = -0.0
+    valid = np.ones((8, 8192), bool)
+    valid[:, 7000:] = False
+    cases.append(("north-star zero block P=8 d=8 N=8192", x, valid))
+    cases.append(("empty P=3 N=0 d=8", np.zeros((3, 0, 8), np.float32), np.zeros((3, 0), bool)))
+    return [
+        (name, torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(dev),
+         torch.from_numpy(v).to(dev))
+        for name, x, v in cases
+    ]
+
+
+def check_batched_k3(torch, np, dev) -> int:
+    """K3 over a partition batch (one K1 launch) against its plain version
+    and against K3 run on each partition alone, exact equality."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+
+    checks = 0
+    for name, x, v in _batch_k3_cases(torch, np, np.random.default_rng(71), dev):
+        before = dk.LAUNCHES["skyline_mask_kernel"]
+        got = dk.skyline_mask_kernel(x, v)
+        torch.cuda.synchronize()
+        if dk.LAUNCHES["skyline_mask_kernel"] - before != (1 if x.shape[1] else 0):
+            raise AssertionError(f"K3 batch {name}: not one launch")
+        if not torch.equal(got, dk.skyline_mask_plain(x, v)):
+            raise AssertionError(f"K3 batch {name}: kernel and plain version differ in "
+                                 f"{int((got != dk.skyline_mask_plain(x, v)).sum())} rows")
+        for p in range(x.shape[0]):
+            alone = dk.skyline_mask_kernel(x[p].contiguous(), v[p].contiguous())
+            if not torch.equal(got[p], alone):
+                raise AssertionError(f"K3 batch {name}: partition {p} differs from K3 alone")
+        checks += 1 + x.shape[0]
+    return checks
+
+
+@contextlib.contextmanager
+def slide_step_probe(torch):
+    """Wrap the sliding engine's slide step: per call the branch, the K3
+    launches it made, its device ms between CUDA events (card engines) and
+    its inputs (the last call's are kept for the timings)."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+    from skyline_tpu_torch.stream import sliding_engine as se
+
+    orig = se._slide_step_batched
+    calls = []
+
+    def step(rings, ring_valids, slot, rows, rows_valid, use_k3=False):
+        cuda = rings.device.type == "cuda"
+        if cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        before = dk.LAUNCHES["skyline_mask_kernel"]
+        out = orig(rings, ring_valids, slot, rows, rows_valid, use_k3=use_k3)
+        rec = {"use_k3": use_k3, "k3_launches": dk.LAUNCHES["skyline_mask_kernel"] - before,
+               "rows": rows, "rows_valid": rows_valid, "events": None}
+        if cuda:
+            ev[1].record()
+            rec["events"] = ev
+        calls.append(rec)
+        return out
+
+    se._slide_step_batched = step
+    try:
+        yield calls
+    finally:
+        se._slide_step_batched = orig
+
+
+def _step_ms(rec) -> float | None:
+    if rec["events"] is None:
+        return None
+    rec["events"][1].synchronize()
+    return rec["events"][0].elapsed_time(rec["events"][1])
+
+
+# the sliding parity legs: (name, engine configuration, window, slide, rows,
+# the branch the card must take, skewed tail). Skewed tails route 60% of
+# their rows to one partition (mr-dim: dim 0 below domain / P; mr-grid: the
+# lowest cell) and grow its ring mid-stream; the 4-D growth leg crosses the
+# K3 gate (k * cap 2,048 -> 8,192) when it grows
+SLIDING_PARITY = (
+    ("8d_angle_4096_1024", dict(parallelism=4, algo="mr-angle", dims=8), 4096, 1024, 12288,
+     "scan", False),
+    ("3d_grid_2048_256_growth", dict(parallelism=4, algo="mr-grid", dims=3), 2048, 256, 6144,
+     "scan", True),
+    ("8d_dim_8192_2048", dict(parallelism=1, algo="mr-dim", dims=8), 8192, 2048, 14336,
+     "k3", False),
+    ("4d_dim_8192_1024_growth", dict(parallelism=4, algo="mr-dim", dims=4), 8192, 1024, 12288,
+     "k3", True),
+    ("2d_angle_4096_1024", dict(parallelism=4, algo="mr-angle", dims=2), 4096, 1024, 12288,
+     "sweep", False),
+)
+SLIDING_FIELDS = ("query_id", "record_count", "skyline_size", "optimality", "window_size",
+                  "slide", "slides_closed", "window_filled", "partial")
+
+
+def _sliding_stream(np, rng, cfg, n: int, skew: bool):
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    x = anti_correlated(rng, n, cfg["dims"], 0, 10000)
+    if skew:
+        tail = np.arange(n // 4, n)
+        hot = tail[rng.random(tail.size) < 0.6]
+        x[hot] *= 0.2 / (2 * cfg["parallelism"]) if cfg["algo"] == "mr-dim" else 0.05
+    return x
+
+
+def _drive_sliding(cfg, window: int, slide: int, x, device: str):
+    """One sliding engine over ``x`` in 700-row chunks under an injected
+    clock (one second a chunk), per-slide emission on: a mid-slide trigger
+    every third chunk, a barrier trigger cleared by later rows, one that
+    never clears and times out (``query_timeout_ms`` 2,500), a watchdog
+    sweep after every chunk. Returns (results, stats, ring capacities)."""
+    import numpy as np
+
+    from skyline_tpu_torch.stream import EngineConfig
+    from skyline_tpu_torch.stream.sliding_engine import SlidingEngine
+
+    eng = SlidingEngine(
+        EngineConfig(**cfg, domain_max=10000.0, emit_skyline_points=True,
+                     query_timeout_ms=2500.0, device=device),
+        window_size=window, slide=slide, emit_per_slide=True,
+    )
+    ids = np.arange(x.shape[0], dtype=np.int64)
+    caps = []
+    for j, i in enumerate(range(0, x.shape[0], 700)):
+        t = 1000.0 * (j + 1)
+        eng.process_records(ids[i : i + 700], x[i : i + 700], now_ms=t)
+        if j % 3 == 1:
+            eng.process_trigger(f"mid{j},0", now_ms=t)
+        if j == 2:
+            eng.process_trigger(f"late,{i + 1400}", now_ms=t)
+        if j == 4:
+            eng.process_trigger(f"never,{10**12}", now_ms=t)
+        eng.check_timeouts(now_ms=t)
+        caps.append(eng._cap)
+    return eng.poll_results(), eng.stats(include_skyline_counts=True), caps
+
+
+def _sliding_skyline_run(x, window: int, slide: int, device: str):
+    """``SlidingSkyline`` over ``x`` in 37 ragged batches: every slide's
+    (window end, fill flag, skyline bytes), and ``current_skyline`` with
+    rows pending every fifth batch."""
+    import numpy as np
+
+    from skyline_tpu_torch.stream.sliding import SlidingSkyline
+
+    sw = SlidingSkyline(window, slide, x.shape[1], device=device)
+    out = []
+    for j, chunk in enumerate(np.array_split(x, 37)):
+        out += [(r["window_end"], r["window_filled"], r["skyline"].tobytes())
+                for r in sw.push(chunk)]
+        if j % 5 == 2:
+            out.append(("current", sw._pending_rows, sw.current_skyline.tobytes()))
+    return out
+
+
+def check_sliding_parity(torch, np, devices=("cuda", "cpu")) -> dict:
+    """``SlidingEngine`` and ``SlidingSkyline``, CUDA against the CPU,
+    strict (routing is the host's on both): every result's fields and
+    point bytes, the final per-partition counts and the ring capacities.
+    On the card each leg must take its branch; on the K3 legs every slide
+    step whose gate is on launches K3 exactly twice."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+
+    rng = np.random.default_rng(83)
+    out = {}
+    for name, cfg, window, slide, n, branch, skew in SLIDING_PARITY:
+        x = _sliding_stream(np, rng, cfg, n, skew)
+        runs, walls = [], []
+        for device in devices:
+            dk.reset_launches()
+            t0 = time.perf_counter()
+            with slide_step_probe(torch) as calls:
+                runs.append(_drive_sliding(cfg, window, slide, x, device))
+            walls.append(time.perf_counter() - t0)
+            if len(runs) == 1:  # the card's side
+                k3_steps = [c for c in calls if c["use_k3"]]
+                if any(c["k3_launches"] != 2 for c in k3_steps) or any(
+                        c["k3_launches"] for c in calls if not c["use_k3"]):
+                    raise AssertionError(f"sliding parity {name}: K3 launches per step "
+                                         f"{[c['k3_launches'] for c in calls]}")
+                card = {"branch": runs[0][1]["mask_kernel"], "k3_steps": len(k3_steps),
+                        "steps": len(calls)}
+        (ra, sa, ca), (rb, sb, cb) = runs
+        if devices[0] == "cuda" and (
+                card["branch"] != branch or (branch == "k3" and not card["k3_steps"])):
+            raise AssertionError(f"sliding parity {name}: the card took {card}, not {branch}")
+        if skew and ca[-1] <= ca[0]:
+            raise AssertionError(f"sliding parity {name}: the ring never grew ({ca})")
+        if len(ra) != len(rb) or ca != cb or sa["partitions"] != sb["partitions"]:
+            raise AssertionError(f"sliding parity {name}: {len(ra)} vs {len(rb)} results, "
+                                 f"capacities {ca[-1]} vs {cb[-1]}")
+        for a, b in zip(ra, rb):
+            bad = [f for f in SLIDING_FIELDS if a.get(f) != b.get(f)]
+            if bad or _points(a).tobytes() != _points(b).tobytes():
+                raise AssertionError(f"sliding parity {name}, result {a['query_id']}: "
+                                     f"fields {bad} or the point bytes differ")
+        kinds = {"partial": sum(bool(r.get("partial")) for r in ra),
+                 "per_slide": sum(r["query_id"].startswith("slide-") for r in ra),
+                 "late": sum(r["query_id"] == "late" for r in ra)}
+        if not (kinds["partial"] and kinds["per_slide"] and kinds["late"]):
+            raise AssertionError(f"sliding parity {name}: missing result kinds {kinds}")
+        out[name] = {**card, "wall_s": walls, "results": len(ra), **kinds,
+                     "capacity": ca[-1],
+                     "skyline_sizes": [r["skyline_size"] for r in ra if r["window_filled"]][-3:]}
+        log(f"parity: sliding {name}, cuda == cpu: {out[name]}")
+    for d in (3, 8):
+        x = _sliding_stream(np, rng, {"dims": d, "algo": "mr-angle", "parallelism": 4},
+                            12288, False)
+        a, b = (_sliding_skyline_run(x, 4096, 1024, dv) for dv in devices)
+        if a != b:
+            raise AssertionError(f"SlidingSkyline d={d}: cuda and cpu differ")
+        out[f"sliding_skyline_{d}d"] = {"outputs": len(a)}
+        log(f"parity: SlidingSkyline d={d} 4096/1024, cuda == cpu over {len(a)} slides and "
+            "current_skyline reads")
+    return out
+
+
+class _LastAnswer:
+    """A snapshot store that keeps the last published points."""
+
+    points = None
+
+    def note_ingest(self, max_id):
+        pass
+
+    def publish(self, points, **meta):
+        self.points = points
+
+
+# (n): benchmarks/sliding_northstar.py:35-67 — 8-D anti-correlated in
+# 0-10000, window 1,048,576, K = 8 (slide 131,072), parallelism 4, mr-angle,
+# a trigger "<s>,0" at every slide close
+SLIDING_NS = dict(parallelism=4, algo="mr-angle", dims=8, domain_max=10000.0)
+SLIDING_NS_WINDOW, SLIDING_NS_K = 1_048_576, 8
+# (o): benchmarks/run_configs.py:42 SLIDING_CONFIG and :74-119 — 4-D
+# anti-correlated, window 200,000, slide 50,000, 800,000 rows in 65,536-row
+# chunks, per-slide emission
+SLIDING_4D = dict(parallelism=4, algo="mr-angle", dims=4, domain_max=10000.0)
+SLIDING_4D_WINDOW, SLIDING_4D_SLIDE, SLIDING_4D_ROWS = 200_000, 50_000, 800_000
+SLIDING_CHUNK = 65536
+
+
+def _timed_answers(eng, walls: list):
+    """Record each answer's host wall (ms) of ``eng``."""
+    orig = eng._answer_window
+
+    def answer(q, now_ms):
+        t0 = time.perf_counter()
+        try:
+            return orig(q, now_ms)
+        finally:
+            walls.append((time.perf_counter() - t0) * 1e3)
+
+    eng._answer_window = answer
+
+
+def _sliding_summary(np, path, lat_s, slide, steps, answers_ms, route_ms, host_bytes, sizes,
+                     eng, launches, extra):
+    """The path's numbers over its measured slides; raises unless every
+    slide step ran the K3 branch with two launches."""
+    k3 = [c["k3_launches"] for c in steps]
+    p50 = float(np.median(lat_s))
+    out = {
+        "slides_measured": len(lat_s),
+        "p50_slide_ms": p50 * 1e3, "p90_slide_ms": float(np.quantile(lat_s, 0.9)) * 1e3,
+        "slides_per_s": 1.0 / p50, "tuples_per_s": slide / p50,
+        "skyline_size_p50": float(np.median(sizes)),
+        "p50_route_ms": float(np.median(route_ms)),
+        "p50_step_device_ms": float(np.median([_step_ms(c) for c in steps])),
+        "p50_answer_ms": float(np.median(answers_ms)),
+        "k3_launches_per_slide": float(np.mean(k3)),
+        "ring_capacity": eng._cap, "ring_shape": list(eng._rings.shape),
+        "ring_bytes": eng._rings.numel() * 4 + eng._ring_valids.numel(),
+        "host_bytes_per_answer": float(np.median(host_bytes)),
+        "mask_kernel": eng.stats()["mask_kernel"], "launches": launches, **extra,
+    }
+    log(f"main ({path}): slide p50 {out['p50_slide_ms']:.1f} ms, p90 "
+        f"{out['p90_slide_ms']:.1f} ms over {len(lat_s)} slides, {out['slides_per_s']:.2f} "
+        f"slides/s, {out['tuples_per_s']:.0f} tuples/s (slide / p50), skyline p50 "
+        f"{out['skyline_size_p50']:.0f}; route {out['p50_route_ms']:.1f} ms host, slide step "
+        f"{out['p50_step_device_ms']:.2f} ms device, answer {out['p50_answer_ms']:.1f} ms; "
+        f"K3 launches per slide {out['k3_launches_per_slide']:.2f} ({out['mask_kernel']}); "
+        f"rings {out['ring_shape']} ({out['ring_bytes'] / 2**20:.1f} MiB), "
+        f"{out['host_bytes_per_answer'] / 2**20:.2f} MiB to the host per answer")
+    if out["mask_kernel"] != "k3" or any(c != 2 for c in k3):
+        raise AssertionError(f"main ({path}): K3 launches per slide {k3}, branch "
+                             f"{out['mask_kernel']}: want 2 on the K3 branch")
+    if not launches.get("skyline_mask_kernel"):
+        raise AssertionError(f"main ({path}) launched no skyline_mask_kernel: {launches}")
+    return out
+
+
+def _route_ms(tracer) -> float:
+    return tracer.report().get("route", {}).get("total_ms", 0.0)
+
+
+def sliding_northstar(torch, np, windows: int, dev="cuda"):
+    """(n): K warm slides fill the window, then max(8, 4 x ``windows``)
+    measured ones, each a slide of rows through ``process_records``, the
+    trigger "<s>,0" and ``poll_results`` (the benchmark's slide latency).
+    The first full window's answer is checked against samples of its input
+    and output. Launch counts set to 0 just before, read just after."""
+    from collections import deque
+
+    from skyline_tpu_torch.metrics.tracing import Tracer
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+    from skyline_tpu_torch.stream import EngineConfig
+    from skyline_tpu_torch.stream.sliding_engine import SlidingEngine
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    K, slide = SLIDING_NS_K, SLIDING_NS_WINDOW // SLIDING_NS_K
+    measured = max(8, 4 * windows)
+    tracer = Tracer(sync_device=False)
+    eng = SlidingEngine(EngineConfig(**SLIDING_NS, device=dev), window_size=SLIDING_NS_WINDOW,
+                        slide=slide, tracer=tracer)
+    store = _LastAnswer()
+    eng.attach_snapshots(store)
+    answers = []
+    _timed_answers(eng, answers)
+    rng = np.random.default_rng(0)
+    recent = deque(maxlen=K)
+    lat, sizes, route, host, warm_ms = [], [], [], [], []
+    with slide_step_probe(torch) as calls:
+        dk.reset_launches()
+        for s in range(K + measured):
+            x = anti_correlated(rng, slide, SLIDING_NS["dims"], 0, 10000)
+            ids = np.arange(s * slide, (s + 1) * slide, dtype=np.int64)
+            recent.append(x)
+            r0, h0 = _route_ms(tracer), eng.answer_host_bytes
+            t0 = time.perf_counter()
+            eng.process_records(ids, x)
+            eng.process_trigger(f"{s},0")
+            (res,) = eng.poll_results()
+            dt = time.perf_counter() - t0
+            if s < K:
+                warm_ms.append(dt * 1e3)
+            else:
+                lat.append(dt)
+                sizes.append(res["skyline_size"])
+                route.append(_route_ms(tracer) - r0)
+                host.append(eng.answer_host_bytes - h0)
+            if s == K - 1:
+                if not res["window_filled"]:
+                    raise AssertionError("(n): the window is not full after K slides")
+                check_answer(torch, np, np.concatenate(list(recent)),
+                             np.asarray(store.points, np.float32), dev)
+                log(f"main (n): first full window's answer ({res['skyline_size']} points) "
+                    "checked against samples of input and output")
+        launches = dict(dk.LAUNCHES)
+    out = _sliding_summary(
+        np, "n", lat, slide, calls[K:], answers[K:], route, host, sizes, eng, launches,
+        {"warm_slide_ms": warm_ms, "window": SLIDING_NS_WINDOW, "slide": slide, "k": K},
+    )
+    return out, eng, calls[-1]
+
+
+def sliding_4d(torch, np, dev="cuda"):
+    """(o): the reference's sliding config through a fresh engine in
+    65,536-row chunks with per-slide emission, as ``run_configs.py`` drives
+    it; a slide's latency is its close (slide step and its answer), its
+    routing the route wall since the close before; the stream's tuples/s
+    is all rows over the stream wall. The first K slides fill the window
+    and are not measured."""
+    from skyline_tpu_torch.metrics.tracing import Tracer
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+    from skyline_tpu_torch.stream import EngineConfig
+    from skyline_tpu_torch.stream.sliding_engine import SlidingEngine
+    from skyline_tpu_torch.workload.generators import generate
+
+    K = SLIDING_4D_WINDOW // SLIDING_4D_SLIDE
+    x = generate("anti_correlated", np.random.default_rng(0), SLIDING_4D_ROWS,
+                 SLIDING_4D["dims"], 0, 10000)
+    ids = np.arange(SLIDING_4D_ROWS, dtype=np.int64)
+    tracer = Tracer(sync_device=False)
+    eng = SlidingEngine(EngineConfig(**SLIDING_4D, device=dev), window_size=SLIDING_4D_WINDOW,
+                        slide=SLIDING_4D_SLIDE, emit_per_slide=True, tracer=tracer)
+    answers, closes, route_marks, host = [], [], [0.0], []
+    _timed_answers(eng, answers)
+    orig_close = eng._close_slide
+
+    def close(now_ms):
+        route_marks.append(_route_ms(tracer))
+        t0, h0 = time.perf_counter(), eng.answer_host_bytes
+        try:
+            return orig_close(now_ms)
+        finally:
+            closes.append(time.perf_counter() - t0)
+            host.append(eng.answer_host_bytes - h0)
+
+    eng._close_slide = close
+    results = []
+    with slide_step_probe(torch) as calls:
+        dk.reset_launches()
+        t0 = time.perf_counter()
+        for i in range(0, SLIDING_4D_ROWS, SLIDING_CHUNK):
+            eng.process_records(ids[i : i + SLIDING_CHUNK], x[i : i + SLIDING_CHUNK])
+            results += eng.poll_results()
+        stream_s = time.perf_counter() - t0
+        launches = dict(dk.LAUNCHES)
+    if len(results) != SLIDING_4D_ROWS // SLIDING_4D_SLIDE or not results[-1]["window_filled"]:
+        raise AssertionError(f"(o): {len(results)} per-slide results")
+    route = np.diff(route_marks)
+    out = _sliding_summary(
+        np, "o", closes[K:], SLIDING_4D_SLIDE, calls[K:], answers[K:], route[K:], host[K:],
+        [r["skyline_size"] for r in results[K:]], eng, launches,
+        {"stream_tuples_per_s": SLIDING_4D_ROWS / stream_s, "stream_s": stream_s,
+         "window": SLIDING_4D_WINDOW, "slide": SLIDING_4D_SLIDE, "k": K,
+         "rows": SLIDING_4D_ROWS},
+    )
+    log(f"main (o): {SLIDING_4D_ROWS} rows in {stream_s:.2f} s, "
+        f"{out['stream_tuples_per_s']:.0f} tuples/s over the stream")
+    return out, eng, calls[-1]
+
+
+def profile_slide(torch, np, path: str, eng) -> dict:
+    """One more slide of (n) or (o) through its engine under
+    ``torch.profiler``: device time by kernel and the busy share of the
+    slide's wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    slide = eng.slide
+    x = anti_correlated(np.random.default_rng(1), slide, eng.config.dims, 0, 10000)
+    ids = np.arange(eng.records_in, eng.records_in + slide, dtype=np.int64)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.process_records(ids, x)
+        if path == "n":
+            eng.process_trigger(f"{eng.records_in},0")
+        eng.poll_results()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    kernels = sorted(
+        ((ev.self_device_time_total / 1e3, ev.count, ev.key) for ev in prof.key_averages()
+         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0),
+        reverse=True,
+    )
+    busy_ms = sum(k[0] for k in kernels)
+    out = {"path": path, "slide_ms": dt * 1e3, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / (dt * 1e3),
+           "top_kernels": [{"ms": ms, "calls": c, "name": n[:120]} for ms, c, n in kernels[:15]]}
+    log(f"profile ({path}): slide {dt * 1e3:.1f} ms under the profiler, device busy "
+        f"{busy_ms:.1f} ms (idle share {out['device_idle_share']:.3f})")
+    for k in out["top_kernels"]:
+        log(f"profile:   {k['ms']:9.2f} ms  {k['calls']:6d} calls  {k['name']}")
+    return out
+
+
+def sliding_k3_timings(torch, np, path: str, eng, last, per_slide: float) -> dict:
+    """K3 over a partition batch at the path's two slide-step shapes,
+    rebuilt from its last slide: the bucket pass (that slide's padded rows)
+    and the window pass (the flat rings after it). For each: the wrapper's
+    CUDA-event ms (sort, gather, one launch, scatter) and its launch's
+    alone, the plain version's ms (which must agree), the bound (bytes at
+    the HBM rate, or needed pairs x d at the FP32 peak), the share of
+    (victim block, dominator tile) pairs ``tile_skip_plain`` skips."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+
+    P, k, c, d = eng._rings.shape
+    inputs = {
+        "bucket": (last["rows"], last["rows_valid"]),
+        "window": (eng._rings.reshape(P, k * c, d), eng._ring_valids.reshape(P, k * c)),
+    }
+    out = {}
+    for label, (x, v) in inputs.items():
+        x, v = x.contiguous(), v.contiguous()
+        got = dk.skyline_mask_kernel(x, v)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = dk.skyline_mask_plain(x, v)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = int((got != want).sum())
+        if err:
+            raise AssertionError(f"K3 batch ({path} {label}) differs from its plain version")
+        ms = _event_ms(torch, lambda: dk.skyline_mask_kernel(x, v), reps=5)
+        order, vs = dk._sum_sorted(x, v)
+        xs_t = torch.gather(x, 1, order[..., None].expand_as(x)).transpose(1, 2).contiguous()
+        launch_ms = _event_ms(torch, lambda: dk._launch("skyline_mask_kernel", xs_t, vs, xs_t),
+                              reps=5)
+        pairs = sum(
+            _needed_pairs(torch, x[p].T.contiguous(), v[p], x[p].T.contiguous(),
+                          v[p] & ~got[p], v[p])
+            for p in range(P)
+        )
+        skip = dk.tile_skip_plain(xs_t, vs, xs_t, dk.TILE_ROWS, dk.BLOCK_VICTIMS)
+        n = x.shape[1]
+        bound = ((P * n * d * 4 + 2 * P * n) / HBM_BYTES_S * 1e3, pairs * d / FP32_FLOPS * 1e3)
+        r = {"ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms, "max_abs_err": err,
+             "bound_ms": max(bound), "bound_by": "operations" if bound[1] >= bound[0] else "bytes",
+             "needed_pairs": pairs, "valid_rows": int(v.sum()),
+             "skipped_share": float(skip.float().mean()) if skip.numel() else 1.0,
+             "shape": {"P": P, "N": n, "d": d}, "launches_per_slide": per_slide / 2}
+        log(f"timings: K3 batch ({path} {label}) {r['shape']}, {r['valid_rows']} valid rows: "
+            f"{ms:.3f} ms ({launch_ms:.3f} ms the launch alone; plain {plain_ms:.1f} ms, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}, {pairs} needed pairs, "
+            f"{r['skipped_share']:.6f} of (block, tile) pairs skipped), "
+            f"{r['launches_per_slide']:.1f} launches per slide")
+        if ms < r["bound_ms"]:
+            raise AssertionError(f"K3 batch ({path} {label}) reads under its bound")
+        out[f"sliding_{path}_{label}"] = r
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="main-path window rows")
@@ -2666,13 +3238,15 @@ def main() -> int:
         sw = check_sweep(torch, np, "cuda")
         tr = check_tree(torch, np, "cuda")
         dc = check_cascade(torch, np, "cuda")
+        bk = check_batched_k3(torch, np, "cuda")
         log(f"kernels: {n} checks equal to the plain versions, {mpn} mixed-precision checks "
             f"(K1-K3 mp equal to the plain versions and to their f32 launches, the pre-drop "
             f"equal to its plain version), {m} merge-step rounds (with and without mp) equal "
             f"to the plain core, {sw} sweep checks and {tr} tree-merge checks (tree pairs "
             f"on K2, compact_tagged, partition summaries) equal to the CPU, {dc} device "
-            f"cascade checks (mp off and on) equal to the CPU cascade and to K3 in "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"cascade checks (mp off and on) equal to the CPU cascade and to K3, {bk} checks "
+            f"of K3 over a partition batch (one launch) equal to its plain version and to K3 "
+            f"on each partition alone in {time.perf_counter() - t0:.1f} s")
         details["skyline_large"] = check_skyline_large(torch, np, args.n, "cuda")
     if "parity" in args.only:
         details["parity"] = check_parity(torch, np, PARITY_ROWS)
@@ -2685,6 +3259,7 @@ def main() -> int:
         details["plane_parity"] = check_plane_parity(torch, np)
         details["cascade_parity"] = check_cascade_parity(torch, np)
         details["race_parity"] = check_race_parity(torch, np)
+        details["sliding_parity"] = check_sliding_parity(torch, np)
         log(f"parity: done at {time.perf_counter() - t_start:.1f} s")
     table = []
     if "main" in args.only or "timings" in args.only:
@@ -2694,6 +3269,10 @@ def main() -> int:
             runs[path] = main_path(torch, np, path, args.n, args.windows)
             log(f"main ({path}): {time.perf_counter() - t0:.1f} s in all")
         details["main"] = {path: r[0] for path, r in runs.items()}
+        t0 = time.perf_counter()
+        sliding = {"n": sliding_northstar(torch, np, args.windows), "o": sliding_4d(torch, np)}
+        details["sliding"] = {path: r[0] for path, r in sliding.items()}
+        log(f"main (n), (o): {time.perf_counter() - t0:.1f} s in all")
         details["routing"] = routing_mismatch(torch, np, runs["a"][2], "cuda")
         log(f"routing: the card vs the CPU and vs partition_ids_np on the last "
             f"{args.n}-row window of (a): {details['routing']}")
@@ -2749,8 +3328,13 @@ def main() -> int:
             "calls": {k: {"ms": c["mp_ms"], "f32_ms": c["ms"], "bound_ms": c["bound_ms"]}
                       for k, c in inc["calls"].items()},
         }
+        for path, (summary, eng, last) in sliding.items():
+            rows["skyline_mask_kernel"]["inputs"].update(sliding_k3_timings(
+                torch, np, path, eng, last, summary["k3_launches_per_slide"]))
         if args.profile:
             details["profile"] = {p: profile_window(torch, np, p, args.n) for p in PATHS}
+            details["profile"].update(
+                {p: profile_slide(torch, np, p, r[1]) for p, r in sliding.items()})
     details["wall_s"] = time.perf_counter() - t_start
     log(f"total: {details['wall_s']:.1f} s")
     if args.out is not None:

@@ -71,14 +71,17 @@ def skyline_mask_scan(
     victim_max = torch.where(vp & ~certified, sums, float("-inf")).amax().reshape(1)
     bounds = torch.cat([chunk_min, victim_max]).tolist()
     xt = xp.T.contiguous()
-    dom = torch.zeros((padded,), dtype=torch.bool, device=dev)
+    # the padding rows are invalid: they neither dominate nor survive, so
+    # the compares take the n real rows only
+    victims = xt[:, :n].contiguous()
+    dom = torch.zeros((n,), dtype=torch.bool, device=dev)
     for i in range(nb):
         # NaN bounds compare False: such a chunk is never skipped
         if bounds[i] > bounds[-1]:
             continue
-        s = slice(i * chunk, (i + 1) * chunk)
-        dom |= dominated_by_rect(xt[:, s].contiguous(), vp[s], xt)
-    return (~(dom | certified) & vp)[:n]
+        s = slice(i * chunk, min((i + 1) * chunk, n))
+        dom |= dominated_by_rect(xt[:, s].contiguous(), vp[s], victims)
+    return ~(dom | certified[:n]) & vp[:n]
 
 
 def skyline_large(

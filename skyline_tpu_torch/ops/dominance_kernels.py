@@ -10,7 +10,8 @@ CUDA kernels. ``csrc/dominance.cu`` compares float32 values:
   dominators ``xt``; replaces ``dominated_by_pallas`` (renamed so it does
   not clash with the plain ``ops.dominance.dominated_by``).
 - K3 ``skyline_mask_kernel(x, valid)``: stable sum-sort, K1, unsort;
-  replaces ``skyline_mask_pallas``.
+  replaces ``skyline_mask_pallas``; (P, N, d) points sort, launch once and
+  unsort per partition in place of the reference's ``jax.vmap``.
 - ``mp=True`` on K1–K3 launches the kernel's mixed-precision variant (the
   TPU kernels' ``mp``, ``_dom_tile_mp``): a packed bf16 margin pass decides
   most pairs and only the pairs inside the margin band run the f32
@@ -345,9 +346,20 @@ def dominated_by_rect_plain(
 
 
 def skyline_mask_plain(x: torch.Tensor, valid: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain K3: the dense ``skyline_mask``."""
-    _mask_args(x, valid)
-    return skyline_mask(x, valid)
+    """Plain K3: the dense ``skyline_mask`` of (N, d) points, or of each
+    partition's valid rows of (P, N, d) points with (P, N) validity -> (P, N)
+    (invalid rows neither dominate nor survive, so a partition's mask is
+    that of its valid rows)."""
+    _mask_args(x, valid, batch=True)
+    if x.dim() == 2:
+        return skyline_mask(x, valid)
+    out = torch.zeros(x.shape[:2], dtype=torch.bool, device=x.device)
+    for p in range(x.shape[0]):
+        if valid is None:
+            out[p] = skyline_mask(x[p])
+        else:
+            out[p, valid[p]] = skyline_mask(x[p][valid[p]])
+    return out
 
 
 def row_sums(w: torch.Tensor) -> torch.Tensor:
@@ -584,55 +596,68 @@ def dominated_by_rect(
     return out if batched else out[0]
 
 
-def _mask_args(x, valid, name="skyline_mask_kernel"):
-    if x.dim() != 2:
-        raise ValueError(f"{name}: expected (N, d), got {tuple(x.shape)}")
+def _mask_args(x, valid, name="skyline_mask_kernel", batch: bool = False):
+    """Check (N, d) points — or (P, N, d) with ``batch`` — and their (N,) /
+    (P, N) validity."""
+    if x.dim() not in ((2, 3) if batch else (2,)):
+        want = "(N, d) or (P, N, d)" if batch else "(N, d)"
+        raise ValueError(f"{name}: expected {want}, got {tuple(x.shape)}")
     if x.dtype != torch.float32:
         raise TypeError(f"{name}: points must be float32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: points must be contiguous")
     if valid is not None and (
         valid.dtype != torch.bool
-        or tuple(valid.shape) != (x.shape[0],)
+        or tuple(valid.shape) != tuple(x.shape[:-1])
         or valid.device != x.device
     ):
         raise ValueError(
-            f"{name}: validity must be a bool (N,) tensor on the points' device"
+            f"{name}: validity must be a bool {tuple(x.shape[:-1])} tensor on the "
+            "points' device"
         )
 
 
 def _sum_sorted(x: torch.Tensor, valid: torch.Tensor | None):
-    """Stable sort by valid row sum, invalid rows last: (order, validity
-    in sorted order). The key (``torch.sum``) may round differently from a
+    """Stable sort by valid row sum, invalid rows last, of (N, d) points or
+    of each partition of (P, N, d): (order, validity in sorted order), each
+    (N,) / (P, N). The key (``torch.sum``) may round differently from a
     kernel's own sums; that moves only work, never a mask, because the
     kernels skip on their own exact sums."""
     if valid is None:
-        valid = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+        valid = torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device)
     keys = torch.where(valid, x.sum(dim=-1), float("inf"))
-    order = torch.argsort(keys, stable=True)
-    return order, valid[order]
+    order = torch.argsort(keys, dim=-1, stable=True)
+    return order, torch.gather(valid, -1, order)
 
 
 def _unsort(order: torch.Tensor, keep_sorted: torch.Tensor) -> torch.Tensor:
-    keep = torch.empty_like(keep_sorted)
-    keep[order] = keep_sorted
-    return keep
+    return torch.empty_like(keep_sorted).scatter_(-1, order, keep_sorted)
 
 
 def skyline_mask_kernel(
     x: torch.Tensor, valid: torch.Tensor | None = None, mp: bool = False
 ) -> torch.Tensor:
     """K3: survivor mask of (N, d) points — valid and dominated by no valid
-    point. Stable sort by valid row sum (invalid rows last), K1 over the
-    sorted set, unsort. No padding to a tile multiple: the kernel masks its
-    ragged edge. ``mp`` launches the mixed-precision variant."""
+    point — or of each partition of (P, N, d) points with (P, N) validity,
+    returning (N,) / (P, N) bool. Per partition a stable sort by valid row
+    sum (invalid rows last), a gather into one contiguous (P, d, N)
+    transpose, ONE K1 launch over every partition, a scatter back to the
+    caller's order; nothing is read back to the host. No padding to a tile
+    multiple: the kernel masks its ragged edge. ``mp`` launches the
+    mixed-precision variant; the sliding engine's slide step calls without
+    it, as the reference's does (``SKYLINE_MIXED_PRECISION`` does not
+    reach it)."""
     if not _device_path(x, "skyline_mask_kernel"):
         return skyline_mask_plain(x, valid)
-    _mask_args(x, valid)
-    order, vs = _sum_sorted(x, valid)
-    xs_t = x[order].T.contiguous()
-    dom = _launch("skyline_mask_kernel", xs_t[None], vs[None], xs_t[None], mp)[0]
-    return _unsort(order, ~dom & vs)
+    _mask_args(x, valid, batch=True)
+    batched = x.dim() == 3
+    x3 = x if batched else x[None]
+    v2 = valid if valid is None or batched else valid[None]
+    order, vs = _sum_sorted(x3, v2)
+    xs_t = torch.gather(x3, 1, order[..., None].expand_as(x3)).transpose(1, 2).contiguous()
+    dom = _launch("skyline_mask_kernel", xs_t, vs, xs_t, mp)
+    keep = _unsort(order, ~dom & vs)
+    return keep if batched else keep[0]
 
 
 # -- the bf16 row pre-drop -----------------------------------------------------

@@ -32,9 +32,11 @@ or, waiting for them, at the next trigger or ``poll_results`` — results
 stay in trigger order, with at most one merge in flight. Flushes run the
 reference's flush dominance cascade (the grid prefilter and, on a card by
 default, the mixed-precision passes; ``PartitionSet.flush_cascade_stats``).
+The query watchdog is the reference's: with ``query_timeout_ms`` set,
+``check_timeouts`` finalises an overdue query as a partial result.
 Telemetry (the engine's ``stats()`` and its ``flush_cascade`` block),
-snapshots, EXPLAIN, audit and query timeouts are not ported; the reference
-documents its results as identical without them.
+snapshots, EXPLAIN and audit are not ported; the reference documents its
+results as identical without them.
 """
 
 from __future__ import annotations
@@ -67,6 +69,10 @@ class EngineConfig:
     dims: int = 2
     buffer_size: int = DEFAULT_BUFFER_SIZE
     emit_skyline_points: bool = False
+    # failure detection: a query whose barrier never clears on some partition
+    # finalizes as a PARTIAL result after this long (0 = wait forever, the
+    # reference job's behaviour)
+    query_timeout_ms: float = 0.0
     # pre-size per-partition skyline buffers (0 = grow on demand)
     initial_capacity: int = 0
     # "incremental": merge pending rows at the buffer_size cadence (the
@@ -130,6 +136,10 @@ class _QueryState:
     start_times: dict = field(default_factory=dict)
     cpu_ms: dict = field(default_factory=dict)
     last_arrival_ms: float = 0.0
+    # telemetry: trace id minted at trigger ingestion + the perf clock at
+    # dispatch, so the end-to-end "query" span is recordable
+    trace_id: str | None = None
+    span_t0_ns: int = 0
 
 
 class SkylineEngine:
@@ -177,6 +187,8 @@ class SkylineEngine:
         self._pending_queries: dict[int, list[_QueryState]] = {
             i: [] for i in range(config.num_partitions)
         }
+        # every query dispatched and not yet emitted, by payload
+        self._inflight: dict[str, _QueryState] = {}
         self._results: list[dict] = []
         self.last_flush_ms: float | None = None
         self.last_merge_ms: float | None = None
@@ -252,6 +264,7 @@ class SkylineEngine:
         self.pset.sync_ingest_bookkeeping()
         qid, required = parse_trigger(payload)
         q = _QueryState(qid=qid, payload=payload, required=required, dispatch_ms=now_ms)
+        self._inflight[payload] = q
         if all(
             part.max_seen_id >= required or part.max_seen_id == -1
             for part in self.partitions
@@ -300,9 +313,12 @@ class SkylineEngine:
             self._finalize(q, max(arrival_ms, q.last_arrival_ms))
         return arrival_ms
 
-    def _finalize(self, q: _QueryState, now_ms: float) -> None:
-        """All partitions reported: global merge of the host partials +
-        metrics + result emission (GlobalSkylineAggregator final block,
+    def _finalize(
+        self, q: _QueryState, now_ms: float, partial_missing: list[int] | None = None
+    ) -> None:
+        """All partitions reported (or the watchdog gave up on
+        ``partial_missing``): global merge of the host partials + metrics +
+        result emission (GlobalSkylineAggregator final block,
         FlinkSkyline.java:573-657). ``now_ms`` continues the caller's clock;
         the merge's own wall is added on top."""
         merge_t0 = time.perf_counter_ns()
@@ -341,6 +357,7 @@ class SkylineEngine:
             total_ms=now - job_start,
             latency_ms=now - q.dispatch_ms,
             points=global_sky if self.config.emit_skyline_points else None,
+            partial_missing=partial_missing,
         )
 
     def _answer_all_device(self, q: _QueryState, now_ms: float) -> None:
@@ -424,6 +441,7 @@ class SkylineEngine:
         total_ms: float,
         latency_ms: float,
         points=None,
+        partial_missing=None,
     ) -> None:
         result = {
             "query_id": q.qid,
@@ -436,9 +454,39 @@ class SkylineEngine:
             "total_processing_time_ms": int(total_ms),
             "query_latency_ms": int(latency_ms),
         }
+        if partial_missing is not None:
+            result["partial"] = True
+            result["missing_partitions"] = partial_missing
         if points is not None:
             result["skyline_points"] = points.tolist()
         self._results.append(result)
+        self._inflight.pop(q.payload, None)
+
+    # -- failure detection -------------------------------------------------
+
+    def check_timeouts(self, now_ms: float | None = None) -> int:
+        """Finalize overdue queries as partial results (the watchdog the
+        reference job lacks). A timed-out query emits with ``"partial":
+        true`` and ``"missing_partitions"`` listing the non-reporting
+        partitions; its pending barrier entries are withdrawn. Returns the
+        number of queries timed out."""
+        timeout = self.config.query_timeout_ms
+        if timeout <= 0:
+            return 0
+        # an overlapped merge's query is still in _inflight; land it before
+        # the scan so the watchdog cannot finalize it a second time
+        self._harvest_inflight()
+        if not self._inflight:
+            return 0
+        if now_ms is None:
+            now_ms = time.time() * 1000.0
+        overdue = [q for q in self._inflight.values() if now_ms - q.dispatch_ms > timeout]
+        for q in overdue:
+            missing = [p for p in range(self.config.num_partitions) if p not in q.partials]
+            for p in missing:
+                self._pending_queries[p] = [pq for pq in self._pending_queries[p] if pq is not q]
+            self._finalize(q, now_ms, partial_missing=missing)
+        return len(overdue)
 
     # -- results ----------------------------------------------------------
 
@@ -446,3 +494,7 @@ class SkylineEngine:
         self._harvest_inflight()
         out, self._results = self._results, []
         return out
+
+    @property
+    def inflight_queries(self) -> int:
+        return len(self._inflight)
