@@ -36,13 +36,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``tree_pair_merge`` (two K2 launches) on signed zeros, NaN and +inf
    rows, rows equal across its two sides, an empty side, a capacity of
    exactly both counts and a north-star-like pair, ``compact_tagged`` and
-   ``partition_summaries_device``; the mixed-precision variants of K1–K3
-   against their plain versions and their own f32 launch, and the bf16 row
-   pre-drop kernel against its plain version (mask and count), for d in
-   {3, 8, 16} on those cases and on rows aimed at the bf16 margin (one bf16
-   ulp and the 2^-7/2^-6 bands either side, ties, signed zeros, NaN,
-   infinities, subnormals, values that round to bf16 infinity, the
-   north-star's zero rows), the merge step with ``mp`` too; the device
+   ``partition_summaries_device``; K1–K3 with ``mp`` (the f32 kernel
+   counted under ``_mp``) against their plain versions and their own f32
+   launch, and the bf16 row pre-drop's mask entry against its plain
+   version (mask and count), for d in {3, 8, 16} on those cases and on rows
+   aimed at the bf16 margin (one bf16 ulp and the 2^-7/2^-6 bands either
+   side, ties, signed zeros, NaN, infinities, subnormals, values that round
+   to bf16 infinity, the north-star's zero rows); both pre-drop entries on
+   ``_predrop_cases`` (a zero block against zero dominators, -0.0,
+   subnormals, rows one bf16 ulp apart, a north-star-like batch, 1 to
+   4,096 dominators at P = 1, 3 and 8): the mask, the fused drop (block
+   bytes, validity and per-block counts against ``mp_predrop_plain``, the
+   dominators read in place from a prefix of a wider buffer) and the
+   kernel's own skip decisions, read from its summaries, against
+   ``predrop_skip_plain`` (the skipped share printed per case; the zero
+   blocks skipped whole); the merge step with ``mp`` too; the device
    sorted dominance cascade (``device_cascade_mask``: K1 over each block's
    full square, K2 over the survivor buffer and the band, the pre-drop)
    against its CPU version and K3, ``mp`` off and on, on those cases at
@@ -56,7 +64,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    invalid rows with finite coordinates, a partition with no valid rows,
    one whose first half is invalid, the north-star's zero block and an
    empty batch;
-4. parity, each on CUDA and with ``device="cpu"`` (plain versions): the
+4. parity, each on CUDA and with ``device="cpu"`` (plain versions): device
+   routing of values outside the domain (``check_routing``: the three
+   partitioners at P in {1, 4, 8} on ±inf, NaN, ±1e30, -0.0 and mr-dim
+   quotients past 2^31, strict; the mr-dim fault's input through the
+   device-ingest engine, lazy and overlap, published bytes strict); the
    host-ingest engine over two 65,536-row 8-D anti-correlated windows
    (same sizes, optimality and point bytes) plus a small window against
    the numpy oracle; then device ingest over two 32,768-row windows with
@@ -158,10 +170,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    K1–K3 and K7 (``value_inputs``, ``plane_rows``), of rank sums in a band
    of 16 for K5/K6 (``rank_plane``); each with the share of (victim block,
    dominator tile) pairs ``tile_skip_plain`` or ``rank_tile_skip_plain``
-   skips. The mp variants of K1–K3 are timed right after their f32 launch
-   on the same inputs (and K2 mp on (d)'s heaviest round), the pre-drop
-   kernel at the north-star round's shape (P = 8, 512 x 65,536, d = 8;
-   bound: bytes, or 5 f32 operations per tested pair and dimension). The
+   skips. The mp launches of K1–K3 are timed right after their f32 launch
+   on the same inputs (and K2 mp on (d)'s heaviest round), both pre-drop
+   entries at the north-star round's shape (P = 8, 512 x 65,536, d = 8;
+   the dominators read in place from the skyline buffer; bound: bytes, or
+   one f32 compare per needed pair and dimension and four more operations
+   a dimension on each certifying pair, the pairs counted as for K1–K3 on
+   the bf16-rounded rows; the skipped share and the certified count).
+   With ``--parent`` (a checkout of the parent commit) the parent's value
+   kernel is built too and each K1–K3 timing and the pre-drop's mask are
+   repeated on it in the same call; ``--ab-paths`` then runs the named main
+   paths in both trees in turns (parent, change, change, parent). The
    device cascade at the north-star flat-merge union (K3's input), ``mp``
    on and off: its wall beside K3's and the CPU cascade's, its launches,
    and each launch site's device ms and bound (``cascade_sites``); then the
@@ -169,7 +188,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (n)'s and (o)'s two slide-step shapes (the bucket and window passes of
    the last slide): the wrapper's and its launch's ms, the plain
    version's, the bound and the skipped share. ``--profile`` also profiles
-   one more slide of (n) and (o).
+   one more slide of (n) and (o), and gives each profiled path's device
+   time by kernel name.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -211,19 +231,24 @@ KERNELS = {
     "dominated_by_any_rank": ("K5", "cuda", _RANK_CU, f"{_PALLAS}:301"),
     "dominated_by_rank_rect": ("K6", "cuda", _RANK_CU, f"{_PALLAS}:335"),
     "skyline_mask_rank_kernel": ("K7", "cuda", _RANK_CU, f"{_PALLAS}:512"),
-    # the mixed-precision variants (the TPU kernels' mp, _dom_tile_mp at
-    # pallas_dominance.py:85) and the bf16 row pre-drop (XLA in the
-    # reference: ops/dominance.py strictly_dominated_bf16)
+    # the mixed-precision launches of K1-K3 (the TPU kernels' mp,
+    # _dom_tile_mp at pallas_dominance.py:85; on the card the f32 kernel) and
+    # the bf16 row pre-drop's two entries, the mask and the flush's fused
+    # drop (XLA in the reference: ops/dominance.py strictly_dominated_bf16)
     "dominated_by_any_mp": ("K1 mp", "cuda", _VALUE_CU, f"{_PALLAS}:380"),
     "dominated_by_rect_mp": ("K2 mp", "cuda", _VALUE_CU, f"{_PALLAS}:418"),
     "skyline_mask_kernel_mp": ("K3 mp", "cuda", _VALUE_CU, f"{_PALLAS}:467"),
     "strictly_dominated_bf16_kernel": (
         "pre-drop", "cuda", _VALUE_CU, "skyline_tpu/ops/dominance.py:87",
     ),
+    "mp_predrop_kernel": (
+        "pre-drop fused", "cuda", _VALUE_CU, "skyline_tpu/ops/dominance.py:87",
+    ),
 }
 VALUE_PATH = ("dominated_by_any", "dominated_by_rect", "skyline_mask_kernel")
 MP_PATH = ("dominated_by_any_mp", "dominated_by_rect_mp", "skyline_mask_kernel_mp")
 PREDROP = "strictly_dominated_bf16_kernel"
+PREDROP_FUSED = "mp_predrop_kernel"
 RANK_PATH = (
     "rank_transform", "dominated_by_any_rank", "dominated_by_rank_rect",
     "skyline_mask_rank_kernel",
@@ -594,15 +619,66 @@ def _margin_rows(np, rng, d: int):
     return x[rng.permutation(x.shape[0])]
 
 
+def _predrop_cases(np, rng, d: int):
+    """(name, victims (P, B, d), dominators (P, L, d), their validity) aimed
+    at the pre-drop and its skip rule: a block of zero rows (some -0.0)
+    against zero dominators, subnormals, rows one bf16 ulp apart, the
+    margin rows of ``_margin_rows``, a north-star-like batch (partition 0
+    zeros against zeros, the rest margin rows), and dominator counts of 1,
+    511, 513, 777 and 4096 at P = 1, 3 and 8 (ragged victim counts)."""
+    f32 = np.float32
+    m = _margin_rows(np, rng, d)
+    zeros = np.zeros((3, 600, d), f32)
+    zeros[:, ::3, 0] = -0.0
+    ulp = np.full((1, 512, d), 1.0, f32)
+    ulp[0, 1::2] = 1.0078125  # the next bf16 value above 1
+    ulp[0, 2::4] = np.nextafter(f32(1.0078125), f32(2.0))
+    sub = np.full((1, 64, d), f32(2.0**-130))
+    sub[0, ::2] *= f32(3.0)
+    ns_y = m[rng.integers(0, m.shape[0], size=(8, 3000))]
+    ns_y[0] = 0.0
+    ns_x = m[rng.integers(0, m.shape[0], size=(8, 512))]
+    ns_x[0] = 0.0
+    cases = [
+        ("zeros", zeros, np.zeros((3, 512, d), f32)),
+        ("ulp", ulp, np.concatenate([ulp[:, :8], np.zeros((1, 1, d), f32)], axis=1)),
+        ("subnormal", np.concatenate([sub, np.full((1, 64, d), f32(1e-29))], axis=1), sub),
+        ("margin", m[None], m[None, ::3]),
+        ("north_star_like", ns_y, ns_x),
+    ]
+    for nx, P, ny in ((1, 1, 300), (511, 3, 2049), (513, 8, 777), (777, 3, 1000),
+                      (4096, 1, 4097)):
+        cases.append((f"nx{nx}_P{P}", m[rng.integers(0, m.shape[0], size=(P, ny))],
+                      m[rng.integers(0, m.shape[0], size=(P, nx))]))
+    return [(name, y, x, rng.random(x.shape[:2]) < 0.85) for name, y, x in cases]
+
+
+def _kernel_predrop_skips(torch, dk, ys, bv, xs, xv):
+    """The fused pre-drop's outputs and its own skip decisions (P, blocks,
+    tiles), read from the summaries it leaves in its scratch."""
+    P, ny, d = ys.shape
+    scratch = dk._scratch(P, d, d, xs.shape[1], ny, ys)
+    outs = dk._predrop_call(ys, bv, xs, xv, fused=True, scratch=scratch)
+    lo, hi = scratch[1][..., : d + 1], scratch[2][..., : d + 1]
+    skip = (lo[:, None, :, d] > hi[:, :, None, d]) | (
+        lo[:, None, :, :d] >= hi[:, :, None, :d]).any(-1)
+    return outs, skip
+
+
 def check_mp_kernels(torch, np, dev) -> int:
-    """The mixed-precision variants of K1, K2 and K3 against their plain
-    versions and against their own ``mp=False`` launch, exact equality, for
-    d in {3, 8, 16}, on ``_cases`` and the margin-adversarial
-    ``_margin_rows`` (alone and appended to the north-star's zero rows);
-    K1 and K2 also with P = 3; and the pre-drop kernel against its plain
-    version (``strictly_dominated_bf16``) — mask and count — on the same
-    rows, victims against the first 512 rows of the sum-sorted set, as an
-    SFS round passes them."""
+    """K1, K2 and K3 with ``mp`` (the f32 kernel counted under ``_mp``)
+    against their plain versions and against their ``mp=False`` launch,
+    exact equality, for d in {3, 8, 16}, on ``_cases`` and the
+    margin-adversarial ``_margin_rows`` (alone and appended to the
+    north-star's zero rows); K1 and K2 also with P = 3; the pre-drop's mask
+    entry against its plain version (``strictly_dominated_bf16``) — mask and
+    count — on the same rows, victims against the first 512 rows of the
+    sum-sorted set, as an SFS round passes them; and on ``_predrop_cases``
+    both entries: the mask, and the fused drop (block bytes, validity and
+    per-block counts against ``mp_predrop_plain``) with its dominators read
+    in place from a prefix of a wider buffer, and the kernel's own skip
+    decisions (from its summaries) equal to ``predrop_skip_plain``'s.
+    Returns (checks, {case: skipped share}) for the pre-drop cases."""
     from skyline_tpu_torch.ops import dominance_kernels as dk
 
     def same(a, b, what):
@@ -658,12 +734,39 @@ def check_mp_kernels(torch, np, dev) -> int:
              f"K2 mp P={P} d={d}")
         same(dk.dominated_by_any(x3, v2, mp=True), dk.dominated_by_any_plain(x3, v2),
              f"K1 mp P={P} d={d}")
-        # all nx dominators: more than one 512-row chunk of shared memory
-        pre = dk.strictly_dominated_bf16_kernel(ys.reshape(P, ny, d), xs.reshape(P, nx, d), v2)
-        same(pre, dk.strictly_dominated_bf16_plain(ys.reshape(P, ny, d), xs.reshape(P, nx, d), v2),
-             f"pre-drop P={P} d={d} nx={nx}")
-        checks += 3
-    return checks
+        checks += 2
+    shares = {}
+    for d in (3, 8, 16):
+        for name, y3, x3, xv3 in _predrop_cases(np, rng, d):
+            what = f"pre-drop {name} d={d}"
+            ys, xs = torch.from_numpy(y3).to(dev), torch.from_numpy(x3).to(dev)
+            xv = torch.from_numpy(xv3).to(dev)
+            bv = torch.from_numpy(rng.random(y3.shape[:2]) < 0.9).to(dev)
+            same(dk.strictly_dominated_bf16_kernel(ys, xs, xv),
+                 dk.strictly_dominated_bf16_plain(ys, xs, xv), f"{what} mask")
+            # the dominators and their validity as a prefix of wider buffers
+            L = xs.shape[1]
+            wide, wide_v = torch.cat([xs, xs], dim=1)[:, :L], torch.cat([xv, xv], dim=1)[:, :L]
+            got = dk.mp_predrop_kernel(wide, wide_v, ys, bv)
+            want = dk.mp_predrop_plain(xs, xv, ys, bv)
+            torch.cuda.synchronize()
+            if got[0].cpu().numpy().tobytes() != want[0].cpu().numpy().tobytes():
+                raise AssertionError(f"{what} fused: block bytes differ")
+            same(got[1], want[1], f"{what} fused validity")
+            same(got[2], want[2], f"{what} fused counts")
+            outs, skip = _kernel_predrop_skips(torch, dk, ys, bv, wide, wide_v)
+            same(outs[2], want[2], f"{what} fused counts (scratch call)")
+            plain_skip = dk.predrop_skip_plain(ys, xs, xv, dk.TILE_ROWS, dk.BLOCK_VICTIMS, bv)
+            same(skip, plain_skip, f"{what} skip decisions")
+            if name in ("zeros", "north_star_like"):
+                whole = skip.all() if name == "zeros" else skip[0].all()
+                if not bool(whole):
+                    raise AssertionError(f"{what}: the zero block is not skipped whole")
+            shares[f"{name}_d{d}"] = float(skip.float().mean()) if skip.numel() else 1.0
+            checks += 5
+    log("kernels: pre-drop skipped share of (block, tile) pairs by case: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in shares.items()))
+    return checks, shares
 
 
 def check_merge_step(torch, np, dev, B: int = 8192) -> int:
@@ -1017,8 +1120,11 @@ PLANE_OFF = {"SKYLINE_MERGE_TREE": "0", "SKYLINE_MERGE_CACHE": "0",
              "SKYLINE_QUERY_OVERLAP": "0"}
 # K2 in the tree merge's pairs
 TREE_K2 = ("dominated_by_rect",)
-# the mixed-precision SFS rounds: the pre-drop, then K1 and K2 with mp
-MP_ROUNDS = (PREDROP,) + MP_PATH[:2]
+# the mixed-precision SFS rounds: the fused pre-drop, then K1 and K2 with mp
+MP_ROUNDS = (PREDROP_FUSED,) + MP_PATH[:2]
+# the device cascade's mixed-precision sites: the pre-drop's mask, K1, K2
+MP_CASCADE = (PREDROP,) + MP_PATH[:2]
+MP_ANY = MP_ROUNDS + MP_CASCADE[:1] + MP_PATH[2:]
 # the flush cascade off: the bf16 passes, and the grid prefilter
 MP_OFF = {"SKYLINE_MIXED_PRECISION": "0"}
 CASCADE_OFF = {"SKYLINE_MIXED_PRECISION": "0", "SKYLINE_FLUSH_PREFILTER": "0"}
@@ -1041,7 +1147,7 @@ PATHS = {
     "a": (dict(NORTH_STAR, ingest="device"), True, RANK_PATH[1:3] + TREE_K2, {}),
     "b": (dict(NORTH_STAR, ingest="device"), False, MP_ROUNDS + TREE_K2, {}),
     "c": (dict(NORTH_STAR, ingest="host"), False, MP_ROUNDS + TREE_K2, {}),
-    "d": (dict(GRID_3D, ingest="host"), False, (PREDROP, MP_PATH[1]) + TREE_K2, {}),
+    "d": (dict(GRID_3D, ingest="host"), False, (PREDROP_FUSED, MP_PATH[1]) + TREE_K2, {}),
     "e": (dict(NORTH_STAR, flush_policy="overlap", ingest="device"), False,
           MP_ROUNDS + TREE_K2, {}),
     "f": (dict(GRID_3D, dims=2, ingest="host"), False, (), {}),
@@ -1052,15 +1158,14 @@ PATHS = {
     "j": (dict(GRID_3D, ingest="host"), False, TREE_K2, CASCADE_OFF),
     "k": (dict(NORTH_STAR, ingest="device"), False, VALUE_PATH,
           {"SKYLINE_MERGE_TREE": "0", **MP_OFF}),
-    "l": (dict(NORTH_STAR, ingest="host"), False, MP_ROUNDS + TREE_K2, CASCADE_ON),
+    "l": (dict(NORTH_STAR, ingest="host"), False, MP_CASCADE + TREE_K2, CASCADE_ON),
     "m": (dict(NORTH_STAR, ingest="device"), False, MP_ROUNDS,
           {"SKYLINE_MERGE_TREE": "0", **CASCADE_ON}),
 }
 # kernels a path must NOT launch (the knobs that turn them off); (l) and
 # (m) run the device cascade where K3 could run
 K3_ANY = (VALUE_PATH[2], MP_PATH[2])
-FORBIDDEN = {"i": MP_ROUNDS + MP_PATH[2:], "j": MP_ROUNDS + MP_PATH[2:],
-             "k": MP_ROUNDS + MP_PATH[2:], "l": K3_ANY, "m": K3_ANY}
+FORBIDDEN = {"i": MP_ANY, "j": MP_ANY, "k": MP_ANY, "l": K3_ANY, "m": K3_ANY}
 # the lazy flush path every window of a path must take
 FLUSH_PATH = {"l": "device_cascade"}
 # the paths whose last engine measures the merge plane (exact hit, delta)
@@ -1195,6 +1300,68 @@ def check_parity(torch, np, n: int, devices=("cuda", "cpu")) -> dict:
         "wall_s": walls,
         "oracle_points": int(want.shape[0]),
     }
+
+
+# values outside the domain: ±inf, NaN, ±1e30, -0.0, first coordinates
+# whose mr-dim quotient passes 2^31 (a partition width of 1,250 at P = 8),
+# the f32 maximum, and a few values inside
+ROUTING_VALUES = (float("inf"), float("-inf"), float("nan"), 1e30, -1e30, -0.0, 0.0, 3e12,
+                  2.7e12, 1e13, -1e13, 3.4028234663852886e38, 1.0, 9999.0)
+# the smallest input of the mr-dim routing fault (device ingest sent +inf
+# and quotients past 2^31 to partition 0 on the CPU, where XLA saturates to
+# P - 1), and the order the JAX engine publishes it in
+ROUTING_FAULT_ROWS = ((1e30, 0.0, 1.0), (1.0, 1.0, 0.0), (9000.0, 0.5, 0.5))
+ROUTING_FAULT_ORDER = (1, 2, 0)
+
+
+def check_routing(torch, np, dev) -> dict:
+    """``partition_ids`` of mr-dim, mr-grid and mr-angle on the card
+    against the CPU, strict, on rows drawn from ``ROUTING_VALUES`` at d in
+    {1, 2, 3, 8} and P in {1, 4, 8}; then the mr-dim fault's input through
+    the device-ingest engine (parallelism 1, lazy and overlap) on the card
+    and on the CPU: the published bytes, strict, in the JAX engine's
+    order."""
+    from skyline_tpu_torch.parallel.partitioners import PARTITIONERS, partition_ids
+    from skyline_tpu_torch.stream import EngineConfig, SkylineEngine
+
+    rng = np.random.default_rng(31)
+    values = np.array(ROUTING_VALUES, np.float32)
+    checks = 0
+    for d in (1, 2, 3, 8):
+        x = values[rng.integers(0, values.size, size=(4096, d))]
+        for algo in PARTITIONERS:
+            for P in (1, 4, 8):
+                card = partition_ids(torch.from_numpy(x).to(dev), algo, P, 10000.0).cpu()
+                cpu = partition_ids(torch.from_numpy(x), algo, P, 10000.0)
+                diff = torch.nonzero(card != cpu).flatten()
+                if diff.numel():
+                    i = int(diff[0])
+                    raise AssertionError(
+                        f"routing {algo} P={P} d={d}: {diff.numel()} rows differ, first "
+                        f"{x[i].tolist()}: card {int(card[i])}, cpu {int(cpu[i])}")
+                checks += 1
+    rows = np.array(ROUTING_FAULT_ROWS, np.float32)
+    for policy in ("lazy", "overlap"):
+        got = {}
+        for device in (dev, "cpu"):
+            eng = SkylineEngine(EngineConfig(
+                parallelism=1, algo="mr-dim", dims=3, domain_max=10000.0,
+                emit_skyline_points=True, flush_policy=policy, ingest="device",
+                device=device))
+            eng.process_records(np.arange(rows.shape[0], dtype=np.int64), rows)
+            eng.process_trigger("q,0")
+            (res,) = eng.poll_results()
+            got[device] = _points(res)
+        if got[dev].tobytes() != got["cpu"].tobytes():
+            raise AssertionError(f"routing fault input ({policy}): card {got[dev].tolist()} "
+                                 f"vs cpu {got['cpu'].tolist()}")
+        if got["cpu"].tobytes() != rows[list(ROUTING_FAULT_ORDER)].tobytes():
+            raise AssertionError(f"routing fault input ({policy}): {got['cpu'].tolist()}")
+        checks += 1
+    log(f"parity: routing of values outside the domain, card == cpu in {checks} checks "
+        "(3 partitioners x P 1/4/8 x d 1/2/3/8, and the mr-dim fault's input through the "
+        "device-ingest engine, lazy and overlap)")
+    return {"checks": checks}
 
 
 def routing_mismatch(torch, np, x: np.ndarray, dev) -> dict:
@@ -1815,6 +1982,11 @@ def profile_window(torch, np, path: str, n: int) -> dict:
     ]
     kernels.sort(reverse=True)
     busy_ms = sum(k[0] for k in kernels)
+    by_kernel: dict[str, list] = {}
+    for ms, c, name in kernels:
+        slot = by_kernel.setdefault(_short_kernel(name), [0.0, 0])
+        slot[0] += ms
+        slot[1] += c
     out = {
         "path": path, "window_ms": dt * 1e3, "flush_ms": eng.last_flush_ms,
         "merge_ms": eng.last_merge_ms,
@@ -1822,27 +1994,175 @@ def profile_window(torch, np, path: str, n: int) -> dict:
         "top_kernels": [
             {"ms": ms, "calls": c, "name": name[:120]} for ms, c, name in kernels[:15]
         ],
+        "by_kernel": {k: {"ms": v[0], "calls": v[1]} for k, v in
+                      sorted(by_kernel.items(), key=lambda kv: -kv[1][0])},
     }
     log(f"profile ({path}): window {dt * 1e3:.1f} ms under the profiler, device busy "
         f"{busy_ms:.1f} ms (idle share {out['device_idle_share']:.3f})")
     for k in out["top_kernels"]:
         log(f"profile:   {k['ms']:9.2f} ms  {k['calls']:6d} calls  {k['name']}")
+    log(f"profile ({path}): device ms by kernel name: " + ", ".join(
+        f"{k} {v['ms']:.2f} ({v['calls']})" for k, v in out["by_kernel"].items()))
     return out
+
+
+def _short_kernel(name: str) -> str:
+    """A device kernel's name without its namespace, template arguments and
+    parameters: ``void (anonymous namespace)::predrop_kernel<8, true>(...)``
+    -> ``predrop_kernel``; copies and sets keep their own names."""
+    name = name.replace("(anonymous namespace)::", "")
+    base = re.split(r"[<(]", name, maxsplit=1)[0].strip()
+    return base.rsplit("::", 1)[-1].removeprefix("void ").strip() or name
+
+
+# -- the parent tree, for A/B measurements in one call -----------------------
+
+
+def parent_library(torch, parent: Path):
+    """Build the parent tree's ``skyline_tpu_torch/csrc/dominance.cu`` with
+    the port's flags into the build directory and bind its two entry points
+    with ctypes, in the parent's signatures: ``skyline_dominated`` with an
+    ``mp`` flag (its bf16 compare loop) and ``skyline_predrop`` over
+    contiguous rows (its pre-drop kernel)."""
+    import ctypes
+
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+
+    src = parent / "skyline_tpu_torch" / "csrc" / "dominance.cu"
+    dk.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = dk.BUILD_DIR / "parent_dominance.so"
+    t0 = time.perf_counter()
+    subprocess.run([dk._nvcc(), *dk.NVCC_FLAGS, "-o", str(lib_path), str(src)],
+                   check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(lib_path))
+    ptr, num = ctypes.c_void_p, ctypes.c_int
+    lib.skyline_dominated.argtypes = [ptr] * 7 + [num] * 5 + [ptr]
+    lib.skyline_predrop.argtypes = [ptr] * 4 + [num] * 4 + [ptr]
+    lib.skyline_dominated.restype = lib.skyline_predrop.restype = num
+    log(f"parent: built {src} in {time.perf_counter() - t0:.1f} s")
+    return lib
+
+
+@contextlib.contextmanager
+def on_parent(torch, lib):
+    """Within the block, every value-kernel launch of the wrappers (K1-K3,
+    ``mp`` passed on) goes to the parent tree's library: the same Python
+    path around the parent's kernel."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+
+    real = dk._launch
+
+    def launch(name, x3, v2, y3, mp=False):
+        if dk._LIBRARY_OF[name] != "dominance":
+            return real(name, x3, v2, y3, mp)
+        P, d, nx = x3.shape
+        ny = y3.shape[2]
+        out = torch.empty((P, ny), dtype=torch.uint8, device=x3.device)
+        if P and ny:
+            scratch = dk._scratch(P, d, d, nx, ny, x3)
+            rc = lib.skyline_dominated(
+                x3.data_ptr(), v2.view(torch.uint8).data_ptr(), y3.data_ptr(),
+                out.data_ptr(), *[t.data_ptr() for t in scratch], P, d, nx, ny, int(mp),
+                torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"the parent's kernel launch failed with code {rc}")
+        return out.view(torch.bool)
+
+    dk._launch = launch
+    try:
+        yield
+    finally:
+        dk._launch = real
+
+
+def parent_predrop(torch, lib, y, x, xv):
+    """The parent tree's pre-drop kernel: y (P, B, d), x (P, L, d) and xv
+    (P, L) contiguous on the card -> (P, B) bool."""
+    P, B, d = y.shape
+    out = torch.empty((P, B), dtype=torch.uint8, device=y.device)
+    rc = lib.skyline_predrop(y.data_ptr(), x.data_ptr(), xv.view(torch.uint8).data_ptr(),
+                             out.data_ptr(), P, d, x.shape[1], B,
+                             torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"the parent's pre-drop launch failed with code {rc}")
+    return out.view(torch.bool)
+
+
+# one A/B turn: a tree's own chip_smoke functions over the paths — main_path
+# for (a)-(m), sliding_northstar for (n), sliding_4d for (o) — in a process
+# of its own (each tree builds its own kernels)
+AB_RUNNER = """
+import json, sys
+import numpy as np, torch
+import chip_smoke as cs
+out = {}
+for p in sys.argv[1].split(","):
+    if p == "n":
+        s = cs.sliding_northstar(torch, np, int(sys.argv[3]))[0]
+    elif p == "o":
+        s = cs.sliding_4d(torch, np)[0]
+    else:
+        s = cs.main_path(torch, np, p, int(sys.argv[2]), int(sys.argv[3]))[0]
+    out[p] = {"p50_ms": s["p50_slide_ms" if p in ("n", "o") else "p50_window_ms"],
+              "tuples_per_s": s["tuples_per_s"]}
+print("AB " + json.dumps(out))
+"""
+
+
+def ab_paths(np, parent: Path, paths: list, n: int, windows: int, rounds: int = 1) -> dict:
+    """Paths ``paths`` in the parent tree and in this one, ``rounds`` times
+    in turns parent, change, change, parent: each turn's p50 window (slide)
+    ms and tuples/s, and per path the change's median p50 over the
+    parent's and the share of (parent, change) pairs the change wins."""
+    turns = []
+    order = (("parent", parent), ("change", ROOT), ("change", ROOT), ("parent", parent))
+    for label, root in order * rounds:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", AB_RUNNER, ",".join(paths), str(n), str(windows)],
+            cwd=root, capture_output=True, text=True, timeout=1200,
+        )
+        if proc.returncode:
+            raise AssertionError(f"A/B turn ({label}) failed:\n{proc.stderr[-3000:]}")
+        res = json.loads([ln for ln in proc.stdout.splitlines() if ln.startswith("AB ")][-1][3:])
+        turns.append({"tree": label, "wall_s": time.perf_counter() - t0, "paths": res})
+        log(f"ab: turn {len(turns)} ({label}): " + ", ".join(
+            f"({p}) p50 {r['p50_ms']:.1f} ms, {r['tuples_per_s']:.0f} tuples/s"
+            for p, r in res.items()))
+    summary = {}
+    for p in paths:
+        par = [t["paths"][p]["p50_ms"] for t in turns if t["tree"] == "parent"]
+        chg = [t["paths"][p]["p50_ms"] for t in turns if t["tree"] == "change"]
+        wins = sum(c < q for c, q in zip(chg, par))
+        summary[p] = {"parent_p50_ms": par, "change_p50_ms": chg,
+                      "ratio": float(np.median(chg) / np.median(par)),
+                      "change_wins": wins, "pairs": len(par)}
+        log(f"ab: ({p}) p50 window (slide) parent {[round(v, 1) for v in par]} ms, change "
+            f"{[round(v, 1) for v in chg]} ms: change / parent {summary[p]['ratio']:.3f}, "
+            f"the change faster in {wins} of {len(par)} pairs")
+    return {"turns": turns, "paths": summary}
 
 
 # -- phase 6: kernel timings at the main path's shapes -----------------------
 
 
 def _event_ms(torch, fn, reps: int) -> float:
+    """Mean ms of ``reps`` runs of ``fn`` after one warm run, by CUDA
+    events; a mean under 1 ms is taken again over ten times the runs, so
+    launch jitter does not decide it."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    for runs in (reps, 10 * reps):
+        start.record()
+        for _ in range(runs):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / runs
+        if ms >= 1.0:
+            break
+    return ms
 
 
 def _equal_dominators(torch, xt, x_valid, yt):
@@ -1997,11 +2317,14 @@ def value_inputs(torch, np, eng, x_last, dev="cuda") -> dict:
     }
 
 
-def _time_value_kernel(torch, dk, name, block_t, bvalid, sky_t, sky_ok, u, uv) -> dict:
+def _time_value_kernel(torch, dk, name, block_t, bvalid, sky_t, sky_ok, u, uv,
+                       parent=None) -> dict:
     """One of K1–K3 (``name`` ending in ``_mp``: its mixed-precision
-    variant) on one input: its ms against the plain version's (which must
+    launch) on one input: its ms against the plain version's (which must
     agree), needed pairs, the bound's two terms, and the share of (victim
-    block, dominator tile) pairs ``tile_skip_plain`` skips."""
+    block, dominator tile) pairs ``tile_skip_plain`` skips; with ``parent``
+    also the same wrapper's ms on the parent tree's kernel (``on_parent``),
+    whose output must agree."""
     mp = name.endswith("_mp")
     base = name.removesuffix("_mp")
     if base == "dominated_by_any":
@@ -2018,6 +2341,12 @@ def _time_value_kernel(torch, dk, name, block_t, bvalid, sky_t, sky_ok, u, uv) -
         order, xv = dk._sum_sorted(u, uv)
         xt = yt = u[order].T.contiguous()
     out_k, ms, plain_ms, err = _time_pair(torch, kern, plain, KERNELS[name][0])
+    parent_ms = None
+    if parent is not None:
+        with on_parent(torch, parent):
+            if not torch.equal(kern(), out_k):
+                raise AssertionError(f"{name}: the parent tree's kernel disagrees")
+            parent_ms = _event_ms(torch, kern, reps=10)
     if base == "skyline_mask_kernel":  # survivors; only valid rows are wanted
         dominated, wanted = ~out_k[order], xv
     else:
@@ -2032,6 +2361,7 @@ def _time_value_kernel(torch, dk, name, block_t, bvalid, sky_t, sky_ok, u, uv) -
         "bound": ((in_bytes + ny) / HBM_BYTES_S * 1e3, pairs * d / FP32_FLOPS * 1e3),
         "shape": {"nx": nx, "ny": ny, "d": d},
         "skipped_share": float(skip.float().mean()) if skip.numel() else 1.0,
+        "parent_ms": parent_ms,
     }
 
 
@@ -2044,7 +2374,9 @@ def _input_rows(name, got: dict) -> dict:
         bound_ms = max(r["bound"])
         log(f"timings: {KERNELS[name][0]} on {label} {r['shape']}: {r['ms']:.3f} ms "
             f"(plain {r['plain_ms']:.1f} ms, bound {bound_ms:.4f} ms, {r['pairs']} "
-            f"needed pairs, {r['skipped_share']:.6f} of (block, tile) pairs skipped)")
+            f"needed pairs, {r['skipped_share']:.6f} of (block, tile) pairs skipped)"
+            + (f"; the parent tree's kernel {r['parent_ms']:.3f} ms"
+               if r.get("parent_ms") is not None else ""))
         if r["ms"] < bound_ms:
             raise AssertionError(f"{name} on {label} reads under its bound")
         if label != "north_star":
@@ -2052,28 +2384,32 @@ def _input_rows(name, got: dict) -> dict:
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
                 "bound_by": "operations" if r["bound"][1] >= r["bound"][0] else "bytes",
                 "needed_pairs": r["pairs"], "skipped_share": r["skipped_share"],
-                "shape": r["shape"],
+                "shape": r["shape"], "parent_ms": r.get("parent_ms"),
             }
     return others
 
 
-def value_timings(torch, np, eng, x_last, launches: dict, windows: int, dev="cuda") -> list:
-    """K1–K3 and their mp variants, in turns (f32, mp) on each kernel, on
-    the three inputs of ``value_inputs``; the table's rows are the
-    north-star ones, each with the other inputs' numbers under ``inputs``."""
+def value_timings(torch, np, eng, x_last, launches: dict, windows: int, dev="cuda",
+                  parent=None) -> list:
+    """K1–K3 and their mp launches, in turns (f32, mp) on each kernel, on
+    the three inputs of ``value_inputs`` (with ``parent``, each also on the
+    parent tree's kernel right after); the table's rows are the north-star
+    ones, each with the other inputs' numbers under ``inputs``."""
     from skyline_tpu_torch.ops import dominance_kernels as dk
 
     inputs = value_inputs(torch, np, eng, x_last, dev)
     table = []
     for name in (n for pair in zip(VALUE_PATH, MP_PATH) for n in pair):
         got = {
-            label: _time_value_kernel(torch, dk, name, *args) for label, args in inputs.items()
+            label: _time_value_kernel(torch, dk, name, *args, parent=parent)
+            for label, args in inputs.items()
         }
         ns = got["north_star"]
         table.append(_row(
             name, launches, windows, ns["err"], ns["ms"], ns["plain_ms"], ns["bound"],
             ns["shape"], ns["pairs"],
-            {"skipped_share": ns["skipped_share"], "inputs": _input_rows(name, got)},
+            {"skipped_share": ns["skipped_share"], "parent_ms": ns["parent_ms"],
+             "inputs": _input_rows(name, got)},
         ))
     return table
 
@@ -2111,7 +2447,7 @@ def heaviest_incremental_round(torch, n: int):
     return best
 
 
-def incremental_k2(torch, np, n: int, launches: dict, windows: int) -> dict:
+def incremental_k2(torch, np, n: int, launches: dict, windows: int, parent=None) -> dict:
     """K2 on the incremental input: the heaviest round of path (d), its three
     calls — the batch against itself, the sky prefix against the batch, the
     kept batch against the sky — neither side sum-sorted. Each with ms, the
@@ -2154,15 +2490,24 @@ def incremental_k2(torch, np, n: int, launches: dict, windows: int) -> dict:
         if not torch.equal(mp_out, out_k):
             raise AssertionError(f"K2 mp incremental {label} differs from K2")
         mp_ms = _event_ms(torch, lambda: dk.dominated_by_rect(xt, xv, yt, mp=True), 10)  # noqa: B023
+        parent_mp_ms = None
+        if parent is not None:
+            with on_parent(torch, parent):
+                if not torch.equal(dk.dominated_by_rect(xt, xv, yt, mp=True), out_k):
+                    raise AssertionError(f"K2 mp incremental {label}: the parent disagrees")
+                parent_mp_ms = _event_ms(
+                    torch, lambda: dk.dominated_by_rect(xt, xv, yt, mp=True), 10)  # noqa: B023
         row = {
-            "ms": ms, "mp_ms": mp_ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "ms": ms, "mp_ms": mp_ms, "parent_mp_ms": parent_mp_ms, "plain_ms": plain_ms,
+            "max_abs_err": err,
             "needed_pairs": pairs, "bound_ms": max(bound),
             "bound_by": "operations" if bound[1] >= bound[0] else "bytes",
             "skipped_share": float(skip.float().mean()),
             "shape": {"P": P, "nx": nx, "ny": ny, "d": d},
         }
-        log(f"timings: K2 incremental {label} {row['shape']}: {ms:.3f} ms, mp {mp_ms:.3f} ms "
-            f"(plain {plain_ms:.1f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+        log(f"timings: K2 incremental {label} {row['shape']}: {ms:.3f} ms, mp {mp_ms:.3f} ms"
+            + (f" (the parent's mp loop {parent_mp_ms:.3f} ms) " if parent_mp_ms else " ")
+            + f"(plain {plain_ms:.1f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
             f"{pairs} needed pairs, {row['skipped_share']:.6f} of (block, tile) pairs skipped)")
         if min(ms, mp_ms) < row["bound_ms"]:
             raise AssertionError(f"K2 incremental {label} reads under its bound")
@@ -2178,34 +2523,51 @@ def incremental_k2(torch, np, n: int, launches: dict, windows: int) -> dict:
     return out
 
 
-def _predrop_tested(torch, y, x, xv) -> int:
-    """Pairs the pre-drop kernel tests on this data: each victim against the
-    dominator rows up to its first certifying one, all of them when none
-    certifies (``strictly_dominated_bf16``'s arithmetic, the matrix kept).
-    y (P, B, d), x (P, L, d), xv (P, L)."""
+def _predrop_pairs(torch, y, x, xv, certified, wanted) -> int:
+    """Pairs the pre-drop needs at least on this data, whatever implements
+    it: the ``_needed_pairs`` convention on the values rounded to bf16 — one
+    pair per certified victim; for each other wanted victim, every valid
+    dominator whose rounded sum is no larger, less the rows equal to it in
+    every rounded coordinate (no such pair can certify). Callers leave out
+    victims with a non-finite coordinate, which no pair certifies. y (P, B,
+    d), x (P, L, d), xv, certified and wanted (P, ·) bool."""
     from skyline_tpu_torch.ops.dominance import bf16_round
 
-    eps = torch.tensor(2.0**-7, device=y.device)
-    tiny = torch.tensor(1e-30, device=y.device)
-    tested = 0
+    total = 0
     for p in range(y.shape[0]):
-        xb, yb = bf16_round(x[p]), bf16_round(y[p])
-        cert = xv[p][:, None].expand(x.shape[1], y.shape[1]).clone()
-        for k in range(y.shape[2]):
-            margin = (xb[:, None, k].abs() + yb[None, :, k].abs()) * eps + tiny
-            cert &= (yb[None, :, k] - xb[:, None, k]) > margin
-        first = torch.where(cert.any(0), cert.int().argmax(0) + 1, x.shape[1])
-        tested += int(first.sum())
-    return tested
+        # only the wanted victims reach _needed_pairs: a NaN row would upset
+        # its sort and unique on the card
+        w = wanted[p]
+        cert = certified[p][w]
+        total += _needed_pairs(torch, bf16_round(x[p]).T, xv[p], bf16_round(y[p][w]).T,
+                               cert, torch.ones_like(cert))
+    return total
 
 
-def predrop_timing(torch, np, eng, x_last, launches: dict, windows: int, dev="cuda") -> dict:
-    """The pre-drop kernel at the north-star round's shape: P = 8
+def _predrop_bound(P, B, L, d, pairs, certified, fused: bool):
+    """(bytes ms, operations ms) of a pre-drop call: inputs read once and
+    outputs written once; one f32 compare per needed pair and dimension (as
+    K1-K3 count theirs), and the margin's four further operations a
+    dimension on each certified victim's certifying pair."""
+    in_bytes = P * (B * d * 4 + L * d * 4 + L + (B if fused else 0))
+    out_bytes = P * (B * d * 4 + B + 4 * -(-B // 256)) if fused else P * B
+    ops = pairs * d + certified * d * 4
+    return (in_bytes + out_bytes) / HBM_BYTES_S * 1e3, ops / FP32_FLOPS * 1e3
+
+
+def predrop_timing(torch, np, eng, x_last, launches: dict, windows: int, dev="cuda",
+                   parent=None) -> list:
+    """Both pre-drop entries at the north-star round's shape: P = 8
     partitions of 65,536 victims (each partition's second 65,536-row block
     of its sum-sorted rows of the last window, +inf padded as the rounds
-    pad) against the first 512 rows of its skyline (path (c)'s state). ms
-    against the plain version's; bound: the bytes, or 5 f32 operations per
-    tested pair and dimension (``_predrop_tested``)."""
+    pad) against the first 512 rows of its skyline (path (c)'s state), read
+    in place from the skyline buffer as the flush passes them. The mask
+    entry answers for every victim; the fused entry (the flush's) for the
+    rows the partition has. Each: ms against the plain version's (which
+    must agree), the bound (``_predrop_bound`` over ``_predrop_pairs``), the
+    share of (block, tile) pairs ``predrop_skip_plain`` skips and the
+    certified count; with ``parent``, the parent tree's pre-drop kernel on
+    the same inputs (the mask entry, in the same call)."""
     from skyline_tpu_torch.ops import dominance_kernels as dk
     from skyline_tpu_torch.parallel.partitioners import partition_ids_np
 
@@ -2213,24 +2575,62 @@ def predrop_timing(torch, np, eng, x_last, launches: dict, windows: int, dev="cu
     P, d, B, L = pset.num_partitions, pset.dims, 65536, 512
     pids = partition_ids_np(x_last, "mr-angle", P, NORTH_STAR["domain_max"])
     y = np.full((P, B, d), np.inf, np.float32)
+    real = np.zeros((P, B), bool)
     for p in range(P):
         rows = x_last[pids == p]
         rows = rows[np.argsort(rows.sum(axis=1), kind="stable")]
         blk = rows[B : 2 * B] if rows.shape[0] >= 2 * B else rows[:B]
         y[p, : blk.shape[0]] = blk
-    yt = torch.from_numpy(y).to(dev)
-    x = pset.sky[:, :L].contiguous()
-    xv = (torch.arange(L, device=dev)[None, :] < pset._count_dev[:, None]).contiguous()
+        real[p, : blk.shape[0]] = True
+    yt, bv = torch.from_numpy(y).to(dev), torch.from_numpy(real).to(dev)
+    x = pset.sky[:, :L]
+    xv = torch.arange(pset.sky.shape[1], device=dev)[None, :] < pset._count_dev[:, None]
+    xv = xv[:, :L]
+    shape = {"P": P, "nx": L, "ny": B, "d": d}
     out_k, ms, plain_ms, err = _time_pair(
         torch, lambda: dk.strictly_dominated_bf16_kernel(yt, x, xv),
         lambda: dk.strictly_dominated_bf16_plain(yt, x, xv), "pre-drop",
     )
-    tested = _predrop_tested(torch, yt, x, xv)
-    bound = ((P * (B * d * 4 + L * d * 4 + L + B)) / HBM_BYTES_S * 1e3,
-             tested * d * 5 / FP32_FLOPS * 1e3)
-    return _row(PREDROP, launches, windows, err, ms, plain_ms, bound,
-                {"P": P, "nx": L, "ny": B, "d": d}, tested,
-                {"certified": int(out_k.sum())})
+    # a victim with a non-finite coordinate (the +inf padding) cannot certify
+    finite = torch.isfinite(yt).all(-1)
+    pairs = _predrop_pairs(torch, yt, x, xv, out_k, finite)
+    cert = int(out_k.sum())
+    skip = dk.predrop_skip_plain(yt, x, xv, dk.TILE_ROWS, dk.BLOCK_VICTIMS)
+    extra = {"certified": cert, "skipped_share": float(skip.float().mean())}
+    if parent is not None:
+        xc, xvc = x.contiguous(), xv.contiguous()
+        old = lambda: parent_predrop(torch, parent, yt, xc, xvc)  # noqa: E731
+        if not torch.equal(old(), out_k):
+            raise AssertionError("the parent's pre-drop disagrees at the north-star shape")
+        extra["parent_ms"] = _event_ms(torch, old, reps=10)
+        log(f"timings: pre-drop mask, the parent tree's kernel on the same inputs: "
+            f"{extra['parent_ms']:.3f} ms")
+    log(f"timings: pre-drop mask: {cert} victims certified")
+    table = [_row(PREDROP, launches, windows, err, ms, plain_ms,
+                  _predrop_bound(P, B, L, d, pairs, cert, False), shape, pairs, extra)]
+
+    kern = lambda: dk.mp_predrop_kernel(x, xv, yt, bv)  # noqa: E731
+    got = kern()
+    t0 = time.perf_counter()
+    want = dk.mp_predrop_plain(x, xv, yt, bv)
+    torch.cuda.synchronize()
+    fused_plain_ms = (time.perf_counter() - t0) * 1e3
+    if got[0].cpu().numpy().tobytes() != want[0].cpu().numpy().tobytes() or not (
+        torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    ):
+        raise AssertionError("the fused pre-drop at its main-path shape disagrees with its "
+                             "plain version")
+    fused_ms = _event_ms(torch, kern, reps=10)
+    certified = bv & ~got[1]
+    fcert = int(certified.sum())
+    fpairs = _predrop_pairs(torch, yt, x, xv, certified, bv & finite)
+    fskip = dk.predrop_skip_plain(yt, x, xv, dk.TILE_ROWS, dk.BLOCK_VICTIMS, bv)
+    log(f"timings: pre-drop fused: {fcert} victims certified, the same as the sum of its "
+        f"counts: {int(got[2].sum()) == fcert}")
+    table.append(_row(PREDROP_FUSED, launches, windows, 0, fused_ms, fused_plain_ms,
+                      _predrop_bound(P, B, L, d, fpairs, fcert, True), shape, fpairs,
+                      {"certified": fcert, "skipped_share": float(fskip.float().mean())}))
+    return table
 
 
 def heaviest_tree_pair(torch, n: int):
@@ -2376,7 +2776,8 @@ def site_numbers(torch, sites) -> dict:
     summed — host gaps before the kernel included; and the summed
     per-launch bound — max(bytes at the HBM rate, operations at the FP32
     peak): needed pairs x d for K1/K2 (``_needed_pairs``; NaN victims, the
-    non-candidates, need none), tested pairs x d x 5 for the pre-drop."""
+    non-candidates, need none), ``_predrop_bound`` over ``_predrop_pairs``
+    for the pre-drop."""
     torch.cuda.synchronize()
     out = {}
     for site, calls in sites.items():
@@ -2386,10 +2787,13 @@ def site_numbers(torch, sites) -> dict:
             in_flow += start.elapsed_time(end)
             ms += _event_ms(torch, lambda: fn(*args, **kw), reps=3)
             if site == "predrop":
+                # non-finite victims (the NaN non-candidates) cannot certify
                 y, x, xv = args
-                p = _predrop_tested(torch, y[None], x[None], xv[None])
-                b = (y.numel() + x.numel()) * 4 + xv.numel() + y.shape[0]
-                o = p * y.shape[1] * 5 / FP32_FLOPS * 1e3
+                wanted = torch.isfinite(y).all(-1)
+                p = _predrop_pairs(torch, y[None], x[None], xv[None], dom[None], wanted[None])
+                b, o = _predrop_bound(1, y.shape[0], x.shape[0], y.shape[1], p,
+                                      int(dom.sum()), False)
+                b *= HBM_BYTES_S / 1e3
             else:
                 xt, xv = args[0], args[1]
                 yt = args[0] if site == "full_square" else args[2]
@@ -3200,6 +3604,18 @@ def main() -> int:
         "--profile", action="store_true",
         help="after the main paths, profile one more window of each path",
     )
+    ap.add_argument(
+        "--parent", type=Path, default=None,
+        help="a checkout of the parent commit: time its value kernel (the mp loop, the "
+        "pre-drop) beside this tree's in the timings phase",
+    )
+    ap.add_argument(
+        "--ab-paths", default="",
+        help="comma-separated paths to run in the --parent tree and in this one, in "
+        "turns (parent, change, change, parent), after the phases",
+    )
+    ap.add_argument("--ab-rounds", type=int, default=1,
+                    help="times to repeat the --ab-paths turns")
     args = ap.parse_args()
 
     import numpy as np
@@ -3233,15 +3649,15 @@ def main() -> int:
     if "kernels" in args.only:
         t0 = time.perf_counter()
         n = check_kernels(torch, np, "cuda") + check_skip_cases(torch, np, "cuda")
-        mpn = check_mp_kernels(torch, np, "cuda")
+        mpn, details["predrop_skips"] = check_mp_kernels(torch, np, "cuda")
         m = check_merge_step(torch, np, "cuda")
         sw = check_sweep(torch, np, "cuda")
         tr = check_tree(torch, np, "cuda")
         dc = check_cascade(torch, np, "cuda")
         bk = check_batched_k3(torch, np, "cuda")
         log(f"kernels: {n} checks equal to the plain versions, {mpn} mixed-precision checks "
-            f"(K1-K3 mp equal to the plain versions and to their f32 launches, the pre-drop "
-            f"equal to its plain version), {m} merge-step rounds (with and without mp) equal "
+            f"(K1-K3 mp equal to the plain versions and to their f32 launches, both pre-drop "
+            f"entries and the pre-drop's skip decisions equal to their plain versions), {m} merge-step rounds (with and without mp) equal "
             f"to the plain core, {sw} sweep checks and {tr} tree-merge checks (tree pairs "
             f"on K2, compact_tagged, partition summaries) equal to the CPU, {dc} device "
             f"cascade checks (mp off and on) equal to the CPU cascade and to K3, {bk} checks "
@@ -3249,6 +3665,7 @@ def main() -> int:
             f"on each partition alone in {time.perf_counter() - t0:.1f} s")
         details["skyline_large"] = check_skyline_large(torch, np, args.n, "cuda")
     if "parity" in args.only:
+        details["routing_parity"] = check_routing(torch, np, "cuda")
         details["parity"] = check_parity(torch, np, PARITY_ROWS)
         log(f"parity: host ingest, cuda == cpu at {PARITY_ROWS} rows x 2 windows: "
             f"{details['parity']}")
@@ -3262,6 +3679,9 @@ def main() -> int:
         details["sliding_parity"] = check_sliding_parity(torch, np)
         log(f"parity: done at {time.perf_counter() - t_start:.1f} s")
     table = []
+    parent = None
+    if args.parent is not None and "timings" in args.only:
+        parent = parent_library(torch, args.parent.resolve())
     if "main" in args.only or "timings" in args.only:
         runs = {}
         for path in PATHS:
@@ -3289,6 +3709,7 @@ def main() -> int:
             dominated_by_rect=launches_of["i"]["dominated_by_rect"],
             skyline_mask_kernel=launches_of["k"]["skyline_mask_kernel"],
             skyline_mask_kernel_mp=g_launches["skyline_mask_kernel_mp"],
+            strictly_dominated_bf16_kernel=launches_of["l"][PREDROP],
         )
         rank_launches = dict(
             summary_a["launches"], rank_transform=h_launches["rank_transform"],
@@ -3300,12 +3721,12 @@ def main() -> int:
             f"CUDA C++ Programming Guide, x 132 SMs x 1.98 GHz) and "
             f"{HBM_BYTES_S / 1e12:.2f} TB/s HBM")
         with rank_gate(False):
-            table = value_timings(torch, np, eng_c, x_c, value_launches, w)
-            table.append(predrop_timing(torch, np, eng_c, x_c, value_launches, w))
+            table = value_timings(torch, np, eng_c, x_c, value_launches, w, parent=parent)
+            table += predrop_timing(torch, np, eng_c, x_c, value_launches, w, parent=parent)
         with rank_gate(True):
             table += rank_timings(torch, np, eng_a, x_a, rank_launches, w)
         with rank_gate(False):
-            inc = incremental_k2(torch, np, args.n, launches_of["d"], w)
+            inc = incremental_k2(torch, np, args.n, launches_of["d"], w, parent=parent)
             pair = tree_pair_k2(torch, np, args.n, launches_of["b"], w)
         rows = {r["name"]: r for r in table}
         rows["dominated_by_rect"]["inputs"]["incremental"] = inc
@@ -3325,7 +3746,8 @@ def main() -> int:
         rows["dominated_by_rect_mp"]["inputs"]["incremental"] = {
             "round_ms": inc["round_mp_ms"], "round_f32_ms": inc["round_ms"],
             "launches_per_window": inc["launches_mp_per_window"],
-            "calls": {k: {"ms": c["mp_ms"], "f32_ms": c["ms"], "bound_ms": c["bound_ms"]}
+            "calls": {k: {"ms": c["mp_ms"], "f32_ms": c["ms"], "bound_ms": c["bound_ms"],
+                          "parent_ms": c["parent_mp_ms"]}
                       for k, c in inc["calls"].items()},
         }
         for path, (summary, eng, last) in sliding.items():
@@ -3335,6 +3757,11 @@ def main() -> int:
             details["profile"] = {p: profile_window(torch, np, p, args.n) for p in PATHS}
             details["profile"].update(
                 {p: profile_slide(torch, np, p, r[1]) for p, r in sliding.items()})
+    if args.ab_paths:
+        if args.parent is None:
+            raise SystemExit("--ab-paths needs --parent")
+        details["ab"] = ab_paths(np, args.parent.resolve(), args.ab_paths.split(","),
+                                 args.n, args.windows, args.ab_rounds)
     details["wall_s"] = time.perf_counter() - t_start
     log(f"total: {details['wall_s']:.1f} s")
     if args.out is not None:

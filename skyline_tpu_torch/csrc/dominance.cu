@@ -14,12 +14,11 @@
 // The layout at the surface follows the TPU kernels: coordinates transposed
 // as (P, d, N), validity one uint8 per dominator.
 //
-// The mixed-precision variant (MP = true; the TPU kernels' static mp flag,
-// pallas_dominance.py _tile_body and _dom_tile_mp) classifies each pair
-// first with a packed bf16 margin test and runs the f32 predicate only for
-// the pairs it leaves undecided (step 7 below). The same source holds the
-// row pre-drop of the mixed-precision flush (predrop_kernel, step 8), the
-// reference's strictly_dominated_bf16 (XLA there, ops/dominance.py).
+// The mixed-precision entry points (the TPU kernels' static mp flag,
+// pallas_dominance.py _tile_body and _dom_tile_mp) launch the same compare
+// kernel (step 7). The same source holds the row pre-drop of the
+// mixed-precision flush (step 8), the reference's strictly_dominated_bf16
+// (XLA there, ops/dominance.py).
 //
 // What bounds it: FP32 compares over the pairs the data needs — d compares
 // a pair for all(<=), and d more for any(<) only in the rows where some lane
@@ -87,36 +86,76 @@
 //    victims are decided. Nothing is carried between blocks, so the output
 //    needs no atomics.
 //
-// 7. MP: the thread's two victims are the two halves of a __nv_bfloat162,
-//    so one packed subtract, add and multiply serve both pairs. Per
-//    dimension, with xb, yb the values rounded to bf16 (round to nearest
-//    even), t = xb - yb and m = 2^-6 * |xb| + c_y, c_y = 2^-6 * |yb| + tiny
-//    (per victim, once), all rounded to bf16:
-//      certain        t < -m in every dimension  -> x dominates y;
-//      decided-false  t > m in some dimension    -> x does not;
-//      undecided      anything else              -> the f32 predicate.
-//    Soundness. Rounding to bf16 moves a value by at most u = 2^-8 of its
-//    magnitude (a subnormal by 2^-134; 2^-126 were it flushed), and each
-//    bf16 operation is correctly rounded, so t = (xb - yb)(1 + e), |e| <= u,
-//    and m >= (2^-6 S + tiny)(1 - u)^2 with S = |xb| + |yb|. Then
-//    t < -m gives x_k - y_k <= t / (1 + u) + u S + 2^-125
-//              < -m / (1 + u) + u S + 2^-125
-//              <= -(0.988 * 2^-6 - 2^-8) S - 0.98 tiny + 2^-125 < 0,
-//    so x_k < y_k in f32 in every dimension: x dominates y. t > m gives
-//    x_k > y_k the same way, which fails all(<=). An overflow of t to
-//    +-inf keeps its sign and |t| > 2^-8 S. Any infinite xb or yb (a finite
-//    f32 near its maximum can round to bf16 infinity) makes m infinite and
-//    the pair undecided, and NaN fails every comparison: undecided. tiny is
-//    bf16(1e-30) = 9.984e-31 (bits 0x0DA2); 2^-6 is 4x the 2^-8 bound, the
-//    TPU kernel's _BF16_K_EPS. So the output equals the f32 kernel's, bit
-//    for bit; the summary pass, the skip rule and the ring are shared.
-// 8. predrop_kernel: the ≤ 512-row dominator prefix, rounded to bf16, in
-//    shared memory (16 KB at d = 8); one victim a thread, the reference's
-//    f32 arithmetic on the rounded values operation for operation
-//    (__fadd_rn/__fmul_rn/__fsub_rn, so nothing is contracted), stopping at
-//    the first certifying row. It writes one uint8 a victim. Bound: bytes
-//    when the first rows certify (the north-star zeros), else the 5 f32
-//    operations of each tested pair and dimension.
+// 7. mp. The TPU kernels classify each pair first with a packed bf16
+//    margin test (certain, decided-false, undecided) and run the f32
+//    predicate only for the pairs left undecided: bf16 runs at twice the
+//    f32 rate on the TPU's vector unit, so the pass saves cycles there. On
+//    this card the f32 predicate of step 5 is already the cheapest exact
+//    test: two FSETPs a dimension for the thread's two pairs, all(<=) first
+//    and any(<) only where some lane of the warp found all(<=), with the
+//    warp's early exit deciding as soon as a certain pair would. The bf16
+//    classification cost about 12 instructions a dimension for the same two
+//    pairs (round the dominator row to bf16, its half of the margin with
+//    __habs2, __hmul2 and __hadd2, __hneg2, the packed __hsub2, then four
+//    scalar bf16 compares with half extraction) before any f32 test, and
+//    its output was the f32 kernel's, bit for bit. So mp launches the f32
+//    compare kernel. Measured on an H100 80GB HBM3 at 700 W, with the bf16
+//    loop built beside this kernel in the same call (chip_smoke.py
+//    --parent), mp before and after: K1 on 65,536 rows of one f32 sum 7.850
+//    against 3.919 ms (f32 3.902), K2 on 65,536 uniform 8-D victims against
+//    458,752 dominators 22.947 against 14.284 ms (f32 14.289), K3 on
+//    458,752 uniform rows 49.640 against 25.519 ms (f32 25.053).
+// 8. The pre-drop (predrop_summarize_kernel, predrop_kernel): victim j is
+//    certified when some dominator row that can certify (valid, finite
+//    after rounding) passes the reference's test in every dimension k:
+//      fl(yb_k - xb_k) > m_k,  m_k = fl(fl(2^-7 * fl(|xb_k| + |yb_k|)) + 1e-30),
+//    on the values rounded to bf16 and back, in f32 operation for operation
+//    (__fadd_rn, __fmul_rn, __fsub_rn: nothing contracted). Bound: the 5
+//    f32 operations of each pair and dimension the data needs (one pair a
+//    certified victim; for every other, each valid dominator whose rounded
+//    sum is no larger, less its rounded copies); the bytes only when almost
+//    everything is skipped. The design follows steps 1-6:
+//    - A summary pass in the same call writes the dominators rounded to
+//      bf16, row-major in 16-byte rows, with a NaN first coordinate on every
+//      row that cannot certify; per tile of TILE rows, lo_k (the least
+//      rounded coordinate over the rows that can certify) and the least
+//      rounded row sum; per block of V * THREADS victims, hi_k and the
+//      greatest rounded row sum over its live, valid, finite victims.
+//    - The exact skip rule. Only finite rows take part: an infinite xb_k or
+//      yb_k makes fl(|xb_k| + |yb_k|), and so m_k, +inf, which nothing
+//      exceeds, and a NaN fails every comparison. For finite values m_k >=
+//      fl(1e-30) > 0, and with no flush-to-zero fl(a - b) > 0 only when
+//      a > b, so a pair certifies only when yb_k > xb_k in every k. A
+//      (block, tile) pair is skipped when
+//        (a') lo_k >= hi_k for some k: xb_k >= lo_k >= hi_k >= yb_k; one
+//             dimension is enough here, where step 2's rule (c) needs all;
+//        (b') tile_min_sum > block_max_sum: yb_k > xb_k in every k makes
+//             row_sum(xb) <= row_sum(yb), rounded addition in one order
+//             being monotone.
+//      Rows that cannot certify stay out of both summaries; an empty tile
+//      has lo = +inf and an empty block hi = -inf, so (a') skips both. A
+//      sum of finite values may overflow to +-inf but is never NaN. +0.0
+//      and -0.0 compare equal in both the rule and the test. Each warp
+//      applies the same test to each of its victims alone against the tile
+//      (a set of one). On the north-star data a partition's block of zero
+//      rows against its zero skyline prefix is skipped whole.
+//    - The compare: V = 2 victims a thread in registers, each dominator row
+//      read as DP/4 16-byte shared-memory broadcasts, serving both. First
+//      the necessary condition yb_k > xb_k (one FSETP a dimension a pair),
+//      the margin test only where some lane of the warp passed it. The exit
+//      check is warp-uniform every 32 rows; the block stops when every
+//      victim is certified. No atomics: a block writes its own outputs.
+//    - The dominators are read in place through their partition stride
+//      (the flush passes a prefix of the skyline buffer), and the flush's
+//      entry writes its epilogue — the block with +inf on every row that is
+//      invalid or certified, the validity less the certified rows, and one
+//      certified count per victim block — so the flush adds one sum.
+//    Measured on an H100 80GB HBM3 at 700 W at the north-star round shape
+//    (P = 8, 512 dominators x 65,536 victims, d = 8; 86% of the (block,
+//    tile) pairs skipped): the mask 0.042 ms, the fused entry 0.054 ms,
+//    against 0.369 ms in the same call for the kernel this one replaced
+//    (one victim a thread, d scalar shared loads a row, a per-thread loop
+//    to the first certifying row, no summary).
 //
 // Semantics match the plain PyTorch predicate (ops/dominance.py) bit for
 // bit, NaN and infinities included: the predicate is written as
@@ -137,16 +176,10 @@ constexpr int WARPS = THREADS / 32;
 constexpr int STAGES = 3;     // tiles in flight in the shared-memory ring
 constexpr int CHUNK = 2048;   // tile indices scanned per survivor list
 constexpr unsigned FULL = 0xffffffffu;
-// the bf16 margin of step 7: 2^-6 and bf16(1e-30), as bit patterns
-constexpr unsigned short MP_EPS_BITS = 0x3C80;
-constexpr unsigned short MP_TINY_BITS = 0x0DA2;
-// the pre-drop (step 8): threads a block, dominator rows a shared chunk,
-// and its f32 margin, the reference's _BF16_EPS and _BF16_TINY
-constexpr int PRE_THREADS = 256;
-constexpr int PRE_ROWS = 512;
+// the pre-drop's f32 margin (step 8), the reference's _BF16_EPS and
+// _BF16_TINY
 constexpr float PRE_EPS = 0.0078125f;  // 2^-7
 constexpr float PRE_TINY = 1e-30f;
-static_assert(V == 2, "the bf16 first pass packs two victims a thread");
 
 // floats per dominator row in shared memory (16-byte rows), and per summary
 // (d bounds, then the sum, 16-byte aligned)
@@ -308,45 +341,11 @@ __device__ __forceinline__ bool skip_tile(const float* lo, const float* hi) {
   return gt | ge;
 }
 
-__device__ __forceinline__ __nv_bfloat162 bf16x2_of(unsigned short bits) {
-  return __bfloat162bfloat162(__ushort_as_bfloat16(bits));
-}
-
-// Step 7: the bf16 classification of one dominator row a[] against the
-// thread's two victims (yb: their bf16 values, low half victim 0; cy: their
-// 2^-6 |yb| + tiny). Certain pairs set dom; need marks the undecided pairs
-// of victims not yet dominated.
-template <int D>
-__device__ __forceinline__ void mp_classify(const float* a, const __nv_bfloat162 (&yb)[D],
-                                            const __nv_bfloat162 (&cy)[D], bool (&dom)[V],
-                                            bool (&need)[V]) {
-  const __nv_bfloat162 eps = bf16x2_of(MP_EPS_BITS);
-  bool lt0 = true, lt1 = true, gt0 = false, gt1 = false;
-#pragma unroll
-  for (int k = 0; k < D; ++k) {
-    const __nv_bfloat162 xb = __float2bfloat162_rn(a[k]);
-    const __nv_bfloat162 m = __hadd2(__hmul2(__habs2(xb), eps), cy[k]);
-    const __nv_bfloat162 nm = __hneg2(m);
-    const __nv_bfloat162 t = __hsub2(xb, yb[k]);
-    lt0 = lt0 & __hlt(__low2bfloat16(t), __low2bfloat16(nm));
-    lt1 = lt1 & __hlt(__high2bfloat16(t), __high2bfloat16(nm));
-    gt0 = gt0 | __hgt(__low2bfloat16(t), __low2bfloat16(m));
-    gt1 = gt1 | __hgt(__high2bfloat16(t), __high2bfloat16(m));
-  }
-  dom[0] = dom[0] | lt0;
-  dom[1] = dom[1] | lt1;
-  need[0] = !(lt0 | gt0) & !dom[0];
-  need[1] = !(lt1 | gt1) & !dom[1];
-}
-
 // Step 5: every row of one tile against this thread's V victims; a warp
-// whose victims are all decided stops (checked every 32 rows). MP: the bf16
-// classification first, the f32 predicate for the undecided pairs only.
-template <int D, bool MP>
+// whose victims are all decided stops (checked every 32 rows).
+template <int D>
 __device__ __forceinline__ void compare_tile(const float4* __restrict__ tile,
                                              const float (&yv)[V][D + 1],
-                                             const __nv_bfloat162 (&yb)[D],
-                                             const __nv_bfloat162 (&cy)[D],
                                              const bool (&open)[V], bool (&dom)[V],
                                              bool& pending) {
   constexpr int Q = Geo<D>::DP / 4;
@@ -363,42 +362,25 @@ __device__ __forceinline__ void compare_tile(const float4* __restrict__ tile,
         a[4 * q + 2] = f.z;
         a[4 * q + 3] = f.w;
       }
-      if constexpr (MP) {
-        bool need[V];
-        mp_classify<D>(a, yb, cy, dom, need);
-        if (__any_sync(FULL, need[0] | need[1])) {
+      // all(<=) first; any(<) only where some lane of the warp found one:
+      // on data that is not mostly duplicates that is rare, and d compares
+      // a pair are saved
+      bool le[V];
+      bool any_le = false;
 #pragma unroll
-          for (int v = 0; v < V; ++v) {
-            bool le = need[v], lt = false;
+      for (int v = 0; v < V; ++v) {
+        le[v] = true;
 #pragma unroll
-            for (int k = 0; k < D; ++k) {
-              le = le & (a[k] <= yv[v][k]);
-              lt = lt | (a[k] < yv[v][k]);
-            }
-            dom[v] = dom[v] | (le & lt);
-          }
-        }
-      } else {
-        // all(<=) first; any(<) only where some lane of the warp found one:
-        // on data that is not mostly duplicates that is rare, and d compares
-        // a pair are saved
-        bool le[V];
-        bool any_le = false;
+        for (int k = 0; k < D; ++k) le[v] = le[v] & (a[k] <= yv[v][k]);
+        any_le = any_le | le[v];
+      }
+      if (__any_sync(FULL, any_le)) {
 #pragma unroll
         for (int v = 0; v < V; ++v) {
-          le[v] = true;
+          bool lt = false;
 #pragma unroll
-          for (int k = 0; k < D; ++k) le[v] = le[v] & (a[k] <= yv[v][k]);
-          any_le = any_le | le[v];
-        }
-        if (__any_sync(FULL, any_le)) {
-#pragma unroll
-          for (int v = 0; v < V; ++v) {
-            bool lt = false;
-#pragma unroll
-            for (int k = 0; k < D; ++k) lt = lt | (a[k] < yv[v][k]);
-            dom[v] = dom[v] | (le[v] & lt);
-          }
+          for (int k = 0; k < D; ++k) lt = lt | (a[k] < yv[v][k]);
+          dom[v] = dom[v] | (le[v] & lt);
         }
       }
     }
@@ -427,7 +409,7 @@ constexpr size_t smem_bytes() {
 // the tile's summary against each of its undecided victims alone (a set of
 // one: the proof of step 2 holds for it), and a warp compares a tile only
 // when some lane found a victim the summary does not rule out.
-template <int D, bool MP>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
 dominated_kernel(const float* __restrict__ xr, const float* __restrict__ tsum,
                  const float* __restrict__ bsum, const float* __restrict__ y,
@@ -470,17 +452,6 @@ dominated_kernel(const float* __restrict__ xr, const float* __restrict__ tsum,
     yv[v][D] = isnan(s) ? INFINITY : s;
     dom[v] = false;
     pending = pending | open[v];
-  }
-  // MP: the victims' bf16 values, packed (low half victim 0), and their
-  // share of the margin, 2^-6 |yb| + tiny (step 7)
-  __nv_bfloat162 yb[D], cy[D];
-  if constexpr (MP) {
-    const __nv_bfloat162 eps = bf16x2_of(MP_EPS_BITS), tiny = bf16x2_of(MP_TINY_BITS);
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      yb[k] = __floats2bfloat162_rn(yv[0][k], yv[1][k]);
-      cy[k] = __hadd2(__hmul2(__habs2(yb[k]), eps), tiny);
-    }
   }
   float hi[SW];
   load_summary<D>(bs, hi);
@@ -533,8 +504,7 @@ dominated_kernel(const float* __restrict__ xr, const float* __restrict__ tsum,
       for (int v = 0; v < V; ++v)
         need = need | (open[v] & !dom[v] & !skip_tile<D>(lo, yv[v]));
       if (__any_sync(FULL, need))
-        compare_tile<D, MP>(ring + (it % STAGES) * TILE_F4, yv, yb, cy, open, dom,
-                            pending);
+        compare_tile<D>(ring + (it % STAGES) * TILE_F4, yv, open, dom, pending);
       // also the barrier before stage (it % STAGES) is refilled
       if (!__syncthreads_or(pending)) break;
     }
@@ -548,23 +518,9 @@ dominated_kernel(const float* __restrict__ xr, const float* __restrict__ tsum,
   }
 }
 
-template <int D, bool MP>
-cudaError_t launch_compare(const float* xr, const float* tsum, const float* bsum,
-                           const float* y, uint8_t* out, int P, int ny, int ntiles,
-                           int nblocks, cudaStream_t stream) {
-  // above 48 KB, dynamic shared memory must be asked for
-  const size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      dominated_kernel<D, MP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dominated_kernel<D, MP><<<dim3(nblocks, P), THREADS, smem, stream>>>(
-      xr, tsum, bsum, y, out, ny, ntiles, nblocks);
-  return cudaGetLastError();
-}
-
 template <int D>
 cudaError_t launch(const float* x, const uint8_t* xv, const float* y, uint8_t* out,
-                   float* xr, float* tsum, float* bsum, int P, int nx, int ny, bool mp,
+                   float* xr, float* tsum, float* bsum, int P, int nx, int ny,
                    cudaStream_t stream) {
   const int ntiles = (nx + TILE - 1) / TILE;
   const int nblocks = (ny + V * THREADS - 1) / (V * THREADS);
@@ -572,64 +528,289 @@ cudaError_t launch(const float* x, const uint8_t* xv, const float* y, uint8_t* o
       x, xv, y, xr, tsum, bsum, nx, ny, ntiles, nblocks, V * THREADS);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return mp ? launch_compare<D, true>(xr, tsum, bsum, y, out, P, ny, ntiles, nblocks,
-                                      stream)
-            : launch_compare<D, false>(xr, tsum, bsum, y, out, P, ny, ntiles, nblocks,
-                                       stream);
+  // above 48 KB, dynamic shared memory must be asked for
+  const size_t smem = smem_bytes<D>();
+  err = cudaFuncSetAttribute(dominated_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  dominated_kernel<D><<<dim3(nblocks, P), THREADS, smem, stream>>>(xr, tsum, bsum, y, out, ny,
+                                                                   ntiles, nblocks);
+  return cudaGetLastError();
 }
 
-// Step 8. grid (ceil(ny / PRE_THREADS), P): victim j of partition p is
-// certainly strictly dominated by a valid dominator row, by the reference's
-// strictly_dominated_bf16 arithmetic. y (P, ny, D) and x (P, nx, D)
-// row-major; an invalid dominator's first coordinate is stored as NaN,
-// which fails every margin test.
+// Step 8: the pre-drop. bf16r rounds to bf16 (nearest even, the reference's
+// convert) and back to f32.
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// True when no dominator of the tile summarised by lo (d minima of the
+// rounded coordinates, then the least rounded sum) can certify any victim
+// of the set summarised by hi (d maxima, then the greatest sum) — a block,
+// or one victim: rules (a') and (b').
 template <int D>
-__global__ void __launch_bounds__(PRE_THREADS)
-predrop_kernel(const float* __restrict__ y, const float* __restrict__ x,
-               const uint8_t* __restrict__ xv, uint8_t* __restrict__ out, int nx, int ny) {
-  __shared__ float xs[PRE_ROWS * D];
-  const int p = blockIdx.y;
-  const int j = blockIdx.x * PRE_THREADS + threadIdx.x;
-  y += (size_t)p * ny * D;
-  x += (size_t)p * nx * D;
-  xv += (size_t)p * nx;
-  const bool live = j < ny;
-  float yb[D], ay[D];
+__device__ __forceinline__ bool predrop_skip(const float* lo, const float* hi) {
+  bool skip = lo[D] > hi[D];  // (b')
 #pragma unroll
-  for (int k = 0; k < D; ++k) {
-    yb[k] = live ? __bfloat162float(__float2bfloat16_rn(y[(size_t)j * D + k])) : NAN;
-    ay[k] = fabsf(yb[k]);
-  }
-  bool found = false;
-  for (int c0 = 0; c0 < nx; c0 += PRE_ROWS) {
-    const int rows = min(PRE_ROWS, nx - c0);
-    __syncthreads();  // every thread is done with the previous chunk
-    for (int e = threadIdx.x; e < rows * D; e += PRE_THREADS) {
-      float v = __bfloat162float(__float2bfloat16_rn(x[(size_t)c0 * D + e]));
-      if (e % D == 0 && !xv[c0 + e / D]) v = NAN;
-      xs[e] = v;
-    }
-    __syncthreads();
-    for (int i = 0; i < rows && !found; ++i) {
-      bool all = true;
+  for (int k = 0; k < D; ++k) skip = skip | (lo[k] >= hi[k]);  // (a')
+  return skip;
+}
+
+// Step 8's summary pass. grid (ntiles + nblocks, P), TILE threads: blocks
+// below ntiles round a dominator tile to bf16, write it row-major into xr
+// (a row that cannot certify — invalid, past nx or not finite — with a NaN
+// first coordinate) and summarise it over the rows that can; the rest
+// summarise a victim block of bv victims over its live, valid (yv may be
+// null: all valid) and finite victims. Rows are d contiguous floats;
+// partition p starts xps (xvps, yps, yvps) elements after partition p - 1.
+template <int D>
+__global__ void __launch_bounds__(TILE)
+predrop_summarize_kernel(const float* __restrict__ x, const uint8_t* __restrict__ xv,
+                         const float* __restrict__ y, const uint8_t* __restrict__ yv,
+                         float* __restrict__ xr, float* __restrict__ tsum,
+                         float* __restrict__ bsum, int nx, int ny, long long xps,
+                         long long xvps, long long yps, long long yvps, int ntiles,
+                         int nblocks, int bv) {
+  constexpr int DP = Geo<D>::DP, SW = Geo<D>::SW;
+  const int p = blockIdx.y;
+  const int tid = threadIdx.x;
+  float acc[D + 1];
+  if ((int)blockIdx.x < ntiles) {
+    const int t = blockIdx.x;
+    const int i = t * TILE + tid;
+    x += p * xps;
+    xv += p * xvps;
+    float v[DP];
+#pragma unroll
+    for (int k = 0; k < DP; ++k) v[k] = 0.0f;
+    bool ok = false;
+    if (i < nx && xv[i]) {
+      ok = true;
 #pragma unroll
       for (int k = 0; k < D; ++k) {
-        const float xb = xs[i * D + k];
-        const float m =
-            __fadd_rn(__fmul_rn(PRE_EPS, __fadd_rn(fabsf(xb), ay[k])), PRE_TINY);
-        all = all & (__fsub_rn(yb[k], xb) > m);
+        v[k] = bf16r(x[(size_t)i * D + k]);
+        ok = ok & isfinite(v[k]);
       }
-      found = all;
+    }
+    const float s = row_sum<D>(v);
+#pragma unroll
+    for (int k = 0; k < D; ++k) acc[k] = ok ? v[k] : INFINITY;
+    acc[D] = ok ? s : INFINITY;
+    if (!ok) v[0] = __int_as_float(0x7fc00000);
+    float4* dst = reinterpret_cast<float4*>(xr + ((size_t)p * ntiles * TILE + i) * DP);
+#pragma unroll
+    for (int q = 0; q < DP / 4; ++q)
+      dst[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    write_summary<D, TILE, true>(acc, tsum + ((size_t)p * ntiles + t) * SW);
+  } else {
+    const int b = blockIdx.x - ntiles;
+    y += p * yps;
+    if (yv) yv += p * yvps;
+#pragma unroll
+    for (int k = 0; k <= D; ++k) acc[k] = -INFINITY;
+    const int end = min(ny, (b + 1) * bv);
+    for (int j = b * bv + tid; j < end; j += TILE) {
+      if (yv && !yv[j]) continue;
+      float v[D];
+      bool ok = true;
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        v[k] = bf16r(y[(size_t)j * D + k]);
+        ok = ok & isfinite(v[k]);
+      }
+      if (ok) {
+#pragma unroll
+        for (int k = 0; k < D; ++k) acc[k] = fmaxf(acc[k], v[k]);
+        acc[D] = fmaxf(acc[D], row_sum<D>(v));
+      }
+    }
+    write_summary<D, TILE, false>(acc, bsum + ((size_t)p * nblocks + b) * SW);
+  }
+}
+
+// Every row of one tile against the thread's V victims (yb: rounded, then
+// the rounded sum), for the victims in need: first the necessary condition
+// yb_k > xb_k in every k (one compare a dimension), then, where some lane
+// of the warp passed it, the reference's margin test operation for
+// operation. A warp stops when none of its victims in need is undecided
+// (checked every 32 rows).
+template <int D>
+__device__ __forceinline__ void predrop_tile(const float4* __restrict__ tile,
+                                             const float (&yb)[V][D + 1],
+                                             const bool (&need)[V], bool (&found)[V]) {
+  constexpr int Q = Geo<D>::DP / 4;
+  for (int r0 = 0; r0 < TILE; r0 += 32) {
+    bool live = false;
+#pragma unroll
+    for (int v = 0; v < V; ++v) live = live | (need[v] & !found[v]);
+    if (!__any_sync(FULL, live)) return;
+#pragma unroll 4
+    for (int r = r0; r < r0 + 32; ++r) {
+      float a[4 * Q];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const float4 f = tile[r * Q + q];
+        a[4 * q] = f.x;
+        a[4 * q + 1] = f.y;
+        a[4 * q + 2] = f.z;
+        a[4 * q + 3] = f.w;
+      }
+      bool gt[V];
+      bool any_gt = false;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        gt[v] = need[v] & !found[v];
+#pragma unroll
+        for (int k = 0; k < D; ++k) gt[v] = gt[v] & (yb[v][k] > a[k]);
+        any_gt = any_gt | gt[v];
+      }
+      if (__any_sync(FULL, any_gt)) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          bool cert = gt[v];
+#pragma unroll
+          for (int k = 0; k < D; ++k) {
+            const float m = __fadd_rn(
+                __fmul_rn(PRE_EPS, __fadd_rn(fabsf(a[k]), fabsf(yb[v][k]))), PRE_TINY);
+            cert = cert & (__fsub_rn(yb[v][k], a[k]) > m);
+          }
+          found[v] = found[v] | cert;
+        }
+      }
     }
   }
-  if (live) out[(size_t)p * ny + j] = found ? 1 : 0;
+}
+
+// Step 8's compare. grid (nblocks, P), THREADS threads; victims map to
+// threads as in dominated_kernel. A victim is open when it is live, valid
+// and finite after rounding. Each tile the block's summary does not rule
+// out is loaded into shared memory (at most 16 KB) and walked by the warps
+// whose victims survive the tile's summary alone; the block stops when no
+// open victim is undecided. FUSED writes the flush's epilogue — yout (the
+// block, +inf where a row is invalid or certified), vout (valid and not
+// certified) and cnt (certified victims per block) — else out (certified).
+template <int D, bool FUSED>
+__global__ void __launch_bounds__(THREADS)
+predrop_kernel(const float* __restrict__ xr, const float* __restrict__ tsum,
+               const float* __restrict__ bsum, const float* __restrict__ y,
+               const uint8_t* __restrict__ yv, uint8_t* __restrict__ out,
+               float* __restrict__ yout, uint8_t* __restrict__ vout, int* __restrict__ cnt,
+               int ny, long long yps, long long yvps, int ntiles, int nblocks) {
+  constexpr int DP = Geo<D>::DP, SW = Geo<D>::SW;
+  constexpr int TILE_F4 = TILE * DP / 4;
+  __shared__ float4 tile[TILE_F4];
+  __shared__ int warp_cnt[WARPS];
+
+  const int p = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  xr += (size_t)p * ntiles * TILE * DP;
+  tsum += (size_t)p * ntiles * SW;
+  const float* bs = bsum + ((size_t)p * nblocks + blockIdx.x) * SW;
+  y += p * yps;
+  if (FUSED) yv += p * yvps;
+  const int j0 = blockIdx.x * V * THREADS + warp * 32 * V + lane;
+
+  float yb[V][D + 1];
+  bool valid[V], open[V], found[V];
+  bool pending = false;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int j = j0 + v * 32;
+    valid[v] = j < ny && (!FUSED || yv[j]);
+    open[v] = valid[v];
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      yb[v][k] = valid[v] ? bf16r(y[(size_t)j * D + k]) : 0.0f;
+      open[v] = open[v] & isfinite(yb[v][k]);
+    }
+    yb[v][D] = row_sum<D>(yb[v]);
+    found[v] = false;
+    pending = pending | open[v];
+  }
+  float hi[SW];
+  load_summary<D>(bs, hi);
+
+  if (__syncthreads_or(pending)) {
+    for (int t = 0; t < ntiles; ++t) {
+      float lo[SW];
+      load_summary<D>(tsum + (size_t)t * SW, lo);
+      if (predrop_skip<D>(lo, hi)) continue;  // the same for every thread
+      // the barrier that ended the last tile walked keeps its readers out
+      const float4* src = reinterpret_cast<const float4*>(xr + (size_t)t * TILE * DP);
+      for (int c = tid; c < TILE_F4; c += THREADS) tile[c] = src[c];
+      __syncthreads();
+      bool need[V];
+      bool any_need = false;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        need[v] = open[v] & !found[v] & !predrop_skip<D>(lo, yb[v]);
+        any_need = any_need | need[v];
+      }
+      if (__any_sync(FULL, any_need)) predrop_tile<D>(tile, yb, need, found);
+      pending = false;
+#pragma unroll
+      for (int v = 0; v < V; ++v) pending = pending | (open[v] & !found[v]);
+      if (!__syncthreads_or(pending)) break;  // also before the tile is refilled
+    }
+  }
+  if (!FUSED) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int j = j0 + v * 32;
+      if (j < ny) out[(size_t)p * ny + j] = found[v] ? 1 : 0;
+    }
+    return;
+  }
+  // the block's rows are copied through a keep flag each, element by
+  // element, so neighbouring threads read and write neighbouring floats
+  __shared__ bool keep_s[V * THREADS];
+  int mine = 0;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int j = j0 + v * 32;
+    const bool keep = valid[v] & !found[v];
+    keep_s[warp * 32 * V + v * 32 + lane] = keep;
+    if (j < ny) vout[(size_t)p * ny + j] = keep ? 1 : 0;
+    mine += found[v] ? 1 : 0;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) mine += __shfl_xor_sync(FULL, mine, o);
+  if (lane == 0) warp_cnt[warp] = mine;
+  __syncthreads();
+  if (tid == 0) {
+    int total = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) total += warp_cnt[w];
+    cnt[(size_t)p * nblocks + blockIdx.x] = total;
+  }
+  const int b0 = blockIdx.x * V * THREADS;
+  const int rows = min(V * THREADS, ny - b0);
+  const float* src = y + (size_t)b0 * D;
+  float* dst = yout + ((size_t)p * ny + b0) * D;
+  for (int e = tid; e < rows * D; e += THREADS) dst[e] = keep_s[e / D] ? src[e] : INFINITY;
 }
 
 template <int D>
-cudaError_t launch_predrop(const float* y, const float* x, const uint8_t* xv, uint8_t* out,
-                           int P, int nx, int ny, cudaStream_t stream) {
-  const int blocks = (ny + PRE_THREADS - 1) / PRE_THREADS;
-  predrop_kernel<D><<<dim3(blocks, P), PRE_THREADS, 0, stream>>>(y, x, xv, out, nx, ny);
+cudaError_t launch_predrop(const float* y, const uint8_t* yv, const float* x,
+                           const uint8_t* xv, uint8_t* out, float* yout, uint8_t* vout,
+                           int* cnt, float* xr, float* tsum, float* bsum, int P, int nx,
+                           int ny, long long yps, long long yvps, long long xps,
+                           long long xvps, cudaStream_t stream) {
+  const int ntiles = (nx + TILE - 1) / TILE;
+  const int nblocks = (ny + V * THREADS - 1) / (V * THREADS);
+  predrop_summarize_kernel<D><<<dim3(ntiles + nblocks, P), TILE, 0, stream>>>(
+      x, xv, y, yv, xr, tsum, bsum, nx, ny, xps, xvps, yps, yvps, ntiles, nblocks,
+      V * THREADS);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (yout)
+    predrop_kernel<D, true><<<dim3(nblocks, P), THREADS, 0, stream>>>(
+        xr, tsum, bsum, y, yv, out, yout, vout, cnt, ny, yps, yvps, ntiles, nblocks);
+  else
+    predrop_kernel<D, false><<<dim3(nblocks, P), THREADS, 0, stream>>>(
+        xr, tsum, bsum, y, yv, out, yout, vout, cnt, ny, yps, yvps, ntiles, nblocks);
   return cudaGetLastError();
 }
 
@@ -639,17 +820,17 @@ cudaError_t launch_predrop(const float* y, const float* x, const uint8_t* xv, ui
 // uint8, all contiguous on the device. Scratch, allocated by the caller:
 // xr (P, ceil(nx / 256) * 256, dp) f32 with dp = d rounded up to 4; tsum
 // (P, ceil(nx / 256), sw) and bsum (P, ceil(ny / 256), sw) f32 with sw =
-// d + 1 rounded up to 4. mp != 0 launches the mixed-precision compare
-// kernel. Launches the summary pass and the compare kernel on ``stream``
-// without synchronising and returns cudaGetLastError() of the launches.
+// d + 1 rounded up to 4. Launches the summary pass and the compare kernel
+// on ``stream`` without synchronising and returns cudaGetLastError() of the
+// launches.
 extern "C" int skyline_dominated(const float* x, const uint8_t* xv, const float* y,
                                  uint8_t* out, float* xr, float* tsum, float* bsum,
-                                 int P, int d, int nx, int ny, int mp, void* stream) {
+                                 int P, int d, int nx, int ny, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
 #define SKYLINE_CASE(D) \
   case D:               \
-    return (int)launch<D>(x, xv, y, out, xr, tsum, bsum, P, nx, ny, mp != 0, s);
+    return (int)launch<D>(x, xv, y, out, xr, tsum, bsum, P, nx, ny, s);
     SKYLINE_CASE(1)
     SKYLINE_CASE(2)
     SKYLINE_CASE(3)
@@ -673,16 +854,25 @@ extern "C" int skyline_dominated(const float* x, const uint8_t* xv, const float*
 }
 
 // The row pre-drop: y (P, ny, d) f32 victims and x (P, nx, d) f32
-// dominators, row-major, xv (P, nx) uint8 validity, out (P, ny) uint8, all
-// contiguous on the device. Launches on ``stream`` without synchronising
-// and returns cudaGetLastError() of the launch.
-extern "C" int skyline_predrop(const float* y, const float* x, const uint8_t* xv,
-                               uint8_t* out, int P, int d, int nx, int ny, void* stream) {
+// dominators, rows of d contiguous floats, partition p of y (yv, x, xv)
+// starting yps (yvps, xps, xvps) elements after partition p - 1; xv (P,
+// nx) uint8 validity. Scratch as for skyline_dominated. With yout null:
+// out (P, ny) uint8, the certified mask of every victim (yv unused). Else
+// the flush's epilogue for victims of validity yv: yout (P, ny, d) f32 and
+// vout (P, ny) uint8, contiguous, and cnt (P, ceil(ny / 256)) int32 (out
+// unused). Writes only its outputs and the scratch. Launches on ``stream``
+// without synchronising and returns cudaGetLastError() of the launches.
+extern "C" int skyline_predrop(const float* y, const uint8_t* yv, const float* x,
+                               const uint8_t* xv, uint8_t* out, float* yout, uint8_t* vout,
+                               int* cnt, float* xr, float* tsum, float* bsum, int P, int d,
+                               int nx, int ny, long long yps, long long yvps, long long xps,
+                               long long xvps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-#define SKYLINE_CASE(D) \
-  case D:               \
-    return (int)launch_predrop<D>(y, x, xv, out, P, nx, ny, s);
+#define SKYLINE_CASE(D)                                                                    \
+  case D:                                                                                  \
+    return (int)launch_predrop<D>(y, yv, x, xv, out, yout, vout, cnt, xr, tsum, bsum, P, \
+                                  nx, ny, yps, yvps, xps, xvps, s);
     SKYLINE_CASE(1)
     SKYLINE_CASE(2)
     SKYLINE_CASE(3)

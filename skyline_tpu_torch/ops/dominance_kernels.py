@@ -12,14 +12,15 @@ CUDA kernels. ``csrc/dominance.cu`` compares float32 values:
 - K3 ``skyline_mask_kernel(x, valid)``: stable sum-sort, K1, unsort;
   replaces ``skyline_mask_pallas``; (P, N, d) points sort, launch once and
   unsort per partition in place of the reference's ``jax.vmap``.
-- ``mp=True`` on K1–K3 launches the kernel's mixed-precision variant (the
-  TPU kernels' ``mp``, ``_dom_tile_mp``): a packed bf16 margin pass decides
-  most pairs and only the pairs inside the margin band run the f32
-  predicate, so the mask is the f32 kernel's, bit for bit.
-- ``strictly_dominated_bf16_kernel(y, x, x_valid)``: the row pre-drop of
-  the mixed-precision flush (XLA in the reference,
+- ``mp=True`` on K1–K3 (the TPU kernels' ``mp``, ``_dom_tile_mp``)
+  launches the same f32 compare kernel, counted under the ``_mp`` name: on
+  this card the f32 predicate is already the cheapest exact test (step 7
+  of the source).
+- The row pre-drop of the mixed-precision flush (XLA in the reference,
   ``skyline_tpu/ops/dominance.py`` ``strictly_dominated_bf16``), in the
-  same source.
+  same source, behind two entry points: ``strictly_dominated_bf16_kernel
+  (y, x, x_valid)``, the certified mask, and ``mp_predrop_kernel(dom,
+  dom_ok, block, bvalid)``, the flush's drop with its epilogue fused.
 
 ``csrc/dominance_rank.cu`` compares int32 dense ranks (the rank cascade):
 
@@ -42,12 +43,14 @@ nothing: the kernels skip only by exact bounds, never by position.
 Each kernel first runs a summary pass (per-tile minima of the coordinates
 or ranks and of the sums, per-victim-block maxima) into scratch this module
 allocates, then compares each victim block only with the tiles its summary
-cannot rule out. ``tile_skip_plain`` (values) and ``rank_tile_skip_plain``
-(ranks) are the plain mirrors of the two skip rules, for the tests and
-``chip_smoke.py`` (nothing on the main path calls them).
+cannot rule out. ``tile_skip_plain`` (values), ``rank_tile_skip_plain``
+(ranks) and ``predrop_skip_plain`` (the pre-drop) are the plain mirrors of
+the three skip rules, for the tests and ``chip_smoke.py`` (nothing on the
+main path calls them).
 
 Each wrapper checks device, dtype, contiguity and shape and raises on
-anything else. On a CPU tensor it runs the plain PyTorch version beside it
+anything else (the pre-drop's rows need only be contiguous within a
+partition, so a prefix of a wider buffer is read in place). On a CPU tensor it runs the plain PyTorch version beside it
 (the CPU tests' path); on a CUDA tensor it launches the kernel or raises —
 there is no fallback. ``LAUNCHES`` counts kernel launches per entry point
 (K3 and K7 count their own launches, not K1's or K5's; K4 counts its calls
@@ -72,6 +75,7 @@ from pathlib import Path
 import torch
 
 from skyline_tpu_torch.ops.dominance import (
+    bf16_round,
     dominated_by,
     dominated_by_rank,
     skyline_mask,
@@ -79,16 +83,17 @@ from skyline_tpu_torch.ops.dominance import (
 )
 
 _PKG = Path(__file__).resolve().parents[1]
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # library name -> (source, {C entry point: argument types}, C error-string
 # function). The compare entry points: x, validity, y, out and three scratch
-# buffers; P, d, nx, ny (and mp for the value kernel); the stream. The
-# pre-drop: y, x, validity, out; P, d, nx, ny; the stream.
+# buffers; P, d, nx, ny; the stream. The pre-drop: y, its validity, x, its
+# validity, four outputs and three scratch buffers; P, d, nx, ny; four
+# partition strides; the stream.
 SOURCES = {
     "dominance": (
         _PKG / "csrc" / "dominance.cu",
-        {"skyline_dominated": [_P] * 7 + [_I] * 5 + [_P],
-         "skyline_predrop": [_P] * 4 + [_I] * 4 + [_P]},
+        {"skyline_dominated": [_P] * 7 + [_I] * 4 + [_P],
+         "skyline_predrop": [_P] * 11 + [_I] * 4 + [_L] * 4 + [_P]},
         "skyline_error_string",
     ),
     "dominance_rank": (
@@ -114,7 +119,7 @@ BLOCK_VICTIMS = 256
 LAUNCHES = {
     "dominated_by_any": 0, "dominated_by_rect": 0, "skyline_mask_kernel": 0,
     "dominated_by_any_mp": 0, "dominated_by_rect_mp": 0, "skyline_mask_kernel_mp": 0,
-    "strictly_dominated_bf16_kernel": 0,
+    "strictly_dominated_bf16_kernel": 0, "mp_predrop_kernel": 0,
     "rank_transform": 0, "dominated_by_any_rank": 0, "dominated_by_rank_rect": 0,
     "skyline_mask_rank_kernel": 0,
 }
@@ -280,13 +285,27 @@ def _call(library: str, entry: str, args: list) -> None:
         )
 
 
+def _scratch(P: int, rows: int, d: int, nx: int, ny: int, like: torch.Tensor) -> list:
+    """Scratch of a summary pass, in ``like``'s type and device: the
+    dominators row-major in whole tiles, a row (``rows`` values: d, or d
+    ranks and their sum) padded to 16 bytes; one summary per tile and per
+    victim block (d bounds and a sum bound, padded to 16 bytes)."""
+    tiles, blocks = -(-nx // TILE_ROWS), -(-ny // BLOCK_VICTIMS)
+    dp, sw = -(-rows // 4) * 4, -(-(d + 1) // 4) * 4
+    return [
+        torch.empty((P, tiles * TILE_ROWS, dp), dtype=like.dtype, device=like.device),
+        torch.empty((P, tiles, sw), dtype=like.dtype, device=like.device),
+        torch.empty((P, blocks, sw), dtype=like.dtype, device=like.device),
+    ]
+
+
 def _launch(
     name: str, x3: torch.Tensor, v2: torch.Tensor, y3: torch.Tensor, mp: bool = False
 ) -> torch.Tensor:
     """One kernel launch on the current stream for entry point ``name``,
-    counted in ``LAUNCHES`` (under ``name + "_mp"`` with ``mp``, the value
-    kernel's mixed-precision variant): (P, ny) bool. Rank inputs carry a
-    sum row on top of their ``d`` rank rows."""
+    counted in ``LAUNCHES`` (under ``name + "_mp"`` with ``mp``; the value
+    kernel is the same either way): (P, ny) bool. Rank inputs carry a sum
+    row on top of their ``d`` rank rows."""
     P, rows, nx = x3.shape
     ny = y3.shape[2]
     library = _LIBRARY_OF[name]
@@ -295,26 +314,14 @@ def _launch(
         raise ValueError(f"the dominance kernels take 1..{MAX_DIMS} dims, got {d}")
     if max(nx, ny) >= 2**31:
         raise ValueError("the dominance kernels take fewer than 2^31 rows")
+    if mp and library != "dominance":
+        raise ValueError(f"{name}: the rank kernel has no mixed-precision variant")
     out = torch.empty((P, ny), dtype=torch.uint8, device=x3.device)
     if P == 0 or ny == 0:
         return out.view(torch.bool)
-    # scratch of the summary pass, in the inputs' type: the dominators
-    # row-major in whole tiles, a row (d values, or d ranks and their sum)
-    # padded to 16 bytes; one summary per tile and per victim block (d
-    # bounds and a sum bound, padded to 16 bytes)
-    tiles, blocks = -(-nx // TILE_ROWS), -(-ny // BLOCK_VICTIMS)
-    dp, sw = -(-rows // 4) * 4, -(-(d + 1) // 4) * 4
-    scratch = [
-        torch.empty((P, tiles * TILE_ROWS, dp), dtype=x3.dtype, device=x3.device),
-        torch.empty((P, tiles, sw), dtype=x3.dtype, device=x3.device),
-        torch.empty((P, blocks, sw), dtype=x3.dtype, device=x3.device),
-    ]
+    scratch = _scratch(P, rows, d, nx, ny, x3)
     args = [x3.data_ptr(), v2.view(torch.uint8).data_ptr(), y3.data_ptr(), out.data_ptr()]
     args += [t.data_ptr() for t in scratch] + [P, d, nx, ny]
-    if library == "dominance":
-        args.append(int(mp))
-    elif mp:
-        raise ValueError(f"{name}: the rank kernel has no mixed-precision variant")
     with torch.cuda.device(x3.device):
         _call(library, "skyline_dominated" if library == "dominance"
               else "skyline_rank_dominated", args)
@@ -416,36 +423,36 @@ def tile_skip_plain(
     )
 
 
-# the mp kernels' bf16 margin (csrc/dominance.cu, step 7): 2^-6, and the
-# absolute term 1e-30, which rounds to 9.984e-31 in bf16
-MP_EPS = 2.0 ** -6
-MP_TINY = 1e-30
+def predrop_skip_plain(
+    y: torch.Tensor, x: torch.Tensor, xv: torch.Tensor, tile: int, block: int,
+    yv: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The pre-drop kernel's skip decisions, in plain PyTorch: (P, blocks,
+    tiles) bool, True where victim block ``b`` (``block`` rows of ``y``)
+    never compares dominator tile ``t`` (``tile`` rows of ``x``). y (P, B,
+    d) and x (P, L, d) float32 rows, xv (P, L) bool, yv (P, B) bool or None
+    (every victim, the mask entry).
 
-
-def mp_trilean_plain(x: torch.Tensor, y: torch.Tensor):
-    """The mp kernels' pair classification, in plain PyTorch bf16: x (N, d)
-    dominators, y (M, d) victims -> (certain, decided_false), each (N, M)
-    bool. With t = xb - yb and m = 2^-6 |xb| + (2^-6 |yb| + tiny), all in
-    bf16: certain when t < -m in every dimension (x strictly below y in f32
-    in every dimension), decided-false when t > m in some dimension (x
-    above y there); the kernels run the f32 predicate on every other pair.
-    For the tests and ``chip_smoke.py``; nothing on the main path calls it.
-    The card rounds each bf16 operation once; PyTorch's CPU bf16 operations
-    round through float32 first — both inside the soundness proof's slack."""
-    bf = torch.bfloat16
-    eps = torch.tensor(MP_EPS, dtype=bf, device=x.device)
-    tiny = torch.tensor(MP_TINY, device=x.device).to(bf)
-    xb, yb = x.to(bf), y.to(bf)
-    cy = yb.abs() * eps + tiny
-    n, m = x.shape[0], y.shape[0]
-    certain = torch.ones((n, m), dtype=torch.bool, device=x.device)
-    false = torch.zeros((n, m), dtype=torch.bool, device=x.device)
-    for k in range(x.shape[1]):
-        margin = (xb[:, None, k].abs() * eps) + cy[None, :, k]
-        t = xb[:, None, k] - yb[None, :, k]
-        certain &= t < -margin
-        false |= t > margin
-    return certain, false
+    Summaries on the values rounded to bf16: a tile's per-dimension minimum
+    ``lo`` and least row sum over the rows that can certify (valid and
+    finite); a block's per-dimension maximum ``hi`` and greatest row sum
+    over its valid, finite victims. A pair is skipped when ``lo_k >= hi_k``
+    for some k, or ``min sum > max sum``. The proof is in
+    ``csrc/dominance.cu``, step 8."""
+    inf = float("inf")
+    xb, yb = bf16_round(x), bf16_round(y)
+    can = xv & torch.isfinite(xb).all(dim=-1)
+    lo = _per_group(torch.where(can[..., None], xb, inf).transpose(1, 2), tile, inf, torch.amin)
+    tmin = _per_group(torch.where(can, row_sums(xb.transpose(1, 2)), inf), tile, inf, torch.amin)
+    ok = torch.isfinite(yb).all(dim=-1)
+    if yv is not None:
+        ok = ok & yv
+    hi = _per_group(torch.where(ok[..., None], yb, -inf).transpose(1, 2), block, -inf, torch.amax)
+    ys = torch.where(ok, row_sums(yb.transpose(1, 2)), -inf)
+    bmax = _per_group(ys, block, -inf, torch.amax)
+    # (P, d, blocks, tiles) coordinate tests
+    lo4, hi4 = lo[:, :, None, :], hi[:, :, :, None]
+    return (tmin[:, None, :] > bmax[:, :, None]) | (lo4 >= hi4).any(dim=1)
 
 
 def rank_tile_skip_plain(
@@ -561,8 +568,8 @@ def dominated_by_any(
     reference's tile-index skip requires. The kernel never skips by
     position — only by the exact in-kernel sum bound, which on sum-sorted
     input drops the same tiles and stays exact whatever the sort key's
-    rounding — so the flag changes nothing here. ``mp`` launches the
-    mixed-precision variant (the same mask)."""
+    rounding — so the flag changes nothing here. ``mp`` counts the launch
+    under ``dominated_by_any_mp`` (the same kernel, the same mask)."""
     del triangular
     if not _device_path(xt, "dominated_by_any"):
         return dominated_by_any_plain(xt, valid)
@@ -588,7 +595,8 @@ def dominated_by_rect(
     """K2: ``out[j]`` = some valid dominator column of ``xt`` dominates
     victim column ``j`` of ``yt``. xt: (d, Nx) / (P, d, Nx); x_valid: (Nx,)
     / (P, Nx) bool; yt: (d, Ny) / (P, d, Ny). Returns (Ny,) / (P, Ny).
-    ``mp`` launches the mixed-precision variant (the same mask)."""
+    ``mp`` counts the launch under ``dominated_by_rect_mp`` (the same
+    kernel, the same mask)."""
     if not _device_path(xt, "dominated_by_rect"):
         return dominated_by_rect_plain(xt, x_valid, yt)
     x3, v2, y3, batched = _rect_args(xt, x_valid, yt)
@@ -643,8 +651,8 @@ def skyline_mask_kernel(
     sum (invalid rows last), a gather into one contiguous (P, d, N)
     transpose, ONE K1 launch over every partition, a scatter back to the
     caller's order; nothing is read back to the host. No padding to a tile
-    multiple: the kernel masks its ragged edge. ``mp`` launches the
-    mixed-precision variant; the sliding engine's slide step calls without
+    multiple: the kernel masks its ragged edge. ``mp`` counts the launch
+    under ``skyline_mask_kernel_mp``; the sliding engine's slide step calls without
     it, as the reference's does (``SKYLINE_MIXED_PRECISION`` does not
     reach it)."""
     if not _device_path(x, "skyline_mask_kernel"):
@@ -663,14 +671,65 @@ def skyline_mask_kernel(
 # -- the bf16 row pre-drop -----------------------------------------------------
 
 
-def _rows_args(t: torch.Tensor, name: str, batched: bool):
+def _rows(t: torch.Tensor, name: str, what: str, dims: int) -> torch.Tensor:
+    """Check (N, d) / (P, N, d) float32 rows (``dims`` 3: batched) whose
+    last two dimensions are contiguous — a partition may start anywhere, as
+    a prefix of a wider buffer does — and return a (P, N, d) view."""
     if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32 rows, got {t.dtype}")
-    if t.dim() != (3 if batched else 2) or not t.is_contiguous():
+        raise TypeError(f"{name}: {what} must be float32, got {t.dtype}")
+    if t.dim() != dims:
+        want = "(P, N, d)" if dims == 3 else "(N, d)"
+        raise ValueError(f"{name}: expected {what} as {want}, got {tuple(t.shape)}")
+    if t.stride(-1) != 1 or (t.shape[-2] > 1 and t.stride(-2) != t.shape[-1]):
+        raise ValueError(f"{name}: the rows of {what} must be contiguous")
+    return t if dims == 3 else t[None]
+
+
+def _flags(t: torch.Tensor, name: str, what: str, shape) -> torch.Tensor:
+    """Check a bool validity of (P, N) ``shape`` (or (N,)) whose last
+    dimension is contiguous; return a (P, N) view."""
+    v2 = t if t.dim() == 2 else t[None]
+    if t.dtype != torch.bool or tuple(v2.shape) != tuple(shape):
         raise ValueError(
-            f"{name}: expected contiguous {'(P, N, d)' if batched else '(N, d)'} rows, "
-            f"got {tuple(t.shape)}"
+            f"{name}: {what} must be a bool {tuple(shape)} tensor, got "
+            f"{tuple(t.shape)} {t.dtype}"
         )
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name}: {what} must be contiguous along its rows")
+    return v2
+
+
+def _predrop_call(y3, yv2, x3, xv2, fused: bool, scratch: list | None = None):
+    """One pre-drop launch (summary pass and compare) on the current
+    stream; arguments checked by the caller, all on one card. Returns the
+    mask (P, ny) uint8, or with ``fused`` (block', validity' uint8, counts
+    (P, ceil(ny / 256)) int32). ``scratch`` (``_scratch``'s three buffers),
+    when given, keeps the summaries for the caller to read."""
+    P, ny, d = y3.shape
+    nx = x3.shape[1]
+    if not 1 <= d <= MAX_DIMS:
+        raise ValueError(f"the pre-drop takes 1..{MAX_DIMS} dims, got {d}")
+    if max(nx, ny) >= 2**31:
+        raise ValueError("the pre-drop takes fewer than 2^31 rows")
+    dev = y3.device
+    blocks = -(-ny // BLOCK_VICTIMS)
+    if fused:
+        outs = [torch.empty((P, ny, d), dtype=torch.float32, device=dev),
+                torch.empty((P, ny), dtype=torch.uint8, device=dev),
+                torch.empty((P, blocks), dtype=torch.int32, device=dev)]
+        ptrs = [0] + [t.data_ptr() for t in outs]
+    else:
+        outs = [torch.empty((P, ny), dtype=torch.uint8, device=dev)]
+        ptrs = [outs[0].data_ptr(), 0, 0, 0]
+    if P and ny:
+        scratch = _scratch(P, d, d, nx, ny, y3) if scratch is None else scratch
+        args = [y3.data_ptr(), yv2.view(torch.uint8).data_ptr() if fused else 0,
+                x3.data_ptr(), xv2.view(torch.uint8).data_ptr(), *ptrs]
+        args += [t.data_ptr() for t in scratch] + [P, d, nx, ny]
+        args += [y3.stride(0), yv2.stride(0) if fused else 0, x3.stride(0), xv2.stride(0)]
+        with torch.cuda.device(dev):
+            _call("dominance", "skyline_predrop", args)
+    return outs if fused else outs[0]
 
 
 def strictly_dominated_bf16_plain(y, x, x_valid):
@@ -688,45 +747,67 @@ def strictly_dominated_bf16_plain(y, x, x_valid):
 def strictly_dominated_bf16_kernel(
     y: torch.Tensor, x: torch.Tensor, x_valid: torch.Tensor
 ) -> torch.Tensor:
-    """The bf16 row pre-drop: ``out[j]`` = some valid row of ``x`` certainly
-    strictly dominates row ``j`` of ``y`` by the bf16 margin test of
-    ``strictly_dominated_bf16``, its arithmetic operation for operation.
-    y: (B, d) / (P, B, d) contiguous float32 victims, row-major as the flush
-    blocks are; x: (L, d) / (P, L, d) dominators; x_valid: (L,) / (P, L)
-    bool. Returns (B,) / (P, B) bool. On the card: one launch; the
-    dominators pass through shared memory 512 rows at a time (the flush
-    passes at most 512, ``ops.sfs._MP_PREFIX``)."""
+    """The bf16 row pre-drop's mask: ``out[j]`` = some valid row of ``x``
+    certainly strictly dominates row ``j`` of ``y`` by the bf16 margin test
+    of ``strictly_dominated_bf16``, its arithmetic operation for operation.
+    y: (B, d) / (P, B, d) float32 victims; x: (L, d) / (P, L, d)
+    dominators; x_valid: (L,) / (P, L) bool. Rows must be contiguous; a
+    partition may start anywhere. Returns (B,) / (P, B) bool. On the card:
+    the summary pass and the compare in one call, counted once."""
     name = "strictly_dominated_bf16_kernel"
     if not _device_path(y, name):
         return strictly_dominated_bf16_plain(y, x, x_valid)
-    batched = y.dim() == 3
-    _rows_args(y, name, batched)
-    _rows_args(x, name, batched)
-    y3, x3 = (y, x) if batched else (y[None], x[None])
-    v2 = x_valid if batched else x_valid[None]
-    if (
-        x3.shape[0] != y3.shape[0] or x3.shape[2] != y3.shape[2]
-        or v2.dtype != torch.bool or tuple(v2.shape) != tuple(x3.shape[:2])
-        or not v2.is_contiguous() or not (x.device == y.device == x_valid.device)
+    dims = y.dim()
+    y3, x3 = _rows(y, name, "victims", dims), _rows(x, name, "dominators", dims)
+    xv2 = _flags(x_valid, name, "the dominators' validity", x3.shape[:2])
+    if x3.shape[0] != y3.shape[0] or x3.shape[2] != y3.shape[2] or not (
+        x.device == y.device == x_valid.device
     ):
         raise ValueError(
-            f"{name}: victims {tuple(y.shape)}, dominators {tuple(x.shape)} and validity "
-            f"{tuple(x_valid.shape)} {x_valid.dtype} do not match"
+            f"{name}: victims {tuple(y.shape)} on {y.device} and dominators "
+            f"{tuple(x.shape)} on {x.device} do not match"
         )
-    P, ny, d = y3.shape
-    nx = x3.shape[1]
-    if not 1 <= d <= MAX_DIMS:
-        raise ValueError(f"{name} takes 1..{MAX_DIMS} dims, got {d}")
-    out = torch.empty((P, ny), dtype=torch.uint8, device=y.device)
-    if P and ny:
-        with torch.cuda.device(y.device):
-            _call("dominance", "skyline_predrop", [
-                y3.data_ptr(), x3.data_ptr(), v2.view(torch.uint8).data_ptr(),
-                out.data_ptr(), P, d, nx, ny,
-            ])
-        LAUNCHES[name] += 1
+    out = _predrop_call(y3, None, x3, xv2, fused=False)
+    LAUNCHES[name] += int(bool(y3.shape[0] and y3.shape[1]))
     out = out.view(torch.bool)
-    return out if batched else out[0]
+    return out if dims == 3 else out[0]
+
+
+def mp_predrop_plain(dom, dom_ok, block, bvalid):
+    """Plain fused pre-drop, the composition the flush ran before the
+    kernel fused it: dom (P, L, d) dominators with validity dom_ok (P, L),
+    block (P, B, d) victims with validity bvalid (P, B). Returns (block'
+    with +inf on every row that is invalid or certified, bvalid & ~certified,
+    certified counts (P, ceil(B / 256)) int32, one per victim block)."""
+    pre = strictly_dominated_bf16_plain(block, dom, dom_ok) & bvalid
+    keep = bvalid & ~pre
+    counts = _per_group(pre.to(torch.int32), BLOCK_VICTIMS, 0, torch.sum).to(torch.int32)
+    return torch.where(keep[..., None], block, float("inf")), keep, counts
+
+
+def mp_predrop_kernel(dom, dom_ok, block, bvalid):
+    """The flush's bf16 pre-drop with its epilogue fused: the same results
+    as ``mp_predrop_plain``. dom (P, L, d) float32 dominators, read in place
+    (rows contiguous; a prefix of a wider buffer is fine), dom_ok (P, L)
+    bool; block (P, B, d) float32 victims and bvalid (P, B) bool, likewise.
+    On the card one call (summary pass and compare) writes new tensors —
+    nothing in place — and counts one launch."""
+    name = "mp_predrop_kernel"
+    if not _device_path(block, name):
+        return mp_predrop_plain(dom, dom_ok, block, bvalid)
+    y3, x3 = _rows(block, name, "victims", 3), _rows(dom, name, "dominators", 3)
+    yv2 = _flags(bvalid, name, "the victims' validity", y3.shape[:2])
+    xv2 = _flags(dom_ok, name, "the dominators' validity", x3.shape[:2])
+    if x3.shape[0] != y3.shape[0] or x3.shape[2] != y3.shape[2] or not (
+        dom.device == dom_ok.device == block.device == bvalid.device
+    ):
+        raise ValueError(
+            f"{name}: victims {tuple(block.shape)} on {block.device} and dominators "
+            f"{tuple(dom.shape)} on {dom.device} do not match"
+        )
+    out, keep, counts = _predrop_call(y3, yv2, x3, xv2, fused=True)
+    LAUNCHES[name] += int(bool(y3.shape[0] and y3.shape[1]))
+    return out, keep.view(torch.bool), counts
 
 
 def dominated_by_any_rank(

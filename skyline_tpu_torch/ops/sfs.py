@@ -24,8 +24,9 @@ reference's does.
 ``mp`` (the mixed-precision flush, ``SKYLINE_MIXED_PRECISION``) first drops
 the block rows a bf16 margin test certifies as strictly dominated by one of
 the skyline's first ``_MP_PREFIX`` rows (``mp_predrop``, the pre-drop
-kernel on a card), then runs K1 and K2 with their bf16 first pass. Both are
-exact: the appended rows and their order are those of ``mp=False``.
+kernel on a card), then runs K1 and K2 counted as their ``mp`` launches.
+Both are exact: the appended rows and their order are those of
+``mp=False``.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from skyline_tpu_torch.ops.dominance import compact
 from skyline_tpu_torch.ops.dominance_kernels import (
     dominated_by_any,
     dominated_by_rect,
-    strictly_dominated_bf16_kernel,
+    mp_predrop_kernel,
 )
 
 # Dominator-prefix length of the bf16 row pre-drop: block rows certainly
@@ -59,14 +60,10 @@ def mp_predrop(dom, dom_ok, block, bvalid):
     (``strictly_dominated_bf16``) leave the block: invalid and masked to
     +inf, which only moves a row's sum up, so sum-sorted callers stay
     sorted for the rows that count. Returns (block', bvalid', resolved
-    (P,) int32, the certified drops)."""
-    pre = strictly_dominated_bf16_kernel(
-        block.contiguous(), dom.contiguous(), dom_ok.contiguous()
-    )
-    pre = pre & bvalid
-    resolved = pre.sum(dim=-1, dtype=torch.int32)
-    bvalid = bvalid & ~pre
-    return torch.where(bvalid[..., None], block, float("inf")), bvalid, resolved
+    (P,) int32, the certified drops). On a card one fused kernel call
+    (``mp_predrop_kernel``, which reads ``dom`` in place) and one sum."""
+    block, bvalid, counts = mp_predrop_kernel(dom, dom_ok, block, bvalid)
+    return block, bvalid, counts.sum(dim=-1, dtype=torch.int32)
 
 
 def sfs_round(sky, counts, blocks, bvalids, active: int, mp: bool = False):
@@ -81,8 +78,8 @@ def sfs_round(sky, counts, blocks, bvalids, active: int, mp: bool = False):
     when partitions carry comparable row counts (every partition computes
     the full (B x active) passes whether its block is real or padding; see
     ``sfs_round_single`` for skew). ``mp``: the bf16 pre-drop against
-    ``min(active, _MP_PREFIX)`` prefix rows, then K1 and K2 with their bf16
-    first pass — the same appends.
+    ``min(active, _MP_PREFIX)`` prefix rows, then K1 and K2 counted as
+    their ``mp`` launches — the same appends.
 
     Caller guarantees counts + B <= cap (the compacted block writes B slots;
     rows past the survivor count are +inf padding landing on virgin rows).

@@ -37,9 +37,13 @@ def _recip(v: float) -> float:
 
 def mr_dim(x: torch.Tensor, num_partitions: int, domain_max: float) -> torch.Tensor:
     """1-D range partitioning on dimension 0 (DimPartitioner.getKey,
-    FlinkSkyline.java:686-713)."""
-    p = torch.floor(x[:, 0] * _recip(domain_max / num_partitions)).to(torch.int32)
-    return torch.clamp(p, 0, num_partitions - 1)
+    FlinkSkyline.java:686-713). The quotient is clamped in float32 before
+    the cast, as XLA's saturating convert (NaN to 0) followed by the clip
+    behaves: torch's CPU cast turns +inf and quotients past the int32 range
+    into INT32_MIN, which the clip would send to partition 0, not P - 1."""
+    p = torch.floor(x[:, 0] * _recip(domain_max / num_partitions))
+    p = torch.where(torch.isnan(p), 0.0, p).clamp(0, num_partitions - 1)
+    return p.to(torch.int32)
 
 
 def mr_grid_cell(x: torch.Tensor, domain_max: float) -> torch.Tensor:

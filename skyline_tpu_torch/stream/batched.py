@@ -50,7 +50,8 @@ partition's skyline strictly dominates, before any merge kernel — the grid
 summary is launched at each flush tail and copied to pinned memory behind a
 CUDA event; (2) the mixed-precision passes (``SKYLINE_MIXED_PRECISION``, on
 by default on a card, off on the CPU) — the bf16 row pre-drop ahead of each
-SFS and merge round, and K1–K3 with their bf16 first pass.
+SFS and merge round, and K1–K3 counted as their ``mp`` launches (on a card
+the f32 compare kernel either way).
 ``flush_cascade_stats`` reports both stages' counters.
 
 The host-ingest lazy flush races its paths as the reference's does

@@ -161,8 +161,7 @@ def _merge_step_kernel_core(
     (``dominated_by_rect``), one launch each for all partitions: the batch
     against itself, the sky against the batch, and the kept batch against
     the sky — the reference's ``_merge_step_pallas_core``. ``mp`` runs the
-    pre-drop kernel first and the three K2 launches with their bf16 first
-    pass. Neither the batch (arrival order) nor the sky (merge order) is
+    pre-drop kernel first and counts the three K2 launches as ``mp``. Neither the batch (arrival order) nor the sky (merge order) is
     sum-sorted; the kernel's skip rules assume no order. On a CPU tensor
     the wrappers run their plain versions."""
     # the kernels take contiguous validity; an active-prefix slice is not

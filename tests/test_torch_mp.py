@@ -4,10 +4,10 @@ package on the CPU: the bf16 row pre-drop ``strictly_dominated_bf16``
 ``_mp_predrop``, the merge step and the SFS rounds with ``mp`` — against
 the reference's Pallas cores in interpret mode, which reach the TPU
 kernels' ``mp`` body — the grid summary of the flush prefilter bit for bit,
-the soundness of the bf16 trilean the card's kernels classify pairs with,
 and the knobs. Every comparison is exact (bytes, masks, counts); no test
 has a tolerance. The ``cuda``-marked tests hold the ``mp`` kernels and the
-pre-drop kernel to their plain versions on a card and skip here."""
+pre-drop kernel (both entries) to their plain versions on a card and skip
+here."""
 
 import jax
 import jax.numpy as jnp
@@ -370,41 +370,6 @@ def test_grid_codes_are_sound(rng):
     assert not (dropped & ~strict).any() and dropped.sum() > 0
 
 
-# -- the bf16 trilean of the mp kernels ------------------------------------------------
-
-
-def test_mp_trilean_is_sound(rng):
-    """The classification the mp kernels make (``mp_trilean_plain``, the
-    kernel's steps in torch bf16): certain => f32 strict dominance in every
-    dimension; decided-false => some f32 x_k > y_k. Torch's CPU bf16
-    operations round through float32 first, the card's round once; both
-    stay within the proof's slack (csrc/dominance.cu, step 7)."""
-    for d in (1, 3, 8):
-        x, y = adversarial_pairs(rng, d)
-        x = np.concatenate([x, rng.uniform(0, 100, size=(200, d)).astype(F32)])
-        y = np.concatenate([y, rng.uniform(0, 110, size=(300, d)).astype(F32)])
-        certain, false = dk.mp_trilean_plain(torch.from_numpy(x), torch.from_numpy(y))
-        certain, false = certain.numpy(), false.numpy()
-        assert not (certain & false).any()
-        lt_all = (x[:, None, :] < y[None, :, :]).all(axis=2)
-        gt_any = (x[:, None, :] > y[None, :, :]).any(axis=2)
-        assert not (certain & ~lt_all).any(), "certified a pair without strict dominance"
-        assert not (false & ~gt_any).any(), "decided false a pair with no greater dimension"
-        # and it decides most pairs of ordinary data
-        assert (certain | false).mean() > 0.5
-
-
-def test_mp_trilean_leaves_margin_pairs_undecided():
-    """Ties, one-ulp differences, NaN and infinities are never decided."""
-    x = torch.tensor([[1.0, 2.0], [float("nan"), 0.0], [float("inf"), 0.0], [0.0, 0.0]])
-    y = torch.tensor([[1.0, 2.0], [float(np.nextafter(F32(1.0), F32(2.0))), 2.5],
-                      [0.0, 0.0], [3.4e38, 3.4e38]])
-    certain, false = dk.mp_trilean_plain(x, y)
-    undecided = ~(certain | false)
-    assert undecided[0, 0] and undecided[0, 1] and undecided[3, 2]
-    assert undecided[1].all() and undecided[:, 3].all()
-
-
 # -- the knobs ---------------------------------------------------------------------------
 
 
@@ -433,6 +398,36 @@ def test_knob_defaults(monkeypatch):
 # -- on the card -------------------------------------------------------------------------
 
 
+def predrop_cases(rng, d: int):
+    """(name, victims (P, B, d), dominators (P, L, d), their validity) for
+    the pre-drop: a block of zero rows (some -0.0) against zero dominators,
+    subnormals, rows one bf16 ulp apart, the margin-adversarial rows, and
+    dominator counts of 1, 511, 513, 777 and 4096 at P = 1, 3 and 8."""
+    x, y = adversarial_pairs(rng, d)
+    zeros = np.zeros((3, 600, d), F32)
+    zeros[:, ::3, 0] = -0.0
+    ulp = np.full((1, 256, d), 1.0, F32)
+    ulp[0, 1::2] = 1.0078125  # the next bf16 value above 1
+    sub = np.full((1, 64, d), TINY_SUB, F32)
+    sub[0, ::2] *= F32(3.0)
+    cases = [
+        ("zeros", zeros, np.zeros((3, 512, d), F32)),
+        ("ulp", ulp, np.concatenate([ulp[:, :8], np.zeros((1, 1, d), F32)], axis=1)),
+        ("subnormal", np.concatenate([sub, np.full((1, 64, d), F32(1e-29))], axis=1), sub),
+        ("adversarial", y[None], x[None]),
+    ]
+    pool = np.concatenate([x, y])
+    for nx, P in ((1, 1), (511, 3), (513, 8), (777, 3), (4096, 1)):
+        xs = pool[rng.integers(0, len(pool), size=(P, nx))]
+        ys = pool[rng.integers(0, len(pool), size=(P, 700))]
+        cases.append((f"nx{nx}_P{P}", ys, xs))
+    out = []
+    for name, ys, xs in cases:
+        xv = rng.random(xs.shape[:2]) < 0.85
+        out.append((name, ys, xs, xv))
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [3, 8, 16])
 def test_mp_kernels_match_plain_on_card(rng, cuda_card, d):
@@ -451,3 +446,16 @@ def test_mp_kernels_match_plain_on_card(rng, cuda_card, d):
     xv = torch.ones(xs.shape[0], dtype=torch.bool, device=cuda_card)
     assert torch.equal(dk.strictly_dominated_bf16_kernel(ys, xs, xv),
                        strictly_dominated_bf16(ys, xs, xv))
+    for name, y3, x3, xv3 in predrop_cases(rng, d):
+        ys, xs = torch.from_numpy(y3).to(cuda_card), torch.from_numpy(x3).to(cuda_card)
+        xv = torch.from_numpy(xv3).to(cuda_card)
+        assert torch.equal(dk.strictly_dominated_bf16_kernel(ys, xs, xv),
+                           dk.strictly_dominated_bf16_plain(ys, xs, xv)), name
+        bv = torch.from_numpy(rng.random(y3.shape[:2]) < 0.9).to(cuda_card)
+        # the dominators as a prefix of a wider buffer, read in place
+        wide = torch.cat([xs, xs], dim=1)[:, : xs.shape[1]]
+        wide_v = torch.cat([xv, xv], dim=1)[:, : xs.shape[1]]
+        got = dk.mp_predrop_kernel(wide, wide_v, ys, bv)
+        want = dk.mp_predrop_plain(xs, xv, ys, bv)
+        assert got[0].cpu().numpy().tobytes() == want[0].cpu().numpy().tobytes(), name
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]), name
