@@ -101,7 +101,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    timeout under an injected clock — every result's fields and point bytes,
    strict; the card must take each leg's branch (sweep, scan, K3 with two
    launches a slide step) — and ``SlidingSkyline`` every slide and
-   ``current_skyline`` with rows pending, d = 3 and 8;
+   ``current_skyline`` with rows pending, d = 3 and 8; the observability
+   plane (``OBS_PARITY``): a (b)-like lazy device-ingest engine and a
+   (d)-like incremental host-ingest one with the midpoint grid prefilter,
+   two windows of 32,768 rows, each with a ``Telemetry()`` hub on the card
+   and on the CPU (``SKYLINE_MIXED_PRECISION=1`` on both, the tuner's
+   cadence out of reach) and on the card without one — the bytes with the
+   hub are the bytes without it; ``prefiltered`` and every partition's
+   ``max_seen_id`` are the CPU's; where the card routes every row as the CPU
+   does, ``stats()`` (``untimed``: the timing fields and the backend aside)
+   and every EXPLAIN plan's merge path, tree, cascade and kernel call
+   counts are the CPU's;
 5. main paths at 1,000,000 rows, each one warm window and ``--windows``
    measured ones, driven in 65,536-row chunks with the trigger "0,0", under
    the reference's merge defaults (the pruned tree merge at d > 2, the
@@ -124,7 +134,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    flush cascade off (no grid prefilter, no bf16 pass); (l) is (c) and (m)
    is (g) with ``SKYLINE_DEVICE_CASCADE=on``: every lazy flush of (l) is a
    survivor mask of old ∪ new through the device cascade, (m)'s flat merge
-   masks its union through it (neither may launch K3). Each window's
+   masks its union through it (neither may launch K3); (p) is (b) with a
+   ``Telemetry()`` hub that every window's engine records into (each window
+   prints the spans, flight entries and EXPLAIN records it added, the spans
+   dropped and its tuner's epochs and moves; the tuner's pins and overrides
+   are cleared after (p)), (q) is (d) with ``grid_prefilter=True`` (each
+   window prints the rows the midpoint prefilter dropped); both are printed
+   beside (b) and (d) after the paths, followed by each plane's host cost
+   (``plane_costs``: every plane operation timed alone on this machine, and
+   its sum over a window of (p)'s counts). ``--paths`` runs only the named
+   paths; ``--ablate-planes R`` runs (p) with each observability gate off
+   alone, all off, and (b), one process a setting, R rounds. Each window's
    engine takes over the lazy flush race's profiler of the window before,
    as one long-lived engine keeps it, and each window prints the path its
    flush took and the race's EMAs. Each prints each
@@ -1161,7 +1181,16 @@ PATHS = {
     "l": (dict(NORTH_STAR, ingest="host"), False, MP_CASCADE + TREE_K2, CASCADE_ON),
     "m": (dict(NORTH_STAR, ingest="device"), False, MP_ROUNDS,
           {"SKYLINE_MERGE_TREE": "0", **CASCADE_ON}),
+    "p": (dict(NORTH_STAR, ingest="device"), False, MP_ROUNDS + TREE_K2, {}),
+    "q": (dict(GRID_3D, ingest="host", grid_prefilter=True), False,
+          (PREDROP_FUSED, MP_PATH[1]) + TREE_K2, {}),
 }
+# the paths whose engines record into a telemetry hub, one hub a path shared
+# by its windows' engines, as a worker's is: (p) is (b) with the hub
+HUB_PATHS = ("p",)
+# (path with the observability plane, the path it extends): reported side by
+# side after the main paths — (q) is (d) with the midpoint grid prefilter
+PLANE_PAIRS = (("p", "b"), ("q", "d"))
 # kernels a path must NOT launch (the knobs that turn them off); (l) and
 # (m) run the device cascade where K3 could run
 K3_ANY = (VALUE_PATH[2], MP_PATH[2])
@@ -1193,16 +1222,17 @@ def rank_gate(on: bool, env: dict | None = None):
     return knob_env({"SKYLINE_RANK_CASCADE": "1" if on else "0", **(env or {})})
 
 
-def run_window(cfg, ids, x, required=0, chunk=65536, flush_prof=None):
+def run_window(cfg, ids, x, required=0, chunk=65536, flush_prof=None, telemetry=None):
     """One tumbling window through a fresh engine, as ``bench.py`` drives
     the reference: ingest in chunks, one trigger, one result.
     ``flush_prof``: a lazy flush race's profiler from an earlier window's
-    engine, handed on as one long-lived engine keeps it."""
+    engine, handed on as one long-lived engine keeps it. ``telemetry``: a
+    hub the engine records into."""
     from skyline_tpu_torch.stream import SkylineEngine
 
     import torch
 
-    eng = SkylineEngine(cfg)
+    eng = SkylineEngine(cfg, telemetry=telemetry)
     eng.pset._flush_prof = flush_prof
     t0 = time.perf_counter()
     for i in range(0, x.shape[0], chunk):
@@ -1215,16 +1245,16 @@ def run_window(cfg, ids, x, required=0, chunk=65536, flush_prof=None):
 
 
 def _drive_windows(cfg, windows, chunk, cascade: list | None = None,
-                   engines: list | None = None):
-    """Windows back to back through one engine, a trigger after each:
-    (results, local sizes after each trigger, wall s); the set's
-    ``flush_cascade_stats()`` at the end appended to ``cascade`` and the
-    engine to ``engines`` if given."""
+                   engines: list | None = None, telemetry=None):
+    """Windows back to back through one engine (recording into
+    ``telemetry`` if given), a trigger after each: (results, local sizes
+    after each trigger, wall s); the set's ``flush_cascade_stats()`` at the
+    end appended to ``cascade`` and the engine to ``engines`` if given."""
     import numpy as np
 
     from skyline_tpu_torch.stream import SkylineEngine
 
-    eng = SkylineEngine(cfg)
+    eng = SkylineEngine(cfg, telemetry=telemetry)
     t0 = time.perf_counter()
     out, sizes = [], []
     base = 0
@@ -1625,6 +1655,133 @@ def check_race_parity(torch, np, devices=("cuda", "cpu")) -> dict:
 
 
 # the merge plane's counters, compared between devices
+# -- the observability plane: CUDA against the CPU ------------------------------
+
+# every key of stats() and the plans that holds a wall time, a wall-clock
+# stamp or a per-process identity: keys ending in _ms or _s, and these
+# (tests/test_torch_observability.py holds the same list)
+TIMING_KEYS = frozenset({
+    "processing_ms", "wall_ms", "ema_ms", "first_call_ms", "last_ms",
+    "phase_total_ms", "attributed_share", "t_ms", "trace_id",
+    # the freshness lineage's lag histograms
+    "stages",
+})
+
+
+def untimed(doc, drop=()):
+    """``doc`` (a ``stats()`` dict, a plan, a result) without its timing
+    fields and the keys in ``drop``, the kernel profile's rows (sorted by
+    wall) in signature order."""
+    if isinstance(doc, dict):
+        out = {
+            k: untimed(v, drop) for k, v in doc.items()
+            if k not in TIMING_KEYS and k not in drop and not k.endswith(("_ms", "_s"))
+        }
+        if isinstance(out.get("kernels"), list):
+            out["kernels"] = sorted(out["kernels"], key=lambda r: json.dumps(r, sort_keys=True))
+        return out
+    if isinstance(doc, list):
+        return [untimed(v, drop) for v in doc]
+    return doc
+
+
+def _plan_shape(plan) -> dict:
+    """What of an EXPLAIN plan must agree across devices: the merge path,
+    the tree, the cascade deltas and each kernel signature's call count
+    (the backend aside)."""
+    return {"path": plan["merge"]["path"], "tree": plan["tree"], "cascade": plan["cascade"],
+            "kernels": sorted((k["variant"], k["d"], k["n_bucket"], k["mp"], k["calls"])
+                              for k in plan["kernels"])}
+
+
+# (name, engine configuration, rows per window): a (b)-like lazy device-ingest
+# engine and a (d)-like incremental host-ingest one with the midpoint grid
+# prefilter, two windows each through one engine
+OBS_PARITY = (
+    ("lazy_device_8d", dict(NORTH_STAR, ingest="device"), DEVICE_PARITY_ROWS),
+    ("incremental_host_3d_prefilter", dict(GRID_3D, ingest="host", grid_prefilter=True),
+     DEVICE_PARITY_ROWS),
+)
+# both devices run the mixed-precision passes (the card's default), so the
+# profiler's mp keys and the bf16 counts compare; the tuner's cadence is out
+# of reach, so a slower CPU run cannot tick an epoch the card's never reaches
+OBS_ENV = {"SKYLINE_MIXED_PRECISION": "1", "SKYLINE_TUNER_EPOCH_S": "3600"}
+
+
+def check_observability_parity(torch, np, devices=("cuda", "cpu")) -> dict:
+    """The observability plane on the card against the CPU: each
+    ``OBS_PARITY`` engine with a ``Telemetry()`` hub on both devices and,
+    on the card, without one. The answers with the hub are the bytes
+    without it; the card's answers are the CPU's (sorted bytes, and where
+    the card routes every row as the CPU does, strict); there also
+    ``stats()`` (timings and the backend aside), every EXPLAIN plan's merge
+    path, tree, cascade and kernel call counts, ``prefiltered`` and every
+    partition's ``max_seen_id`` are equal."""
+    from skyline_tpu_torch.parallel.partitioners import partition_ids
+    from skyline_tpu_torch.stream import EngineConfig
+    from skyline_tpu_torch.telemetry import Telemetry
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    rng = np.random.default_rng(61)
+    out = {}
+    with rank_gate(False), knob_env(OBS_ENV):
+        for name, cfg, n in OBS_PARITY:
+            windows = [anti_correlated(rng, n, cfg["dims"], 0, 10000) for _ in range(2)]
+            strict = True
+            if cfg["ingest"] == "device":
+                x = torch.from_numpy(np.concatenate(windows))
+                args = (cfg["algo"], 2 * cfg["parallelism"], cfg["domain_max"])
+                strict = torch.equal(partition_ids(x.to(devices[0]), *args).cpu(),
+                                     partition_ids(x, *args))
+            runs, engines, hubs = {}, {}, {}
+            for label, device, hub in (("card", devices[0], True), ("card bare", devices[0], False),
+                                       ("cpu", devices[1], True)):
+                ecfg = EngineConfig(**cfg, emit_skyline_points=True, window_capacity=n,
+                                    device=device)
+                hubs[label] = Telemetry() if hub else None
+                got = []
+                runs[label] = _drive_windows(ecfg, windows, 8192, engines=got,
+                                             telemetry=hubs[label])
+                engines[label] = got[0]
+            _same_runs(f"observability {name}: hub vs none", runs, ("card", "card bare"), True)
+            _same_runs(f"observability {name}: card vs cpu", runs, ("card", "cpu"), strict)
+            card, cpu = engines["card"], engines["cpu"]
+            stats = {k: untimed(e.stats(include_skyline_counts=True), ("backend",))
+                     for k, e in (("card", card), ("cpu", cpu))}
+            plans = {k: [_plan_shape(p) for p in hubs[k].explain.snapshot()]
+                     for k in ("card", "cpu")}
+            if (card.prefiltered, card.pset.max_seen_id.tolist()) != (
+                    cpu.prefiltered, cpu.pset.max_seen_id.tolist()):
+                raise AssertionError(f"observability {name}: prefiltered {card.prefiltered} vs "
+                                     f"{cpu.prefiltered}, max_seen_id "
+                                     f"{card.pset.max_seen_id.tolist()} vs "
+                                     f"{cpu.pset.max_seen_id.tolist()}")
+            if strict and stats["card"] != stats["cpu"]:
+                diff = sorted(k for k in stats["card"] if stats["card"][k] != stats["cpu"].get(k))
+                raise AssertionError(f"observability {name}: stats() differ in {diff}: card "
+                                     f"{ {k: stats['card'][k] for k in diff} }, cpu "
+                                     f"{ {k: stats['cpu'].get(k) for k in diff} }")
+            if strict and plans["card"] != plans["cpu"]:
+                raise AssertionError(f"observability {name}: plans {plans['card']} on the card, "
+                                     f"{plans['cpu']} on the CPU")
+            if len(plans["card"]) != 2 or card.stats()["explain"]["recorded_total"] != 2:
+                raise AssertionError(f"observability {name}: {len(plans['card'])} plans")
+            out[name] = {
+                "rows_per_window": n, "strict": bool(strict),
+                "skyline_sizes": [r["skyline_size"] for r in runs["card"][0]],
+                "prefiltered": card.prefiltered, "plans": plans["card"],
+                "counters": hubs["card"].counters.snapshot(),
+                "spans": hubs["card"].spans.recorded,
+                "wall_s": {k: v[2] for k, v in runs.items()},
+            }
+            log(f"parity: observability {name} over 2 windows of {n} rows: card with hub == "
+                f"card without (bytes) == cpu with hub (answers"
+                f"{', stats(), plans' if strict else ''}); prefiltered {card.prefiltered}, "
+                f"plans {[p['path'] for p in plans['card']]}, {hubs['card'].spans.recorded} "
+                f"spans, wall {out[name]['wall_s']}")
+    return out
+
+
 PLANE_COUNTERS = (
     "merge_cache_hits", "merge_cache_misses", "merge_delta_merges", "merge_delta_rows",
     "merge_tree_merges", "merge_partitions_pruned", "last_tree_info",
@@ -1879,11 +2036,18 @@ def flush_race(path: str, window, eng) -> dict | None:
 def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
     """Path ``path``'s warm window and ``windows`` measured ones, launch
     counts set to 0 just before and read just after; each window's flush
-    cascade counters (``flush_cascade_stats``) and grid-prefilter host ms;
-    on ``PLANE_PATHS`` the merge plane measured on the last engine. Each
-    window's engine takes over the lazy flush race's profiler of the one
-    before (``flush_race``)."""
+    cascade counters (``flush_cascade_stats``), grid-prefilter host ms and
+    rows the midpoint prefilter dropped; on ``PLANE_PATHS`` the merge plane
+    measured on the last engine. Each window's engine takes over the lazy
+    flush race's profiler of the one before (``flush_race``). On
+    ``HUB_PATHS`` every window's engine records into one ``Telemetry()``
+    hub; each window reports the spans, flight entries and EXPLAIN records
+    it added, the spans the ring dropped and its tuner's epochs and moves,
+    and the cascade table's pins and overrides are cleared after the path,
+    so later paths run without the tuner's moves."""
+    from skyline_tpu_torch.ops import cascade as table
     from skyline_tpu_torch.ops import dominance_kernels as dk
+    from skyline_tpu_torch.telemetry import Telemetry
     from skyline_tpu_torch.workload.generators import anti_correlated
 
     cfg, gate, wanted, env = PATHS[path]
@@ -1891,18 +2055,20 @@ def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
     rng = np.random.default_rng(0)
     ids = np.arange(n, dtype=np.int64)
     warm_x = anti_correlated(rng, n, d, 0, 10000)
+    hub = Telemetry() if path in HUB_PATHS else None
     lat, rows = [], []
     with rank_gate(gate, env), prefilter_timer() as pre_ms:
         dk.reset_launches()
         warm_dt, warm_res, eng = run_window(
-            _config(path, n, emit_skyline_points=True), ids, warm_x
+            _config(path, n, emit_skyline_points=True), ids, warm_x, telemetry=hub
         )
         race = [flush_race(path, "warm", eng)]
         for w in range(windows):
             x = anti_correlated(rng, n, d, 0, 10000)
             calls = len(pre_ms)
+            mark = _hub_mark(hub)
             dt, res, eng = run_window(_config(path, n), ids, x,
-                                      flush_prof=eng.pset._flush_prof)
+                                      flush_prof=eng.pset._flush_prof, telemetry=hub)
             lat.append(dt)
             cascade = eng.pset.flush_cascade_stats()
             race.append(flush_race(path, w, eng))
@@ -1911,13 +2077,15 @@ def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
                 "merge_ms": eng.last_merge_ms, "skyline_size": res["skyline_size"],
                 "local_sizes": eng.pset.sky_counts().tolist(), "flush_cascade": cascade,
                 "prefilter_ms": sum(pre_ms[calls:]), "prefilter_calls": len(pre_ms) - calls,
-                "flush_race": race[-1],
+                "prefiltered": eng.prefiltered, "flush_race": race[-1],
+                "hub": _hub_window(hub, mark, eng),
             })
             log(f"main ({path}): window {w}: {dt * 1e3:.1f} ms (flush "
                 f"{eng.last_flush_ms:.1f} ms, merge {eng.last_merge_ms:.1f} ms, "
                 f"flush/prefilter {rows[-1]['prefilter_ms']:.1f} ms host in "
-                f"{rows[-1]['prefilter_calls']} flushes), skyline {res['skyline_size']}; "
-                f"flush cascade {cascade}")
+                f"{rows[-1]['prefilter_calls']} flushes), skyline {res['skyline_size']}, "
+                f"midpoint prefilter dropped {eng.prefiltered}; flush cascade {cascade}"
+                + (f"; hub {rows[-1]['hub']}" if hub is not None else ""))
         launches = dict(dk.LAUNCHES)
         tree = {"tree_merges": eng.pset.merge_tree_merges,
                 "tree_info": eng.pset.last_tree_info,
@@ -1925,6 +2093,13 @@ def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
         if tree["tree_merges"] != (1 if d > 2 and env.get("SKYLINE_MERGE_TREE") != "0" else 0):
             raise AssertionError(f"main path ({path}) ran {tree['tree_merges']} tree merges")
         plane = measure_plane(torch, np, path, eng, n) if path in PLANE_PATHS else None
+    if hub is not None:
+        pins, overrides = table.pins_doc(), table.overrides_doc()
+        table.clear_pins()
+        for name in list(overrides):
+            table.clear_override(name)
+        log(f"main ({path}): cleared the tuner's pins {pins} and overrides {overrides}; "
+            f"later paths run without them")
     log(f"main ({path}): warm window {warm_dt * 1e3:.1f} ms, skyline {warm_res['skyline_size']}")
     check_answer(torch, np, warm_x, np.asarray(warm_res["skyline_points"], np.float32), dev)
     missing = [k for k in wanted if launches[k] == 0]
@@ -1944,6 +2119,7 @@ def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
         "p50_flush_ms": float(np.median([r["flush_ms"] for r in rows])),
         "p50_merge_ms": float(np.median([r["merge_ms"] for r in rows])),
         "p50_prefilter_ms": float(np.median([r["prefilter_ms"] for r in rows])),
+        "prefiltered_per_window": [r["prefiltered"] for r in rows],
         "flush_cascade": rows[-1]["flush_cascade"],
         "warm_window_ms": warm_dt * 1e3, "windows": rows,
         "launches": launches, "launches_per_window": {
@@ -1962,6 +2138,31 @@ def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
     return summary, eng, x
 
 
+def _hub_mark(hub):
+    """The hub's running totals before a window (None without a hub)."""
+    if hub is None:
+        return None
+    return (hub.spans.recorded, hub.flight.doc()["recorded_total"],
+            hub.explain.doc()["recorded_total"])
+
+
+def _hub_window(hub, mark, eng) -> dict | None:
+    """What one window added to the hub: spans recorded, flight entries
+    and EXPLAIN records; the spans its ring has dropped in all; the
+    window's tuner's epochs and moves."""
+    if hub is None:
+        return None
+    spans, flight, plans = mark
+    return {
+        "spans": hub.spans.recorded - spans,
+        "spans_dropped": hub.spans.dropped,
+        "flight_entries": hub.flight.doc()["recorded_total"] - flight,
+        "explain_records": hub.explain.doc()["recorded_total"] - plans,
+        "tuner_epochs": eng.tuner.epochs if eng.tuner is not None else None,
+        "tuner_moves": eng.tuner.moves if eng.tuner is not None else None,
+    }
+
+
 def profile_window(torch, np, path: str, n: int) -> dict:
     """One more window of ``path`` under ``torch.profiler``: device time by
     kernel name and the device's busy share of the window wall."""
@@ -1970,11 +2171,14 @@ def profile_window(torch, np, path: str, n: int) -> dict:
 
     from skyline_tpu_torch.workload.generators import anti_correlated
 
+    from skyline_tpu_torch.telemetry import Telemetry
+
     x = anti_correlated(np.random.default_rng(1), n, PATHS[path][0]["dims"], 0, 10000)
     ids = np.arange(n, dtype=np.int64)
+    hub = Telemetry() if path in HUB_PATHS else None
     with rank_gate(PATHS[path][1], PATHS[path][3]):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            dt, _, eng = run_window(_config(path, n), ids, x)
+            dt, _, eng = run_window(_config(path, n), ids, x, telemetry=hub)
     kernels = [
         (ev.self_device_time_total / 1e3, ev.count, ev.key)
         for ev in prof.key_averages()
@@ -2141,6 +2345,129 @@ def ab_paths(np, parent: Path, paths: list, n: int, windows: int, rounds: int = 
             f"{[round(v, 1) for v in chg]} ms: change / parent {summary[p]['ratio']:.3f}, "
             f"the change faster in {wins} of {len(par)} pairs")
     return {"turns": turns, "paths": summary}
+
+
+# the observability plane's gates, on by default; --ablate-planes turns each
+# off alone on (p)
+PLANE_FLAGS = ("SKYLINE_FRESHNESS", "SKYLINE_KERNEL_PROFILE", "SKYLINE_WORKLOAD",
+               "SKYLINE_EXPLAIN", "SKYLINE_AUDIT", "SKYLINE_TUNER")
+
+
+def _op_us(fn, reps: int) -> float:
+    """Median over 5 timings of µs per call of ``fn`` (``reps`` calls each)."""
+    import statistics
+
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter_ns()
+        for _ in range(reps):
+            fn()
+        times.append((time.perf_counter_ns() - t0) / 1e3 / reps)
+    return statistics.median(times)
+
+
+def plane_costs(np, hub_window: dict, chunks: int, rows: int, d: int) -> dict:
+    """The host cost of each plane's operations on this machine, each timed
+    alone (``_op_us``), and what they add to one window of a path with
+    ``chunks`` ingest chunks of ``rows`` rows at ``d`` dimensions and
+    (p)'s per-window hub counts (``hub_window``: its spans are the
+    dispatches' ``kernel/*`` spans, one ``ingest`` a chunk and the query's
+    ``local``, ``merge``, ``query`` and ``explain`` spans). The default
+    planes (no hub) are the workload sample and the freshness stamps a chunk
+    and the profiler's record a dispatch; a hub adds a span a record, the
+    ingest wrapper a chunk, the flight notes and the query's plan
+    (``_finalize_plan`` on a CPU engine, its cascade read included)."""
+    from skyline_tpu_torch.stream import EngineConfig, SkylineEngine
+    from skyline_tpu_torch.telemetry import (
+        FreshnessTracker, KernelProfiler, Telemetry, WorkloadCharacterizer,
+    )
+    from skyline_tpu_torch.telemetry.explain import QueryPlan
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    chunk = anti_correlated(np.random.default_rng(3), rows, d, 0, 10000)
+    tel = Telemetry()
+    wl, fr = WorkloadCharacterizer(d), FreshnessTracker()
+    bare, spanned = KernelProfiler(backend="cuda"), tel.profiler
+
+    def record(prof):
+        with prof.record("sfs_sequential", d, 8192, mp=True, backend="cuda"):
+            pass
+
+    def stamp():
+        fr.on_ingest(1.0, 2.0)
+        fr.on_flush()
+
+    def ingest_wrapper():
+        t0 = time.perf_counter_ns()
+        tel.histogram("ingest_batch_ms").observe(0.5)
+        tel.spans.record("ingest", t0, time.perf_counter_ns(), args={"rows": rows})
+
+    eng = SkylineEngine(EngineConfig(dims=d, flush_policy="lazy", device="cpu"), telemetry=tel)
+    eng.process_records(np.arange(4096), chunk[:4096])
+    eng.process_trigger("warm,0")
+    eng.poll_results()
+    q = eng._inflight.get("warm,0") or type("Q", (), {})()
+
+    def finalize():
+        q.plan, q.span_t0_ns, q.trace_id = QueryPlan("t", "q"), time.perf_counter_ns(), "t"
+        q.plan.merge = {"path": "tree"}
+        eng._finalize_plan(q, skyline_size=1, local_ms=1.0, global_ms=1.0, total_ms=2.0,
+                           latency_ms=2.0)
+
+    us = {
+        "workload.observe (a chunk)": _op_us(lambda: wl.observe(chunk), 20),
+        "freshness stamps (a chunk)": _op_us(stamp, 2000),
+        "profiler record (a dispatch)": _op_us(lambda: record(bare), 2000),
+        "profiler record + span (a dispatch, hub)": _op_us(lambda: record(spanned), 2000),
+        "ingest wrapper (a chunk, hub)": _op_us(ingest_wrapper, 2000),
+        "flight note (hub)": _op_us(lambda: tel.flight.note("merge.launch", path="tree"), 2000),
+        "query plan, tuner tick (a query, hub)": _op_us(finalize, 200),
+    }
+    dispatches = hub_window["spans"] - chunks - 4
+    default_ms = (chunks * (us["workload.observe (a chunk)"] + us["freshness stamps (a chunk)"])
+                  + dispatches * us["profiler record (a dispatch)"]) / 1e3
+    hub_ms = (dispatches * (us["profiler record + span (a dispatch, hub)"]
+                            - us["profiler record (a dispatch)"])
+              + chunks * us["ingest wrapper (a chunk, hub)"]
+              + hub_window["flight_entries"] * us["flight note (hub)"]
+              + us["query plan, tuner tick (a query, hub)"]) / 1e3
+    out = {"us": us, "dispatches_per_window": dispatches, "chunks": chunks,
+           "default_planes_ms_per_window": default_ms, "hub_ms_per_window": hub_ms}
+    log("plane costs (host µs, each op alone): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in us.items()))
+    log(f"plane costs: a window of {chunks} chunks and {dispatches} dispatches pays "
+        f"{default_ms:.3f} ms for the default planes and {hub_ms:.3f} ms more with a hub")
+    return out
+
+
+def ablate_planes(np, n: int, windows: int, rounds: int) -> dict:
+    """What each plane costs: (p) with every gate on, with each of
+    ``PLANE_FLAGS`` off alone, with all of them off, and (b) (no hub), one
+    process a setting, ``rounds`` times, the order reversed every other
+    round. Per setting its p50 window ms and the ratio of its median to
+    (p)'s with every gate on."""
+    settings = [("p", "all on", {})] + [("p", f"{f}=0", {f: "0"}) for f in PLANE_FLAGS] + [
+        ("p", "all off", {f: "0" for f in PLANE_FLAGS}), ("b", "no hub", {})]
+    p50 = {label: [] for _, label, _ in settings}
+    for r in range(rounds):
+        for path, label, env in (settings if r % 2 == 0 else settings[::-1]):
+            proc = subprocess.run(
+                [sys.executable, "-c", AB_RUNNER, path, str(n), str(windows)],
+                cwd=ROOT, env={**os.environ, **env}, capture_output=True, text=True,
+                timeout=1200,
+            )
+            if proc.returncode:
+                raise AssertionError(f"ablation ({label}) failed:\n{proc.stderr[-3000:]}")
+            res = json.loads([ln for ln in proc.stdout.splitlines()
+                              if ln.startswith("AB ")][-1][3:])
+            p50[label].append(res[path]["p50_ms"])
+            log(f"ablate: round {r}: ({path}) {label}: p50 {res[path]['p50_ms']:.1f} ms")
+    base = float(np.median(p50["all on"]))
+    out = {label: {"p50_ms": v, "ratio_to_all_on": float(np.median(v)) / base}
+           for label, v in p50.items()}
+    log("ablate: median p50 / (p)'s with every gate on: " + ", ".join(
+        f"{k} {v['ratio_to_all_on']:.3f}" for k, v in out.items()))
+    return out
 
 
 # -- phase 6: kernel timings at the main path's shapes -----------------------
@@ -3616,7 +3943,19 @@ def main() -> int:
     )
     ap.add_argument("--ab-rounds", type=int, default=1,
                     help="times to repeat the --ab-paths turns")
+    ap.add_argument(
+        "--ablate-planes", type=int, default=0, metavar="ROUNDS",
+        help="after the phases, run (p) with each observability gate off alone, all off, "
+        "and (b), one process a setting, ROUNDS times",
+    )
+    ap.add_argument(
+        "--paths", default="",
+        help="comma-separated tumbling paths for the main phase, in this order (default: "
+        "all, then the sliding paths); not with the timings phase, which reads them all",
+    )
     args = ap.parse_args()
+    if args.paths and "timings" in args.only:
+        raise SystemExit("--paths selects main paths; the timings phase needs them all")
 
     import numpy as np
     import torch
@@ -3676,19 +4015,45 @@ def main() -> int:
         details["plane_parity"] = check_plane_parity(torch, np)
         details["cascade_parity"] = check_cascade_parity(torch, np)
         details["race_parity"] = check_race_parity(torch, np)
+        details["observability_parity"] = check_observability_parity(torch, np)
         details["sliding_parity"] = check_sliding_parity(torch, np)
         log(f"parity: done at {time.perf_counter() - t_start:.1f} s")
     table = []
     parent = None
     if args.parent is not None and "timings" in args.only:
         parent = parent_library(torch, args.parent.resolve())
-    if "main" in args.only or "timings" in args.only:
+    if args.paths and "main" in args.only:
+        runs = {}
+        for path in args.paths.split(","):
+            t0 = time.perf_counter()
+            runs[path] = main_path(torch, np, path, args.n, args.windows)
+            log(f"main ({path}): {time.perf_counter() - t0:.1f} s in all")
+        details["main"] = {path: r[0] for path, r in runs.items()}
+        for path, base in PLANE_PAIRS:
+            if path in runs and base in runs:
+                a, b = runs[path][0], runs[base][0]
+                log(f"main ({path}) beside ({base}): p50 {a['p50_window_ms']:.1f} ms vs "
+                    f"{b['p50_window_ms']:.1f} ms, {a['tuples_per_s']:.0f} vs "
+                    f"{b['tuples_per_s']:.0f} tuples/s")
+        if "p" in runs:
+            details["plane_costs"] = plane_costs(
+                np, runs["p"][0]["windows"][-1]["hub"], -(-args.n // 65536), 65536, 8)
+        if args.profile:
+            details["profile"] = {p: profile_window(torch, np, p, args.n) for p in runs}
+    elif "main" in args.only or "timings" in args.only:
         runs = {}
         for path in PATHS:
             t0 = time.perf_counter()
             runs[path] = main_path(torch, np, path, args.n, args.windows)
             log(f"main ({path}): {time.perf_counter() - t0:.1f} s in all")
         details["main"] = {path: r[0] for path, r in runs.items()}
+        for path, base in PLANE_PAIRS:
+            a, b = runs[path][0], runs[base][0]
+            log(f"main ({path}) beside ({base}): p50 {a['p50_window_ms']:.1f} ms vs "
+                f"{b['p50_window_ms']:.1f} ms ({a['p50_window_ms'] / b['p50_window_ms']:.3f}x), "
+                f"{a['tuples_per_s']:.0f} vs {b['tuples_per_s']:.0f} tuples/s")
+        details["plane_costs"] = plane_costs(
+            np, runs["p"][0]["windows"][-1]["hub"], -(-args.n // 65536), 65536, 8)
         t0 = time.perf_counter()
         sliding = {"n": sliding_northstar(torch, np, args.windows), "o": sliding_4d(torch, np)}
         details["sliding"] = {path: r[0] for path, r in sliding.items()}
@@ -3762,6 +4127,8 @@ def main() -> int:
             raise SystemExit("--ab-paths needs --parent")
         details["ab"] = ab_paths(np, args.parent.resolve(), args.ab_paths.split(","),
                                  args.n, args.windows, args.ab_rounds)
+    if args.ablate_planes:
+        details["ablate_planes"] = ablate_planes(np, args.n, args.windows, args.ablate_planes)
     details["wall_s"] = time.perf_counter() - t_start
     log(f"total: {details['wall_s']:.1f} s")
     if args.out is not None:

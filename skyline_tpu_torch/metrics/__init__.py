@@ -1,1 +1,2 @@
-"""Metrics of the port: the phase tracer (``tracing.py``)."""
+"""Metrics of the port: the phase tracer (``tracing.py``) and the named
+counters (``collector.py``)."""

@@ -60,7 +60,9 @@ name with ``_mp`` appended.
 Each source is built at first use with ``nvcc`` into
 ``skyline_tpu_torch/_build/`` (keyed by a hash of the source, the local
 headers it includes and the flags; one ``nvcc`` per source, all started
-together) and bound through ``ctypes`` with a plain C interface.
+together) and bound through ``ctypes`` with a plain C interface;
+``utils/compile_cache.py`` counts each source's cached builds and ``nvcc``
+runs.
 """
 
 from __future__ import annotations
@@ -81,6 +83,7 @@ from skyline_tpu_torch.ops.dominance import (
     skyline_mask,
     strictly_dominated_bf16,
 )
+from skyline_tpu_torch.utils.compile_cache import note_build
 
 _PKG = Path(__file__).resolve().parents[1]
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -183,6 +186,7 @@ def build() -> dict[str, tuple[Path, str]]:
     missing = []
     for name in SOURCES:
         lib = _library_path(name)
+        note_build(lib.exists())
         if lib.exists():
             built[name] = (lib, "")
         else:

@@ -63,9 +63,19 @@ its path's signature and the least EMA wins once each has run;
 path. The merge plane's and the prefilter's gates read through the cascade
 table, so a tuner override acts where the environment leaves a knob unset.
 
+Observability (``attach_observability``, ``set_explain``, ``tracer`` and
+``counters``) is the reference's: every dispatch the reference wraps in a
+``flush/merge_kernel`` phase is timed under its profiler signature (variant,
+d, N-bucket, backend, mp; ``stream/window.py`` ``KERNEL_VARIANTS``), the
+flight recorder keeps the flush, cascade, prune and cache decisions, the
+counters sink gets the ``merge.*`` and ``flush.*`` counts, and a parked
+EXPLAIN plan rides the merge handle from launch to harvest. All of it is
+host-side bookkeeping around work already queued: the answers are the same
+with it or without.
+
 Not ported yet (each gives results byte-identical to these paths in the
-reference): ``merge_points_device`` (the multi-GPU engine's only caller),
-the telemetry counters, EXPLAIN and the device mesh.
+reference): ``merge_points_device`` (the multi-GPU engine's only caller)
+and the device mesh.
 
 Per-partition CPU attribution follows the reference: flush wall time is
 accounted to the set, and every partition reports the set total as its
@@ -75,10 +85,12 @@ accounted to the set, and every partition reports the set total as its
 from __future__ import annotations
 
 import time
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
 
+from skyline_tpu_torch.metrics.tracing import NULL_TRACER
 from skyline_tpu_torch.ops import cascade
 from skyline_tpu_torch.ops.device_cascade import device_cascade_keep
 from skyline_tpu_torch.ops.sfs import sfs_cleanup, sfs_round, sfs_round_single
@@ -106,7 +118,11 @@ from skyline_tpu_torch.stream.window import (
 )
 from skyline_tpu_torch.utils.devices import resolve_device, upload_async
 from skyline_tpu_torch.telemetry.profiler import KernelProfiler
-from skyline_tpu_torch.utils.knobs import flush_stage_depth, mixed_precision_enabled
+from skyline_tpu_torch.utils.knobs import (
+    flush_stage_depth,
+    mixed_precision_enabled,
+    profile_cost_enabled,
+)
 
 # Sequential-SFS probe block: rounds start at this size so a small-skyline
 # partition never pays big-block dominance work; the loop escalates to the
@@ -184,10 +200,11 @@ class _MergeHandle:
 
     __slots__ = (
         "key", "epoch", "emit_points", "use_cache", "cached", "result", "stats",
-        "event", "union", "keep", "root_vals", "dirty", "clean_total",
+        "event", "union", "keep", "root_vals", "dirty", "clean_total", "explain",
     )
 
     def __init__(self):
+        self.explain = None
         self.cached = False
         self.result = None
         self.stats = None
@@ -218,6 +235,10 @@ class PartitionSet:
         route: tuple[str, float] | None = None,
         window_capacity: int = 0,
         overlap_rows: int = 262144,
+        tracer=None,
+        counters=None,
+        profiler=None,
+        flight=None,
     ):
         """``initial_capacity``: pre-size the per-partition skyline buffers
         (rounded up to the power-of-two bucket) so a workload that knows
@@ -238,12 +259,25 @@ class PartitionSet:
         routes and calls ``add_batch``).
 
         ``window_capacity``: expected rows per window (0 = unknown); pre-sizes
-        the device-ingest window so a full window never reallocates."""
+        the device-ingest window so a full window never reallocates.
+
+        ``tracer``: a ``metrics.tracing.Tracer`` timing the reference's
+        phases (``flush/assemble``, ``flush/device_put``,
+        ``flush/merge_kernel``, ``flush/prefilter``, ``flush/sweep``,
+        ``flush/sort``, ``flush/rank``, ``ingest/bookkeeping_sync``,
+        ``query/global_stats_sync``, ``query/points_transfer``,
+        ``query/count_sync``, ``query/snapshot_transfer``); with
+        ``sync_device`` each ``flush/merge_kernel`` phase waits for the card.
+        ``counters``: a ``metrics.collector.Counters``-like sink
+        (``inc(name, n)``) for the merge plane's and the flush cascade's
+        counts. ``profiler`` and ``flight``: see
+        ``attach_observability``."""
         if flush_policy not in ("incremental", "lazy", "overlap"):
             raise ValueError(f"unknown flush_policy {flush_policy!r}")
         if route is not None and flush_policy == "incremental":
             raise ValueError("device ingest (route=...) requires a lazy/overlap PartitionSet")
         self.device = resolve_device(device)
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         self.num_partitions = num_partitions
         self.dims = dims
         self.buffer_size = buffer_size
@@ -320,6 +354,16 @@ class PartitionSet:
         self.prefilter_dropped = 0
         self._mp_resolved: torch.Tensor | None = None
         self.bf16_resolved = 0
+        # the bf16 total already fed to the counters sink
+        self._bf16_resolved_reported = 0
+        # observability (attach_observability, set_explain): the engine's
+        # kernel profiler and flight recorder, and the one-shot EXPLAIN plan
+        # the next global_merge_launch claims onto its handle
+        self._counters = counters
+        self._profiler = None
+        self._flight = None
+        self._explain = None
+        self.attach_observability(profiler, flight)
         # the lazy flush's path race (``_choose_lazy_path``): the profiler
         # its whole-flush walls land in, made when a race is first in play,
         # and the flushes each path took
@@ -328,6 +372,75 @@ class PartitionSet:
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
+
+    # -- observability hooks ------------------------------------------------
+
+    def _inc(self, name: str, n: int = 1) -> None:
+        if self._counters is not None:
+            self._counters.inc(name, n)
+
+    def _fnote(self, kind: str, **fields) -> None:
+        if self._flight is not None:
+            self._flight.note(kind, **fields)
+
+    def attach_observability(self, profiler=None, flight=None) -> None:
+        """Attach a ``telemetry.profiler.KernelProfiler`` and/or a
+        ``FlightRecorder``. The profiler times every ``flush/merge_kernel``
+        dispatch under its signature and is shared with the mask dispatch
+        (``ops/dispatch.py`` ``register_profiler``); the flight recorder
+        keeps the last flush, cascade, prune and cache decisions."""
+        self._profiler = profiler
+        self._flight = flight
+        if profiler is not None:
+            from skyline_tpu_torch.ops.dispatch import register_profiler
+
+            register_profiler(profiler)
+
+    def set_explain(self, plan) -> None:
+        """Park the current query's ``QueryPlan`` for the next
+        ``global_merge_launch`` to claim (None clears)."""
+        self._explain = plan
+
+    def _kernel(self, variant: str, n: int, mp: bool = False, cost_thunk=None):
+        """The profiler's record of one merge-kernel dispatch, under the
+        set's device type (a null context without a profiler)."""
+        if self._profiler is None:
+            return nullcontext()
+        return self._profiler.record(
+            variant, self.dims, n, mp=mp, backend=self.device.type,
+            cost_thunk=cost_thunk,
+        )
+
+    @contextmanager
+    def _merge_kernel(self, variant: str, n: int, mp: bool = False, cost_thunk=None):
+        """One dispatch in the ``flush/merge_kernel`` phase under its profiler
+        signature; a tracer with ``sync_device`` waits for the card inside
+        both, so the phase holds the dispatch's device time."""
+        with self.tracer.phase("flush/merge_kernel"), self._kernel(
+            variant, n, mp, cost_thunk
+        ):
+            yield
+            if self.tracer.sync_device and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+    def _merge_cost_thunk(self, batch_dev, bvalid_dev, active, out_active, mp):
+        """The merge step's cost at this dispatch's shapes
+        (``SKYLINE_PROFILE_COST``), reckoned as the kernel bounds are: every
+        pair of its three K2 passes (batch against itself, batch against
+        the ``active`` skyline rows and back) compares d values; the bytes
+        read the skyline prefix and the batch with their validity once and
+        write the ``out_active`` rows, their validity and the counts once.
+        Shapes are captured now, the numbers made on the profiler's first
+        call of the signature."""
+        P, B, d = batch_dev.shape
+        A = int(active)
+
+        def thunk():
+            pairs = P * (B * B + 2 * B * A)
+            moved = P * ((A + B) * (4 * d + 1) + int(out_active) * (4 * d + 1) + 8)
+            return {"flops": float(pairs * d), "bytes_accessed": float(moved)}
+
+        return thunk
 
     def _put_async(self, arr: np.ndarray) -> torch.Tensor:
         return upload_async(arr, self.device)
@@ -475,15 +588,16 @@ class PartitionSet:
         never on the pure-ingest path."""
         if not self._chunk_stats:
             return
-        stats = self._host(torch.stack([s for s, _ in self._chunk_stats]))
-        for s, (_, now_ms) in zip(stats.astype(np.int64), self._chunk_stats):
-            counts, maxids = s[0], s[1]
-            got = counts > 0
-            self.records_seen[got] += counts[got]
-            np.maximum(self.max_seen_id, np.where(got, maxids, -1), out=self.max_seen_id)
-            for p in np.nonzero(got)[0]:
-                if self.start_time_ms[p] is None:
-                    self.start_time_ms[p] = now_ms
+        with self.tracer.phase("ingest/bookkeeping_sync"):
+            stats = self._host(torch.stack([s for s, _ in self._chunk_stats]))
+            for s, (_, now_ms) in zip(stats.astype(np.int64), self._chunk_stats):
+                counts, maxids = s[0], s[1]
+                got = counts > 0
+                self.records_seen[got] += counts[got]
+                np.maximum(self.max_seen_id, np.where(got, maxids, -1), out=self.max_seen_id)
+                for p in np.nonzero(got)[0]:
+                    if self.start_time_ms[p] is None:
+                        self.start_time_ms[p] = now_ms
         self._chunk_stats = []
 
     def _drain_pending(self) -> list[np.ndarray]:
@@ -582,17 +696,25 @@ class PartitionSet:
         the round's widths would outgrow the capacity (log-bounded)."""
         t0 = time.perf_counter_ns()
         mp = mixed_precision_enabled(self.device)
+        total = int(self._pending_rows.sum())
         self._bump_epoch(self._pending_rows > 0)
-        rows = self._prefilter_rows(self._drain_pending())
+        with self.tracer.phase("flush/assemble"):
+            rows = self._drain_pending()
+        rows = self._prefilter_rows(rows)
         max_rows = max(r.shape[0] for r in rows)
         B = _next_pow2(min(max_rows, max(self.buffer_size, _MIN_CAP)))
         n_rounds = -(-max_rows // B)
+        self._fnote(
+            "flush.dispatch", policy="incremental", rows=total, rounds=n_rounds, block=B,
+        )
         depth = flush_stage_depth()
         staged: dict[int, tuple] = {}
 
         def _stage(r: int):
-            batch, bvalid, widths = self._round_batch(rows, r, B)
-            return self._put_async(batch), self._put_async(bvalid), widths
+            with self.tracer.phase("flush/assemble"):
+                batch, bvalid, widths = self._round_batch(rows, r, B)
+            with self.tracer.phase("flush/device_put"):
+                return self._put_async(batch), self._put_async(bvalid), widths
 
         for rnd in range(n_rounds):
             if rnd not in staged:
@@ -615,13 +737,17 @@ class PartitionSet:
                 torch.arange(self._cap, device=self.device)[None, :]
                 < self._count_dev[:, None]
             )
-            # out_active is the bucket out_cap grew from, so the step's
-            # max(cap, out_active) is out_cap
-            self.sky, _, self._count_dev, res = merge_step_active(
-                self.sky, sky_valid, batch_dev, bvalid_dev, active, grow, mp
-            )
-            if mp:
-                self._accum_resolved(res)
+            cost_thunk = None
+            if self._profiler is not None and profile_cost_enabled():
+                cost_thunk = self._merge_cost_thunk(batch_dev, bvalid_dev, active, grow, mp)
+            with self._merge_kernel("merge_step", out_cap, mp, cost_thunk):
+                # out_active is the bucket out_cap grew from, so the step's
+                # max(cap, out_active) is out_cap
+                self.sky, _, self._count_dev, res = merge_step_active(
+                    self.sky, sky_valid, batch_dev, bvalid_dev, active, grow, mp
+                )
+                if mp:
+                    self._accum_resolved(res)
             self._cap = out_cap
             self._count_ub = np.minimum(out_cap, self._count_ub + widths)
             for s in range(rnd + 1, min(rnd + 1 + depth, n_rounds)):
@@ -648,11 +774,12 @@ class PartitionSet:
         # all (an extra bump costs only cache reuse)
         self._bump_epoch(slice(None) if self._dev_rows > 0 else self._pending_rows > 0)
         P, d = self.num_partitions, self.dims
-        rows = self._drain_pending()
-        host_vals = np.concatenate(
-            [r for r in rows if r.shape[0]] or [np.empty((0, d), np.float32)]
-        )
-        host_pids = np.repeat(np.arange(P, dtype=np.int32), [r.shape[0] for r in rows])
+        with self.tracer.phase("flush/assemble"):
+            rows = self._drain_pending()
+            host_vals = np.concatenate(
+                [r for r in rows if r.shape[0]] or [np.empty((0, d), np.float32)]
+            )
+            host_pids = np.repeat(np.arange(P, dtype=np.int32), [r.shape[0] for r in rows])
         n_host = host_vals.shape[0]
         # valid prefixes only: the device window's allocation and the sky
         # rows past the active bucket are invalid
@@ -666,13 +793,13 @@ class PartitionSet:
         n_bucket = _next_pow2(n_in)
         dev = self.device
         ar = torch.arange(sky_active, device=dev)
-        parts_v = [
-            self.sky[:, :sky_active].reshape(P * sky_active, d),
-            self._put(np.ascontiguousarray(host_vals, dtype=np.float32)),
-        ]
+        with self.tracer.phase("flush/device_put"):
+            host_vals_d = self._put(np.ascontiguousarray(host_vals, dtype=np.float32))
+            host_pids_d = self._put(host_pids)
+        parts_v = [self.sky[:, :sky_active].reshape(P * sky_active, d), host_vals_d]
         parts_p = [
             torch.arange(P, dtype=torch.int32, device=dev).repeat_interleave(sky_active),
-            self._put(host_pids),
+            host_pids_d,
         ]
         parts_ok = [
             (ar[None, :] < self._count_dev[:, None]).reshape(-1),
@@ -690,12 +817,14 @@ class PartitionSet:
         values = torch.cat(parts_v)
         if d == 1:
             values = torch.cat([values, torch.zeros_like(values)], dim=1)
-        srows, sp, keep, rank, counts = partitioned_sweep2_core(
-            values, torch.cat(parts_p), torch.cat(parts_ok), P
-        )
-        counts_host = self._host(counts)  # the one sync
+        with self.tracer.phase("flush/sweep"):
+            srows, sp, keep, rank, counts = partitioned_sweep2_core(
+                values, torch.cat(parts_p), torch.cat(parts_ok), P
+            )
+            counts_host = self._host(counts)  # the one sync
         new_cap = max(self._cap, _next_pow2(max(int(counts_host.max()), _MIN_CAP)))
-        sky, counts_dev = scatter_sweep2(srows, sp, keep, rank, counts, P, new_cap)
+        with self.tracer.phase("flush/sweep"):
+            sky, counts_dev = scatter_sweep2(srows, sp, keep, rank, counts, P, new_cap)
         self.sky = sky[:, :, :1].contiguous() if d == 1 else sky
         self._cap = new_cap
         self._count_dev = counts_dev
@@ -729,16 +858,19 @@ class PartitionSet:
         t0 = time.perf_counter_ns()
         mp = mixed_precision_enabled(self.device)
         self._bump_epoch(self._pending_rows > 0)
+        with self.tracer.phase("flush/assemble"):
+            rows = self._drain_pending()
         # the prefilter before the sum sort: dropped rows skip the sort, and
         # a stable sort of the surviving subset keeps the order a drop after
         # the sort would (the same appends)
-        rows = self._prefilter_rows(self._drain_pending())
+        rows = self._prefilter_rows(rows)
         # the host sort fixes the SFS append order, and with it the state's
         # row order: the reference's exact expression
-        for p, r in enumerate(rows):
-            if r.shape[0] > 1:
-                order = np.argsort(r.sum(axis=1), kind="stable")
-                rows[p] = r[order]
+        with self.tracer.phase("flush/assemble"):
+            for p, r in enumerate(rows):
+                if r.shape[0] > 1:
+                    order = np.argsort(r.sum(axis=1), kind="stable")
+                    rows[p] = r[order]
         had_old, old_counts = self._check_had_old()
         widths = np.array([r.shape[0] for r in rows], dtype=np.int64)
         total_rows = int(widths.sum())
@@ -746,32 +878,41 @@ class PartitionSet:
         device_variant = "sequential" if sequential else "vmapped"
         path = self._choose_lazy_path(device_variant, total_rows)
         self.flush_paths[path] = self.flush_paths.get(path, 0) + 1
+        self._fnote(
+            "flush.dispatch", policy=self.flush_policy, rows=total_rows,
+            max_rows=int(widths.max()), sequential=sequential, path=path,
+        )
 
         def sfs_rounds():
             if sequential:
 
                 def one_round(p, sky_p, cnt_p, off, w, B, active):
-                    block, bvalid, _ = self._pad_block(rows[p][off : off + B], B)
-                    return sfs_round_single(
-                        sky_p, cnt_p, self._put(block), self._put(bvalid), active, mp
-                    )
+                    with self.tracer.phase("flush/assemble"):
+                        block, bvalid, _ = self._pad_block(rows[p][off : off + B], B)
+                    with self.tracer.phase("flush/device_put"):
+                        block_d, bvalid_d = self._put(block), self._put(bvalid)
+                    with self._merge_kernel("sfs_sequential", active, mp):
+                        return sfs_round_single(sky_p, cnt_p, block_d, bvalid_d, active, mp)
 
                 return self._sfs_sequential(widths, one_round, mp=mp)
             B = self._vmapped_block(int(widths.max()))
 
             def batched_round(rnd, counts, active):
-                batch, bvalid, _ = self._round_batch(rows, rnd, B)
-                return sfs_round(
-                    self.sky, counts, self._put(batch), self._put(bvalid), active, mp
-                )
+                with self.tracer.phase("flush/assemble"):
+                    batch, bvalid, _ = self._round_batch(rows, rnd, B)
+                with self.tracer.phase("flush/device_put"):
+                    batch_d, bvalid_d = self._put(batch), self._put(bvalid)
+                with self._merge_kernel("sfs_vmapped", active, mp):
+                    return sfs_round(self.sky, counts, batch_d, bvalid_d, active, mp)
 
             return self._sfs_vmapped(widths, B, batched_round, mp)
 
         if path in ("sorted_sfs", "device_cascade"):
+            self._inc("flush." + path)
             keep_fn = sorted_sfs_keep if path == "sorted_sfs" else (
                 lambda r, old: device_cascade_keep(r, old, self.device))
             with self._flush_prof.record("flush_" + path, self.dims, total_rows):
-                counts = self._sfs_keep_flush(rows, keep_fn)
+                counts = self._sfs_keep_flush(rows, keep_fn, path)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)  # the uploads land
         elif self._flush_prof is not None:
@@ -804,10 +945,11 @@ class PartitionSet:
             device=self.device,
         )
 
-    def _sfs_keep_flush(self, rows: list[np.ndarray], keep_fn):
+    def _sfs_keep_flush(self, rows: list[np.ndarray], keep_fn, variant: str):
         """A lazy flush by survivor mask: per partition with pending rows,
         ``keep_fn(rows_p, old_p)`` (``sorted_sfs_keep`` on the host or
-        ``device_cascade_keep`` on the set's device) selects the rows of
+        ``device_cascade_keep`` on the set's device; profiled as
+        ``variant``) selects the rows of
         old ∪ new that survive among the new ones, and they are appended
         after the old prefix in arrival (sum) order — the rows and order
         the SFS rounds append, since the cascades only select. One exact
@@ -826,18 +968,23 @@ class PartitionSet:
             cnt_p = self._count_dev[p]
             old_n = int(counts_host[p])
             if rp.shape[0]:
-                old = (
-                    sky_p[:old_n].cpu().numpy()
-                    if old_n else np.empty((0, self.dims), dtype=np.float32)
-                )
-                surv = rp[keep_fn(rp, old)]
+                with self.tracer.phase("flush/assemble"):
+                    old = (
+                        sky_p[:old_n].cpu().numpy()
+                        if old_n else np.empty((0, self.dims), dtype=np.float32)
+                    )
+                with self._merge_kernel(variant, old_n + rp.shape[0]):
+                    keep = keep_fn(rp, old)
+                surv = rp[keep]
                 need = old_n + surv.shape[0]
                 cap_p = max(sky_p.shape[0], _next_pow2(max(need, 1)))
-                buf = np.full((cap_p, self.dims), np.inf, dtype=np.float32)
-                buf[:old_n] = old
-                buf[old_n:need] = surv
-                sky_p = self._put_async(buf)
-                cnt_p = torch.tensor(need, dtype=torch.int64, device=self.device)
+                with self.tracer.phase("flush/assemble"):
+                    buf = np.full((cap_p, self.dims), np.inf, dtype=np.float32)
+                    buf[:old_n] = old
+                    buf[old_n:need] = surv
+                with self.tracer.phase("flush/device_put"):
+                    sky_p = self._put_async(buf)
+                    cnt_p = torch.tensor(need, dtype=torch.int64, device=self.device)
                 self._count_ub[p] = need
             new_skies.append(sky_p)
             new_counts.append(cnt_p)
@@ -860,11 +1007,12 @@ class PartitionSet:
         mp = mixed_precision_enabled(self.device)
         P = self.num_partitions
         n_bucket = _next_pow2(self._dev_rows)
-        ws, bounds_dev = dw.sort_window(
-            self._dev_window, self._dev_pids, self._dev_rows, n_bucket, P,
-            dw.SORT_TAIL,
-        )
-        bounds = self._host(bounds_dev).astype(np.int64)
+        with self.tracer.phase("flush/sort"):
+            ws, bounds_dev = dw.sort_window(
+                self._dev_window, self._dev_pids, self._dev_rows, n_bucket, P,
+                dw.SORT_TAIL,
+            )
+            bounds = self._host(bounds_dev).astype(np.int64)
         self._bump_epoch(np.diff(bounds) > 0)
         self._dev_rows = 0
         if tighten:
@@ -881,23 +1029,33 @@ class PartitionSet:
             active_old = (
                 min(self._cap, _active_bucket(max(old_max, 1))) if had_old else 0
             )
-            sorted_dims, wr = dw.rank_window(
-                ws, self.sky, self._count_dev, n_bucket, active_old,
-                _next_pow2(n_bucket + P * active_old),
-            )
+            with self.tracer.phase("flush/rank"):
+                sorted_dims, wr = dw.rank_window(
+                    ws, self.sky, self._count_dev, n_bucket, active_old,
+                    _next_pow2(n_bucket + P * active_old),
+                )
             rank = (wr, sorted_dims)
         widths = np.diff(bounds)
-        if self._sequential(widths):
+        sequential = self._sequential(widths)
+        self._fnote(
+            "flush.dispatch", policy=self.flush_policy, device_window=True,
+            rows=int(widths.sum()), max_rows=int(widths.max()), sequential=sequential,
+        )
+        # the rounds' profiler signature keys mp as the reference's does,
+        # whatever the rank cascade makes of it
+        variant = "sfs_rank" if rank is not None else None
+        if sequential:
 
             def one_round(p, sky_p, cnt_p, off, w, B, active):
                 start = int(bounds[p]) + off
-                if rank is not None:
-                    return (*dw.sfs_round_at_rank(
-                        sky_p, cnt_p, ws, *rank, start, w, B=B, active=active
-                    ), None)
-                return dw.sfs_round_at(
-                    sky_p, cnt_p, ws, start, w, B=B, active=active, mp=mp
-                )
+                with self._merge_kernel(variant or "sfs_sequential", active, mp):
+                    if rank is not None:
+                        return (*dw.sfs_round_at_rank(
+                            sky_p, cnt_p, ws, *rank, start, w, B=B, active=active
+                        ), None)
+                    return dw.sfs_round_at(
+                        sky_p, cnt_p, ws, start, w, B=B, active=active, mp=mp
+                    )
 
             # blocks sliced from the sorted window must fit its tail pad
             counts = self._sfs_sequential(
@@ -908,15 +1066,16 @@ class PartitionSet:
             lo, hi = bounds_dev[:-1].long(), bounds_dev[1:].long()
 
             def batched_round(rnd, counts, active):
-                offs = torch.minimum(lo + rnd * B, hi)
-                w = torch.clamp(hi - offs, 0, B)
-                if rank is not None:
-                    return (*dw.sfs_round_at_rank_vmapped(
-                        self.sky, counts, ws, *rank, offs, w, B=B, active=active
-                    ), None)
-                return dw.sfs_round_at_vmapped(
-                    self.sky, counts, ws, offs, w, B=B, active=active, mp=mp
-                )
+                with self._merge_kernel(variant or "sfs_vmapped", active, mp):
+                    offs = torch.minimum(lo + rnd * B, hi)
+                    w = torch.clamp(hi - offs, 0, B)
+                    if rank is not None:
+                        return (*dw.sfs_round_at_rank_vmapped(
+                            self.sky, counts, ws, *rank, offs, w, B=B, active=active
+                        ), None)
+                    return dw.sfs_round_at_vmapped(
+                        self.sky, counts, ws, offs, w, B=B, active=active, mp=mp
+                    )
 
             counts = self._sfs_vmapped(widths, B, batched_round, mp and rank is None)
         self._finish_lazy_flush(counts, had_old, old_counts, old_max, t0, rank, tighten)
@@ -1117,14 +1276,15 @@ class PartitionSet:
             # sync-free flush whose rounds tightened the bounds (the
             # reference then fails on mismatched shapes; ROADMAP.md queue 3)
             old_active = min(active, _active_bucket(max(old_max, 1)))
-            if rank is not None:
-                self.sky, counts = dw.sfs_cleanup_rank(
-                    self.sky, counts, old_counts, rank[1], old_active, active,
-                )
-            else:
-                self.sky, counts = sfs_cleanup(
-                    self.sky, counts, old_counts, old_active, active
-                )
+            with self._merge_kernel("sfs_cleanup", active):
+                if rank is not None:
+                    self.sky, counts = dw.sfs_cleanup_rank(
+                        self.sky, counts, old_counts, rank[1], old_active, active,
+                    )
+                else:
+                    self.sky, counts = sfs_cleanup(
+                        self.sky, counts, old_counts, old_active, active
+                    )
         self._count_dev = counts
         self._counts_cache = None
         self._host_cache = None
@@ -1198,26 +1358,37 @@ class PartitionSet:
         dropped = 0
         if grid is not None and seen:
             bounds, ux = grid
-            for p, r in enumerate(rows):
-                if r.shape[0] == 0 or not (ux[p] <= GRID_BINS).all(axis=1).any():
-                    continue  # nothing to code, or no representative can certify
-                drop = np.concatenate([
-                    grid_drop(bounds[p], ux[p], r[s : s + _PREFILTER_CHUNK])
-                    for s in range(0, r.shape[0], _PREFILTER_CHUNK)
-                ])
-                if drop.any():
-                    dropped += int(drop.sum())
-                    rows[p] = r[~drop]
+            with self.tracer.phase("flush/prefilter"):
+                for p, r in enumerate(rows):
+                    if r.shape[0] == 0 or not (ux[p] <= GRID_BINS).all(axis=1).any():
+                        continue  # nothing to code, or no representative can certify
+                    drop = np.concatenate([
+                        grid_drop(bounds[p], ux[p], r[s : s + _PREFILTER_CHUNK])
+                        for s in range(0, r.shape[0], _PREFILTER_CHUNK)
+                    ])
+                    if drop.any():
+                        dropped += int(drop.sum())
+                        rows[p] = r[~drop]
         self.prefilter_seen += seen
         self.prefilter_dropped += dropped
+        if seen:
+            self._fnote("flush.prefilter", seen=seen, dropped=dropped)
+        # both series register at the first prefiltered flush, zero included
+        self._inc("flush.prefilter_dropped", dropped)
+        self._inc("flush.bf16_resolved", 0)
         return rows
 
     def flush_cascade_stats(self) -> dict:
         """The flush cascade's counters: the grid prefilter's (host-exact)
         and the bf16 pre-drop's certified drops — a device total, read (one
-        sync) here and nowhere on the flush path."""
+        sync) here and nowhere on the flush path, and fed to the counters
+        sink as a delta."""
         if self._mp_resolved is not None:
             self.bf16_resolved = int(self._mp_resolved.item())
+            delta = self.bf16_resolved - self._bf16_resolved_reported
+            if delta:
+                self._inc("flush.bf16_resolved", delta)
+                self._bf16_resolved_reported = self.bf16_resolved
         seen = self.prefilter_seen
         return {
             "prefilter_enabled": self._prefilter_on(),
@@ -1265,11 +1436,16 @@ class PartitionSet:
         h.emit_points = emit_points
         h.key = self.epoch_key
         h.epoch = self._epoch.copy()
+        # claim the parked EXPLAIN plan (one-shot): it rides the handle, so an
+        # overlapped merge annotates the query that launched it
+        h.explain, self._explain = self._explain, None
         h.use_cache = cascade.merge_cache_on(False)
         cache = self._gm_cache if h.use_cache else None
         if cache is not None and cache["key"] == h.key:
             # exact hit: no flush touched any partition since this result
             self.merge_cache_hits += 1
+            self._inc("merge.cache_hit")
+            self._fnote("merge.cache_hit", key=h.key)
             self._counts_cache = cache["counts"].copy()
             self._count_ub = cache["counts"].copy()
             h.cached = True
@@ -1277,10 +1453,19 @@ class PartitionSet:
                 cache["counts"].copy(), cache["surv"].copy(), cache["g"],
                 self._cached_points() if emit_points else None,
             )
+            if h.explain is not None:
+                h.explain.merge = {
+                    "path": "cache_hit", "cached": True, "epoch_key": h.key.hex(),
+                    "dirty_fraction": 0.0, "dirty": [],
+                    "clean": np.flatnonzero(cache["counts"] > 0).tolist(),
+                    "skyline_size": int(cache["g"]),
+                }
             return h
         self.merge_cache_misses += 1
+        self._inc("merge.cache_miss")
         P = self.num_partitions
         dirty = None
+        dirty_mask = None
         if cache is not None:
             dirty_mask = self._epoch != cache["epoch"]
             self.last_dirty_fraction = float(dirty_mask.sum()) / P
@@ -1289,6 +1474,21 @@ class PartitionSet:
         elif h.use_cache:
             self.last_dirty_fraction = 1.0  # a cold miss: everything dirty
         use_tree = cascade.merge_tree_on(False, self.dims)
+        path = cascade.merge_path(use_tree, dirty is not None)
+        self._fnote("merge.launch", path=path, dirty_fraction=self.last_dirty_fraction)
+        if h.explain is not None:
+            if dirty_mask is not None:
+                dirty_set = np.flatnonzero(dirty_mask).tolist()
+                clean_set = np.flatnonzero(~dirty_mask).tolist()
+            else:
+                # no cached epoch to diff against: everything recomputes
+                dirty_set, clean_set = list(range(P)), []
+            h.explain.merge = {
+                "path": path, "cached": False, "epoch_key": h.key.hex(),
+                # meaningful only when the cache plane computed it this launch
+                "dirty_fraction": self.last_dirty_fraction if h.use_cache else None,
+                "dirty": dirty_set, "clean": clean_set,
+            }
         stats = None
         if dirty is not None:
             h.dirty = dirty
@@ -1343,11 +1543,19 @@ class PartitionSet:
         if h.cached:
             return h.result
         P = self.num_partitions
-        svec = self._landed(h.stats, h.event).astype(np.int64)
+        with self.tracer.phase("query/global_stats_sync"):
+            svec = self._landed(h.stats, h.event).astype(np.int64)
         counts, surv, g = svec[:P].copy(), svec[P : 2 * P].copy(), int(svec[2 * P])
         if h.dirty is not None:
             self.merge_delta_merges += 1
-            self.merge_delta_rows += h.clean_total + int(counts[h.dirty].sum())
+            drows = h.clean_total + int(counts[h.dirty].sum())
+            self.merge_delta_rows += drows
+            self._inc("merge.delta_rows", drows)
+            if h.explain is not None:
+                h.explain.merge["delta_rows"] = drows
+                h.explain.merge["clean_rows"] = int(h.clean_total)
+        if h.explain is not None and h.explain.merge is not None:
+            h.explain.merge["skyline_size"] = g
         pts = None
         if h.use_cache:
             # compact into the cache even without points: the next delta
@@ -1368,11 +1576,12 @@ class PartitionSet:
                 pts = self._cached_points()
         elif h.emit_points:
             out_cap = _next_pow2(max(g, 1))
-            if h.root_vals is not None:
-                pts_dev = tree_points_device(h.root_vals, out_cap)
-            else:
-                pts_dev = global_points_device(h.union, h.keep, out_cap)
-            pts = self._host(pts_dev)[:g]
+            with self.tracer.phase("query/points_transfer"):
+                if h.root_vals is not None:
+                    pts_dev = tree_points_device(h.root_vals, out_cap)
+                else:
+                    pts_dev = global_points_device(h.union, h.keep, out_cap)
+                pts = self._host(pts_dev)[:g]
         if self.epoch_key == h.key:
             self._counts_cache = counts.copy()
             self._count_ub = counts.copy()
@@ -1442,6 +1651,12 @@ class PartitionSet:
             pruned = self._prune_mask(alive)
             npruned = int(pruned.sum())
             leaf_mask = alive & ~pruned
+            if h.explain is not None:
+                wit = self.last_prune_witness
+                h.explain.tree = {"pruned": [
+                    {"partition": int(b), "witness": int(wit[b])}
+                    for b in np.flatnonzero(pruned)
+                ]}
         pids = np.flatnonzero(leaf_mask)
         if pids.size == 0:
             return None  # empty set: the flat pass answers the zero state
@@ -1501,12 +1716,22 @@ class PartitionSet:
         h.root_vals = root_vals
         self.merge_tree_merges += 1
         self.merge_partitions_pruned += npruned
+        # inc zero too: the series register at the first tree merge
+        self._inc("merge.tree_levels", levels)
+        self._inc("merge.partitions_pruned", npruned)
+        self._fnote("merge.tree", levels=levels, pruned=npruned, considered=considered)
         self.last_tree_info = {
             "levels": levels,
             "partitions_pruned": npruned,
             "candidates_per_level": cand,
             "pruned_fraction": (npruned / considered) if considered else 0.0,
         }
+        if h.explain is not None:
+            # beside the prune's witness rows (full path only), the tree shape
+            tree = h.explain.tree or {"pruned": []}
+            tree.update(self.last_tree_info)
+            tree["considered"] = considered
+            h.explain.tree = tree
         return tree_stats_device(self._count_dev, root_pids, root_cnt, self.num_partitions)
 
     def _cached_points(self) -> np.ndarray:
@@ -1514,7 +1739,8 @@ class PartitionSet:
         once per cached merge."""
         c = self._gm_cache
         if c["pts_host"] is None:
-            c["pts_host"] = self._host(c["pts_dev"])[: c["g"]].copy()
+            with self.tracer.phase("query/points_transfer"):
+                c["pts_host"] = self._host(c["pts_dev"])[: c["g"]].copy()
         return c["pts_host"].copy()
 
     # -- state access ---------------------------------------------------------
@@ -1523,14 +1749,16 @@ class PartitionSet:
         """Exact survivor counts (P,) — one device sync (cached until the
         next flush)."""
         if self._counts_cache is None:
-            self._counts_cache = self._host(self._count_dev)
+            with self.tracer.phase("query/count_sync"):
+                self._counts_cache = self._host(self._count_dev)
             self._count_ub = self._counts_cache.copy()
         self._tighten_pending = False
         return self._counts_cache
 
     def _host_sky(self) -> np.ndarray:
         if self._host_cache is None:
-            self._host_cache = self._host(self.sky)
+            with self.tracer.phase("query/snapshot_transfer"):
+                self._host_cache = self._host(self.sky)
         return self._host_cache
 
     def snapshot(self, p: int) -> np.ndarray:
@@ -1633,9 +1861,17 @@ class PartitionView:
     def max_seen_id(self) -> int:
         return int(self._set.max_seen_id[self.partition_id])
 
+    @max_seen_id.setter
+    def max_seen_id(self, v: int) -> None:
+        self._set.max_seen_id[self.partition_id] = int(v)
+
     @property
     def start_time_ms(self):
         return self._set.start_time_ms[self.partition_id]
+
+    @start_time_ms.setter
+    def start_time_ms(self, v) -> None:
+        self._set.start_time_ms[self.partition_id] = v
 
     @property
     def processing_ms(self) -> float:

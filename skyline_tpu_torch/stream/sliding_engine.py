@@ -97,9 +97,10 @@ class SlidingEngine:
     """Partitioned sliding-window skyline engine (see module docstring).
 
     ``tracer`` times the phases ``route``, ``slide/step`` and
-    ``query/snapshot_transfer``; ``telemetry`` (any object with
-    ``histogram(name).observe``, ``spans.record`` and ``mint_trace_id``)
-    receives the reference's latency histograms, trace ids and spans;
+    ``query/snapshot_transfer``; ``telemetry`` (a ``telemetry.Telemetry``
+    hub, or any object with ``histogram(name).observe``, ``spans.record``
+    and ``mint_trace_id``) receives the reference's latency histograms,
+    trace ids and spans;
     ``attach_snapshots`` takes any store with ``note_ingest`` and
     ``publish``."""
 

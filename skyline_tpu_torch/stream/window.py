@@ -39,10 +39,18 @@ DEFAULT_BUFFER_SIZE = 4096
 
 # The profiler's variant names (``telemetry/profiler.py``), a closed
 # vocabulary for readers of its signatures (``skyline_tpu/stream/window.py``
-# KERNEL_VARIANTS, the rows the port runs). The flush_* and mask_* names are
-# the dispatch race's signatures, recorded into ``PartitionSet._flush_prof``
-# and the dispatch's mask profiler.
+# KERNEL_VARIANTS, the rows the port runs). Every ``flush/merge_kernel``
+# site of ``stream/batched.py`` records its dispatch under one of the first
+# seven into the engine's profiler; the flush_* and mask_* names are the
+# dispatch race's signatures, recorded into ``PartitionSet._flush_prof`` and
+# the dispatch's mask profiler.
 KERNEL_VARIANTS = {
+    "merge_step": "batched merge of one micro-batch into all partitions",
+    "sfs_vmapped": "batched sort-filter-skyline flush round",
+    "sfs_sequential": "single-partition SFS flush round",
+    "sfs_rank": "device-window SFS round in rank space (per partition or "
+                "batched)",
+    "sfs_cleanup": "lazy-flush cleanup pass",
     "sorted_sfs": "host sorted-order SFS cascade, one partition's flush "
                   "(ops/sorted_sfs.py: dedup + f64 sum-sort + blocked scan)",
     "device_cascade": "device sorted dominance cascade, one partition's "

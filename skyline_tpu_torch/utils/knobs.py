@@ -213,3 +213,62 @@ def device_cascade_block() -> int:
     from skyline_tpu_torch.utils.buckets import next_pow2
 
     return next_pow2(max(1, env_int("SKYLINE_DEVICE_CASCADE_BLOCK", 2048)), min_cap=8)
+
+
+# -- the observability plane ----------------------------------------------------
+#
+# Read once, when an engine is built (``stream/engine.py``), as in the
+# reference (``skyline_tpu/ops/dispatch.py``). Each plane is host-side
+# bookkeeping around work already timed; the answers are the same with any
+# of them off.
+
+
+def freshness_enabled() -> bool:
+    """``SKYLINE_FRESHNESS``: the event-time freshness lineage
+    (``telemetry/freshness.py``) — per-batch event-time stamps through
+    ingest, flush, merge and publish, and the
+    ``skyline_freshness_lag_ms{stage=...}`` histograms. On by default."""
+    return env_bool("SKYLINE_FRESHNESS", True)
+
+
+def kernel_profile_enabled() -> bool:
+    """``SKYLINE_KERNEL_PROFILE``: the per-dispatch-signature kernel
+    profiler (``telemetry/profiler.py``) around every ``flush/merge_kernel``
+    dispatch, with a ``kernel/<variant>`` span each. Two clock reads and a
+    lock per dispatch; on by default."""
+    return env_bool("SKYLINE_KERNEL_PROFILE", True)
+
+
+def explain_enabled() -> bool:
+    """``SKYLINE_EXPLAIN``: one EXPLAIN ``QueryPlan`` per trigger
+    (``telemetry/explain.py``), with a telemetry hub. On by default."""
+    return env_bool("SKYLINE_EXPLAIN", True)
+
+
+def audit_enabled() -> bool:
+    """``SKYLINE_AUDIT``: the audit plane's counters and ``audit`` block,
+    with a telemetry hub. On by default."""
+    return env_bool("SKYLINE_AUDIT", True)
+
+
+def workload_enabled() -> bool:
+    """``SKYLINE_WORKLOAD``: the streaming workload characterizer
+    (``telemetry/workload.py``) — a stride sample of at most
+    ``SKYLINE_WORKLOAD_SAMPLE_CAP`` rows of each ingest batch. On by
+    default."""
+    return env_bool("SKYLINE_WORKLOAD", True)
+
+
+def tuner_enabled() -> bool:
+    """``SKYLINE_TUNER``: the closed-loop dispatch tuner
+    (``telemetry/tuner.py``), with a telemetry hub. It pins only table rows
+    with a registered oracle and stays passive until a workload epoch has
+    closed and ``SKYLINE_TUNER_EPOCH_S`` has elapsed. On by default."""
+    return env_bool("SKYLINE_TUNER", True)
+
+
+def profile_cost_enabled() -> bool:
+    """``SKYLINE_PROFILE_COST``: the kernel profiler also keeps, once per
+    signature, the merge step's flops and bytes reckoned from its shapes.
+    Off by default."""
+    return env_bool("SKYLINE_PROFILE_COST", False)
