@@ -1184,6 +1184,9 @@ PATHS = {
     "p": (dict(NORTH_STAR, ingest="device"), False, MP_ROUNDS + TREE_K2, {}),
     "q": (dict(GRID_3D, ingest="host", grid_prefilter=True), False,
           (PREDROP_FUSED, MP_PATH[1]) + TREE_K2, {}),
+    # (b) and (f) with the serving and audit planes (SERVE_PATHS)
+    "r": (dict(NORTH_STAR, ingest="device"), False, MP_ROUNDS + TREE_K2, {}),
+    "s": (dict(GRID_3D, dims=2, ingest="host"), False, (), {}),
 }
 # the paths whose engines record into a telemetry hub, one hub a path shared
 # by its windows' engines, as a worker's is: (p) is (b) with the hub
@@ -1782,6 +1785,192 @@ def check_observability_parity(torch, np, devices=("cuda", "cpu")) -> dict:
     return out
 
 
+# -- the serving and audit planes ------------------------------------------------
+
+# (name, engine configuration, rows per window): the OBS_PARITY engines, each
+# with a snapshot store, a delta ring, an in-memory body store and a
+# Telemetry() hub (so the auditor checks every published snapshot)
+SERVE_PARITY = (
+    ("lazy_device_8d", dict(NORTH_STAR, ingest="device"), DEVICE_PARITY_ROWS),
+    ("incremental_host_3d", dict(GRID_3D, ingest="host"), DEVICE_PARITY_ROWS),
+)
+# divergence bundles of the audit drill (git-ignored, inside the checkout)
+AUDIT_BUNDLES = ROOT / "skyline_tpu_torch" / "_build" / "audit"
+DRILL_PLAN = "corrupt@audit.corrupt:1"
+
+
+@contextlib.contextmanager
+def store_clock():
+    """The snapshot store's wall clock replaced by a tick of 10 ms from a
+    fixed epoch (``serve/snapshot.py`` ``_now_ms``), so the publish stamps,
+    and with the batches' event times the whole JSON bodies, compare across
+    runs."""
+    import itertools
+
+    from skyline_tpu_torch.serve import snapshot
+
+    real, ticks = snapshot._now_ms, itertools.count()
+    snapshot._now_ms = lambda: 1.0e12 + 10.0 * next(ticks)
+    try:
+        yield
+    finally:
+        snapshot._now_ms = real
+
+
+def _drive_served(ecfg, windows, chunk=8192, triggers=("q", "r")):
+    """Windows through one engine with the serving plane attached (a store,
+    a delta ring, an in-memory body store, a hub), event times stamped from
+    the row ids, ``triggers`` after each window (a repeat dedupes on the
+    device path): (per publish (version, size, watermark, digest, entered,
+    left, JSON body, JSON head, CSV body), the points of each publish, the
+    audit records without their timings, the hub, the engine)."""
+    import numpy as np
+
+    from skyline_tpu_torch.serve import DeltaRing, SnapshotStore
+    from skyline_tpu_torch.serve import bodystore as bs
+    from skyline_tpu_torch.stream import SkylineEngine
+    from skyline_tpu_torch.telemetry import Telemetry, spans
+
+    spans._mint_seq = 0  # the same trace ids in every run
+    hub = Telemetry()
+    eng = SkylineEngine(ecfg, telemetry=hub)
+    store = SnapshotStore()
+    ring = DeltaRing(store)
+    body = bs.BodyStore(None).attach(store)
+    eng.attach_snapshots(store)
+    pubs, points = [], []
+
+    def note(prev, snap):
+        tail = ring.latest()
+        pubs.append((snap.version, snap.size, snap.watermark_id, snap.digest,
+                     tail.entered.tobytes(), tail.left.tobytes(),
+                     body.get(snap.version, bs.FMT_JSON_POINTS),
+                     body.get(snap.version, bs.FMT_JSON_NOPOINTS),
+                     body.get(snap.version, bs.FMT_CSV)))
+        points.append(snap.points)
+
+    store.on_publish(note)
+    base = 0
+    with store_clock():
+        for i, x in enumerate(windows):
+            for s in range(0, x.shape[0], chunk):
+                ids = np.arange(base + s, base + min(s + chunk, x.shape[0]), dtype=np.int64)
+                eng.process_records(ids, x[s : s + chunk],
+                                    event_ms=(5.0e11 + base + s, 5.0e11 + base + s + chunk))
+            base += x.shape[0]
+            for t in triggers:
+                eng.process_trigger(f"{t}{i},0")
+                eng.poll_results()
+    audits = [untimed(r) for r in hub.audit.snapshot()]
+    return pubs, points, audits, hub, eng
+
+
+def check_serve_parity(torch, np, devices=("cuda", "cpu")) -> dict:
+    """The serving and audit planes on the card against the CPU: each
+    ``SERVE_PARITY`` engine over two windows, two triggers after each. Every
+    publish's version, size, watermark and digest, its delta's entered and
+    left bytes, its JSON and CSV bodies and every audit record (timings
+    aside) are the CPU's where the card routes every row as the CPU does,
+    else the sizes and sorted point bytes; every organic check passes. On
+    the card the five canaries pass, each on its named path, and the drill
+    (``SKYLINE_FAULT_PLAN=corrupt@audit.corrupt:1``) gives exactly one
+    divergence and one bundle, which ``python -m skyline_tpu_torch.audit
+    replay`` reproduces and acquits the engine of (exit code 0)."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+    from skyline_tpu_torch.parallel.partitioners import partition_ids
+    from skyline_tpu_torch.resilience import faults
+    from skyline_tpu_torch.stream import EngineConfig
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    rng = np.random.default_rng(67)
+    out = {}
+    with rank_gate(False), knob_env(OBS_ENV):
+        for name, cfg, n in SERVE_PARITY:
+            windows = [anti_correlated(rng, n, cfg["dims"], 0, 10000) for _ in range(2)]
+            strict = True
+            if cfg["ingest"] == "device":
+                x = torch.from_numpy(np.concatenate(windows))
+                args = (cfg["algo"], 2 * cfg["parallelism"], cfg["domain_max"])
+                strict = torch.equal(partition_ids(x.to(devices[0]), *args).cpu(),
+                                     partition_ids(x, *args))
+            runs = {}
+            for label, device in (("card", devices[0]), ("cpu", devices[1])):
+                ecfg = EngineConfig(**cfg, window_capacity=n, device=device)
+                runs[label] = _drive_served(ecfg, windows)
+            (pubs, pts, audits, hub, eng), (cpubs, cpts, caudits, _, _) = runs["card"], runs["cpu"]
+            if len(pubs) != len(cpubs) or not all(a["ok"] for a in audits + caudits):
+                raise AssertionError(f"serve {name}: {len(pubs)} vs {len(cpubs)} publishes, "
+                                     f"audits {audits} vs {caudits}")
+            if strict:
+                for i, (a, b) in enumerate(zip(pubs, cpubs)):
+                    if a != b:
+                        fields = ("version", "size", "watermark", "digest", "entered", "left",
+                                  "json", "head", "csv")
+                        raise AssertionError(
+                            f"serve {name} publish {i}: "
+                            f"{[f for f, u, v in zip(fields, a, b) if u != v]} differ")
+                if audits != caudits:
+                    raise AssertionError(f"serve {name}: audit records {audits} vs {caudits}")
+            elif [p[1] for p in pubs] != [p[1] for p in cpubs] or [
+                    _sorted_bytes(p) for p in pts] != [_sorted_bytes(p) for p in cpts]:
+                raise AssertionError(f"serve {name}: another point set on the card")
+            out[name] = {"rows_per_window": n, "strict": bool(strict),
+                         "publishes": [p[:3] for p in pubs], "audits": len(audits),
+                         "deduped": eng.snapshots.deduped,
+                         "json_bytes": [len(p[6]) for p in pubs]}
+            log(f"parity: serve {name} over 2 windows of {n} rows, 2 triggers each: "
+                f"{len(pubs)} publishes (versions, sizes, watermarks {out[name]['publishes']}, "
+                f"{eng.snapshots.deduped} deduped), card == cpu "
+                f"({'digests, deltas, JSON and CSV bodies, audit records' if strict else 'sizes and sorted points'}); "
+                f"{len(audits)} organic checks passed")
+        # the canaries on the card, through the auditor of a card engine
+        before = dict(dk.LAUNCHES)
+        records = eng.auditor.run_canaries()
+        launched = {k: v - before.get(k, 0) for k, v in dk.LAUNCHES.items()
+                    if v != before.get(k, 0)}
+        taken = {r["path"]: r["taken"] for r in records}
+        if not all(r["ok"] for r in records) or taken != {p: p for p in taken} or len(taken) != 5:
+            raise AssertionError(f"serve: canaries {records}")
+        if not any(k.startswith("dominated_by_rect") for k in launched):
+            raise AssertionError(f"serve: the canaries launched no K2 on the card: {launched}")
+        out["canaries"] = {"taken": taken, "launches": launched}
+        log(f"parity: serve canaries on the card: 5 of 5 passed, each on its path {taken}; "
+            f"launches {launched}")
+        # the divergence drill and the offline replay of its bundle
+        name, cfg, n = SERVE_PARITY[0]
+        AUDIT_BUNDLES.mkdir(parents=True, exist_ok=True)
+        with knob_env({"SKYLINE_FAULT_PLAN": DRILL_PLAN, "SKYLINE_AUDIT_DIR": str(AUDIT_BUNDLES)}):
+            faults.install_from_env()
+            try:
+                ecfg = EngineConfig(**cfg, window_capacity=n, device=devices[0])
+                _, _, audits, hub, _ = _drive_served(
+                    ecfg, [anti_correlated(rng, n, 8, 0, 10000)], triggers=("q",))
+            finally:
+                faults.clear()
+        doc = hub.audit.doc()
+        if hub.counters.get("audit.divergence") != 1 or len(doc["bundles"]) != 1:
+            raise AssertionError(f"serve drill: {hub.counters.get('audit.divergence')} "
+                                 f"divergences, bundles {doc['bundles']}")
+        bundle = doc["bundles"][0]
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "skyline_tpu_torch.audit", "replay", bundle,
+                            "--json", "--device", devices[0]],
+                           capture_output=True, text=True, timeout=600, cwd=ROOT)
+        verdict = json.loads(r.stdout) if r.returncode == 0 else None
+        if verdict is None or not verdict["reproduced"] or verdict["engine_diverges"]:
+            raise AssertionError(f"serve drill: replay exit {r.returncode}: {r.stdout[-2000:]} "
+                                 f"{r.stderr[-2000:]}")
+        out["drill"] = {"plan": DRILL_PLAN, "checks": hub.counters.get("audit.checks"),
+                        "divergences": 1, "bundle": bundle, "replay_exit": r.returncode,
+                        "replay_s": time.perf_counter() - t0,
+                        "first_diff": verdict["recomputed_first_diff"],
+                        "replay_path": verdict["replay_plan"]["merge"]["path"]}
+        log(f"parity: serve drill {DRILL_PLAN}: {out['drill']['checks']} checks, 1 divergence, "
+            f"1 bundle ({bundle}); replay on the card exit 0 in {out['drill']['replay_s']:.1f} s: "
+            f"reproduced, the engine acquitted (merge path {out['drill']['replay_path']})")
+    return out
+
+
 PLANE_COUNTERS = (
     "merge_cache_hits", "merge_cache_misses", "merge_delta_merges", "merge_delta_rows",
     "merge_tree_merges", "merge_partitions_pruned", "last_tree_info",
@@ -2039,7 +2228,10 @@ def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
     cascade counters (``flush_cascade_stats``), grid-prefilter host ms and
     rows the midpoint prefilter dropped; on ``PLANE_PATHS`` the merge plane
     measured on the last engine. Each window's engine takes over the lazy
-    flush race's profiler of the one before (``flush_race``). On
+    flush race's profiler of the one before (``flush_race``); on
+    ``SERVE_PATHS`` one engine runs every window (``serve_window``), its
+    counters read as each window's difference, and the path fails unless
+    ``check_serve`` holds. On
     ``HUB_PATHS`` every window's engine records into one ``Telemetry()``
     hub; each window reports the spans, flight entries and EXPLAIN records
     it added, the spans the ring dropped and its tuner's epochs and moves,
@@ -2056,42 +2248,69 @@ def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
     ids = np.arange(n, dtype=np.int64)
     warm_x = anti_correlated(rng, n, d, 0, 10000)
     hub = Telemetry() if path in HUB_PATHS else None
+    serving = ServingPlane(np) if path in SERVE_PATHS else None
     lat, rows = [], []
-    with rank_gate(gate, env), prefilter_timer() as pre_ms:
+    with rank_gate(gate, env), prefilter_timer() as pre_ms, contextlib.ExitStack() as stack:
+        if serving is not None:
+            stack.callback(serving.close)
         dk.reset_launches()
-        warm_dt, warm_res, eng = run_window(
-            _config(path, n, emit_skyline_points=True), ids, warm_x, telemetry=hub
-        )
+        if serving is None:
+            warm_dt, warm_res, eng = run_window(
+                _config(path, n, emit_skyline_points=True), ids, warm_x, telemetry=hub
+            )
+            warm_points = np.asarray(warm_res["skyline_points"], np.float32)
+        else:
+            eng = serving.engine(_config(path, n))
+            warm_dt, warm_res, _ = serve_window(serving, eng, ids, warm_x)
+            version = serving.full_reads(d, None)
+            warm_points = serving.prev_points  # the answer as the server served it
+            # before the first publish a read is a 503 (no snapshot yet)
+            serving.warm_codes, serving.codes = serving.codes, {}
         race = [flush_race(path, "warm", eng)]
         for w in range(windows):
             x = anti_correlated(rng, n, d, 0, 10000)
             calls = len(pre_ms)
             mark = _hub_mark(hub)
-            dt, res, eng = run_window(_config(path, n), ids, x,
-                                      flush_prof=eng.pset._flush_prof, telemetry=hub)
+            served = None
+            if serving is None:
+                before = None
+                dt, res, eng = run_window(_config(path, n), ids, x,
+                                          flush_prof=eng.pset._flush_prof, telemetry=hub)
+            else:  # one engine: its counters run across windows
+                before = (eng.pset.flush_cascade_stats(), eng.prefiltered)
+                dt, res, served = serve_window(serving, eng, ids, x)
+                version = serving.full_reads(d, version)
             lat.append(dt)
-            cascade = eng.pset.flush_cascade_stats()
+            cascade = _cascade_since(eng.pset.flush_cascade_stats(), before and before[0])
             race.append(flush_race(path, w, eng))
             rows.append({
                 "window_ms": dt * 1e3, "flush_ms": eng.last_flush_ms,
                 "merge_ms": eng.last_merge_ms, "skyline_size": res["skyline_size"],
                 "local_sizes": eng.pset.sky_counts().tolist(), "flush_cascade": cascade,
                 "prefilter_ms": sum(pre_ms[calls:]), "prefilter_calls": len(pre_ms) - calls,
-                "prefiltered": eng.prefiltered, "flush_race": race[-1],
-                "hub": _hub_window(hub, mark, eng),
+                "prefiltered": eng.prefiltered - (before[1] if before else 0),
+                "flush_race": race[-1],
+                "hub": _hub_window(hub, mark, eng), "serve": served,
             })
             log(f"main ({path}): window {w}: {dt * 1e3:.1f} ms (flush "
                 f"{eng.last_flush_ms:.1f} ms, merge {eng.last_merge_ms:.1f} ms, "
                 f"flush/prefilter {rows[-1]['prefilter_ms']:.1f} ms host in "
                 f"{rows[-1]['prefilter_calls']} flushes), skyline {res['skyline_size']}, "
                 f"midpoint prefilter dropped {eng.prefiltered}; flush cascade {cascade}"
-                + (f"; hub {rows[-1]['hub']}" if hub is not None else ""))
+                + (f"; hub {rows[-1]['hub']}" if hub is not None else "")
+                + (f"; serve {_serve_line(served)}" if served is not None else ""))
         launches = dict(dk.LAUNCHES)
         tree = {"tree_merges": eng.pset.merge_tree_merges,
                 "tree_info": eng.pset.last_tree_info,
                 "partitions_pruned": eng.pset.merge_partitions_pruned}
-        if tree["tree_merges"] != (1 if d > 2 and env.get("SKYLINE_MERGE_TREE") != "0" else 0):
-            raise AssertionError(f"main path ({path}) ran {tree['tree_merges']} tree merges")
+        # a fresh engine's one trigger; on a serve path's one engine, the
+        # query and the trigger of every window
+        tree_want = 1 if d > 2 and env.get("SKYLINE_MERGE_TREE") != "0" else 0
+        if serving is not None:
+            tree_want *= 2 * (windows + 1)
+        if tree["tree_merges"] != tree_want:
+            raise AssertionError(f"main path ({path}) ran {tree['tree_merges']} tree merges, "
+                                 f"not {tree_want}")
         plane = measure_plane(torch, np, path, eng, n) if path in PLANE_PATHS else None
     if hub is not None:
         pins, overrides = table.pins_doc(), table.overrides_doc()
@@ -2101,7 +2320,7 @@ def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
         log(f"main ({path}): cleared the tuner's pins {pins} and overrides {overrides}; "
             f"later paths run without them")
     log(f"main ({path}): warm window {warm_dt * 1e3:.1f} ms, skyline {warm_res['skyline_size']}")
-    check_answer(torch, np, warm_x, np.asarray(warm_res["skyline_points"], np.float32), dev)
+    check_answer(torch, np, warm_x, warm_points, dev)
     missing = [k for k in wanted if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path ({path}) launched no {missing}")
@@ -2127,6 +2346,9 @@ def main_path(torch, np, path: str, n: int, windows: int, dev="cuda"):
         },
         "merge_env": env, **tree, "plane": plane, "flush_race": race,
     }
+    if serving is not None:
+        summary["serve"] = serve_summary(np, serving, rows, lat, n, windows)
+        check_serve(path, summary["serve"])
     log(f"main ({path}): {summary['tuples_per_s']:.0f} tuples/s, p50 window "
         f"{summary['p50_window_ms']:.1f} ms (flush {summary['p50_flush_ms']:.1f}, merge "
         f"{summary['p50_merge_ms']:.1f}, flush/prefilter {summary['p50_prefilter_ms']:.1f} "
@@ -2160,6 +2382,413 @@ def _hub_window(hub, mark, eng) -> dict | None:
         "explain_records": hub.explain.doc()["recorded_total"] - plans,
         "tuner_epochs": eng.tuner.epochs if eng.tuner is not None else None,
         "tuner_moves": eng.tuner.moves if eng.tuner is not None else None,
+    }
+
+
+# -- main paths with the serving plane ---------------------------------------------
+
+# (path, the main path it extends): (r) is (b) and (s) is (f) with the
+# serving and audit planes: one engine, hub, snapshot store, delta ring,
+# in-memory body store and SkylineServer (127.0.0.1, port 0) for all the
+# path's windows, as a worker keeps them; the auditor at its defaults
+# (every answer checked)
+SERVE_PATHS = {"r": "b", "s": "f"}
+SERVE_READERS = 32
+# the header readers: SERVE_READERS threads in a process of their own (a
+# client's, not the server's), reading until their stdin closes, then
+# printing their latencies and status codes
+READER_CLIENT = """
+import json, sys, threading, time, urllib.error, urllib.request
+url, n = sys.argv[1], int(sys.argv[2])
+stop, lock, lat, codes = threading.Event(), threading.Lock(), [], {}
+def loop():
+    while not stop.is_set():
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(url, timeout=120) as r:
+                r.read()
+                code = r.status
+        except urllib.error.HTTPError as e:
+            code = e.code
+        ms = (time.perf_counter() - t0) * 1e3
+        with lock:
+            codes[code] = codes.get(code, 0) + 1
+            if code == 200:
+                lat.append(ms)
+threads = [threading.Thread(target=loop, daemon=True) for _ in range(n)]
+for t in threads:
+    t.start()
+print("ready", flush=True)
+sys.stdin.read()
+stop.set()
+for t in threads:
+    t.join(timeout=120)
+print(json.dumps({"lat": lat, "codes": codes}), flush=True)
+"""
+
+
+def _pct(np, xs, q):
+    return float(np.percentile(xs, q)) if len(xs) else None
+
+
+class ServingPlane:
+    """The serving plane of a serve path, with its clients: ``SERVE_READERS``
+    threads of a client process (``READER_CLIENT``) issuing ``GET
+    /skyline?points=0`` while a window runs, one full
+    JSON, one CSV and one ``/deltas`` read after each publish (each full
+    read's digest recomputed from its rows), a ``POST /query`` in the middle
+    of each window, drained by the window's bridge loop on the engine
+    thread and its answer checked there. Per publish: the store's own work
+    (copy and digest, its subscribers aside), the body store's and the
+    delta ring's ms, and from the window's spans the audit check's ms."""
+
+    def __init__(self, np):
+        import threading
+
+        from skyline_tpu_torch.serve import DeltaRing, QueryBridge, SkylineServer, SnapshotStore
+        from skyline_tpu_torch.serve.bodystore import BodyStore
+        from skyline_tpu_torch.telemetry import Telemetry
+
+        self.np = np
+        self.hub = Telemetry()
+        self.store = SnapshotStore()
+        self.ring = DeltaRing(None)
+        self.body = BodyStore(None)
+        self.sub_ms = {"delta": [], "body": []}
+        self.store.on_publish(self._timed("delta", self.ring.on_publish))
+        self.store.on_publish(self._timed("body", lambda prev, snap: self.body.put_snapshot(snap)))
+        self.publish_ms = []
+        self.published_size = {}  # query id -> rows of the snapshot its answer lives under
+        real = self.store.publish
+
+        def publish(points, **kw):
+            n_sub = len(self.sub_ms["body"])
+            t0 = time.perf_counter()
+            snap = real(points, **kw)
+            wall = (time.perf_counter() - t0) * 1e3
+            subs = sum(v[-1] for v in self.sub_ms.values()) if len(self.sub_ms["body"]) > n_sub else 0.0
+            self.publish_ms.append(wall - subs)
+            self.published_size[kw.get("query_id")] = int(snap.points.shape[0])
+            return snap
+
+        self.store.publish = publish
+        self.bridge = QueryBridge()
+        self.server = SkylineServer(self.store, deltas=self.ring, bridge=self.bridge, port=0,
+                                    telemetry=self.hub, bodystore=self.body)
+        self.base = f"http://127.0.0.1:{self.server.port}"
+        self.lock = threading.Lock()
+        self.reads = {"head": [], "json": [], "csv": [], "deltas": [], "query": []}
+        self.codes = {}
+        self.warm_codes = {}
+        self.torn = {"json": 0, "csv": 0, "deltas": 0}
+        self.prev_points = None
+
+    def _timed(self, key, fn):
+        def hook(prev, snap):
+            t0 = time.perf_counter()
+            fn(prev, snap)
+            self.sub_ms[key].append((time.perf_counter() - t0) * 1e3)
+
+        return hook
+
+    def _get(self, path, method="GET"):
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(self.base + path, method=method,
+                                     data=b"{}" if method == "POST" else None)
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                code, body, hdr = r.status, r.read(), dict(r.headers)
+        except urllib.error.HTTPError as e:
+            code, body, hdr = e.code, e.read(), dict(e.headers)
+        ms = (time.perf_counter() - t0) * 1e3
+        with self.lock:
+            self.codes[code] = self.codes.get(code, 0) + 1
+        return code, body, hdr, ms
+
+    def readers(self):
+        """Start the header readers' process; returns once they read."""
+        proc = subprocess.Popen(
+            [sys.executable, "-c", READER_CLIENT, self.base + "/skyline?points=0",
+             str(SERVE_READERS)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        if proc.stdout.readline().strip() != "ready":
+            proc.kill()
+            raise AssertionError("the reader process did not start")
+        return proc
+
+    def stop_readers(self, proc) -> int:
+        """Stop the readers' process; fold in its reads, return their count."""
+        try:
+            out, _ = proc.communicate(input="", timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        got = json.loads(out.strip().splitlines()[-1])
+        self.reads["head"] += got["lat"]
+        for code, k in got["codes"].items():
+            self.codes[int(code)] = self.codes.get(int(code), 0) + k
+        return len(got["lat"])
+
+    def engine(self, cfg):
+        """The serve path's one engine, as a worker keeps one per store:
+        on the plane's hub, publishing into its store; its tracer times the
+        points' host copy, unsynchronised."""
+        from skyline_tpu_torch.metrics.tracing import Tracer
+        from skyline_tpu_torch.stream import SkylineEngine
+
+        eng = SkylineEngine(cfg, tracer=Tracer(sync_device=False), telemetry=self.hub)
+        eng.attach_snapshots(self.store)
+        return eng
+
+    def post_query(self):
+        """Send one ``POST /query`` from a client thread. Returns the thread
+        and the dict its outcome lands in (code, body, ms, or the error);
+        ``check_query`` judges it on the engine thread."""
+        import threading
+
+        out = {}
+
+        def post():
+            try:
+                out["code"], out["body"], _, out["ms"] = self._get("/query", "POST")
+            except Exception as e:  # noqa: BLE001 — raised by check_query
+                out["error"] = repr(e)
+
+        t = threading.Thread(target=post, daemon=True)
+        t.start()
+        return t, out
+
+    def check_query(self, post, out) -> None:
+        """The mid-window query's answer: a 200 whose complete answer has
+        the size of the snapshot published for it (which the organic audit
+        holds against the host oracle)."""
+        post.join(timeout=150)
+        if post.is_alive():
+            raise AssertionError("POST /query did not return in 150 s")
+        if "error" in out:
+            raise AssertionError(f"POST /query failed: {out['error']}")
+        if out["code"] != 200:
+            raise AssertionError(f"POST /query answered {out['code']}: {out['body'][:200]!r}")
+        doc = json.loads(out["body"])
+        size = self.published_size.get(doc.get("query_id"))
+        if doc.get("partial") or size is None or doc["skyline_size"] != size:
+            raise AssertionError(f"POST /query answered {doc.get('query_id')} with "
+                                 f"{doc.get('skyline_size')} rows, partial "
+                                 f"{doc.get('partial')}; its snapshot holds {size}")
+        self.reads["query"].append(out["ms"])
+
+    def full_reads(self, d: int, since: int | None):
+        """One full JSON, one CSV and one ``/deltas?since=`` read of the
+        head, each checked: the digest recomputed from the rows, the delta
+        applied to the previous read's rows gives this read's row set."""
+        np = self.np
+        from skyline_tpu_torch.serve.snapshot import points_digest
+
+        code, body, _, ms = self._get("/skyline")
+        if code != 200:
+            raise AssertionError(f"GET /skyline answered {code}: {body[:200]!r}")
+        doc = json.loads(body)
+        pts = np.asarray(doc["points"], np.float32).reshape(-1, d)
+        self.reads["json"].append(ms)
+        log(f"serve: read v{doc['version']}: {pts.shape[0]} rows, "
+            f"{np.unique(pts.view(np.uint32), axis=0).shape[0]} distinct by bytes, "
+            f"{np.unique(pts + np.float32(0.0), axis=0).shape[0]} by value")
+        self._torn("json", points_digest(pts) != doc["digest"],
+                   f"{pts.shape} rows, digest {points_digest(pts)} vs {doc['digest']}")
+        code, body, hdr, ms = self._get("/skyline?format=csv")
+        if code != 200:
+            raise AssertionError(f"GET /skyline?format=csv answered {code}: {body[:200]!r}")
+        self.reads["csv"].append(ms)
+        vals = np.array(body.replace(b"\n", b",").split(b","), dtype=np.float64)
+        csv_pts = vals.reshape(-1, d + 1)[:, 1:].astype(np.float32) if vals.size else pts[:0]
+        self._torn("csv", points_digest(csv_pts) != hdr["X-Skyline-Digest"]
+                   or int(hdr["X-Skyline-Version"]) != doc["version"],
+                   f"{csv_pts.shape} rows, digest {points_digest(csv_pts)} vs "
+                   f"{hdr['X-Skyline-Digest']}, version {hdr['X-Skyline-Version']} vs "
+                   f"{doc['version']}")
+        if since is not None:
+            code, body, _, ms = self._get(f"/deltas?since={since}")
+            delta = json.loads(body)
+            self.reads["deltas"].append(ms)
+            if code != 200 or delta["to_version"] != doc["version"]:
+                raise AssertionError(f"/deltas?since={since}: {code} {body[:200]!r}")
+            # as value sets (-0.0 as +0.0): the ring keys rows by their bytes
+            # but collapses each delta by value, as the reference's does
+            old, new, entered, left = (
+                {r.tobytes() for r in np.unique(a + np.float32(0.0), axis=0)}
+                for a in (self.prev_points, pts,
+                          np.asarray(delta["entered"], np.float32).reshape(-1, d),
+                          np.asarray(delta["left"], np.float32).reshape(-1, d)))
+            self._torn("deltas", not (entered <= new and left <= old
+                                      and new <= old | entered and old - new <= left),
+                       f"since {since}: {len(old)} values before, {len(new)} after, "
+                       f"{len(entered)} entered, {len(left)} left")
+        self.prev_points = pts
+        return doc["version"]
+
+    def _torn(self, kind: str, bad: bool, what: str) -> None:
+        if bad:
+            self.torn[kind] += 1
+            log(f"serve: a {kind} read does not hold: {what}")
+
+    def close(self):
+        self.server.close()
+
+
+def serve_window(plane, eng, ids, x, chunk=65536):
+    """One tumbling window of a serve path through the path's one engine
+    (``plane.engine``): its state emptied first through the public
+    checkpoint restore (``pset.restore_all`` of empty partitions, which
+    advances every epoch, so the store never takes the new window's
+    answer for a repeat of the last), then, with the readers running, the
+    chunks ingested with the bridge loop (``bridge.inject(engine)``,
+    ``engine.poll_results()``, ``bridge.fulfill(results)``) after each, a
+    ``POST /query`` sent at the middle chunk, the trigger, the loop until
+    the query answered; the query's answer checked on this thread.
+    Returns (wall s, the trigger's result, the window's serve numbers)."""
+    import numpy as np
+    import torch
+
+    if eng.records_in:
+        empty = [np.empty((0, eng.config.dims), np.float32)] * eng.config.num_partitions
+        eng.pset.restore_all(empty, empty)
+    eng.tracer.reset()
+    mark = (len(plane.publish_ms), plane.store.published, time.perf_counter_ns(),
+            len(plane.sub_ms["body"]))
+    readers = plane.readers()
+    try:
+        mine, post = [], None
+        t0 = time.perf_counter()
+        chunks = list(range(0, x.shape[0], chunk))
+        for k, i in enumerate(chunks):
+            eng.process_records(ids[i : i + chunk], x[i : i + chunk])
+            if k == len(chunks) // 2:
+                post, answer = plane.post_query()
+                # the query runs here, mid-window: wait for its submission
+                deadline = time.perf_counter() + 60.0
+                while not plane.bridge.pending_injections and time.perf_counter() < deadline:
+                    post.join(timeout=0.0005)
+            plane.bridge.inject(eng)
+            mine += plane.bridge.fulfill(eng.poll_results())
+        eng.process_trigger("0,0")
+        deadline = time.perf_counter() + 300.0
+        while not mine or post.is_alive():
+            if time.perf_counter() > deadline:
+                raise AssertionError("the window's trigger or query did not answer in 300 s")
+            plane.bridge.inject(eng)
+            mine += plane.bridge.fulfill(eng.poll_results())
+            post.join(timeout=0.001)
+        if eng.config.device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        head_reads = plane.stop_readers(readers)
+    plane.check_query(post, answer)
+    (result,) = mine
+    new_pub, new_sub = slice(mark[0], None), slice(mark[3], None)
+    spans = [s for s in plane.hub.spans.snapshot() if s["start_ns"] >= mark[2]]
+    d2h = eng.tracer.report().get("query/points_transfer", {})
+    numbers = {
+        "publishes": plane.store.published - mark[1],
+        "publish_ms": plane.publish_ms[new_pub],
+        "points_to_host_ms": d2h.get("total_ms", 0.0), "points_to_host_calls": d2h.get("count", 0),
+        "body_ms": plane.sub_ms["body"][new_sub], "delta_ms": plane.sub_ms["delta"][new_sub],
+        "audit_ms": [s["dur_ns"] / 1e6 for s in spans if s["name"].startswith("audit/")],
+        "head_reads": head_reads,
+    }
+    return wall, result, numbers
+
+
+def _serve_line(s) -> str:
+    """One window's serve numbers, rounded for the log."""
+    r = lambda v: [round(u, 2) for u in v]  # noqa: E731
+    return (f"{s['publishes']} publishes, publish {r(s['publish_ms'])} ms + points to host "
+            f"{s['points_to_host_ms']:.2f} ms ({s['points_to_host_calls']} copies), body "
+            f"{r(s['body_ms'])} ms, delta {r(s['delta_ms'])} ms, audit {r(s['audit_ms'])} ms, "
+            f"{s['head_reads']} header reads")
+
+
+def report_serve(runs: dict) -> None:
+    """Each serve path's numbers beside the main path it extends (both run
+    in this call)."""
+    for path, base in SERVE_PATHS.items():
+        if path not in runs:
+            continue
+        a, s = runs[path][0], runs[path][0]["serve"]
+        beside = ""
+        if base in runs:
+            b = runs[base][0]
+            beside = (f" vs ({base}) {b['p50_window_ms']:.1f} ms "
+                      f"({a['p50_window_ms'] / b['p50_window_ms']:.3f}x), "
+                      f"{a['tuples_per_s']:.0f} vs {b['tuples_per_s']:.0f} tuples/s")
+        rd = s["reads"]
+        log(f"main ({path}) = ({base}) + serving: p50 window {a['p50_window_ms']:.1f} ms"
+            f"{beside}; per trigger p50: publish {s['p50_publish_ms']:.2f} ms + points to "
+            f"host {s['p50_points_to_host_ms']:.2f} ms a window, body {s['p50_body_ms']:.2f} ms, "
+            f"delta {s['p50_delta_ms']:.2f} ms, audit {s['p50_audit_ms']:.2f} ms; reads p50/p99 "
+            + ", ".join(f"{k} {v['p50_ms'] or 0:.2f}/{v['p99_ms'] or 0:.2f} ms (n {v['n']})"
+                        for k, v in rd.items())
+            + f"; 429s {s['shed_429']}; versions {s['versions_published']}; torn reads "
+            f"{s['torn_reads']}; audit {s['audit']}")
+
+
+def _cascade_since(now: dict, before: dict | None) -> dict:
+    """A window's flush cascade counters: ``now`` less ``before`` (the
+    engine's counters when the window began), where the engine runs more
+    windows than one."""
+    if before is None:
+        return now
+    out = dict(now)
+    for k in ("prefilter_seen", "prefilter_dropped", "bf16_resolved"):
+        out[k] = now[k] - before[k]
+    seen = out["prefilter_seen"]
+    out["prefilter_drop_fraction"] = out["prefilter_dropped"] / seen if seen else 0.0
+    return out
+
+
+def check_serve(path: str, s: dict) -> None:
+    """A serve path holds: no torn read, every response of the measured
+    windows a 200 or a 429 (and of the warm window, before whose first
+    publish the store has no snapshot, a 503 besides), every published
+    version checked by the organic audit against the host oracle with no
+    divergence, no audit error and no skipped check."""
+    bad = []
+    if s["torn_reads"]:
+        bad.append(f"{s['torn_reads']} torn reads {s['torn_by_kind']}")
+    if set(s["codes"]) - {200, 429} or set(s["warm_codes"]) - {200, 429, 503}:
+        bad.append(f"response codes {s['codes']}, warm window's {s['warm_codes']}")
+    a = s["audit"]
+    if a["divergence_total"] or a["errors"] or a["skips"]:
+        bad.append(f"audit {a}")
+    if a["checks_total"] != s["versions_published"]:
+        bad.append(f"{a['checks_total']} audit checks of {s['versions_published']} versions")
+    if bad:
+        raise AssertionError(f"main path ({path}): " + "; ".join(bad))
+
+
+def serve_summary(np, plane, rows, lat, n, windows) -> dict:
+    """A serve path's numbers over its measured windows."""
+    per = lambda key: [v for r in rows for v in r["serve"][key]]  # noqa: E731
+    reads = {k: {"n": len(v), "p50_ms": _pct(np, v, 50), "p99_ms": _pct(np, v, 99)}
+             for k, v in plane.reads.items()}
+    return {
+        "p50_publish_ms": _pct(np, per("publish_ms"), 50),
+        "p50_points_to_host_ms": float(np.median([r["serve"]["points_to_host_ms"] for r in rows])),
+        "p50_body_ms": _pct(np, per("body_ms"), 50), "p50_delta_ms": _pct(np, per("delta_ms"), 50),
+        "p50_audit_ms": _pct(np, per("audit_ms"), 50), "reads": reads,
+        "codes": plane.codes, "warm_codes": plane.warm_codes,
+        "shed_429": plane.codes.get(429, 0),
+        "versions_published": plane.store.published, "deduped": plane.store.deduped,
+        "torn_reads": sum(plane.torn.values()) + plane.body.stats()["torn_reads"],
+        "torn_by_kind": dict(plane.torn),
+        "audit": {**{k: plane.hub.audit.doc()[k] for k in ("checks_total", "divergence_total")},
+                  "errors": plane.hub.counters.get("audit.errors"),
+                  "skips": plane.hub.counters.get("audit.skips")},
+        "bodystore": plane.body.stats(),
     }
 
 
@@ -3921,6 +4550,22 @@ def sliding_k3_timings(torch, np, path: str, eng, last, per_slide: float) -> dic
     return out
 
 
+# the parity phase's legs: name -> (details key, the leg)
+PARITY_LEGS = {
+    "routing": ("routing_parity", lambda torch, np: check_routing(torch, np, "cuda")),
+    "host": ("parity", lambda torch, np: check_parity(torch, np, PARITY_ROWS)),
+    "device": ("device_parity", lambda torch, np: check_device_parity(torch, np,
+                                                                      DEVICE_PARITY_ROWS)),
+    "policy": ("policy_parity", check_policy_parity),
+    "plane": ("plane_parity", check_plane_parity),
+    "cascade": ("cascade_parity", check_cascade_parity),
+    "race": ("race_parity", check_race_parity),
+    "observability": ("observability_parity", check_observability_parity),
+    "serve": ("serve_parity", check_serve_parity),
+    "sliding": ("sliding_parity", check_sliding_parity),
+}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="main-path window rows")
@@ -3947,6 +4592,11 @@ def main() -> int:
         "--ablate-planes", type=int, default=0, metavar="ROUNDS",
         help="after the phases, run (p) with each observability gate off alone, all off, "
         "and (b), one process a setting, ROUNDS times",
+    )
+    ap.add_argument(
+        "--legs", default="",
+        help=f"comma-separated parity legs, in this order (default: all): "
+        f"{', '.join(PARITY_LEGS)}",
     )
     ap.add_argument(
         "--paths", default="",
@@ -4004,19 +4654,12 @@ def main() -> int:
             f"on each partition alone in {time.perf_counter() - t0:.1f} s")
         details["skyline_large"] = check_skyline_large(torch, np, args.n, "cuda")
     if "parity" in args.only:
-        details["routing_parity"] = check_routing(torch, np, "cuda")
-        details["parity"] = check_parity(torch, np, PARITY_ROWS)
-        log(f"parity: host ingest, cuda == cpu at {PARITY_ROWS} rows x 2 windows: "
-            f"{details['parity']}")
-        details["device_parity"] = check_device_parity(torch, np, DEVICE_PARITY_ROWS)
-        log(f"parity: device ingest, cuda vs cpu at {DEVICE_PARITY_ROWS} rows x 2 windows: "
-            f"{details['device_parity']}")
-        details["policy_parity"] = check_policy_parity(torch, np)
-        details["plane_parity"] = check_plane_parity(torch, np)
-        details["cascade_parity"] = check_cascade_parity(torch, np)
-        details["race_parity"] = check_race_parity(torch, np)
-        details["observability_parity"] = check_observability_parity(torch, np)
-        details["sliding_parity"] = check_sliding_parity(torch, np)
+        legs = args.legs.split(",") if args.legs else list(PARITY_LEGS)
+        for leg in legs:
+            key, run = PARITY_LEGS[leg]
+            details[key] = run(torch, np)
+            if leg in ("host", "device"):
+                log(f"parity: {leg} ingest, cuda vs cpu: {details[key]}")
         log(f"parity: done at {time.perf_counter() - t_start:.1f} s")
     table = []
     parent = None
@@ -4035,11 +4678,13 @@ def main() -> int:
                 log(f"main ({path}) beside ({base}): p50 {a['p50_window_ms']:.1f} ms vs "
                     f"{b['p50_window_ms']:.1f} ms, {a['tuples_per_s']:.0f} vs "
                     f"{b['tuples_per_s']:.0f} tuples/s")
+        report_serve(runs)
         if "p" in runs:
             details["plane_costs"] = plane_costs(
                 np, runs["p"][0]["windows"][-1]["hub"], -(-args.n // 65536), 65536, 8)
         if args.profile:
-            details["profile"] = {p: profile_window(torch, np, p, args.n) for p in runs}
+            details["profile"] = {p: profile_window(torch, np, p, args.n) for p in runs
+                                  if p not in SERVE_PATHS}
     elif "main" in args.only or "timings" in args.only:
         runs = {}
         for path in PATHS:
@@ -4052,6 +4697,7 @@ def main() -> int:
             log(f"main ({path}) beside ({base}): p50 {a['p50_window_ms']:.1f} ms vs "
                 f"{b['p50_window_ms']:.1f} ms ({a['p50_window_ms'] / b['p50_window_ms']:.3f}x), "
                 f"{a['tuples_per_s']:.0f} vs {b['tuples_per_s']:.0f} tuples/s")
+        report_serve(runs)
         details["plane_costs"] = plane_costs(
             np, runs["p"][0]["windows"][-1]["hub"], -(-args.n // 65536), 65536, 8)
         t0 = time.perf_counter()
@@ -4119,7 +4765,8 @@ def main() -> int:
             rows["skyline_mask_kernel"]["inputs"].update(sliding_k3_timings(
                 torch, np, path, eng, last, summary["k3_launches_per_slide"]))
         if args.profile:
-            details["profile"] = {p: profile_window(torch, np, p, args.n) for p in PATHS}
+            details["profile"] = {p: profile_window(torch, np, p, args.n) for p in PATHS
+                                  if p not in SERVE_PATHS}
             details["profile"].update(
                 {p: profile_slide(torch, np, p, r[1]) for p, r in sliding.items()})
     if args.ab_paths:

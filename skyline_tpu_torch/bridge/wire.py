@@ -7,13 +7,18 @@ Result plane:  one JSON object per query with the reference's field names and
                order (FlinkSkyline.java:631-648), plus ``query_latency_ms``
                and optional ``skyline_points``.
 
-Only what the engine needs lives here; the data-plane CSV parser is a later
-slice of the port.
+Data plane: ``format_tuple_line`` writes one ``"id,v0,v1,..."`` tuple line,
+the line the serving plane's ``format=csv`` body is made of. The data-plane
+CSV parser is a later slice of the port.
 """
 
 from __future__ import annotations
 
 import json
+
+
+def format_tuple_line(record_id: int, values) -> str:
+    return f"{record_id}," + ",".join(str(float(v)) for v in values)
 
 
 def parse_trigger(payload: str):

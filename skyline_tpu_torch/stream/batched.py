@@ -96,6 +96,7 @@ from skyline_tpu_torch.ops.device_cascade import device_cascade_keep
 from skyline_tpu_torch.ops.sfs import sfs_cleanup, sfs_round, sfs_round_single
 from skyline_tpu_torch.ops.sorted_sfs import sorted_sfs_keep
 from skyline_tpu_torch.ops.sweep2d import partitioned_sweep2_core, scatter_sweep2
+from skyline_tpu_torch.resilience.faults import fault_point
 from skyline_tpu_torch.stream import device_window as dw
 from skyline_tpu_torch.stream.window import (
     DEFAULT_BUFFER_SIZE,
@@ -673,6 +674,7 @@ class PartitionSet:
         the host upper bounds, the cleanup's exact old counts stay a device
         tensor, and the trailing count sync of the next merge is not
         requested. Query-time flushes keep the default."""
+        fault_point("flush.pre_merge")
         total = int(self._pending_rows.sum())
         if self.dims <= 2:
             if total or self._dev_rows:
@@ -1777,6 +1779,53 @@ class PartitionSet:
         count = int(self.sky_counts()[p])
         return self._host_sky()[p, :count].copy()
 
+    def pending_rows_of(self, p: int) -> np.ndarray:
+        """Partition ``p``'s un-flushed host pending rows as one (m, d)
+        array (rows in the device accumulation window are not host
+        pending rows; ``utils/checkpoint.py`` flushes them first)."""
+        if not self._pending[p]:
+            return np.empty((0, self.dims), dtype=np.float32)
+        if len(self._pending[p]) == 1:
+            return self._pending[p][0]
+        return np.concatenate(self._pending[p], axis=0)
+
+    def audit_state(self) -> tuple[list[np.ndarray], list[np.ndarray]]:
+        """Off-hot-path state capture for the audit plane: every
+        partition's skyline plus its un-flushed pending rows, as host
+        arrays. One bulk device-to-host copy (the ``_host_sky`` cache) — no
+        flush, no merge, no epoch advance, so capturing for a shadow check
+        never perturbs the state being checked."""
+        skies = [self.skyline_host(p) for p in range(self.num_partitions)]
+        pendings = [self.pending_rows_of(p) for p in range(self.num_partitions)]
+        return skies, pendings
+
+    def restore_all(self, skies: list[np.ndarray], pendings: list[np.ndarray]) -> None:
+        """Checkpoint-restore every partition's skyline and pending buffer
+        in one host pass and one upload.
+
+        ``skies[p]`` rows are assumed mutually non-dominated (they came
+        from ``skyline_host``). Replaces ALL existing state, including the
+        barrier and metrics bookkeeping (reset to fresh; the caller
+        re-applies saved values, as ``utils.checkpoint.load_engine``
+        does). Every epoch advances, so no merge cached against the old
+        state is reused."""
+        P = self.num_partitions
+        assert len(skies) == len(pendings) == P
+        counts = np.array([s.shape[0] for s in skies], dtype=np.int64)
+        sky = np.full((P, max(int(counts.max()), 1), self.dims), np.inf, dtype=np.float32)
+        for p, s in enumerate(skies):
+            sky[p, : s.shape[0]] = s
+        # drops pendings and the device window, bumps every epoch
+        self.load_state(sky, counts)
+        self.max_seen_id[:] = -1
+        self.start_time_ms = [None] * P
+        self.records_seen[:] = 0
+        self.processing_ns = 0
+        for p, pending in enumerate(pendings):
+            if pending.shape[0]:
+                self._pending[p] = [np.ascontiguousarray(pending, dtype=np.float32)]
+                self._pending_rows[p] = pending.shape[0]
+
     def state_numpy(self) -> tuple[np.ndarray, np.ndarray]:
         """The flushed state as host arrays: (sky (P, cap, d) float32 with
         +inf past each count, counts (P,) int64). Pending rows are not part
@@ -1874,6 +1923,18 @@ class PartitionView:
         self._set.start_time_ms[self.partition_id] = v
 
     @property
+    def records_seen(self) -> int:
+        return int(self._set.records_seen[self.partition_id])
+
+    @records_seen.setter
+    def records_seen(self, v: int) -> None:
+        self._set.records_seen[self.partition_id] = v
+
+    @property
+    def processing_ns(self) -> int:
+        return self._set.processing_ns
+
+    @property
     def processing_ms(self) -> float:
         return self._set.processing_ms
 
@@ -1882,3 +1943,6 @@ class PartitionView:
 
     def snapshot(self) -> np.ndarray:
         return self._set.snapshot(self.partition_id)
+
+    def skyline_host(self) -> np.ndarray:
+        return self._set.skyline_host(self.partition_id)

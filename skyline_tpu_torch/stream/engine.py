@@ -46,9 +46,17 @@ and the merge plane's and flush cascade's blocks. With a
 ``telemetry.Telemetry`` hub it also records latency histograms, spans and
 counters, a trace id per query, the flight recorder's decisions, one
 EXPLAIN plan per query and the dispatch tuner's epochs. The answers are the
-same bytes with the plane or without it. Snapshots and the auditor come
-with the serving plane (not ported yet): until then a hub's ``audit``
-block holds no check, as the reference's does before a store is attached.
+same bytes with the plane or without it.
+
+The serving plane: ``attach_snapshots(store)`` (a
+``serve.snapshot.SnapshotStore``) publishes every complete answer as an
+immutable versioned snapshot, keyed by the partition-epoch key on the
+device path so a repeated trigger over unchanged state dedupes; with a
+store attached the answers materialise their points even when
+``emit_skyline_points`` is off. With a hub and ``SKYLINE_AUDIT`` on, the
+``audit.Auditor`` shadow-checks the published snapshot against the host
+oracle at the tail of each emission (``SKYLINE_AUDIT_SAMPLE`` of them).
+An engine without a store does none of this.
 """
 
 from __future__ import annotations
@@ -192,6 +200,8 @@ class SkylineEngine:
         self.device = resolve_device(config.device)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.telemetry = telemetry
+        # the serving plane's snapshot store (attach_snapshots)
+        self.snapshots = None
         # device ingest needs the lazy or overlap policy (the engine is
         # single-device) and no grid prefilter, which reads raw host values
         device_ok = config.flush_policy in ("lazy", "overlap") and not config.grid_prefilter
@@ -271,12 +281,14 @@ class SkylineEngine:
         if self._explain_on:
             # register the series before the first query
             telemetry.inc("explain.records", 0)
-        # the audit plane: its counters and the hub's verdict ring. The
-        # auditor checks published snapshots, so it comes with the snapshot
-        # store; until then no check runs, as in the reference before a
-        # store is attached.
-        self._audit_on = telemetry is not None and knobs.audit_enabled()
-        if self._audit_on:
+        # the audit plane: sampled shadow verification of published
+        # snapshots against the host oracle, plus the canary sweep the
+        # engine's owner ticks from its idle loop. Post-publish, host-side.
+        self.auditor = None
+        if telemetry is not None and knobs.audit_enabled():
+            from skyline_tpu_torch.audit import Auditor
+
+            self.auditor = Auditor(self, telemetry)
             telemetry.inc("audit.checks", 0)
             telemetry.inc("audit.divergence", 0)
         # the workload characterizer, fed from the ingest path
@@ -302,6 +314,13 @@ class SkylineEngine:
                 flush_profiler=lambda: getattr(self.pset, "_flush_prof", None),
             )
             telemetry.tuner = self.tuner
+
+    def attach_snapshots(self, store) -> None:
+        """Publish completed global skylines to ``store`` (a
+        ``serve.snapshot.SnapshotStore``). Costs nothing until attached;
+        once attached, query answers materialize their points even when
+        ``emit_skyline_points`` is off (the snapshot IS the read path)."""
+        self.snapshots = store
 
     # -- data plane -------------------------------------------------------
 
@@ -340,6 +359,7 @@ class SkylineEngine:
             # before the ingest paths fork, so every path sees the same raw
             # stream; a bounded stride sample inside
             self.workload.observe(values)
+        ev_hi = None
         if self.freshness is not None:
             # absent stamps fall back to the wall clock, not the caller's
             # now_ms (an injected clock would poison the lag histograms)
@@ -350,6 +370,9 @@ class SkylineEngine:
             else:
                 ev_lo = ev_hi = float(event_ms)
             self.freshness.on_ingest(ev_lo, ev_hi)
+        if self.snapshots is not None:
+            # the latest snapshot is now one ingest advance behind
+            self.snapshots.note_ingest(int(ids.max()), event_ms=ev_hi)
         if self.pset.device_ingest:
             # routing and barrier stats on the device; the host bookkeeping
             # syncs only when a pending query needs its barrier re-evaluated
@@ -584,6 +607,8 @@ class SkylineEngine:
             [q.local_sizes[p] for p in pids_order],
             self.config.num_partitions,
         )
+        if self.snapshots is not None:
+            self._publish_snapshot(global_sky, q)
         self._emit_result(
             q,
             skyline_size=int(global_sky.shape[0]),
@@ -620,7 +645,9 @@ class SkylineEngine:
                 "local", t0, t1, trace_id=q.trace_id,
                 args={"partitions": self.config.num_partitions},
             )
-        emit = self.config.emit_skyline_points
+        # an attached snapshot store needs the points even when the result
+        # omits them: the snapshot is the serving read path
+        emit = self.config.emit_skyline_points or self.snapshots is not None
         if knobs.query_overlap_enabled():
             handle = self.pset.global_merge_launch(emit_points=emit)
             launch_ms = (time.perf_counter_ns() - t1) / 1e6
@@ -638,7 +665,8 @@ class SkylineEngine:
             )
             tel.histogram("global_merge_ms").observe(self.last_merge_ms)
         self._emit_device_result(
-            q, now_ms, self.last_flush_ms, self.last_merge_ms, counts, surv, g, pts
+            q, now_ms, self.last_flush_ms, self.last_merge_ms, counts, surv, g, pts,
+            source_key=self.pset.epoch_key,
         )
 
     def _harvest_inflight(self, block: bool = True) -> bool:
@@ -666,14 +694,21 @@ class SkylineEngine:
             )
             self.telemetry.histogram("global_merge_ms").observe(self.last_merge_ms)
         self._emit_device_result(
-            q, now_ms, flush_wall_ms, self.last_merge_ms, counts, surv, g, pts
+            q, now_ms, flush_wall_ms, self.last_merge_ms, counts, surv, g, pts,
+            source_key=handle.key,
         )
         return True
 
     def _emit_device_result(
-        self, q, now_ms, flush_wall_ms, merge_ms, counts, surv, g, pts
+        self, q, now_ms, flush_wall_ms, merge_ms, counts, surv, g, pts, source_key
     ) -> None:
-        """Timing decomposition and result emission of the device answer."""
+        """Snapshot publish, timing decomposition and result emission of the
+        device answer. ``source_key`` is the epoch key of the flushed state
+        the merge saw, so repeated triggers over unchanged state dedupe in
+        the store (the host ``_finalize`` path publishes un-keyed: its
+        unions mix per-partition arrival times)."""
+        if self.snapshots is not None:
+            self._publish_snapshot(pts, q, source_key=source_key)
         starts = [s for s in self.pset.start_time_ms if s is not None]
         map_finish = now_ms + flush_wall_ms
         now = map_finish + merge_ms
@@ -689,8 +724,38 @@ class SkylineEngine:
             global_ms=now - map_finish,
             total_ms=now - job_start,
             latency_ms=now - q.dispatch_ms,
-            points=pts,
+            points=pts if self.config.emit_skyline_points else None,
         )
+
+    def _publish_snapshot(self, points, q: _QueryState, source_key=None) -> None:
+        """Publish a completed global skyline, stamped with the query's
+        trace id and wrapped in a "publish" span when telemetry is on.
+        ``source_key``: opaque identity of the engine state the points came
+        from (the partition-epoch key) — the store dedupes repeat publishes
+        of an unchanged state instead of minting a new version."""
+        meta = {"query_id": q.qid, "source_key": source_key}
+        if q.trace_id is not None:
+            meta["trace_id"] = q.trace_id
+        if self.freshness is not None:
+            # the merged window's newest event time becomes the snapshot's
+            # published watermark (monotone; None until any event stamped)
+            meta["event_wm_ms"] = self.freshness.on_publish()
+        if self.telemetry is None:
+            self.snapshots.publish(points, **meta)
+            return
+        t0 = time.perf_counter_ns()
+        snap = self.snapshots.publish(points, **meta)
+        self.telemetry.spans.record(
+            "publish", t0, time.perf_counter_ns(), trace_id=q.trace_id
+        )
+        if q.plan is not None and snap is not None:
+            # a deduped publish returns the EXISTING snapshot — the plan
+            # still records which version its answer's bytes live under
+            q.plan.publish = {
+                "version": int(snap.version),
+                "deduped": bool(self.snapshots.last_publish_deduped),
+                "event_wm_ms": meta.get("event_wm_ms"),
+            }
 
     def _emit_result(
         self,
@@ -747,6 +812,19 @@ class SkylineEngine:
                 total_ms=total_ms,
                 latency_ms=latency_ms,
             )
+        if (
+            self.auditor is not None
+            and partial_missing is None
+            and self.snapshots is not None
+        ):
+            # shadow-verify AFTER the answer is out the door (plan already
+            # finalized, snapshot already published); partial answers
+            # exclude state, so they are never audited. Observability must
+            # never take the answer down.
+            try:
+                self.auditor.maybe_check(q)
+            except Exception:
+                self.telemetry.inc("audit.errors")
         self._results.append(result)
         self._inflight.pop(q.payload, None)
 
@@ -888,7 +966,7 @@ class SkylineEngine:
         }
         if self._explain_on:
             out["explain"] = self.telemetry.explain.doc()
-        if self._audit_on:
+        if self.auditor is not None:
             out["audit"] = self.telemetry.audit.doc()
         if self.freshness is not None:
             out["freshness"] = self.freshness.stats()

@@ -11,7 +11,8 @@ and the ``DispatchTuner``.
 Slots of the reference's hub whose planes are not ported yet stay as they
 are on the reference's flat (non-sharded, non-clustered) worker: ``fleet``,
 ``health``, ``cluster``, ``opslog`` and ``clusterview`` are ``None`` and
-``replication`` is ``[]``.
+``replication`` is ``[]``. ``fleet_doc`` builds the ``/fleet`` document both
+HTTP surfaces serve.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from skyline_tpu_torch.metrics.collector import Counters
 from skyline_tpu_torch.metrics.tracing import NULL_TRACER, Tracer
 from skyline_tpu_torch.telemetry.audit import AuditRecorder
 from skyline_tpu_torch.telemetry.explain import ExplainRecorder, QueryPlan
+from skyline_tpu_torch.telemetry.fleet import fleet_doc
 from skyline_tpu_torch.telemetry.freshness import FreshnessTracker
 from skyline_tpu_torch.telemetry.histogram import DEFAULT_EDGES, Histogram
 from skyline_tpu_torch.telemetry.profiler import FlightRecorder, KernelProfiler
@@ -185,6 +187,7 @@ __all__ = [
     "Tracer",
     "WorkloadCharacterizer",
     "flatten_gauges",
+    "fleet_doc",
     "mint_trace_id",
     "render_prometheus",
 ]

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import os
 import warnings
+from typing import NamedTuple
 
 from skyline_tpu_torch.utils.devices import device_type
 
@@ -272,3 +273,104 @@ def profile_cost_enabled() -> bool:
     signature, the merge step's flops and bytes reckoned from its shapes.
     Off by default."""
     return env_bool("SKYLINE_PROFILE_COST", False)
+
+
+def env_str(name: str, default=None):
+    """The string environment variable ``name``; unset or empty gives
+    ``default``."""
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    return v
+
+
+# -- the registry ----------------------------------------------------------------
+#
+# Every environment variable the port reads, with the effective value when it
+# is unset (None: the reader branches on its presence). The audit plane's
+# repro bundles record each one's set value beside this default
+# (``audit/bundle.py`` ``knob_snapshot``). The defaults are the reference's
+# (``skyline_tpu/analysis/registry.py``); ``tests/test_torch_audit.py`` holds
+# each entry to it and to the literal default at every read site, and this
+# table to the set of names the port reads.
+
+
+class Knob(NamedTuple):
+    name: str
+    default: object
+
+
+KNOBS: tuple[Knob, ...] = tuple(
+    Knob(n, d)
+    for n, d in (
+        # the kernels, the flush and the merge plane
+        ("SKYLINE_RANK_CASCADE", False),
+        ("SKYLINE_STAGE_DEPTH", 1),
+        ("SKYLINE_MIXED_PRECISION", None),
+        ("SKYLINE_FLUSH_PREFILTER", True),
+        ("SKYLINE_MERGE_CACHE", True),
+        ("SKYLINE_DELTA_CUTOFF", 0.75),
+        ("SKYLINE_MERGE_TREE", True),
+        ("SKYLINE_MERGE_PRUNE", True),
+        ("SKYLINE_CHIP_PRUNE", True),
+        ("SKYLINE_CLUSTER_HOST_PRUNE", True),
+        ("SKYLINE_QUERY_OVERLAP", True),
+        ("SKYLINE_SORTED_SFS", "auto"),
+        ("SKYLINE_DEVICE_CASCADE", "auto"),
+        ("SKYLINE_SORTED_SFS_BLOCK", 8192),
+        ("SKYLINE_DEVICE_CASCADE_BLOCK", 2048),
+        # the observability plane
+        ("SKYLINE_FRESHNESS", True),
+        ("SKYLINE_KERNEL_PROFILE", True),
+        ("SKYLINE_EXPLAIN", True),
+        ("SKYLINE_AUDIT", True),
+        ("SKYLINE_WORKLOAD", True),
+        ("SKYLINE_TUNER", True),
+        ("SKYLINE_PROFILE_COST", False),
+        ("SKYLINE_FLIGHT_RING", 256),
+        ("SKYLINE_EXPLAIN_RING", 256),
+        ("SKYLINE_AUDIT_RING", 256),
+        ("SKYLINE_WORKLOAD_SAMPLE_CAP", 512),
+        ("SKYLINE_WORKLOAD_EPOCH_ROWS", 4096),
+        ("SKYLINE_WORKLOAD_RING", 64),
+        ("SKYLINE_WORKLOAD_SUM_RATIO", 0.5),
+        ("SKYLINE_WORKLOAD_DRIFT_THRESHOLD", 0.2),
+        ("SKYLINE_WORKLOAD_DISP_THRESHOLD", 0.27),
+        ("SKYLINE_WORKLOAD_CORR_THRESHOLD", 0.25),
+        ("SKYLINE_TUNER_EPOCH_S", 5.0),
+        ("SKYLINE_TUNER_MAX_MOVES", 2),
+        ("SKYLINE_TUNER_HYSTERESIS", 2),
+        ("SKYLINE_TUNER_CUTOFF_STEP", 0.1),
+        ("SKYLINE_TUNER_EXPLORE_ON_DRIFT", True),
+        ("SKYLINE_SLO_READ_P99_MS", 50.0),
+        ("SKYLINE_SLO_FRESH_P99_MS", 5000.0),
+        ("SKYLINE_SLO_SHED_FRACTION", 0.05),
+        ("SKYLINE_SLO_TENANT_SHED", 0.05),
+        ("SKYLINE_SLO_RESTARTS_PER_HOUR", 6.0),
+        ("SKYLINE_SLO_AUDIT_DIVERGENCE", 0.0001),
+        ("SKYLINE_SLO_DEGRADED_ANSWERS", 0.01),
+        ("SKYLINE_SLO_REPLICATION_LAG_P99_MS", 2000.0),
+        ("SKYLINE_SLO_PROMOTE_P99_MS", 1000.0),
+        ("SKYLINE_SLO_FAST_WINDOW_S", 300.0),
+        ("SKYLINE_SLO_SLOW_WINDOW_S", 3600.0),
+        # fault injection
+        ("SKYLINE_FAULT_PLAN", None),
+        ("SKYLINE_FAULT_SLOW_MS", 250.0),
+        ("SKYLINE_FAULT_HANG_S", 3600.0),
+        # the serving plane
+        ("SKYLINE_BODYSTORE_BYTES", 8 << 20),
+        ("SKYLINE_BODYSTORE_SLOTS", 512),
+        ("SKYLINE_BODYSTORE_KEEP", 4),
+        ("SKYLINE_BODYSTORE_RETRIES", 4),
+        ("SKYLINE_SERVE_READY_TIMEOUT_S", 10.0),
+        ("SKYLINE_SERVE_SHUTDOWN_TIMEOUT_S", 10.0),
+        ("SKYLINE_SERVE_HEADER_TIMEOUT_S", 10.0),
+        ("SKYLINE_SERVE_SSE_QUEUE", 64),
+        ("SKYLINE_CLUSTERVIEW_MEMBERS", None),
+        # the audit plane
+        ("SKYLINE_AUDIT_SAMPLE", 1.0),
+        ("SKYLINE_AUDIT_CANARY_S", 300.0),
+        ("SKYLINE_AUDIT_DIR", "artifacts/audit"),
+        ("SKYLINE_AUDIT_ORACLE", "sorted"),
+    )
+)
