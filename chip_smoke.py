@@ -9,7 +9,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build ``skyline_tpu_torch/csrc/dominance.cu`` and ``dominance_rank.cu``
-   for sm_90a, one nvcc each, started together, timed;
+   for sm_90a, one nvcc each, started together, timed, and beside them the
+   native host helper (``skyline_tpu_torch/native/fastcsv.cpp``, g++, the
+   CSV parse and format, RecordBatch walks and CRC32C of the transport) into
+   ``skyline_tpu_torch/_build/``; the run fails if it does not build;
 3. kernels against their plain PyTorch versions on the card, exact
    equality: K1 (``dominated_by_any``), K2 (``dominated_by_rect``), K3
    (``skyline_mask_kernel``), K5 (``dominated_by_any_rank``), K6
@@ -111,7 +114,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``max_seen_id`` are the CPU's; where the card routes every row as the CPU
    does, ``stats()`` (``untimed``: the timing fields and the backend aside)
    and every EXPLAIN plan's merge path, tree, cascade and kernel call
-   counts are the CPU's;
+   counts are the CPU's; the worker (``WORKER_PARITY``, leg ``worker``):
+   the port's ``SkylineWorker`` on the card and on the CPU over their own
+   ``MemoryBus`` fed the same 65,536 lines, crash safety on, the event
+   clock pinned, for the north-star lazy configuration with device ingest
+   (d = 8) and the job CLI's default incremental policy (d = 3): the
+   output-topic line with the timing fields aside (point bytes and order
+   included, where the card routes every row as the CPU does) and every
+   WAL record are the CPU's; then on the card the incremental
+   configuration under ``crash@flush.pre_merge:2``, restarted by the
+   ``Supervisor``: its answer is the uninterrupted one, bytes and order;
 5. main paths at 1,000,000 rows, each one warm window and ``--windows``
    measured ones, driven in 65,536-row chunks with the trigger "0,0", under
    the reference's merge defaults (the pruned tree merge at d > 2, the
@@ -170,7 +182,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (slide / p50), the skyline size p50, the host ms of routing, the slide
    step's device ms (CUDA events), the answer's ms, K3 launches per slide
    (must be 2), the rings' capacity and the bytes moved to the host per
-   answer;
+   answer. Two worker paths: (t) the worker over the wire at full size
+   (``README.md:127-134``, ``benchmarks/e2e_transport.py``): a kafkalite
+   broker (the port's CLI, 127.0.0.1, port 0), per window fresh topics, the
+   collector CLI, the worker built from the job flags (``--algo mr-angle
+   --dims 8 --domain 10000 --parallelism 4 --buffer-size 8192
+   --flush-policy lazy --device cuda``) and the producer CLI writing one
+   1,000,000-row 8-D anti-correlated window over TCP; one warm window and
+   ``--windows`` measured: the wall from the producer's start to the
+   collector's row, tuples/s over it, the result's TotalTime, the worker's
+   poll, parse, ingest and query ms, the latched poll plane (the native
+   arrays plane, or the run fails), the launches of K1 mp, K2 mp and the
+   pre-drop (each > 0), under ``--profile`` the device's idle share; the
+   answer's rows equal the engine alone on the card over the same rows in
+   65,536-row chunks (a sorted set) and pass the sampled checks; (t) is
+   printed beside (b). (u) the crash drill on the card
+   (``tests/test_resilience.py:464-469``): the north-star lazy
+   configuration at 262,144 rows over a ``MemoryBus``, the worker restarted
+   by the ``Supervisor`` under ``crash@kafka.poll:5``,
+   ``crash@wal.pre_fsync:3`` and, with periodic checkpoints,
+   ``crash@checkpoint.pre_replace:2,crash@kafka.poll:9``: each restarts at
+   least once, ingests every row once, recovers through the WAL (or a
+   checkpoint) and gives the uninterrupted answer, bytes and order; each
+   plan's recovery wall is printed;
 6. timings: each kernel at its main path's shapes (K1–K3 from (c), K4–K7
    from (a), rebuilt from the last window's state; K2 also on the heaviest
    incremental round of (d), its three calls, and on the heaviest tree
@@ -4551,6 +4585,547 @@ def sliding_k3_timings(torch, np, path: str, eng, last, per_slide: float) -> dic
 
 
 # the parity phase's legs: name -> (details key, the leg)
+# -- the worker: parity on the card, over the wire (t), the crash drill (u) --------
+
+# the worker's parity configurations at WORKER_PARITY_ROWS rows: the
+# north-star lazy with device ingest, and the job CLI's default
+# (incremental) policy at d = 3
+WORKER_PARITY = (
+    ("lazy_device_8d", dict(NORTH_STAR, ingest="device")),
+    ("incremental_3d", dict(GRID_3D, ingest="auto")),
+)
+WORKER_PARITY_ROWS = 65536
+# the crash of the parity leg (on the incremental configuration, where the
+# second flush lands mid-stream) and the three plans of the reference's chaos
+# grid (tests/test_resilience.py:464-469) that path (u) drives
+WORKER_CRASH_PLAN = "crash@flush.pre_merge:2"
+CRASH_PLANS = (
+    ("crash@kafka.poll:5", 0.0),
+    ("crash@wal.pre_fsync:3", 0.0),
+    ("crash@checkpoint.pre_replace:2,crash@kafka.poll:9", 1e-6),
+)
+CRASH_ROWS = 262144
+# path (t): one north-star window over the wire (README.md:127-134,
+# benchmarks/e2e_transport.py), the worker's flags as a user gives them
+WIRE_ROWS = 1_000_000
+WIRE_SEED = 7
+WIRE_WORKER_FLAGS = ["--algo", "mr-angle", "--dims", "8", "--domain", "10000",
+                     "--parallelism", "4", "--buffer-size", "8192",
+                     "--flush-policy", "lazy"]
+# the wire path's processes' logs and CSVs (git-ignored, inside the checkout)
+WORKER_RUNS = ROOT / "skyline_tpu_torch" / "_build" / "worker_runs"
+
+
+class _PinnedClock:
+    """The ``time`` module the worker module sees: ``time()`` a fixed
+    sequence (the event stamp of each ingested batch), every other clock
+    real."""
+
+    def __init__(self):
+        self.t = 1.7e9
+
+    def time(self):
+        self.t += 0.001
+        return self.t
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+@contextlib.contextmanager
+def pinned_worker_clock():
+    import skyline_tpu_torch.bridge.worker as wmod
+
+    old = wmod.time
+    wmod.time = _PinnedClock()
+    try:
+        yield
+    finally:
+        wmod.time = old
+
+
+def _untimed_line(line: str) -> dict:
+    return {k: v for k, v in json.loads(line).items()
+            if not k.endswith("_ms") and k != "trace_id"}
+
+
+def _worker_feed(cfg: dict, device: str, lines: list, ckpt_dir: Path, plan=None,
+                 chunk: int = 8192, interval: float = 0.0):
+    """``lines`` into the port's worker on ``device`` over a fresh
+    ``MemoryBus`` with crash safety on (``ckpt_dir``), one trigger after the
+    data; under ``plan`` the ``Supervisor`` restarts crashed incarnations.
+    Returns (output lines, the WAL's records, the last worker, restarts,
+    recovery wall s summed over restarts); the WAL's append and fsync ms
+    and counts of the last incarnation are on the worker as ``wal_timing``."""
+    import shutil
+
+    from skyline_tpu_torch.bridge import MemoryBus, SkylineWorker
+    from skyline_tpu_torch.resilience import WAL_SUBDIR, ResilienceConfig
+    from skyline_tpu_torch.resilience import faults
+    from skyline_tpu_torch.resilience.supervisor import Supervisor
+    from skyline_tpu_torch.resilience.wal import read_records
+    from skyline_tpu_torch.stream import EngineConfig
+
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    bus = MemoryBus()
+    bus.produce_many("input-tuples", lines)
+    out = bus.consumer("output-skyline")
+    shared = {"sent": False, "lines": [], "recovery_s": 0.0}
+    holder = {}
+    res = ResilienceConfig(checkpoint_dir=str(ckpt_dir), checkpoint_interval_s=interval)
+    ecfg = EngineConfig(**cfg, emit_skyline_points=True, device=device)
+
+    def incarnation(attempt):
+        t0 = time.perf_counter()
+        w = SkylineWorker(bus, ecfg, resilience=res)
+        if attempt:
+            shared["recovery_s"] += time.perf_counter() - t0
+        holder["w"] = w
+        w.wal_timing = _time_wal(w._wal)
+        while True:
+            if w.step(max_records=chunk):
+                continue
+            if not shared["sent"]:
+                bus.produce("queries", "q,0")
+                shared["sent"] = True
+                continue
+            shared["lines"] += out.poll()
+            if shared["lines"]:
+                return shared["lines"]
+
+    if plan:
+        faults.install_plan(faults.FaultPlan.parse(plan))
+    sup = Supervisor(incarnation, max_restarts=8, backoff_base_s=0.0, backoff_cap_s=0.0,
+                     sleep=lambda s: None)
+    try:
+        got = sup.run()
+    finally:
+        faults.clear()
+        if holder.get("w") is not None:
+            holder["w"].close()
+    records, torn = read_records(str(ckpt_dir / WAL_SUBDIR))
+    if torn and not plan:
+        raise AssertionError(f"worker on {device}: {torn} torn WAL segment(s) without a crash")
+    return got, records, holder["w"], sup.restarts, shared["recovery_s"]
+
+
+def _time_wal(wal) -> dict:
+    """Host ms and counts of ``wal``'s appends and fsyncs from now on (the
+    writer's own methods, wrapped on this instance)."""
+    acc = {"append_ms": 0.0, "appends": 0, "fsync_ms": 0.0, "fsyncs": 0}
+
+    def timed(name, key):
+        fn = getattr(wal, name)
+
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[key + "_ms"] += (time.perf_counter() - t0) * 1e3
+                acc[key + "s"] += 1
+
+        setattr(wal, name, run)
+
+    timed("append", "append")
+    timed("_fsync", "fsync")
+    return acc
+
+
+def check_worker_parity(torch, np, devices=("cuda", "cpu")) -> dict:
+    """The port's worker on the card against the CPU: each ``WORKER_PARITY``
+    configuration at ``WORKER_PARITY_ROWS`` rows (8-D lazy with device
+    ingest; the CLI's default incremental policy at d = 3) fed the same
+    lines over its own ``MemoryBus``, crash safety on, the event clock
+    pinned, ``SKYLINE_MIXED_PRECISION=1`` on both: every output-topic line
+    equals the CPU's with the timing fields aside (point bytes and order
+    included) where the card routes every row as the CPU does, else the
+    sizes and sorted point bytes; the WAL records equal the CPU's (batch
+    spans and their digests, commits). Then, on the card, the incremental
+    configuration under ``WORKER_CRASH_PLAN``: the supervised worker's
+    answer equals its uninterrupted one, bytes and order."""
+    from skyline_tpu_torch.parallel.partitioners import partition_ids
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    rng = np.random.default_rng(71)
+    out = {}
+    WORKER_RUNS.mkdir(parents=True, exist_ok=True)
+    with rank_gate(False), knob_env(OBS_ENV), pinned_worker_clock():
+        for name, cfg in WORKER_PARITY:
+            x = anti_correlated(rng, WORKER_PARITY_ROWS, cfg["dims"], 0, 10000)
+            lines = [f"{i}," + ",".join(str(int(v)) for v in row) for i, row in enumerate(x)]
+            xt = torch.from_numpy(x)
+            args = (cfg["algo"], 2 * cfg["parallelism"], cfg["domain_max"])
+            strict = torch.equal(partition_ids(xt.to(devices[0]), *args).cpu(),
+                                 partition_ids(xt, *args))
+            runs = {}
+            for label, device in (("card", devices[0]), ("cpu", devices[1])):
+                t0 = time.perf_counter()
+                got, recs, w, _, _ = _worker_feed(cfg, device, lines,
+                                                  WORKER_RUNS / f"parity_{name}_{label}")
+                runs[label] = (got, recs, w, time.perf_counter() - t0)
+            (a, recs, w, wall), (b, crecs, cw, cwall) = runs["card"], runs["cpu"]
+            if len(a) != 1 or len(b) != 1:
+                raise AssertionError(f"worker {name}: {len(a)} vs {len(b)} results")
+            if w.engine.records_in != WORKER_PARITY_ROWS or cw.engine.records_in != WORKER_PARITY_ROWS:
+                raise AssertionError(f"worker {name}: records_in {w.engine.records_in}, "
+                                     f"{cw.engine.records_in}")
+            ua, ub = _untimed_line(a[0]), _untimed_line(b[0])
+            if strict and ua != ub:
+                raise AssertionError(f"worker {name}: the card's line differs from the CPU's "
+                                     f"in {[k for k in ua if ua[k] != ub.get(k)]}")
+            pa, pb = _points(ua), _points(ub)
+            if not strict and (ua["skyline_size"] != ub["skyline_size"]
+                               or _sorted_bytes(pa) != _sorted_bytes(pb)):
+                raise AssertionError(f"worker {name}: another point set on the card")
+            # no record of a flat worker without the serving plane carries a
+            # wall clock (start, batch, commit): all of it compares
+            if recs != crecs:
+                raise AssertionError(f"worker {name}: WAL records differ from the CPU's")
+            out[name] = {"rows": WORKER_PARITY_ROWS, "strict": bool(strict),
+                         "skyline_size": ua["skyline_size"], "wal_records": len(recs),
+                         "wal_batches": sum(r["type"] == "batch" for r in recs),
+                         "card_s": wall, "cpu_s": cwall, "arrays_plane": w._arrays_plane}
+            log(f"parity: worker {name}, {WORKER_PARITY_ROWS} rows over a MemoryBus: skyline "
+                f"{ua['skyline_size']}, card == cpu "
+                f"({'output line, point bytes and order' if strict else 'size and sorted points'}"
+                f"), WAL records equal ({len(recs)}: {out[name]['wal_batches']} batch spans); "
+                f"card {wall:.1f} s, cpu {cwall:.1f} s")
+        name, cfg = WORKER_PARITY[1]
+        x = anti_correlated(rng, WORKER_PARITY_ROWS, cfg["dims"], 0, 10000)
+        lines = [f"{i}," + ",".join(str(int(v)) for v in row) for i, row in enumerate(x)]
+        base, _, _, _, _ = _worker_feed(cfg, devices[0], lines, WORKER_RUNS / "crash_base")
+        got, _, w, restarts, rec_s = _worker_feed(cfg, devices[0], lines,
+                                                  WORKER_RUNS / "crash", plan=WORKER_CRASH_PLAN)
+        if restarts < 1 or w.engine.records_in != WORKER_PARITY_ROWS:
+            raise AssertionError(f"worker crash: {restarts} restarts, records_in "
+                                 f"{w.engine.records_in}")
+        ua, ub = _untimed_line(got[-1]), _untimed_line(base[-1])
+        if ua != ub:
+            raise AssertionError("worker crash: the recovered answer differs from the "
+                                 "uninterrupted one")
+        out["crash"] = {"plan": WORKER_CRASH_PLAN, "config": name, "restarts": restarts,
+                        "recovery_s": rec_s, "skyline_size": ua["skyline_size"]}
+        log(f"parity: worker crash drill on the card ({name}, {WORKER_CRASH_PLAN}): "
+            f"{restarts} restart(s), recovery {rec_s * 1e3:.1f} ms, the recovered answer "
+            f"equals the uninterrupted one (skyline {ua['skyline_size']}, bytes and order)")
+    return out
+
+
+def _spawn(args: list, log_path: Path, **kw):
+    """A ``python -m`` process of the port from the checkout's root, its
+    output to ``log_path``."""
+    env = {k: v for k, v in os.environ.items() if k != "SKYLINE_FAULT_PLAN"}
+    f = open(log_path, "w")
+    try:
+        return subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                                stdout=f, stderr=subprocess.STDOUT, **kw)
+    finally:
+        f.close()
+
+
+def _wait_line(proc, log_path: Path, needle: str, timeout_s: float = 60.0) -> str:
+    """The first line of ``log_path`` that holds ``needle``; fails when the
+    process ends or ``timeout_s`` passes first."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        for line in log_path.read_text().splitlines():
+            if needle in line:
+                return line
+        if proc.poll() is not None:
+            raise AssertionError(f"{log_path.name}: exited {proc.returncode} before "
+                                 f"{needle!r}:\n{log_path.read_text()[-2000:]}")
+        time.sleep(0.02)
+    raise AssertionError(f"{log_path.name}: no {needle!r} in {timeout_s} s")
+
+
+def _stop(*procs) -> None:
+    for p in procs:
+        if p is not None and p.poll() is None:
+            p.kill()
+            p.wait(timeout=30)
+
+
+def _wire_rows(np, n: int, seed: int, batch: int = 8192):
+    """The rows the producer CLI sends for ``--count n --seed seed``: its
+    generator in its batches, as the integers it prints."""
+    from skyline_tpu_torch.workload.generators import generate
+
+    rng = np.random.default_rng(seed)
+    parts = [generate("anti_correlated", rng, min(batch, n - s), 8, 0.0, 10000.0)
+             for s in range(0, n, batch)]
+    return np.concatenate(parts).astype(np.int64).astype(np.float32)
+
+
+def wire_path(torch, np, windows: int, profile: bool = False, n: int = WIRE_ROWS,
+              dev: str = "cuda") -> dict:
+    """Path (t): the worker over the wire at full size. A kafkalite broker
+    (the port's broker CLI, 127.0.0.1, port 0); per window fresh topics, the
+    collector CLI (``--count 1``) listening on the output topic, the
+    worker built from ``WIRE_WORKER_FLAGS`` by the port's ``parse_job_args``
+    and ``build_worker`` (as ``python -m skyline_tpu_torch.bridge.worker``
+    builds it), stepped here as ``run_forever`` steps it, and the producer
+    CLI sending one ``n``-row 8-D anti-correlated window (``--seed``,
+    ``--query-threshold 0 --final-trigger``). One warm window, then
+    ``windows`` measured. Each window's wall runs from the producer's start
+    to the collector's exit with the row; the worker's phase ms come from
+    its tracer. The answer's rows are read from a snapshot store attached to
+    the worker's engine (``--emit-skyline-points`` would put ~19 MB of JSON
+    on the output topic, past the 10 MB request cap the reference's sink
+    keeps, FlinkSkyline.java:177-183; the store's copy and the points' trip
+    to the host cost a few tens of ms, its audit sample is 0) and held, as a sorted set, against the engine alone on the card over
+    the same rows in 65,536-row chunks, and checked by samples. The path
+    fails unless the worker latched the native arrays plane and launched K1
+    mp, K2 mp and the pre-drop."""
+    import csv as csvmod
+
+    from skyline_tpu_torch.bridge.worker import build_worker
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+    from skyline_tpu_torch.serve import SnapshotStore
+    from skyline_tpu_torch.utils.config import parse_job_args
+
+    csvmod.field_size_limit(1 << 30)
+    WORKER_RUNS.mkdir(parents=True, exist_ok=True)
+    broker = None
+    rows = []
+    prof_out = None
+    try:
+        broker_log = WORKER_RUNS / "broker.log"
+        broker = _spawn(["skyline_tpu_torch.bridge.kafkalite.broker", "--host", "127.0.0.1",
+                         "--port", "0"], broker_log)
+        addr = _wait_line(broker, broker_log, "listening on").rsplit(" ", 1)[1]
+        dk.reset_launches()
+        for win in range(windows + 1):
+            topics = [f"in-{win}", f"q-{win}", f"out-{win}"]
+            csv_path = WORKER_RUNS / f"wire_{win}.csv"
+            csv_path.unlink(missing_ok=True)
+            col_log, prod_log = WORKER_RUNS / f"collector_{win}.log", WORKER_RUNS / f"producer_{win}.log"
+            collector = producer = None
+            try:
+                collector = _spawn(["skyline_tpu_torch.metrics.collector", str(csv_path),
+                                    "--topic", topics[2], "--bootstrap", addr, "--count", "1"],
+                                   col_log)
+                _wait_line(collector, col_log, "Listening on topic")
+                cfg = parse_job_args(WIRE_WORKER_FLAGS + [
+                    "--device", dev, "--bootstrap", addr, "--input-topic", topics[0], "--query-topic", topics[1],
+                    "--output-topic", topics[2]])
+                # the audit sample 0: a worker without --serve has no store,
+                # so no organic check; the store here only reads the answer
+                with knob_env({"SKYLINE_AUDIT_SAMPLE": "0"}):
+                    w = build_worker(cfg)
+                store = SnapshotStore()
+                w.engine.attach_snapshots(store)
+                measured_profile = profile and win == windows
+                stack = contextlib.ExitStack()
+                if measured_profile:
+                    from torch.profiler import ProfilerActivity
+                    from torch.profiler import profile as tprofile
+
+                    prof = stack.enter_context(tprofile(
+                        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+                with stack:
+                    t0 = time.perf_counter()
+                    producer = _spawn(["skyline_tpu_torch.workload.producer", topics[0],
+                                       "anti_correlated", "8", "0", "10000", topics[1],
+                                       "--count", str(n), "--seed", str(WIRE_SEED),
+                                       "--query-threshold", "0", "--final-trigger",
+                                       "--bootstrap", addr], prod_log)
+                    t_first = t_prod = None
+                    deadline = time.monotonic() + 600
+                    while collector.poll() is None:
+                        if time.monotonic() > deadline:
+                            raise AssertionError("wire path: no result row in 600 s")
+                        w.step()
+                        now = time.perf_counter()
+                        if t_first is None and w._data_pos:
+                            t_first = now
+                        if t_prod is None and producer.poll() is not None:
+                            t_prod = now
+                            if producer.returncode:
+                                raise AssertionError(f"producer exited {producer.returncode}:"
+                                                     f"\n{prod_log.read_text()[-2000:]}")
+                    t_end = time.perf_counter()
+                    if dev == "cuda":
+                        torch.cuda.synchronize()
+                if collector.returncode:
+                    raise AssertionError(f"collector exited {collector.returncode}")
+                producer.wait(timeout=60)
+                t_prod = t_prod if t_prod is not None else t_end
+                with open(csv_path, newline="") as f:
+                    header, row = list(csvmod.reader(f))[:2]
+                doc = dict(zip(header, row))
+                snap = store.latest()
+                phases = {k: v["total_ms"] for k, v in w.tracer.report().items()}
+                rec = {
+                    "window": "warm" if win == 0 else win - 1,
+                    "wall_ms": (t_end - t0) * 1e3,
+                    "first_data_ms": (t_first - t0) * 1e3 if t_first else None,
+                    "producer_ms": (t_prod - t0) * 1e3,
+                    "total_processing_time_ms": float(doc["TotalTime(ms)"]),
+                    "skyline_size": int(doc["SkylineSize"]),
+                    "records_in": w.engine.records_in, "dropped": w.engine.dropped,
+                    "arrays_plane": w._arrays_plane,
+                    "phase_ms": {k: phases.get(k, 0.0) for k in
+                                 ("worker/poll", "worker/parse", "worker/ingest", "worker/query")},
+                    "engine_phase_ms": {k: v for k, v in phases.items()
+                                        if not k.startswith("worker/")},
+                }
+                rec["tuples_per_s"] = n / (rec["wall_ms"] / 1e3)
+                if measured_profile:
+                    rec["profile"] = _profile_busy(prof, rec["wall_ms"])
+                    prof_out = rec["profile"]
+                rows.append(rec)
+                log(f"main (t): window {rec['window']}: wall {rec['wall_ms']:.1f} ms (producer "
+                    f"start to the collector's row; first data polled at "
+                    f"{rec['first_data_ms']:.1f} ms, producer done at {rec['producer_ms']:.1f} ms), "
+                    f"{rec['tuples_per_s']:.0f} tuples/s, result TotalTime "
+                    f"{rec['total_processing_time_ms']:.1f} ms, skyline {rec['skyline_size']}, "
+                    f"worker phases {({k: round(v, 1) for k, v in rec['phase_ms'].items()})}"
+                    + (f", device busy {prof_out['device_busy_ms']:.1f} ms (idle share "
+                       f"{prof_out['device_idle_share']:.3f})" if measured_profile else ""))
+                if not w._arrays_plane:
+                    raise AssertionError("wire path: the worker did not latch the native "
+                                         "arrays plane")
+                if w.engine.records_in != n or snap is None or snap.size != rec["skyline_size"]:
+                    raise AssertionError(f"wire path: records_in {w.engine.records_in}, "
+                                         f"published {snap and snap.size}, row {doc['SkylineSize']}")
+                last_points = np.asarray(snap.points, np.float32)
+                w.close()
+            finally:
+                _stop(producer, collector)
+        launches = dict(dk.LAUNCHES)
+    finally:
+        _stop(broker)
+    wanted = ("dominated_by_any_mp", "dominated_by_rect_mp", PREDROP_FUSED)
+    missing = [k for k in wanted if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"wire path launched no {missing}: {launches}")
+    # the same rows through the engine alone on the card
+    from skyline_tpu_torch.stream import SkylineEngine
+
+    x = _wire_rows(np, n, WIRE_SEED)
+    eng = SkylineEngine(parse_job_args(
+        WIRE_WORKER_FLAGS + ["--emit-skyline-points", "--device", dev]).engine_config())
+    ids = np.arange(n, dtype=np.int64)
+    for s in range(0, n, 65536):
+        eng.process_records(ids[s : s + 65536], x[s : s + 65536])
+    eng.process_trigger("0,0")
+    (res,) = eng.poll_results()
+    want = _points(res)
+    if want.shape != last_points.shape or _sorted_bytes(want) != _sorted_bytes(last_points):
+        raise AssertionError(f"wire path: the answer ({last_points.shape}) is not the engine's "
+                             f"on the same rows ({want.shape})")
+    check_answer(torch, np, x, last_points, dev)
+    meas = rows[1:]
+    summary = {
+        "rows_per_window": n, "windows_measured": windows, "windows": rows,
+        "p50_wall_ms": float(np.median([r["wall_ms"] for r in meas])),
+        "tuples_per_s": n * len(meas) / (sum(r["wall_ms"] for r in meas) / 1e3),
+        "p50_total_processing_time_ms": float(np.median(
+            [r["total_processing_time_ms"] for r in meas])),
+        "p50_phase_ms": {k: float(np.median([r["phase_ms"][k] for r in meas]))
+                         for k in meas[0]["phase_ms"]},
+        "launches": launches, "arrays_plane": True, "profile": prof_out,
+        "engine_only_skyline": int(want.shape[0]),
+    }
+    log(f"main (t): {summary['tuples_per_s']:.0f} tuples/s over {windows} windows of {n} rows "
+        f"(p50 wall {summary['p50_wall_ms']:.1f} ms, p50 TotalTime "
+        f"{summary['p50_total_processing_time_ms']:.1f} ms, p50 phases "
+        f"{({k: round(v, 1) for k, v in summary['p50_phase_ms'].items()})}); arrays plane "
+        f"latched; the answer equals the engine alone on the same rows "
+        f"({want.shape[0]} rows, sorted set) and passes the sampled checks; launches over "
+        f"{windows + 1} windows: { {k: launches[k] for k in wanted} }")
+    return summary
+
+
+def _profile_busy(prof, wall_ms: float) -> dict:
+    from torch.autograd import DeviceType
+
+    kernels = [(ev.self_device_time_total / 1e3, ev.count, ev.key)
+               for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+    busy = sum(k[0] for k in kernels)
+    by_kernel: dict = {}
+    for ms, c, name in kernels:
+        slot = by_kernel.setdefault(_short_kernel(name), [0.0, 0])
+        slot[0] += ms
+        slot[1] += c
+    return {"device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall_ms,
+            "by_kernel": {k: {"ms": v[0], "calls": v[1]} for k, v in
+                          sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]}}
+
+
+def crash_path(torch, np, n: int = CRASH_ROWS, dev: str = "cuda", chunk: int = 65536) -> dict:
+    """Path (u): the crash drill on the card. The north-star lazy
+    configuration (device ingest) at ``n`` rows over a ``MemoryBus``, the
+    port's worker restarted by the ``Supervisor`` under each of
+    ``CRASH_PLANS`` (periodic checkpoints with the last): each run must
+    restart at least once, ingest every row exactly once, recover through
+    the WAL replay (or a checkpoint restore) and give the uninterrupted
+    run's answer, bytes and order. Prints each plan's recovery wall (the
+    restarted incarnations' construction: restore and replay)."""
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    cfg = dict(NORTH_STAR, ingest="device")
+    x = anti_correlated(np.random.default_rng(73), n, 8, 0, 10000)
+    lines = [f"{i}," + ",".join(str(int(v)) for v in row) for i, row in enumerate(x)]
+    WORKER_RUNS.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    base, _, w, _, _ = _worker_feed(cfg, dev, lines, WORKER_RUNS / "drill_base",
+                                    chunk=chunk)
+    base_s = time.perf_counter() - t0
+    want = _untimed_line(base[-1])
+    check_answer(torch, np, x, _points(want), dev)
+    out = {"rows": n, "uninterrupted_s": base_s, "skyline_size": want["skyline_size"],
+           "wal": w.wal_timing, "plans": {}}
+    log(f"main (u): uninterrupted {base_s * 1e3:.1f} ms, skyline {want['skyline_size']}; "
+        f"WAL (fsync per step): {w.wal_timing['appends']} appends in "
+        f"{w.wal_timing['append_ms']:.2f} ms, {w.wal_timing['fsyncs']} fsyncs in "
+        f"{w.wal_timing['fsync_ms']:.2f} ms")
+    for plan, interval in CRASH_PLANS:
+        t0 = time.perf_counter()
+        got, recs, w, restarts, rec_s = _worker_feed(
+            cfg, dev, lines, WORKER_RUNS / "drill", plan=plan, chunk=chunk,
+            interval=interval)
+        wall = time.perf_counter() - t0
+        counters = w.telemetry.counters.snapshot()
+        rec = w._recovered or {}
+        replayed = rec.get("replayed_batches", 0)
+        restored = rec.get("checkpoint") is not None
+        ok = (restarts >= 1 and w.engine.records_in == n
+              and (replayed >= 1 or (interval and restored))
+              and _untimed_line(got[-1]) == want)
+        out["plans"][plan] = {"restarts": restarts, "recovery_ms": rec_s * 1e3,
+                              "run_s": wall, "replayed_batches": replayed,
+                              "checkpoint_restored": restored, "counters": counters}
+        log(f"main (u): {plan}: {restarts} restart(s), recovery wall {rec_s * 1e3:.1f} ms "
+            f"(run {wall:.1f} s, uninterrupted {base_s:.1f} s), replayed {replayed} WAL "
+            f"batch(es), checkpoint restored {restored}, records_in {w.engine.records_in}; "
+            f"the answer {'equals' if ok else 'DIFFERS FROM'} the uninterrupted run's "
+            f"(skyline {want['skyline_size']}, bytes and order)")
+        if not ok:
+            raise AssertionError(f"crash drill {plan}: {out['plans'][plan]}")
+    return out
+
+
+def compare_wire(wire: dict, b: dict) -> None:
+    """(t)'s window beside (b)'s, both measured in this call: the same
+    north-star shapes, (b) fed in process, (t) over the wire."""
+    ratio = wire["p50_wall_ms"] / b["p50_window_ms"]
+    wire["beside_b"] = {"b_p50_window_ms": b["p50_window_ms"],
+                        "b_tuples_per_s": b["tuples_per_s"], "wall_over_b": ratio}
+    log(f"main (t) beside (b): p50 wall {wire['p50_wall_ms']:.1f} ms vs p50 window "
+        f"{b['p50_window_ms']:.1f} ms ({ratio:.1f}x), {wire['tuples_per_s']:.0f} vs "
+        f"{b['tuples_per_s']:.0f} tuples/s")
+
+
+# the worker's paths: (t) over the wire, (u) the crash drill
+WORKER_PATHS = {
+    "t": lambda torch, np, windows, profile: wire_path(torch, np, windows, profile),
+    "u": lambda torch, np, windows, profile: crash_path(torch, np),
+}
+
+
 PARITY_LEGS = {
     "routing": ("routing_parity", lambda torch, np: check_routing(torch, np, "cuda")),
     "host": ("parity", lambda torch, np: check_parity(torch, np, PARITY_ROWS)),
@@ -4563,6 +5138,7 @@ PARITY_LEGS = {
     "observability": ("observability_parity", check_observability_parity),
     "serve": ("serve_parity", check_serve_parity),
     "sliding": ("sliding_parity", check_sliding_parity),
+    "worker": ("worker_parity", check_worker_parity),
 }
 
 
@@ -4600,8 +5176,10 @@ def main() -> int:
     )
     ap.add_argument(
         "--paths", default="",
-        help="comma-separated tumbling paths for the main phase, in this order (default: "
-        "all, then the sliding paths); not with the timings phase, which reads them all",
+        help="comma-separated paths for the main phase, in this order: the tumbling "
+        "paths, and the worker's t (over the wire) and u (the crash drill) (default: "
+        "all, then the sliding paths, then t and u); not with the timings phase, which "
+        "reads them all",
     )
     args = ap.parse_args()
     if args.paths and "timings" in args.only:
@@ -4620,13 +5198,29 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
 
+    import threading
+
+    from skyline_tpu_torch import native
+
     t_start = time.perf_counter()
     card = card_line()
     log(card)
     t0 = time.perf_counter()
+    # the native host helper (g++) builds beside the nvcc runs
+    native_s = {}
+    native_build = threading.Thread(
+        target=lambda: native_s.setdefault("lib", (native.get_lib(), time.perf_counter() - t0)))
+    native_build.start()
     built = dk.build()
     log(f"build: {', '.join(p.name for p, _ in built.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
+    native_build.join()
+    lib, lib_s = native_s["lib"]
+    if lib is None:
+        print(f"chip_smoke: the native host helper did not build: {native.build_error()}",
+              file=sys.stderr)
+        return 3
+    log(f"build: native {native.library_path().relative_to(ROOT)} in {lib_s:.1f} s")
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     for name, (_, build_log) in built.items():
         usage, spills = ptxas_usage(build_log)
@@ -4669,9 +5263,15 @@ def main() -> int:
         runs = {}
         for path in args.paths.split(","):
             t0 = time.perf_counter()
-            runs[path] = main_path(torch, np, path, args.n, args.windows)
+            if path in WORKER_PATHS:
+                details.setdefault("worker", {})[path] = WORKER_PATHS[path](
+                    torch, np, args.windows, args.profile)
+            else:
+                runs[path] = main_path(torch, np, path, args.n, args.windows)
             log(f"main ({path}): {time.perf_counter() - t0:.1f} s in all")
         details["main"] = {path: r[0] for path, r in runs.items()}
+        if "b" in runs and "t" in details.get("worker", {}):
+            compare_wire(details["worker"]["t"], runs["b"][0])
         for path, base in PLANE_PAIRS:
             if path in runs and base in runs:
                 a, b = runs[path][0], runs[base][0]
@@ -4704,6 +5304,12 @@ def main() -> int:
         sliding = {"n": sliding_northstar(torch, np, args.windows), "o": sliding_4d(torch, np)}
         details["sliding"] = {path: r[0] for path, r in sliding.items()}
         log(f"main (n), (o): {time.perf_counter() - t0:.1f} s in all")
+        details["worker"] = {}
+        for path, run in WORKER_PATHS.items():
+            t0 = time.perf_counter()
+            details["worker"][path] = run(torch, np, args.windows, args.profile)
+            log(f"main ({path}): {time.perf_counter() - t0:.1f} s in all")
+        compare_wire(details["worker"]["t"], runs["b"][0])
         details["routing"] = routing_mismatch(torch, np, runs["a"][2], "cuda")
         log(f"routing: the card vs the CPU and vs partition_ids_np on the last "
             f"{args.n}-row window of (a): {details['routing']}")

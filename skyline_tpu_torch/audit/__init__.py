@@ -99,7 +99,7 @@ class Auditor:
         self._last_canary_s: float | None = None
         self._bundle_seq = 0
         # the WAL directory divergence bundles freeze the segment slice of;
-        # None = no WAL (the log is not ported yet, so it stays None)
+        # None = no WAL; a worker with crash safety on sets its WAL dir
         self.wal_dir: str | None = None
 
     # -- organic sampled checks -------------------------------------------

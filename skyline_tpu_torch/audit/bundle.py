@@ -19,8 +19,8 @@ Anatomy of ``<SKYLINE_AUDIT_DIR>/bundle-v<version>-<seq>/``:
 - ``explain.json``    — the diverging query's EXPLAIN plan (null when
   the plan ring already evicted it), for the decision-level diff.
 - ``wal/``            — a copy of the live WAL segments at detection
-  time, only when ``wal_dir`` is set (the log is not ported yet, so the
-  auditor's ``wal_dir`` stays None).
+  time, only when ``wal_dir`` is set (a worker with crash safety on sets
+  its auditor's ``wal_dir``; ``resilience/wal.py``).
 
 ``python -m skyline_tpu_torch.audit replay <bundle>`` (``__main__.py``)
 consumes this layout offline.

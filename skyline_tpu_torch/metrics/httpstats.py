@@ -36,8 +36,8 @@ Endpoints:
                 port's flat engine (the health plane is not ported)
   GET /cluster  cluster block: {"ok": true, "enabled": false} (the cluster
                 plane is not ported)
-  GET /ops      the ops journal: {"ok": true, "enabled": false} (the
-                journal is not ported; a hub that carries one raises)
+  GET /ops      the ops journal's merged timeline (?since_seq=N, ?limit=N);
+                {"ok": true, "enabled": false} when no journal is attached
   GET /cluster/overview  fleet-wide aggregation: {"ok": true, "enabled":
                 false} with no members configured; with members
                 ($SKYLINE_CLUSTERVIEW_MEMBERS) a 500 naming the unported
@@ -348,14 +348,17 @@ class StatsServer:
         return status.doc()
 
     def _ops_doc(self, qs: str) -> tuple[int, dict]:
-        """The /ops journal tail. Probe-friendly — ``enabled`` is false
-        when this process opened no journal, which the port cannot yet
-        (ROADMAP queue 1 item 6): a hub that carries one raises instead
-        of answering a doc this server did not compute."""
+        """The /ops journal tail: the merged cross-process timeline from the
+        hub's attached OpsLog (``telemetry/opslog.py``). Probe-friendly —
+        ``enabled`` is false when this process opened no journal."""
+        from skyline_tpu_torch.telemetry.opslog import ops_doc
+
         params = {k: v[-1] for k, v in parse_qs(qs).items()}
         try:
-            int(params["since_seq"]) if "since_seq" in params else None
-            int(params["limit"]) if "limit" in params else None
+            since = (
+                int(params["since_seq"]) if "since_seq" in params else None
+            )
+            limit = int(params["limit"]) if "limit" in params else None
         except ValueError:
             return 400, {"error": "since_seq/limit must be integers"}
         ops = (
@@ -365,9 +368,7 @@ class StatsServer:
         )
         if ops is None:
             return 200, {"ok": True, "enabled": False}
-        raise NotImplementedError(
-            "the ops journal is not ported yet (ROADMAP queue 1 item 6)"
-        )
+        return 200, ops_doc(ops.wal_dir, since_seq=since, limit=limit)
 
     def _overview_doc(self) -> dict:
         """The /cluster/overview fleet aggregation (RUNBOOK §2s)."""

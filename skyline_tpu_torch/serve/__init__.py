@@ -11,8 +11,8 @@ shedding (``admission``). ``server.SkylineServer`` exposes all of it over a
 stdlib asyncio HTTP server.
 
 The read replica (``serve/replica.py`` of the reference: ``SkylineReplica``,
-``ReplicaDivergence``, ``run_replica``) needs the write-ahead log and the
-supervisor, which are not ported yet; asking for it raises ``ImportError``.
+``ReplicaDivergence``, ``run_replica``) is not ported yet (ROADMAP queue 1
+item 6); asking for it raises ``ImportError``.
 """
 
 from skyline_tpu_torch.serve.admission import AdmissionController, QueryGate, TokenBucket
@@ -30,9 +30,8 @@ from skyline_tpu_torch.serve.snapshot import Snapshot, SnapshotStore
 def __getattr__(name):
     if name in ("SkylineReplica", "ReplicaDivergence", "run_replica"):
         raise ImportError(
-            f"skyline_tpu_torch.serve.{name}: the read replica needs the "
-            "write-ahead log and the supervisor, not ported yet (ROADMAP "
-            "queue 1 item 6)"
+            f"skyline_tpu_torch.serve.{name}: the read replica "
+            "(serve/replica.py) is not ported yet (ROADMAP queue 1 item 6)"
         )
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 

@@ -40,11 +40,13 @@ copy completed. Torn/retried/missed reads are counted and fall back to the
 Python serialization path — the store can only ever serve exact bytes or
 nothing.
 
-Encoders. The reference has a native row encoder (host C++,
-``skyline_tpu/native/fastcsv.cpp``) behind a first-use parity check; the
-port has not ported it yet, so every body comes from the pure-Python
-encoders (counted ``python_rows``; ``native_rows`` stays 0) — the bytes the
-reference writes without its compiler.
+Encoders. The row encoder is the native host helper
+(``skyline_tpu_torch/native/fastcsv.cpp`` ``sky_format_rows``) behind the
+reference's first-use parity check: the first block each process encodes
+is re-encoded in Python and compared byte for byte, and any mismatch turns
+the native path off for good. Native bodies count ``native_rows``; without
+the library (no compiler) or after a mismatch every body comes from the
+pure-Python encoders (``python_rows``) — the same bytes either way.
 """
 
 from __future__ import annotations
@@ -56,6 +58,8 @@ import struct
 import threading
 
 import numpy as np
+
+from skyline_tpu_torch.native import ROWS_CSV, ROWS_JSON
 
 _MAGIC = b"SKYBODY1"
 _HEADER_BYTES = 4096
@@ -91,11 +95,38 @@ def fmt_code(fmt: str, include_points: bool = True, explain: bool = False) -> in
     return code
 
 
-# -- wire-body encoders ----------------------------------------------------
+# -- wire-body encoders (native with byte-identical Python fallback) --------
 
-# the row encoder's modes (``skyline_tpu/native/__init__.py``)
-ROWS_JSON = 0
-ROWS_CSV = 1
+_native_state = {"checked": False, "ok": False}
+_native_lock = threading.Lock()
+
+
+def _rows_native(points: np.ndarray, mode: int):
+    """``native.format_rows_native`` behind the first-use parity check:
+    the first array each process serializes is re-encoded in Python and
+    compared byte-for-byte; any mismatch permanently disables the native
+    path (counted by the caller). Serving plausible-but-wrong bytes is the
+    one failure mode a body cache must not have."""
+    from skyline_tpu_torch.utils.knobs import env_bool
+
+    if not env_bool("SKYLINE_BODYSTORE_NATIVE", True):
+        return None
+    from skyline_tpu_torch.native import format_rows_native
+
+    out = format_rows_native(points, mode)
+    if out is None:
+        return None
+    verify_always = env_bool("SKYLINE_BODYSTORE_VERIFY", False)
+    if not _native_state["checked"] or verify_always:
+        ref = _rows_python(points, mode)
+        with _native_lock:
+            _native_state["checked"] = True
+            _native_state["ok"] = out == ref
+        if out != ref:
+            return None
+    elif not _native_state["ok"]:
+        return None
+    return out
 
 
 def _rows_python(points: np.ndarray, mode: int) -> bytes:
@@ -111,6 +142,11 @@ def _rows_python(points: np.ndarray, mode: int) -> bytes:
 def points_json(points: np.ndarray, counters=None) -> bytes:
     """The JSON points array, byte-identical to
     ``json.dumps(points.tolist())``."""
+    out = _rows_native(points, ROWS_JSON)
+    if out is not None:
+        if counters is not None:
+            counters["native_rows"] += 1
+        return out
     if counters is not None:
         counters["python_rows"] += 1
     return _rows_python(points, ROWS_JSON)
@@ -119,6 +155,11 @@ def points_json(points: np.ndarray, counters=None) -> bytes:
 def csv_body(snap, counters=None) -> bytes:
     """The full ``format=csv`` response body, byte-identical to the serve
     handler's newline-joined ``format_tuple_line`` loop."""
+    out = _rows_native(snap.points, ROWS_CSV)
+    if out is not None:
+        if counters is not None:
+            counters["native_rows"] += 1
+        return out
     if counters is not None:
         counters["python_rows"] += 1
     return _rows_python(snap.points, ROWS_CSV)

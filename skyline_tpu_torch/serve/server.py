@@ -50,8 +50,9 @@ operator observability; this one serves the skyline itself. Endpoints:
                   port's engine is flat (the health plane is not ported).
   GET  /cluster   cluster block: ``{"ok": true, "enabled": false}`` (the
                   cluster plane is not ported).
-  GET  /ops       the ops journal: ``{"ok": true, "enabled": false}`` (the
-                  journal is not ported; a hub that carries one raises).
+  GET  /ops       the ops journal's merged timeline (``?since_seq=N``,
+                  ``?limit=N``); ``{"ok": true, "enabled": false}`` when no
+                  journal is attached.
   GET  /cluster/overview  fleet-wide aggregation: ``{"ok": true,
                   "enabled": false}`` with no members configured; with
                   members (``SKYLINE_CLUSTERVIEW_MEMBERS``) it raises, since
@@ -896,21 +897,23 @@ class SkylineServer:
             await self._reply(writer, 500, {"error": str(e)})
 
     async def _ops(self, writer, params):
-        """The /ops journal tail. Probe-friendly — {"enabled": false} when
-        this process opened no journal, which the port cannot yet (the
-        journal is ROADMAP queue 1 item 6): a hub that carries one raises
-        instead of answering a doc this server did not compute."""
+        """The /ops journal tail: the merged cross-process control-plane
+        timeline (``telemetry/opslog.py``). Probe-friendly —
+        {"enabled": false} when this process opened no journal."""
+        from skyline_tpu_torch.telemetry.opslog import ops_doc
+
         try:
-            _int_param(params, "since_seq")
-            _int_param(params, "limit")
+            since = _int_param(params, "since_seq")
+            limit = _int_param(params, "limit")
         except ValueError as e:
             await self._reply(writer, 400, {"error": str(e)})
             return
-        if getattr(self.telemetry, "opslog", None) is None:
+        ops = getattr(self.telemetry, "opslog", None)
+        if ops is None:
             await self._reply(writer, 200, {"ok": True, "enabled": False})
             return
-        raise NotImplementedError(
-            "the ops journal is not ported yet (ROADMAP queue 1 item 6)"
+        await self._reply(
+            writer, 200, ops_doc(ops.wal_dir, since_seq=since, limit=limit)
         )
 
     async def _overview(self, writer):

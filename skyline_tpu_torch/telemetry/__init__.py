@@ -8,11 +8,13 @@ the ``KernelProfiler`` and ``FlightRecorder`` (``profiler.py``), the
 (``audit.py``), and, attached by the engine, the ``WorkloadCharacterizer``
 and the ``DispatchTuner``.
 
-Slots of the reference's hub whose planes are not ported yet stay as they
-are on the reference's flat (non-sharded, non-clustered) worker: ``fleet``,
-``health``, ``cluster``, ``opslog`` and ``clusterview`` are ``None`` and
-``replication`` is ``[]``. ``fleet_doc`` builds the ``/fleet`` document both
-HTTP surfaces serve.
+The worker (``bridge/worker.py``) with crash safety on attaches its ops
+journal as ``opslog`` (``telemetry/opslog.py``) and its WAL's retention
+gauges to ``replication``. Slots of the reference's hub whose planes are
+not ported yet stay as they are on the reference's flat (non-sharded,
+non-clustered) worker: ``fleet``, ``health``, ``cluster`` and
+``clusterview`` are ``None``. ``fleet_doc`` builds the ``/fleet`` document
+both HTTP surfaces serve.
 """
 
 from __future__ import annotations
@@ -70,7 +72,8 @@ class Telemetry:
         self.workload = None
         self.tuner = None
         # the reference's sharded, cluster and replication planes; a flat
-        # engine leaves them empty
+        # engine leaves them empty (a resilient worker attaches its ops
+        # journal and WAL gauges)
         self.fleet = None
         self.health = None
         self.cluster = None

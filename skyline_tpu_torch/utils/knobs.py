@@ -13,8 +13,6 @@ import os
 import warnings
 from typing import NamedTuple
 
-from skyline_tpu_torch.utils.devices import device_type
-
 _TRUTHY = frozenset(("1", "true", "yes", "on"))
 _FALSY = frozenset(("0", "false", "no", "off"))
 
@@ -99,6 +97,9 @@ def mixed_precision_enabled(device=None) -> bool:
     ``device`` is a CUDA card and off on the CPU — the reference's
     ``on_tpu()`` default carried to the port's accelerator
     (``skyline_tpu/ops/dispatch.py``)."""
+    # imported here: the transport's processes read knobs without torch
+    from skyline_tpu_torch.utils.devices import device_type
+
     return env_bool("SKYLINE_MIXED_PRECISION", device_type(device) == "cuda")
 
 
@@ -362,6 +363,8 @@ KNOBS: tuple[Knob, ...] = tuple(
         ("SKYLINE_BODYSTORE_SLOTS", 512),
         ("SKYLINE_BODYSTORE_KEEP", 4),
         ("SKYLINE_BODYSTORE_RETRIES", 4),
+        ("SKYLINE_BODYSTORE_NATIVE", True),
+        ("SKYLINE_BODYSTORE_VERIFY", False),
         ("SKYLINE_SERVE_READY_TIMEOUT_S", 10.0),
         ("SKYLINE_SERVE_SHUTDOWN_TIMEOUT_S", 10.0),
         ("SKYLINE_SERVE_HEADER_TIMEOUT_S", 10.0),
@@ -372,5 +375,63 @@ KNOBS: tuple[Knob, ...] = tuple(
         ("SKYLINE_AUDIT_CANARY_S", 300.0),
         ("SKYLINE_AUDIT_DIR", "artifacts/audit"),
         ("SKYLINE_AUDIT_ORACLE", "sorted"),
+        # the transport (kafkalite)
+        ("SKYLINE_KAFKA_RETRIES", 5),
+        ("SKYLINE_KAFKA_BACKOFF_S", 0.05),
+        # the worker's body store, the WAL, the supervisor and the ops journal
+        ("SKYLINE_BODYSTORE", True),
+        ("SKYLINE_WAL_TAILER_TTL_S", 600.0),
+        ("SKYLINE_SUPERVISOR_MAX_RESTARTS", 5),
+        ("SKYLINE_SUPERVISOR_BACKOFF_S", 0.5),
+        ("SKYLINE_SUPERVISOR_BACKOFF_CAP_S", 30.0),
+        ("SKYLINE_OPSLOG", True),
+        ("SKYLINE_OPSLOG_FSYNC", 'off'),
+        ("SKYLINE_OPSLOG_MAX_BYTES", 8_388_608),
+        # the job's flags (utils/config.py), each the JobConfig field's default
+        ("SKYLINE_PARALLELISM", 4),
+        ("SKYLINE_ALGO", 'mr-angle'),
+        ("SKYLINE_INPUT_TOPIC", 'input-tuples'),
+        ("SKYLINE_QUERY_TOPIC", 'queries'),
+        ("SKYLINE_OUTPUT_TOPIC", 'output-skyline'),
+        ("SKYLINE_DOMAIN", 1000.0),
+        ("SKYLINE_DIMS", 2),
+        ("SKYLINE_BOOTSTRAP", 'localhost:9092'),
+        ("SKYLINE_BUFFER_SIZE", 4096),
+        ("SKYLINE_EMIT_SKYLINE_POINTS", False),
+        ("SKYLINE_QUERY_TIMEOUT_MS", 0.0),
+        ("SKYLINE_GRID_PREFILTER", False),
+        ("SKYLINE_INITIAL_CAPACITY", 0),
+        ("SKYLINE_FLUSH_POLICY", 'incremental'),
+        ("SKYLINE_OVERLAP_ROWS", 262144),
+        ("SKYLINE_INGEST", 'auto'),
+        ("SKYLINE_MESH", 0),
+        ("SKYLINE_MESH_CHIPS", 0),
+        ("SKYLINE_CLUSTER_HOSTS", 0),
+        ("SKYLINE_STATS_PORT", 0),
+        ("SKYLINE_WINDOW", 0),
+        ("SKYLINE_SLIDE", 0),
+        ("SKYLINE_EMIT_PER_SLIDE", False),
+        ("SKYLINE_MAX_DRAIN_POLLS", 256),
+        ("SKYLINE_SERVE", -1),
+        ("SKYLINE_SERVE_READ_RATE", 0.0),
+        ("SKYLINE_SERVE_READ_BURST", 256),
+        ("SKYLINE_SERVE_MAX_QUERIES", 2),
+        ("SKYLINE_SERVE_QUERY_QUEUE", 8),
+        ("SKYLINE_SERVE_QUERY_DEADLINE_MS", 10000.0),
+        ("SKYLINE_SERVE_DELTA_RING", 128),
+        ("SKYLINE_SERVE_HISTORY", 64),
+        ("SKYLINE_SERVE_READ_CACHE", 64),
+        ("SKYLINE_SERVE_TENANT_RATE", 0.0),
+        ("SKYLINE_SERVE_TENANT_BURST", 64),
+        ("SKYLINE_REPLICAS", 0),
+        ("SKYLINE_REPLICA_OF", ''),
+        ("SKYLINE_TRACE_OUT", ''),
+        ("SKYLINE_TRACE_RING", 4096),
+        ("SKYLINE_JAX_PROFILE_DIR", ''),
+        ("SKYLINE_CHECKPOINT_DIR", ''),
+        ("SKYLINE_CHECKPOINT_INTERVAL_S", 30.0),
+        ("SKYLINE_CHECKPOINT_RETAIN", 3),
+        ("SKYLINE_WAL_FSYNC", 'batch'),
+        ("SKYLINE_WAL_SEGMENT_BYTES", 4_194_304),
     )
 )

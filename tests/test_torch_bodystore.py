@@ -96,16 +96,64 @@ def test_points_json_specials_match_json_dumps_and_jax():
     assert points_json(SPECIALS) == jbs.points_json(SPECIALS)
 
 
-def test_python_encoders_count_python_rows_and_match_jax(rng):
-    """The native encoder is not ported: every body comes from the Python
-    encoders, counted ``python_rows``, with the JAX package's bytes in
-    both row modes."""
+def test_python_encoders_count_python_rows_and_match_jax(rng, monkeypatch):
+    """With the native encoder off (``SKYLINE_BODYSTORE_NATIVE=0``, or no
+    compiler) every body comes from the Python encoders, counted
+    ``python_rows``, with the JAX package's bytes in both row modes."""
+    monkeypatch.setenv("SKYLINE_BODYSTORE_NATIVE", "0")
     pts = _pts(rng, 50, 6)
     for mode in (bs.ROWS_JSON, bs.ROWS_CSV):
         assert bs._rows_python(pts, mode) == jbs._rows_python(pts, mode)
     counters = bs._new_counters()
     points_json(pts, counters)
     csv_body(SnapshotStore().publish(pts, now_ms=1.0), counters)
+    assert counters["python_rows"] == 2 and counters["native_rows"] == 0
+
+
+def _native_or_skip():
+    from skyline_tpu_torch import native
+
+    if native.get_lib() is None:
+        pytest.skip(f"no native helper here: {native.build_error()}")
+
+
+@pytest.mark.parametrize("d", [1, 2, 6, 8])
+def test_native_encoder_counts_native_rows_and_matches_jax(rng, monkeypatch, d):
+    """The native row encoder behind the first-use parity check: bodies
+    counted ``native_rows``, byte-equal to the Python encoders and to the
+    JAX package's bodies, specials (``-0.0``, tiny, huge, non-integral)
+    included; the parity check ran (and passed) on the first block."""
+    _native_or_skip()
+    monkeypatch.setenv("SKYLINE_BODYSTORE_VERIFY", "1")
+    monkeypatch.setattr(bs, "_native_state", {"checked": False, "ok": False})
+    pts = _pts(rng, 40, d)
+    pts[0, 0] = -0.0
+    pts[1, :] = rng.normal(0, 1e-20, size=d).astype(np.float32)
+    pts[2, :] = rng.normal(0, 1e30, size=d).astype(np.float32)
+    for mode in (bs.ROWS_JSON, bs.ROWS_CSV):
+        assert bs._rows_native(pts, mode) == bs._rows_python(pts, mode)
+    counters = bs._new_counters()
+    snap = SnapshotStore().publish(pts, now_ms=1.0)
+    assert points_json(pts, counters) == jbs.points_json(pts)
+    assert csv_body(snap, counters) == jbs.csv_body(JSnapshotStore().publish(pts, now_ms=1.0))
+    assert counters["native_rows"] == 2 and counters["python_rows"] == 0
+    assert bs._native_state == {"checked": True, "ok": True}
+
+
+def test_native_encoder_mismatch_turns_native_off_for_good(rng, monkeypatch):
+    """A first block whose native bytes disagree with Python's turns the
+    native path off for the process: the caller gets the Python bytes and
+    counts ``python_rows`` from then on."""
+    _native_or_skip()
+    from skyline_tpu_torch import native
+
+    monkeypatch.setattr(bs, "_native_state", {"checked": False, "ok": False})
+    monkeypatch.setattr(native, "format_rows_native", lambda p, m: b"[wrong]")
+    pts = _pts(rng, 10, 3)
+    counters = bs._new_counters()
+    assert points_json(pts, counters) == json.dumps(pts.tolist()).encode()
+    assert bs._native_state == {"checked": True, "ok": False}
+    assert points_json(pts, counters) == json.dumps(pts.tolist()).encode()
     assert counters["python_rows"] == 2 and counters["native_rows"] == 0
 
 
@@ -175,7 +223,10 @@ def test_in_memory_store_needs_no_file(rng):
     snap = store.publish(_pts(rng))
     assert w.get(snap.version, FMT_JSON_POINTS) == _json_ref(snap, True)
     assert w.get(snap.version + 1, FMT_JSON_POINTS) is None
-    assert w.stats()["misses"] == 1 and w.stats()["python_rows"] == 2
+    from skyline_tpu_torch import native
+
+    encoder = "native_rows" if native.get_lib() is not None else "python_rows"
+    assert w.stats()["misses"] == 1 and w.stats()[encoder] == 2
     w.close()
 
 

@@ -495,7 +495,7 @@ def test_server_that_cannot_bind_raises(rng):
         srv.close()
 
 
-def test_unported_branches_raise(monkeypatch):
+def test_unported_branches_raise(monkeypatch, tmp_path):
     with pytest.raises(ImportError, match="item 6"):
         serve.SkylineReplica  # noqa: B018
     from skyline_tpu_torch.telemetry.clusterview import overview_doc
@@ -511,9 +511,15 @@ def test_unported_branches_raise(monkeypatch):
         with pytest.raises(Exception):  # the connection closes: no doc answered
             urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/cluster/overview", timeout=5).read()
         monkeypatch.delenv("SKYLINE_CLUSTERVIEW_MEMBERS")
-        tel.opslog = object()
-        with pytest.raises(Exception):
-            urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/ops", timeout=5).read()
+        # the ops journal is ported now: a hub that carries one answers /ops
+        from skyline_tpu_torch.telemetry.opslog import OpsLog
+
+        tel.opslog = OpsLog(str(tmp_path), fsync="off")
+        tel.opslog.record("degraded_publish", note="drill")
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/ops", timeout=5) as r:
+            doc = json.load(r)
+        assert doc["enabled"] and [x["type"] for x in doc["records"]] == ["degraded_publish"]
+        tel.opslog.close()
     finally:
         srv.close()
 
