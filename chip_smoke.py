@@ -66,7 +66,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    16}, N ragged, with duplicates, signed zeros, NaN and +inf rows,
    invalid rows with finite coordinates, a partition with no valid rows,
    one whose first half is invalid, the north-star's zero block and an
-   empty batch;
+   empty batch; every compare and pre-drop entry refusing, by name, an
+   operand on a second card (or the CPU when one card is visible)
+   (``check_one_device``);
 4. parity, each on CUDA and with ``device="cpu"`` (plain versions): device
    routing of values outside the domain (``check_routing``: the three
    partitioners at P in {1, 4, 8} on ±inf, NaN, ±1e30, -0.0 and mr-dim
@@ -124,6 +126,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    WAL record are the CPU's; then on the card the incremental
    configuration under ``crash@flush.pre_merge:2``, restarted by the
    ``Supervisor``: its answer is the uninterrupted one, bytes and order;
+   the sharded engine (``SHARDED_PARITY``, leg ``sharded``):
+   ``ShardedEngine`` at chips 1, 2, 4 and 8 (P = 8) on the card against the
+   flat engine on the card (results, point bytes and order), and at chips
+   4 on the CPU (results and ``sharded_stats()`` with the chip prune's
+   counts), the lazy policy at d = 8 (uniform rows) and the incremental at
+   d = 3 (anti-correlated), two 65,536-row windows, strict; the chips'
+   devices (round-robin over the visible cards, or one line saying they
+   share ``cuda:0``); then ``benchmarks/failover.py``'s drill on the card
+   (``slow@sharded.chip_merge#1:1`` under a 500 ms deadline: a marked
+   degraded answer, quarantine, failover, the healthy run's bytes after;
+   ``time_to_healed_ms``);
 5. main paths at 1,000,000 rows, each one warm window and ``--windows``
    measured ones, driven in 65,536-row chunks with the trigger "0,0", under
    the reference's merge defaults (the pruned tree merge at d > 2, the
@@ -204,12 +217,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``crash@checkpoint.pre_replace:2,crash@kafka.poll:9``: each restarts at
    least once, ingests every row once, recovers through the WAL (or a
    checkpoint) and gives the uninterrupted answer, bytes and order; each
-   plan's recovery wall is printed;
+   plan's recovery wall is printed. Two sharded paths: (v) is (c) and (w)
+   is (d) through ``ShardedEngine(chips=4)`` over the visible cards, one
+   fresh engine a window (each chip keeping its flush race's profiler):
+   tuples/s, p50 window, flush and merge walls, the level-1 ms (the chips'
+   merges) and level-2 ms (the rest of the merge: the gather, the
+   cross-chip pairs, the harvest), the chips pruned a merge, launches
+   (K1 mp, K2 mp and the pre-drop on (v); each > 0) and the cross-chip K2
+   launches (> 0); the last answer equals the flat engine's on the same
+   rows (a sorted set) and the warm answer passes the sampled checks; each
+   printed beside (c) and (d) when they ran in the call;
 6. timings: each kernel at its main path's shapes (K1–K3 from (c), K4–K7
    from (a), rebuilt from the last window's state; K2 also on the heaviest
-   incremental round of (d), its three calls, and on the heaviest tree
+   incremental round of (d), its three calls, on the heaviest tree
    pair of a north-star window, its two calls, each recorded from one more
-   window), CUDA-event ms beside
+   window, and on the heaviest cross-chip pair of (v), its two calls),
+   CUDA-event ms beside
    the plain version's ms (timed once per input) and the bound: needed
    pairs x d compares at the FP32 peak (K1–K3) or x (d + 1) at the INT32
    compare rate (K5–K7), or bytes at the HBM rate (K4, and whichever is
@@ -3654,33 +3677,25 @@ def heaviest_tree_pair(torch, n: int):
     return best
 
 
-def tree_pair_k2(torch, np, n: int, launches: dict, windows: int) -> dict:
-    """K2 on the tree input: the heaviest pair of one north-star window,
-    its two calls — the b leaf's rows against the a leaf's, then the a
-    leaf's against the kept b rows — each side a partition skyline in
-    storage order. Each with ms, the plain version's ms, needed pairs, the
-    bound's two terms and the skipped share; plus K2's launches per window
-    on (b)."""
+def _time_tree_pair(torch, a, acnt, b, bcnt, what: str) -> dict:
+    """K2 on one tree pair, its two calls — the b leaf's rows against the
+    a leaf's, then the a leaf's against the kept b rows — each with ms, the
+    plain version's ms, needed pairs, the bound's two terms and the skipped
+    share; and the pair's total ms."""
     from skyline_tpu_torch.ops import dominance_kernels as dk
 
-    r = heaviest_tree_pair(torch, n)
-    if not r["pairs"]:
-        raise AssertionError(f"the tree merged no pair on (b): {r['tree_info']}")
-    a, b = r["a"], r["b"]
     dev = a.device
-    av = torch.arange(a.shape[0], device=dev) < r["acnt"]
-    bv = torch.arange(b.shape[0], device=dev) < r["bcnt"]
+    av = torch.arange(a.shape[0], device=dev) < acnt
+    bv = torch.arange(b.shape[0], device=dev) < bcnt
     at, bt = a.T.contiguous(), b.T.contiguous()
     keep_b = bv & ~dk.dominated_by_rect(at, av, bt)
     calls = {"b_vs_a": (at, av, bt, bv), "a_vs_kept_b": (bt, keep_b, at, av)}
-    out = {"launches_per_window": launches["dominated_by_rect"] / windows,
-           "pairs_per_window": r["pairs"], "tree_info": r["tree_info"],
-           "valid_a_rows": int(av.sum()), "valid_b_rows": int(bv.sum()), "calls": {}}
+    out = {"valid_a_rows": int(av.sum()), "valid_b_rows": int(bv.sum()), "calls": {}}
     total_ms = 0.0
     for label, (xt, xv, yt, wanted) in calls.items():
         out_k, ms, plain_ms, err = _time_pair(
             torch, lambda: dk.dominated_by_rect(xt, xv, yt),  # noqa: B023
-            lambda: dk.dominated_by_rect_plain(xt, xv, yt), f"K2 {label}",  # noqa: B023
+            lambda: dk.dominated_by_rect_plain(xt, xv, yt), f"{what} {label}",  # noqa: B023
         )
         d, nx = xt.shape
         ny = yt.shape[1]
@@ -3695,16 +3710,29 @@ def tree_pair_k2(torch, np, n: int, launches: dict, windows: int) -> dict:
             "skipped_share": float(skip.float().mean()),
             "shape": {"nx": nx, "ny": ny, "d": d},
         }
-        log(f"timings: K2 tree pair {label} {row['shape']}: {ms:.3f} ms (plain "
+        log(f"timings: {what} {label} {row['shape']}: {ms:.3f} ms (plain "
             f"{plain_ms:.1f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}, {pairs} "
             f"needed pairs, {row['skipped_share']:.6f} of (block, tile) pairs skipped)")
         if ms < row["bound_ms"]:
-            raise AssertionError(f"K2 tree pair {label} reads under its bound")
+            raise AssertionError(f"{what} {label} reads under its bound")
         out["calls"][label] = row
         total_ms += ms
     out["pair_ms"] = total_ms
+    return out
+
+
+def tree_pair_k2(torch, np, n: int, launches: dict, windows: int) -> dict:
+    """K2 on the tree input: the heaviest pair of one north-star window,
+    its two calls (``_time_tree_pair``), each side a partition skyline in
+    storage order; plus K2's launches per window on (b)."""
+    r = heaviest_tree_pair(torch, n)
+    if not r["pairs"]:
+        raise AssertionError(f"the tree merged no pair on (b): {r['tree_info']}")
+    out = {"launches_per_window": launches["dominated_by_rect"] / windows,
+           "pairs_per_window": r["pairs"], "tree_info": r["tree_info"],
+           **_time_tree_pair(torch, r["a"], r["acnt"], r["b"], r["bcnt"], "K2 tree pair")}
     log(f"timings: K2 tree pair ({out['valid_a_rows']} a rows, {out['valid_b_rows']} b rows) "
-        f"{total_ms:.3f} ms, {out['pairs_per_window']} pairs and "
+        f"{out['pair_ms']:.3f} ms, {out['pairs_per_window']} pairs and "
         f"{out['launches_per_window']:.1f} K2 launches per window on (b); tree "
         f"{out['tree_info']}")
     return out
@@ -5119,6 +5147,514 @@ def compare_wire(wire: dict, b: dict) -> None:
         f"{b['tuples_per_s']:.0f} tuples/s")
 
 
+# -- the sharded engine (distributed/sharded.py) --------------------------------------
+
+
+def check_one_device(torch, dev) -> int:
+    """Every compare and pre-drop entry raises ``ValueError``, naming
+    itself, when an operand lies on another device than the rest — a
+    second card when one is visible, else the CPU — before any launch."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+
+    other = "cuda:1" if torch.cuda.device_count() > 1 else (
+        "cpu" if str(dev).startswith("cuda") else "meta")
+    x3 = torch.zeros((1, 3, 64), device=dev)
+    ok = torch.ones((1, 64), dtype=torch.bool, device=dev)
+    y3 = torch.zeros((1, 64, 3), device=dev)
+    cases = [
+        ("dominated_by_rect", lambda: dk._launch("dominated_by_rect", x3, ok, x3.to(other))),
+        ("dominated_by_any", lambda: dk._launch("dominated_by_any", x3, ok.to(other), x3)),
+        ("strictly_dominated_bf16_kernel",
+         lambda: dk._predrop_call(y3, None, y3.to(other), ok, fused=False)),
+        ("mp_predrop_kernel", lambda: dk._predrop_call(y3, ok, y3, ok.to(other), fused=True)),
+    ]
+    before = dict(dk.LAUNCHES)
+    for name, call in cases:
+        try:
+            call()
+        except ValueError as e:
+            if name not in str(e) or "different devices" not in str(e):
+                raise AssertionError(f"{name}: the device check says {e}") from e
+        else:
+            raise AssertionError(f"{name} launched with an operand on {other}")
+    if dict(dk.LAUNCHES) != before:
+        raise AssertionError("a refused launch was counted")
+    log(f"kernels: {len(cases)} entries refuse operands on {other} beside {dev}, each naming "
+        "itself")
+    return len(cases)
+
+
+# the sharded parity legs: (name, engine configuration, generator); P = 8
+# (parallelism 4), two windows of SHARDED_PARITY_ROWS through one engine, the
+# lazy flush pinned to the SFS rounds. The lazy leg runs uniform rows: the
+# north-star generator's 8-D window is ~44% all-zero rows, whose skyline
+# costs the CPU side minutes.
+SHARDED_PARITY = (
+    ("lazy d=8", dict(NORTH_STAR, ingest="host"), "uniform"),
+    ("incremental d=3", dict(GRID_3D, ingest="host"), "anti_correlated"),
+)
+SHARDED_CHIPS = (1, 2, 4, 8)
+# the chip count the CPU side runs (answers do not depend on the chip count;
+# sharded_stats() and the prune counts are compared at this one)
+SHARDED_CPU_CHIPS = 4
+SHARDED_PARITY_ROWS = 65536
+# benchmarks/failover.py's drill: 20,000 4-D anti-correlated rows, 2 chips
+FAILOVER_PLAN = "slow@sharded.chip_merge#1:1"
+FAILOVER_ROWS = 20000
+
+
+def _sharded_stats(eng) -> dict:
+    doc = untimed(eng.stats()["sharded"])
+    doc.pop("devices")
+    return doc
+
+
+def _drive_sharded(cfg, windows, chips, chunk=8192):
+    """Windows back to back through one engine (sharded over ``chips``, or
+    the flat engine when None), a trigger after each: (results, the
+    ``sharded`` block or None, engine)."""
+    import numpy as np
+
+    from skyline_tpu_torch.distributed import ShardedEngine
+    from skyline_tpu_torch.stream import SkylineEngine
+
+    eng = SkylineEngine(cfg) if chips is None else ShardedEngine(cfg, chips=chips)
+    out, base = [], 0
+    for i, x in enumerate(windows):
+        ids = np.arange(base, base + x.shape[0], dtype=np.int64)
+        base += x.shape[0]
+        for s in range(0, x.shape[0], chunk):
+            eng.process_records(ids[s : s + chunk], x[s : s + chunk])
+        eng.process_trigger(f"q{i},0")
+        out += eng.poll_results()
+    return out, (None if chips is None else _sharded_stats(eng)), eng
+
+
+def _spread(torch, eng, chips: int) -> str:
+    """The chips' devices: spread round-robin over the visible cards, and
+    whether a surviving chip root crossed to chip 0's card."""
+    n = torch.cuda.device_count()
+    devs = [str(d) for d in eng.pset.devices]
+    want = [f"cuda:{c % n}" for c in range(chips)] if n else ["cpu"] * chips
+    if devs != want:
+        raise AssertionError(f"{chips} chips placed on {devs}, not {want}")
+    last = eng.pset.last_chip_info or {}
+    crossed = [c for c in last.get("survivors", []) if devs[c] != devs[0]]
+    return f"devices {devs}, survivors {last.get('survivors')}, cross-card roots {crossed}"
+
+
+def check_sharded_parity(torch, np, devices=("cuda", "cpu")) -> dict:
+    """The sharded engine on the card at every chip count of
+    ``SHARDED_CHIPS`` against the flat engine on the card (results: point
+    bytes and order, sizes, counts) and, at ``SHARDED_CPU_CHIPS``, against
+    itself on the CPU (results and ``sharded_stats()`` with the chip prune's
+    counts, timings and device names aside), strict; then the failover
+    drill (``failover_drill``)."""
+    from skyline_tpu_torch.stream import EngineConfig
+    from skyline_tpu_torch.workload import generators
+
+    card, cpu = devices
+    n_cards = torch.cuda.device_count()
+    log(f"sharded: torch.cuda.device_count() = {n_cards}")
+    if n_cards == 1:
+        log("sharded: one card visible: every chip group shares cuda:0 and no cross-card "
+            "copy is exercised")
+    else:
+        check_one_device(torch, card)  # an operand on cuda:1 beside cuda:0
+    out = {"cards": n_cards, "legs": {}}
+    t_leg = time.perf_counter()
+    with knob_env(ROUNDS_ONLY):
+        for name, cfg, gen in SHARDED_PARITY:
+            rng = np.random.default_rng(17)
+            windows = [getattr(generators, gen)(rng, SHARDED_PARITY_ROWS, cfg["dims"], 0, 10000)
+                       for _ in range(2)]
+            ecfg = {dev: EngineConfig(**cfg, window_capacity=SHARDED_PARITY_ROWS, device=dev)
+                    for dev in devices}
+            t0 = time.perf_counter()
+            flat, _, _ = _drive_sharded(ecfg[card], windows, None)
+            want = [untimed(r) for r in flat]
+            got = {}
+            for chips in SHARDED_CHIPS:
+                res, stats, eng = _drive_sharded(ecfg[card], windows, chips)
+                if [untimed(r) for r in res] != want:
+                    raise AssertionError(f"sharded {name}: {chips} chips on the card differ "
+                                         "from the flat engine on the card")
+                got[chips] = stats
+                log(f"sharded {name}: {chips} chips = the flat engine, bytes and order; "
+                    f"{stats['merges']} merges, {stats['chips_pruned']} of "
+                    f"{stats['chips_considered']} chips pruned; {_spread(torch, eng, chips)}")
+            t1 = time.perf_counter()
+            res, stats, _ = _drive_sharded(ecfg[cpu], windows, SHARDED_CPU_CHIPS)
+            if [untimed(r) for r in res] != want:
+                raise AssertionError(f"sharded {name}: the CPU's answers differ from the card's")
+            if stats != got[SHARDED_CPU_CHIPS]:
+                raise AssertionError(f"sharded {name}: sharded_stats() on the CPU "
+                                     f"{stats} != the card's {got[SHARDED_CPU_CHIPS]}")
+            cpu_s = time.perf_counter() - t1
+            out["legs"][name] = {
+                "rows_per_window": SHARDED_PARITY_ROWS, "windows": 2,
+                "skyline_sizes": [r["skyline_size"] for r in flat],
+                "chips": {c: {"chips_pruned": s["chips_pruned"],
+                              "chips_considered": s["chips_considered"],
+                              "merges": s["merges"], "last": s["last"]}
+                          for c, s in got.items()},
+                "card_s": t1 - t0, "cpu_s": cpu_s,
+            }
+            log(f"sharded {name}: {SHARDED_CPU_CHIPS} chips on the CPU = the card, answers and "
+                f"sharded_stats(); card {t1 - t0:.1f} s, CPU side {cpu_s:.1f} s")
+    out["failover"] = failover_drill(torch, np, card)
+    out["worker"] = sharded_worker(torch, np, card)
+    log(f"sharded: parity leg done in {time.perf_counter() - t_leg:.1f} s")
+    return out
+
+
+SHARDED_WORKER_ROWS = 65536
+SHARDED_WORKER_TAIL = 16384
+
+
+def sharded_worker(torch, np, dev) -> dict:
+    """The worker with ``mesh_chips=4`` (``--mesh-chips 4``) on the card
+    over a ``MemoryBus``, crash safety on, (d)'s configuration: its answer
+    equals the flat worker's (bytes and order, timings aside); its chip
+    journals verify; a checkpoint taken then restores onto the flat engine
+    and onto 2 chips, and each gives the sharded worker's next answer over
+    a tail of rows, bytes and order; a restarted worker restores it."""
+    import shutil
+
+    from skyline_tpu_torch.bridge import MemoryBus, SkylineWorker
+    from skyline_tpu_torch.bridge.wire import format_tuple_line
+    from skyline_tpu_torch.resilience import WAL_SUBDIR, ResilienceConfig
+    from skyline_tpu_torch.resilience.chip_wal import verify_chip_barriers
+    from skyline_tpu_torch.stream import EngineConfig
+    from skyline_tpu_torch.utils.checkpoint import load_engine
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    n, tail = SHARDED_WORKER_ROWS, SHARDED_WORKER_TAIL
+    rows = anti_correlated(np.random.default_rng(5), n + tail, 3, 0, 10000)
+    lines = [format_tuple_line(i, r) for i, r in enumerate(rows)]
+    ecfg = EngineConfig(**dict(GRID_3D, ingest="host"), emit_skyline_points=True, device=dev)
+
+    def run(chips, ckpt):
+        shutil.rmtree(ckpt, ignore_errors=True)
+        bus = MemoryBus()
+        out = bus.consumer("output-skyline")
+        w = SkylineWorker(bus, ecfg, mesh_chips=chips, resilience=ResilienceConfig(
+            checkpoint_dir=str(ckpt), checkpoint_interval_s=0.0))
+        got = []
+        for lo, hi, q in ((0, n, "q,0"), (n, n + tail, "r,0")):
+            bus.produce_many("input-tuples", lines[lo:hi])
+            while w.step(max_records=8192):
+                pass
+            bus.produce("queries", q)
+            while not (polled := out.poll()):
+                w.step(max_records=8192)
+            got += polled
+            if q == "q,0":
+                path = w.checkpoint_now()
+        return got, w, path, bus
+
+    ckpt = WORKER_RUNS / "sharded"
+    t0 = time.perf_counter()
+    got, w, path, bus = run(4, ckpt)
+    flat, fw, _, _ = run(0, WORKER_RUNS / "sharded_flat")
+    fw.close()
+    if [_untimed_line(x) for x in got] != [_untimed_line(x) for x in flat]:
+        raise AssertionError("sharded worker: its answers differ from the flat worker's")
+    verdict = verify_chip_barriers(str(ckpt / WAL_SUBDIR), 4)
+    if not verdict["agree"] or verdict["common_seq"] is None:
+        raise AssertionError(f"sharded worker: chip journals {verdict}")
+    devices = w.engine.stats()["sharded"]["devices"]
+    w.close()
+    want = json.loads(got[-1])["skyline_points"]
+    ids = np.arange(n, n + tail, dtype=np.int64)
+    for chips in (0, 2):
+        eng = load_engine(path, mesh_chips=chips, device=dev)
+        for i in range(0, tail, 8192):
+            eng.process_records(ids[i : i + 8192], rows[n + i : n + i + 8192])
+        eng.process_trigger("r,0")
+        (res,) = eng.poll_results()
+        if res["skyline_points"] != want:
+            raise AssertionError(f"sharded worker: its checkpoint restored onto {chips or 'no'} "
+                                 "chips gives another next answer")
+    again = SkylineWorker(bus, ecfg, mesh_chips=4, resilience=ResilienceConfig(
+        checkpoint_dir=str(ckpt), checkpoint_interval_s=0.0))
+    restored = again._recovered
+    again.close()
+    if not restored or not restored.get("checkpoint"):
+        raise AssertionError(f"sharded worker: a restart restored {restored}")
+    out = {"rows": n, "tail": tail, "chips": 4, "devices": devices, "chip_barriers": verdict,
+           "answers": [json.loads(x)["skyline_size"] for x in got],
+           "wall_s": time.perf_counter() - t0}
+    log(f"sharded: worker with --mesh-chips 4 on {devices}: answers {out['answers']} = the flat "
+        f"worker's; chip journals {verdict}; its checkpoint restored flat and on 2 chips gives "
+        f"its next answer, bytes and order; a restart restored {restored['checkpoint']}; "
+        f"{out['wall_s']:.1f} s")
+    return out
+
+
+def failover_drill(torch, np, dev) -> dict:
+    """``benchmarks/failover.py``'s drill on the card: a 2-chip engine with
+    a hub, ``slow@sharded.chip_merge#1:1`` under a 500 ms deadline. The
+    degraded answer arrives marked within 2 s (chip 1 excluded, a
+    completeness bound), chip 1 quarantines, the next trigger fails its
+    group over, and the first post-heal answer is the healthy run's, bytes
+    and order. ``time_to_healed_ms`` is the failover's own wall."""
+    import threading
+
+    from skyline_tpu_torch.distributed import ShardedEngine
+    from skyline_tpu_torch.resilience.faults import FaultPlan, clear, install_plan
+    from skyline_tpu_torch.stream import EngineConfig
+    from skyline_tpu_torch.telemetry import Telemetry
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    d, n = 4, FAILOVER_ROWS
+    rows = anti_correlated(np.random.default_rng(0), n, d, 0, 10000)
+    cfg = EngineConfig(parallelism=2, dims=d, domain_max=10000.0, buffer_size=4096,
+                       emit_skyline_points=True, device=dev)
+
+    def answer(eng, trigger):
+        eng.process_trigger(trigger)
+        (r,) = eng.poll_results()
+        return r, np.asarray(r["skyline_points"], np.float32).tobytes()
+
+    def fed():
+        eng = ShardedEngine(cfg, chips=2, telemetry=Telemetry())
+        ids = np.arange(n, dtype=np.int64)
+        for i in range(0, n, 1024):
+            eng.process_records(ids[i : i + 1024], rows[i : i + 1024])
+        return eng
+
+    _, truth = answer(fed(), "truth,0")
+    eng = fed()
+    _, warm = answer(eng, "warm,0")
+    if warm != truth:
+        raise AssertionError("failover drill: the warm answer is not the healthy run's")
+    env = {"SKYLINE_CHIP_MERGE_DEADLINE_MS": "500", "SKYLINE_CHIP_MERGE_RETRIES": "0",
+           "SKYLINE_FAULT_SLOW_MS": "2000"}
+    with knob_env(env):
+        install_plan(FaultPlan.parse(FAILOVER_PLAN))
+        eng.pset._gm_cache = None  # same epoch: force the level-1 rerun
+        t_fault = time.perf_counter()
+        degraded, _ = answer(eng, "fault,0")
+        t_degraded = time.perf_counter()
+        clear()
+    for t in threading.enumerate():  # drain the abandoned slow attempt
+        if t.name.startswith("chip1-merge"):
+            t.join(timeout=30)
+    wall_ms = (t_degraded - t_fault) * 1e3
+    if degraded.get("partial") is not True or degraded.get("excluded_chips") != [1]:
+        raise AssertionError(f"failover drill: the answer is not marked degraded: {degraded}")
+    if eng.health.quarantined() != [1]:
+        raise AssertionError(f"failover drill: quarantined {eng.health.quarantined()}")
+    if wall_ms >= 2000.0:
+        raise AssertionError(f"failover drill: the degraded answer took {wall_ms:.0f} ms")
+    eng.pset._gm_cache = None
+    healed, healed_bytes = answer(eng, "healed,0")  # the launch fails chip 1 over
+    t_healed = time.perf_counter()
+    lf = eng.pset.last_failover
+    if "partial" in healed or eng.pset.failovers != 1 or healed_bytes != truth:
+        raise AssertionError(f"failover drill: post-heal {healed.get('partial')}, "
+                             f"{eng.pset.failovers} failovers, same bytes {healed_bytes == truth}")
+    out = {
+        "fault": FAILOVER_PLAN, "deadline_ms": 500.0, "rows": n, "d": d, "chips": 2,
+        "degraded_answer_wall_ms": wall_ms, "completeness_bound": degraded["completeness_bound"],
+        "time_to_healed_ms": float(lf["wall_ms"]), "failover_owner": int(lf["owner"]),
+        "degraded_window_ms": (t_healed - t_degraded) * 1e3,
+        "devices": [str(x) for x in eng.pset.devices],
+    }
+    log(f"sharded: failover drill ({FAILOVER_PLAN}, 500 ms deadline): degraded answer in "
+        f"{wall_ms:.1f} ms excluding chip 1 (bound {degraded['completeness_bound']}), "
+        f"quarantined, failed over to chip {lf['owner']}; time_to_healed_ms "
+        f"{lf['wall_ms']:.3f}; the post-heal answer is the healthy run's, bytes and order")
+    return out
+
+
+# the sharded main paths: path -> (the flat path whose configuration it runs,
+# chips). (v) is (c) through ShardedEngine(chips=4), (w) is (d).
+SHARDED_PATHS = {"v": ("c", 4), "w": ("d", 4)}
+# the kernels each must launch: (v) the lazy rounds' mp kernels and K2 (the
+# chip trees and the cross-chip level), (w) the incremental rounds and K2
+SHARDED_WANTED = {"v": MP_ROUNDS + TREE_K2, "w": (PREDROP_FUSED, MP_PATH[1]) + TREE_K2}
+
+
+@contextlib.contextmanager
+def cross_chip_watch(torch):
+    """For the duration, every cross-chip ``tree_pair_merge`` (the level-2
+    pairs on chip 0's card) is counted with the K2 launches it made, and
+    the heaviest pair's inputs kept (cloned). Yields the record."""
+    from skyline_tpu_torch.distributed import sharded
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+
+    real = sharded.tree_pair_merge
+    rec = {"pairs": 0, "k2_launches": 0, "work": -1}
+
+    def watch(a, apids, acnt, b, bpids, bcnt, out_cap):
+        rec["pairs"] += 1
+        work = a.shape[0] * b.shape[0]
+        if work >= rec["work"]:
+            rec.update(work=work, a=a.clone(), acnt=acnt.clone(), b=b.clone(),
+                       bcnt=bcnt.clone())
+        k0 = dk.LAUNCHES["dominated_by_rect"]
+        out = real(a, apids, acnt, b, bpids, bcnt, out_cap)
+        rec["k2_launches"] += dk.LAUNCHES["dominated_by_rect"] - k0
+        return out
+
+    sharded.tree_pair_merge = watch
+    try:
+        yield rec
+    finally:
+        sharded.tree_pair_merge = real
+
+
+def _sync_all(torch) -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def sharded_path(torch, np, path: str, n: int, windows: int, base_runs=None,
+                 dev="cuda") -> tuple:
+    """Path (v) or (w): its flat path's configuration and rows (the same
+    seed) through a fresh ``ShardedEngine(chips=4)`` a window, one warm
+    window and ``windows`` measured, launch counts set to 0 before and read
+    after. Each window prints its wall, the flush and merge walls, the
+    level-1 ms (the chips' merges, summed) and level-2 ms (the merge wall
+    less level 1: the gather, the cross-chip pairs and the harvest), the
+    chips pruned and the cross-chip pairs; the last window's answer equals
+    the flat engine's on the same rows (a sorted set; the order is the
+    parity leg's) and the warm answer passes the sampled checks. With the
+    flat path's run in ``base_runs``, printed beside it."""
+    from skyline_tpu_torch.distributed import ShardedEngine
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+    from skyline_tpu_torch.telemetry.spans import SpanRecorder
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    base, chips = SHARDED_PATHS[path]
+    cfg, _, _, env = PATHS[base]
+    d = cfg["dims"]
+    rng = np.random.default_rng(0)
+    ids = np.arange(n, dtype=np.int64)
+    xs = [anti_correlated(rng, n, d, 0, 10000) for _ in range(windows + 1)]
+    lat, rows = [], []
+    with rank_gate(False, env), cross_chip_watch(torch) as cross:
+        dk.reset_launches()
+        prev = None
+        for w, x in enumerate(xs):
+            eng = ShardedEngine(_config(base, n, emit_skyline_points=w == 0), chips=chips)
+            if prev is not None:
+                # each chip takes over its lazy flush race's profiler, as one
+                # long-lived engine keeps it (main_path's flush_race)
+                for chip, old in zip(eng.pset._chips, prev.pset._chips):
+                    chip._flush_prof = old._flush_prof
+            prev = eng
+            spans = SpanRecorder(256)
+            eng.pset._spans = spans
+            pairs0 = cross["pairs"]
+            t0 = time.perf_counter()
+            for i in range(0, n, 65536):
+                eng.process_records(ids[i : i + 65536], x[i : i + 65536])
+            eng.process_trigger("0,0")
+            (res,) = eng.poll_results()
+            _sync_all(torch)
+            dt = time.perf_counter() - t0
+            level1 = sum(s["dur_ns"] for s in spans.snapshot() if s["name"] == "chip_merge") / 1e6
+            info = eng.pset.last_chip_info
+            row = {"window_ms": dt * 1e3, "flush_ms": eng.last_flush_ms,
+                   "merge_ms": eng.last_merge_ms, "level1_ms": level1,
+                   "level2_ms": eng.last_merge_ms - level1,
+                   "skyline_size": res["skyline_size"], "chips_pruned": len(info["pruned"]),
+                   "survivors": info["survivors"], "cross_chip_pairs": cross["pairs"] - pairs0,
+                   "per_chip_skyline": [c["skyline"] for c in info["per_chip"]],
+                   "flush_paths": [dict(c.flush_paths) for c in eng.pset._chips],
+                   "local_sizes": eng.pset.sky_counts().tolist(),
+                   "records_seen": eng.pset.records_seen.tolist()}
+            if w == 0:
+                warm = (dt, res, x)
+                log(f"main ({path}): warm window {dt * 1e3:.1f} ms, skyline "
+                    f"{res['skyline_size']}; {_spread(torch, eng, chips)}")
+                continue
+            lat.append(dt)
+            rows.append(row)
+            log(f"main ({path}): window {w - 1}: {dt * 1e3:.1f} ms (flush "
+                f"{row['flush_ms']:.1f} ms, merge {row['merge_ms']:.1f} ms: level 1 "
+                f"{level1:.1f} ms, level 2 {row['level2_ms']:.1f} ms), skyline "
+                f"{res['skyline_size']}, chips' skylines {row['per_chip_skyline']}, "
+                f"{row['chips_pruned']} of {chips} chips pruned, survivors {row['survivors']}, "
+                f"{row['cross_chip_pairs']} cross-chip pairs; chips' flush paths "
+                f"{row['flush_paths']}; partitions' skylines {row['local_sizes']} of records "
+                f"{row['records_seen']}")
+        launches = dict(dk.LAUNCHES)
+        cross_k2 = cross["k2_launches"]
+        heavy = {k: cross.get(k) for k in ("a", "acnt", "b", "bcnt")}
+        stats = eng.stats()["sharded"]
+    want_k = SHARDED_WANTED[path]
+    missing = [k for k in want_k if launches[k] == 0]
+    if missing or cross_k2 == 0:
+        raise AssertionError(f"main path ({path}) launched no {missing or 'cross-chip K2'}")
+    # the last window's answer against the flat engine on the same rows
+    from skyline_tpu_torch.stream import SkylineEngine
+
+    def points(engine):
+        return engine.pset.global_merge_stats(emit_points=True)[3]
+
+    flat = SkylineEngine(_config(base, n))
+    with rank_gate(False, env):
+        for i in range(0, n, 65536):
+            flat.process_records(ids[i : i + 65536], xs[-1][i : i + 65536])
+        flat.process_trigger("0,0")
+        flat.poll_results()
+        if _sorted_bytes(points(flat)) != _sorted_bytes(points(eng)):
+            raise AssertionError(f"main path ({path}): the answer differs from the flat engine's")
+    check_answer(torch, np, warm[2], np.asarray(warm[1]["skyline_points"], np.float32), dev)
+    summary = {
+        "base": base, "chips": chips, "rows_per_window": n, "windows_measured": windows,
+        "tuples_per_s": n * windows / sum(lat),
+        "p50_window_ms": float(np.median(lat)) * 1e3,
+        "p50_flush_ms": float(np.median([r["flush_ms"] for r in rows])),
+        "p50_merge_ms": float(np.median([r["merge_ms"] for r in rows])),
+        "p50_level1_ms": float(np.median([r["level1_ms"] for r in rows])),
+        "p50_level2_ms": float(np.median([r["level2_ms"] for r in rows])),
+        "chips_pruned_per_merge": [r["chips_pruned"] for r in rows],
+        "warm_window_ms": warm[0] * 1e3, "windows": rows, "launches": launches,
+        "launches_per_window": {k: v / (windows + 1) for k, v in launches.items()},
+        "cross_chip_k2_launches": cross_k2, "devices": stats["devices"],
+        "merge_env": env,
+    }
+    log(f"main ({path}): {summary['tuples_per_s']:.0f} tuples/s, p50 window "
+        f"{summary['p50_window_ms']:.1f} ms (flush {summary['p50_flush_ms']:.1f}, merge "
+        f"{summary['p50_merge_ms']:.1f}: level 1 {summary['p50_level1_ms']:.1f}, level 2 "
+        f"{summary['p50_level2_ms']:.1f}) over {windows} windows of {n} rows, {chips} chips on "
+        f"{stats['devices']}; chips pruned per merge {summary['chips_pruned_per_merge']}; "
+        f"launches over {windows + 1} windows {({k: launches[k] for k in want_k})}, cross-chip "
+        f"K2 {cross_k2}; the last answer = the flat engine's (a sorted set)")
+    if base_runs and base in base_runs:
+        b = base_runs[base][0]
+        summary["beside_" + base] = {"p50_window_ms": b["p50_window_ms"],
+                                     "tuples_per_s": b["tuples_per_s"],
+                                     "ratio": summary["p50_window_ms"] / b["p50_window_ms"]}
+        log(f"main ({path}) beside ({base}): p50 {summary['p50_window_ms']:.1f} ms vs "
+            f"{b['p50_window_ms']:.1f} ms ({summary['p50_window_ms'] / b['p50_window_ms']:.3f}x), "
+            f"{summary['tuples_per_s']:.0f} vs {b['tuples_per_s']:.0f} tuples/s")
+    return summary, heavy
+
+
+def cross_chip_k2(torch, np, heavy: dict, summary: dict) -> dict:
+    """K2 at the cross-chip level: the heaviest level-2 pair over (v)'s
+    windows (chip roots on chip 0's card), its two calls as
+    ``tree_pair_k2`` times them, with (v)'s cross-chip K2 launches a
+    window."""
+    if heavy.get("a") is None:
+        raise AssertionError("(v) merged no cross-chip pair")
+    out = _time_tree_pair(torch, heavy["a"], heavy["acnt"], heavy["b"], heavy["bcnt"],
+                          "K2 cross-chip pair")
+    out["launches"] = summary["cross_chip_k2_launches"]
+    out["launches_per_window"] = out["launches"] / (summary["windows_measured"] + 1)
+    out["devices"] = summary["devices"]
+    log(f"timings: K2 cross-chip pair ({out['valid_a_rows']} a rows, {out['valid_b_rows']} b "
+        f"rows) {out['pair_ms']:.3f} ms, {out['launches_per_window']:.1f} cross-chip K2 "
+        "launches per window on (v)")
+    return out
+
+
 # the worker's paths: (t) over the wire, (u) the crash drill
 WORKER_PATHS = {
     "t": lambda torch, np, windows, profile: wire_path(torch, np, windows, profile),
@@ -5139,6 +5675,7 @@ PARITY_LEGS = {
     "serve": ("serve_parity", check_serve_parity),
     "sliding": ("sliding_parity", check_sliding_parity),
     "worker": ("worker_parity", check_worker_parity),
+    "sharded": ("sharded_parity", check_sharded_parity),
 }
 
 
@@ -5177,9 +5714,9 @@ def main() -> int:
     ap.add_argument(
         "--paths", default="",
         help="comma-separated paths for the main phase, in this order: the tumbling "
-        "paths, and the worker's t (over the wire) and u (the crash drill) (default: "
-        "all, then the sliding paths, then t and u); not with the timings phase, which "
-        "reads them all",
+        "paths, the sharded v and w, and the worker's t (over the wire) and u (the crash "
+        "drill) (default: all, then v and w, the sliding paths, t and u); not with the "
+        "timings phase, which reads them all",
     )
     args = ap.parse_args()
     if args.paths and "timings" in args.only:
@@ -5238,6 +5775,7 @@ def main() -> int:
         tr = check_tree(torch, np, "cuda")
         dc = check_cascade(torch, np, "cuda")
         bk = check_batched_k3(torch, np, "cuda")
+        od = check_one_device(torch, "cuda")
         log(f"kernels: {n} checks equal to the plain versions, {mpn} mixed-precision checks "
             f"(K1-K3 mp equal to the plain versions and to their f32 launches, both pre-drop "
             f"entries and the pre-drop's skip decisions equal to their plain versions), {m} merge-step rounds (with and without mp) equal "
@@ -5245,7 +5783,8 @@ def main() -> int:
             f"on K2, compact_tagged, partition summaries) equal to the CPU, {dc} device "
             f"cascade checks (mp off and on) equal to the CPU cascade and to K3, {bk} checks "
             f"of K3 over a partition batch (one launch) equal to its plain version and to K3 "
-            f"on each partition alone in {time.perf_counter() - t0:.1f} s")
+            f"on each partition alone, {od} entries refusing operands on two devices in "
+            f"{time.perf_counter() - t0:.1f} s")
         details["skyline_large"] = check_skyline_large(torch, np, args.n, "cuda")
     if "parity" in args.only:
         legs = args.legs.split(",") if args.legs else list(PARITY_LEGS)
@@ -5266,6 +5805,9 @@ def main() -> int:
             if path in WORKER_PATHS:
                 details.setdefault("worker", {})[path] = WORKER_PATHS[path](
                     torch, np, args.windows, args.profile)
+            elif path in SHARDED_PATHS:
+                details.setdefault("sharded", {})[path] = sharded_path(
+                    torch, np, path, args.n, args.windows, runs)[0]
             else:
                 runs[path] = main_path(torch, np, path, args.n, args.windows)
             log(f"main ({path}): {time.perf_counter() - t0:.1f} s in all")
@@ -5300,6 +5842,13 @@ def main() -> int:
         report_serve(runs)
         details["plane_costs"] = plane_costs(
             np, runs["p"][0]["windows"][-1]["hub"], -(-args.n // 65536), 65536, 8)
+        sharded, heavy = {}, None
+        for path in SHARDED_PATHS:
+            t0 = time.perf_counter()
+            sharded[path], h = sharded_path(torch, np, path, args.n, args.windows, runs)
+            heavy = h if path == "v" else heavy
+            log(f"main ({path}): {time.perf_counter() - t0:.1f} s in all")
+        details["sharded"] = sharded
         t0 = time.perf_counter()
         sliding = {"n": sliding_northstar(torch, np, args.windows), "o": sliding_4d(torch, np)}
         details["sliding"] = {path: r[0] for path, r in sliding.items()}
@@ -5348,6 +5897,8 @@ def main() -> int:
         rows = {r["name"]: r for r in table}
         rows["dominated_by_rect"]["inputs"]["incremental"] = inc
         rows["dominated_by_rect"]["inputs"]["tree_pair"] = pair
+        rows["dominated_by_rect"]["inputs"]["cross_chip"] = cross_chip_k2(
+            torch, np, heavy, sharded["v"])
         casc = cascade_timings(torch, np, eng_c, x_c, w, launches_of["l"],
                                launches_of["m"])
         details["device_cascade"] = casc

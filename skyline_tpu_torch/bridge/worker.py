@@ -8,12 +8,13 @@ result per completed query on the output topic (FlinkSkyline.java job
 wiring :84-97, :177-183). Works over any bus exposing
 ``produce``/``consumer`` (MemoryBus or KafkaBus).
 
-Ported: the flat and sliding engines, the serving plane, the stats server,
-the WAL, checkpoints and crash recovery, and the ops journal. Not yet, and
-raising with a pointer: the sharded and cluster engines and a device mesh
-(``mesh``, ``mesh_chips``, ``cluster_hosts``, with the lease-fenced WAL and
-the chip journals' writer: ROADMAP queue 1 items 7-8) and the read replicas
-(``replicas``, ``--replica-of``: item 6).
+Ported: the flat, sliding and sharded engines (``mesh_chips``,
+``--mesh-chips``: ``distributed.ShardedEngine`` with its chip journals,
+chip health and online failover), the serving plane, the stats server, the
+WAL, checkpoints and crash recovery, and the ops journal. Not yet, and
+raising with a pointer: the cluster engine and a device mesh (``mesh``,
+``cluster_hosts``, with the lease-fenced WAL: ROADMAP queue 1 item 8) and
+the read replicas (``replicas``, ``--replica-of``: item 6).
 """
 
 from __future__ import annotations
@@ -60,9 +61,13 @@ class SkylineWorker:
         resilience=None,
         replicas: int = 0,
     ):
-        """``mesh``, ``mesh_chips`` and ``cluster_hosts`` shard the engine
-        over several devices or hosts in the reference; the port raises on
-        any of them until ROADMAP queue 1 items 7-8 port those engines.
+        """``mesh_chips``: > 0 runs the sharded engine
+        (``distributed.ShardedEngine``): the partitions in ``mesh_chips``
+        contiguous groups over the visible cards, queries answered by the
+        two-level tournament, with chip journals beside the WAL under
+        ``SKYLINE_CHIP_BARRIER`` when crash safety is on. ``mesh`` and
+        ``cluster_hosts`` shard over a device mesh or several hosts in the
+        reference; the port raises on either until ROADMAP queue 1 item 8.
         ``stats_port``: serve
         live /stats + /healthz JSON on this port (0 picks a free one; None
         disables) — the Flink-Web-UI role for this stack. ``window_size`` +
@@ -109,16 +114,25 @@ class SkylineWorker:
         from skyline_tpu_torch.metrics.tracing import Tracer
         from skyline_tpu_torch.telemetry import Telemetry
 
-        if mesh is not None or mesh_chips or cluster_hosts:
+        if mesh_chips and mesh is not None:
+            raise ValueError("mesh and mesh_chips are mutually exclusive")
+        if mesh_chips and window_size:
+            raise ValueError("sliding-window mode does not support mesh_chips")
+        if cluster_hosts and mesh is not None:
+            raise ValueError("mesh and cluster_hosts are mutually exclusive")
+        if cluster_hosts and window_size:
+            raise ValueError("sliding-window mode does not support cluster_hosts")
+        if mesh is not None or cluster_hosts:
             raise NotImplementedError(
-                "the sharded and cluster engines (mesh, mesh_chips, "
-                "cluster_hosts) are not ported yet (ROADMAP queue 1 items 7-8)"
+                "the cluster engine and a device mesh (mesh, cluster_hosts) "
+                "are not ported yet (ROADMAP queue 1 item 8)"
             )
         if replicas:
             raise NotImplementedError(
                 "read replicas (replicas, --replica-of) are not ported yet "
                 "(ROADMAP queue 1 item 6: serve/replica.py)"
             )
+        self.mesh_chips = int(mesh_chips)
         self.bus = bus
         self.max_drain_polls = max_drain_polls
         self.tracer = tracer if tracer is not None else Tracer(sync_device=False)
@@ -141,6 +155,7 @@ class SkylineWorker:
         self._ckpt_mgr = None
         self._wal = None
         self._opslog = None
+        self._chip_wal = None
         self._snap_store = None
         self._serve_ring = None
         self._bodystore = None
@@ -171,8 +186,8 @@ class SkylineWorker:
                 telemetry=self.telemetry,
             )
             hit = self._ckpt_mgr.restore_latest(
-                tracer=self.tracer, telemetry=self.telemetry,
-                device=config.device,
+                mesh_chips=mesh_chips, tracer=self.tracer,
+                telemetry=self.telemetry, device=config.device,
             )
             ckpt_path = None
             if hit is not None:
@@ -212,6 +227,13 @@ class SkylineWorker:
             # passed config so a restarted incarnation can't silently change
             # result semantics mid-stream
             self.engine = restored_engine
+        elif mesh_chips:
+            from skyline_tpu_torch.distributed import ShardedEngine
+
+            self.engine = ShardedEngine(
+                config, chips=mesh_chips, tracer=self.tracer,
+                telemetry=self.telemetry,
+            )
         else:
             self.engine = SkylineEngine(
                 config, tracer=self.tracer, telemetry=self.telemetry
@@ -337,6 +359,25 @@ class SkylineWorker:
                 return {}, gauges
 
             self.telemetry.replication.append(_wal_plane_series)
+            # chip-local journals for the sharded engine: per-chip flush
+            # lineage + merge-time consistency barriers (policy "merge", the
+            # default), or checkpoint-time barriers only ("checkpoint");
+            # "off" skips the plane entirely
+            if self.mesh_chips:
+                from skyline_tpu_torch.resilience.chip_wal import ChipWalPlane
+                from skyline_tpu_torch.utils.knobs import chip_barrier_policy
+
+                policy = chip_barrier_policy()
+                if policy != "off":
+                    self._chip_wal = ChipWalPlane(
+                        self._wal_dir,
+                        self.mesh_chips,
+                        segment_bytes=resilience.wal_segment_bytes,
+                        fsync=resilience.wal_fsync,
+                        telemetry=self.telemetry,
+                    )
+                    if policy == "merge":
+                        self.engine.pset.attach_chip_wal(self._chip_wal)
             # subscribe AFTER the serve restore so re-seating the head never
             # logs a bogus everything-entered delta
             if self._snap_store is not None:
@@ -394,6 +435,8 @@ class SkylineWorker:
             }
             if self._wal is not None:
                 res["wal"] = self._wal.stats()
+            if self._chip_wal is not None:
+                res["chip_wal"] = self._chip_wal.stats()
             if self._opslog is not None:
                 res["ops"] = self._opslog.stats()
             if self._recovered is not None:
@@ -432,6 +475,12 @@ class SkylineWorker:
             except OSError:
                 pass
             self._wal = None
+        if self._chip_wal is not None:
+            try:
+                self._chip_wal.close()
+            except OSError:
+                pass
+            self._chip_wal = None
         if self._opslog is not None:
             self._opslog.close()
             self._opslog = None
@@ -709,6 +758,17 @@ class SkylineWorker:
         )
         if self._wal is not None:
             self._wal.barrier(self._barrier_record())
+        if self._chip_wal is not None:
+            # the chip journals rotate with the main WAL (the checkpoint
+            # supersedes older segments); the snapshot stays in the main WAL
+            # only — chip journals carry positions, not rows
+            self._chip_wal.checkpoint_barrier(
+                {
+                    "type": "ckpt",
+                    "data_off": self._data_pos,
+                    "query_off": self._query_pos,
+                }
+            )
         self._last_ckpt_s = time.monotonic()
         self._dirty = False
         return path
@@ -1022,6 +1082,15 @@ class SkylineWorker:
                 auditor = getattr(self.engine, "auditor", None)
                 if auditor is not None:
                     auditor.maybe_canary()
+                # idle ticks also drive the chip-health plane: staleness
+                # scoring plus failover of any chip that quarantined since
+                # the last merge — recovery must not wait for traffic
+                health = getattr(self.engine, "health", None)
+                if health is not None:
+                    health.tick()
+                    pset = getattr(self.engine, "pset", None)
+                    if pset is not None and hasattr(pset, "maybe_failover"):
+                        pset.maybe_failover()
                 # idle ticks drive the dispatch tuner too: a quiet stream
                 # still closes workload epochs, and the controller must
                 # converge (or revert on SLO burn) without a query
@@ -1083,6 +1152,7 @@ def main(argv=None):
     print(
         f"skyline worker: algo={cfg.algo} partitions={worker.engine.config.num_partitions} "
         f"dims={cfg.dims} broker={cfg.bootstrap} device={cfg.device}"
+        f" chips={cfg.mesh_chips or 'off'}"
         + (f" stats=:{worker.stats_server.port}" if worker.stats_server else "")
         + (f" serve=:{worker.serve_server.port}" if worker.serve_server else "")
         + (f" checkpoints={cfg.checkpoint_dir}" if cfg.checkpoint_dir else ""),

@@ -32,8 +32,9 @@ Endpoints:
                 imbalance index + skew score, freshness watermark, last
                 EXPLAIN chip attribution (sharded workers; a flat worker
                 reports {"enabled": false})
-  GET /health   chip-health block: {"ok": true, "enabled": false} on the
-                port's flat engine (the health plane is not ported)
+  GET /health   chip-health block: per-chip score/status + quarantine
+                state from the sharded engine's ChipHealth on the hub; a
+                flat engine answers {"ok": true, "enabled": false}
   GET /cluster  cluster block: {"ok": true, "enabled": false} (the cluster
                 plane is not ported)
   GET /ops      the ops journal's merged timeline (?since_seq=N, ?limit=N);

@@ -2,8 +2,8 @@
 
 Counterpart of ``skyline_tpu/ops/block_skyline.py`` (``skyline_mask_scan``
 and ``skyline_large``; ``skyline_mask_blocked`` and
-``dominated_by_blocked`` serve only the multi-card merge, which is not
-ported yet).
+``dominated_by_blocked`` serve only the device-mesh and multi-host merges,
+which are not ported yet).
 
 ``skyline_mask_scan`` is the dispatch's ``mask_scan`` row, the CPU's
 fallback: one pass of dominator chunks against every row, a chunk skipped

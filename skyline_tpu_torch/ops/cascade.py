@@ -10,8 +10,9 @@ with its siblings. The dispatch sites resolve here:
 ``dispatch.skyline_mask_auto`` (``resolve_mask``), the lazy flush's path
 (``resolve_flush``), the global merge's path (``merge_cache_on``,
 ``delta_applies``, ``merge_tree_on``) and the gates (``gate``,
-``applies``). The multi-card prune rows are declared; their sites are not
-ported yet.
+``applies``). The sharded engine's chip prune reads its row
+(``gate("chip_prune")``); the cluster's host prune row is declared, its
+site not ported yet.
 
 Resolution is the reference's: explicit ``auto|on|off`` modes force or
 exclude rows, ``auto`` races the applicable candidates on measured

@@ -303,13 +303,28 @@ def _scratch(P: int, rows: int, d: int, nx: int, ny: int, like: torch.Tensor) ->
     ]
 
 
+def _one_device(name: str, **tensors) -> None:
+    """Raise ``ValueError`` naming ``name`` unless every tensor lies on one
+    device. The kernels take raw pointers: an operand left on another card
+    would be an illegal address or a silent wrong read, not an error."""
+    devs = {k: t.device for k, t in tensors.items()}
+    if len(set(devs.values())) > 1:
+        raise ValueError(
+            f"{name}: operands on different devices "
+            + ", ".join(f"{k} on {d}" for k, d in devs.items())
+        )
+
+
 def _launch(
     name: str, x3: torch.Tensor, v2: torch.Tensor, y3: torch.Tensor, mp: bool = False
 ) -> torch.Tensor:
-    """One kernel launch on the current stream for entry point ``name``,
-    counted in ``LAUNCHES`` (under ``name + "_mp"`` with ``mp``; the value
-    kernel is the same either way): (P, ny) bool. Rank inputs carry a sum
-    row on top of their ``d`` rank rows."""
+    """One kernel launch on the current stream of the operands' device for
+    entry point ``name``, counted in ``LAUNCHES`` (under ``name + "_mp"``
+    with ``mp``; the value kernel is the same either way): (P, ny) bool.
+    Rank inputs carry a sum row on top of their ``d`` rank rows. Every
+    operand, the output and the scratch must lie on one device
+    (``ValueError`` otherwise)."""
+    _one_device(name, dominators=x3, validity=v2, victims=y3)
     P, rows, nx = x3.shape
     ny = y3.shape[2]
     library = _LIBRARY_OF[name]
@@ -324,6 +339,7 @@ def _launch(
     if P == 0 or ny == 0:
         return out.view(torch.bool)
     scratch = _scratch(P, rows, d, nx, ny, x3)
+    _one_device(name, dominators=x3, output=out, **{f"scratch{i}": t for i, t in enumerate(scratch)})
     args = [x3.data_ptr(), v2.view(torch.uint8).data_ptr(), y3.data_ptr(), out.data_ptr()]
     args += [t.data_ptr() for t in scratch] + [P, d, nx, ny]
     with torch.cuda.device(x3.device):
@@ -705,10 +721,19 @@ def _flags(t: torch.Tensor, name: str, what: str, shape) -> torch.Tensor:
 
 def _predrop_call(y3, yv2, x3, xv2, fused: bool, scratch: list | None = None):
     """One pre-drop launch (summary pass and compare) on the current
-    stream; arguments checked by the caller, all on one card. Returns the
-    mask (P, ny) uint8, or with ``fused`` (block', validity' uint8, counts
-    (P, ceil(ny / 256)) int32). ``scratch`` (``_scratch``'s three buffers),
-    when given, keeps the summaries for the caller to read."""
+    stream of the operands' device; shapes and strides checked by the
+    caller. Every operand and scratch buffer must lie on one device
+    (``ValueError`` otherwise). Returns the mask (P, ny) uint8, or with
+    ``fused`` (block', validity' uint8, counts (P, ceil(ny / 256)) int32).
+    ``scratch`` (``_scratch``'s three buffers), when given, keeps the
+    summaries for the caller to read."""
+    operands = dict(victims=y3, dominators=x3, dominator_validity=xv2)
+    if fused:
+        operands["victim_validity"] = yv2
+    for i, t in enumerate(scratch or ()):
+        operands[f"scratch{i}"] = t
+    _one_device("strictly_dominated_bf16_kernel" if not fused else "mp_predrop_kernel",
+                **operands)
     P, ny, d = y3.shape
     nx = x3.shape[1]
     if not 1 <= d <= MAX_DIMS:

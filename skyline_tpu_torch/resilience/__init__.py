@@ -16,9 +16,10 @@ because ``stream/batched.py`` imports ``faults`` on its hot path):
 - ``checkpoints`` retain-N checkpoint manager with CRC-verified restore
                   onto the engine's device and fallback to the previous
                   good checkpoint
-- ``chip_wal``    the readers of the sharded engine's per-chip journals
-                  that every resilient boot runs (the journals' writer
-                  waits for the sharded engine, ROADMAP queue 1 item 7)
+- ``chip_wal``    the sharded engine's per-chip journals: the writer
+                  (``ChipWalPlane``) and the barrier check every
+                  resilient boot runs
+- ``health``      per-chip health scores and quarantine (``ChipHealth``)
 - ``supervisor``  exponential-backoff restart loop with a bounded budget
 """
 

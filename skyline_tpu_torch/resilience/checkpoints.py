@@ -84,18 +84,19 @@ class CheckpointManager:
         zip, CRC mismatch, bad meta) logs, counts a fallback, and the next
         older file is tried. The engine is restored onto ``device``.
 
-        ``mesh``, ``mesh_chips`` and ``cluster_hosts`` place a sharded or
-        cluster engine in the reference; the port's wait for ROADMAP queue 1
-        items 7-8, so any of them raises before a file is read."""
+        ``mesh_chips`` > 0 restores a ``distributed.ShardedEngine`` of that
+        many chips from any checkpoint, flat or sharded. ``mesh`` and
+        ``cluster_hosts`` place engines the port has not ported yet (ROADMAP
+        queue 1 item 8), so either raises before a file is read."""
         from skyline_tpu_torch.utils.checkpoint import load_engine
         from skyline_tpu_torch.utils.devices import resolve_device
 
         # a missing card raises here, never counted as a bad file
         resolve_device(device)
-        if mesh is not None or mesh_chips or cluster_hosts:
+        if mesh is not None or cluster_hosts:
             raise NotImplementedError(
-                "restoring a sharded or cluster engine (mesh, mesh_chips or "
-                "cluster_hosts) is not ported yet (ROADMAP queue 1 items 7-8)"
+                "restoring onto a device mesh or a cluster engine (mesh, "
+                "cluster_hosts) is not ported yet (ROADMAP queue 1 item 8)"
             )
 
         for _seq, path in reversed(self.list()):

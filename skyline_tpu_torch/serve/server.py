@@ -46,8 +46,9 @@ operator observability; this one serves the skyline itself. Endpoints:
                   EXPLAIN chip attribution (sharded workers; flat workers
                   report {"enabled": false}).
   GET  /health    chip-health block: per-chip score/status + quarantine
-                  state; ``{"ok": true, "enabled": false}`` here, since the
-                  port's engine is flat (the health plane is not ported).
+                  state from the sharded engine's ``ChipHealth`` on the hub
+                  (``resilience/health.py``); a flat engine answers
+                  ``{"ok": true, "enabled": false}``.
   GET  /cluster   cluster block: ``{"ok": true, "enabled": false}`` (the
                   cluster plane is not ported).
   GET  /ops       the ops journal's merged timeline (``?since_seq=N``,

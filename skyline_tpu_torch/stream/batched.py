@@ -73,9 +73,11 @@ EXPLAIN plan rides the merge handle from launch to harvest. All of it is
 host-side bookkeeping around work already queued: the answers are the same
 with it or without.
 
-Not ported yet (each gives results byte-identical to these paths in the
-reference): ``merge_points_device`` (the multi-GPU engine's only caller)
-and the device mesh.
+``merge_points_device`` hands a harvested merge's points to the sharded
+engine's cross-chip level on the device (``distributed/sharded.py``). Every
+device-side step names its device (``self.device``), so a set placed on
+``cuda:1`` by the sharded engine never touches the current device's stream
+or memory; the device mesh is not ported yet.
 
 Per-partition CPU attribution follows the reference: flush wall time is
 accounted to the set, and every partition reports the set total as its
@@ -189,6 +191,23 @@ def grid_drop(bounds: np.ndarray, ux: np.ndarray, y: np.ndarray) -> np.ndarray:
     for k in range(d):
         acc &= masks[_codes(bounds[:, k], yt[k]), k]
     return acc != 0
+
+
+def to_host_async(t: torch.Tensor):
+    """Queue a copy of ``t`` to host memory: (host tensor, event) on a card
+    — a ``non_blocking`` copy into pinned memory (a pageable copy would
+    wait) on ``t``'s device's current stream, with an event recorded on
+    that stream after it — or (t, None) on the CPU, where it is already
+    there. Nothing here reads the current device, so a tensor on
+    ``cuda:1`` is waited for on its own card."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    with torch.cuda.device(t.device):
+        host.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(t.device))
+    return host, event
 
 
 class _MergeHandle:
@@ -1316,7 +1335,7 @@ class PartitionSet:
             return
         active = min(self._cap, _active_bucket(max(int(self._count_ub.max()), 1)))
         bounds, ux = grid_summary_device(self.sky, self._count_dev, active)
-        self._grid = (self._to_host_async(bounds), self._to_host_async(ux))
+        self._grid = (to_host_async(bounds), to_host_async(ux))
         self._grid_host = None
         self._grid_epoch = self._epoch.copy()
 
@@ -1513,25 +1532,12 @@ class PartitionSet:
                 h.union, h.keep, stats = global_merge_stats_device(
                     self.sky, self._count_dev, active, union_cap
                 )
-        h.stats, h.event = self._to_host_async(stats)
+        h.stats, h.event = to_host_async(stats)
         return h
-
-    def _to_host_async(self, t: torch.Tensor):
-        """Queue a copy of ``t`` to host memory: (host tensor, event) on a
-        card — a ``non_blocking`` copy into pinned memory (a pageable copy
-        would wait) with an event recorded after it — or (t, None) on the
-        CPU, where it is already there."""
-        if self.device.type != "cuda":
-            return t, None
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return host, event
 
     @staticmethod
     def _landed(host: torch.Tensor, event) -> np.ndarray:
-        """The host bytes of a ``_to_host_async`` copy, once it has landed."""
+        """The host bytes of a ``to_host_async`` copy, once it has landed."""
         if event is not None:
             event.synchronize()
         return host.numpy()
@@ -1617,7 +1623,7 @@ class PartitionSet:
 
     def _launch_summaries(self) -> None:
         active = min(self._cap, _active_bucket(max(int(self._count_ub.max()), 1)))
-        self._summary = self._to_host_async(
+        self._summary = to_host_async(
             partition_summaries_device(self.sky, self._count_dev, active)
         )
         self._summary_epoch = self._epoch.copy()
@@ -1735,6 +1741,25 @@ class PartitionSet:
             tree["considered"] = considered
             h.explain.tree = tree
         return tree_stats_device(self._count_dev, root_pids, root_cnt, self.num_partitions)
+
+    def merge_points_device(self, handle: _MergeHandle, out_cap: int) -> torch.Tensor:
+        """Device buffer of a harvested merge's global skyline points,
+        ``(out_cap, d)`` with rows past the true count +inf — no host
+        transfer. The sharded engine's cross-chip level feeds each chip's
+        root into ``tree_pair_merge`` through this. Valid only between a
+        harvest and the next flush; prefers the cache buffer when it
+        describes the handle's epoch, else compacts the handle's tree or
+        flat result."""
+        h = handle
+        cache = self._gm_cache
+        if cache is not None and cache["key"] == h.key:
+            pts = cache["pts_dev"]
+            if pts.shape[0] >= out_cap:
+                return pts[:out_cap]
+            return tree_points_device(pts, out_cap)
+        if h.root_vals is not None:
+            return tree_points_device(h.root_vals, out_cap)
+        return global_points_device(h.union, h.keep, out_cap)
 
     def _cached_points(self) -> np.ndarray:
         """Host copy of the cached global skyline points, transferred at most

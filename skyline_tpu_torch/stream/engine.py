@@ -219,21 +219,7 @@ class SkylineEngine:
         else:
             raise ValueError(f"unknown ingest mode {config.ingest!r}")
         self._init_planes(config, telemetry)
-        self.pset = PartitionSet(
-            config.num_partitions,
-            config.dims,
-            config.buffer_size,
-            initial_capacity=config.initial_capacity,
-            flush_policy=config.flush_policy,
-            device=self.device,
-            route=(config.algo, config.domain_max) if use_device else None,
-            window_capacity=config.window_capacity,
-            overlap_rows=config.overlap_rows,
-            tracer=self.tracer,
-            counters=telemetry.counters if telemetry is not None else None,
-            profiler=self.profiler,
-            flight=telemetry.flight if telemetry is not None else None,
-        )
+        self.pset = self._make_pset(config, telemetry, use_device)
         self.partitions = [
             PartitionView(self.pset, i) for i in range(config.num_partitions)
         ]
@@ -252,6 +238,31 @@ class SkylineEngine:
         # the overlapped merge in flight: (query, handle, now_ms, flush wall
         # ms, launch ms)
         self._inflight_merge: tuple | None = None
+
+    def _make_pset(self, config: EngineConfig, telemetry, use_device: bool):
+        """The engine's partition set: one ``PartitionSet`` on the engine's
+        device (the sharded engine builds its per-chip facade here)."""
+        return PartitionSet(
+            config.num_partitions,
+            config.dims,
+            config.buffer_size,
+            initial_capacity=config.initial_capacity,
+            flush_policy=config.flush_policy,
+            device=self.device,
+            route=(config.algo, config.domain_max) if use_device else None,
+            window_capacity=config.window_capacity,
+            overlap_rows=config.overlap_rows,
+            tracer=self.tracer,
+            counters=telemetry.counters if telemetry is not None else None,
+            profiler=self.profiler,
+            flight=telemetry.flight if telemetry is not None else None,
+        )
+
+    def _sync_devices(self) -> None:
+        """Wait for the kernels queued on the engine's card (every chip's
+        card on the sharded engine)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _init_planes(self, config: EngineConfig, telemetry) -> None:
         """The observability planes, as the reference's engine builds them:
@@ -633,10 +644,9 @@ class SkylineEngine:
         t0 = time.perf_counter_ns()
         self.pset.flush_all()
         self._note_flush()
-        if self.device.type == "cuda":
-            # the flush wall includes its queued K1/K2 work; the merge's
-            # first count read would wait for it anyway
-            torch.cuda.synchronize(self.device)
+        # the flush wall includes its queued K1/K2 work; the merge's first
+        # count read would wait for it anyway
+        self._sync_devices()
         t1 = time.perf_counter_ns()
         self.last_flush_ms = (t1 - t0) / 1e6
         if tel is not None:
@@ -706,9 +716,17 @@ class SkylineEngine:
         device answer. ``source_key`` is the epoch key of the flushed state
         the merge saw, so repeated triggers over unchanged state dedupe in
         the store (the host ``_finalize`` path publishes un-keyed: its
-        unions mix per-partition arrival times)."""
+        unions mix per-partition arrival times). The sharded facade's
+        harvest leaves its partial marker in ``last_partial`` (None on a
+        flat set and on a full answer): a degraded answer publishes
+        un-keyed too, so it never dedupes against — nor is deduped by — a
+        full snapshot of the same epoch."""
+        degraded = getattr(self.pset, "last_partial", None)
         if self.snapshots is not None:
-            self._publish_snapshot(pts, q, source_key=source_key)
+            if degraded is not None:
+                self._publish_snapshot(pts, q, source_key=None, degraded=degraded)
+            else:
+                self._publish_snapshot(pts, q, source_key=source_key)
         starts = [s for s in self.pset.start_time_ms if s is not None]
         map_finish = now_ms + flush_wall_ms
         now = map_finish + merge_ms
@@ -725,15 +743,23 @@ class SkylineEngine:
             total_ms=now - job_start,
             latency_ms=now - q.dispatch_ms,
             points=pts if self.config.emit_skyline_points else None,
+            degraded=degraded,
         )
 
-    def _publish_snapshot(self, points, q: _QueryState, source_key=None) -> None:
+    def _publish_snapshot(self, points, q: _QueryState, source_key=None, degraded=None) -> None:
         """Publish a completed global skyline, stamped with the query's
         trace id and wrapped in a "publish" span when telemetry is on.
         ``source_key``: opaque identity of the engine state the points came
         from (the partition-epoch key) — the store dedupes repeat publishes
-        of an unchanged state instead of minting a new version."""
+        of an unchanged state instead of minting a new version.
+        ``degraded``: the sharded facade's partial marker — the snapshot
+        carries ``partial``, ``excluded_chips`` and ``completeness_bound``
+        to ``/skyline``; callers pass ``source_key=None`` with it."""
         meta = {"query_id": q.qid, "source_key": source_key}
+        if degraded is not None:
+            meta["partial"] = True
+            meta["excluded_chips"] = degraded["excluded_chips"]
+            meta["completeness_bound"] = degraded["completeness_bound"]
         if q.trace_id is not None:
             meta["trace_id"] = q.trace_id
         if self.freshness is not None:
@@ -770,6 +796,7 @@ class SkylineEngine:
         latency_ms: float,
         points=None,
         partial_missing=None,
+        degraded=None,
     ) -> None:
         result = {
             "query_id": q.qid,
@@ -785,13 +812,34 @@ class SkylineEngine:
         if partial_missing is not None:
             result["partial"] = True
             result["missing_partitions"] = partial_missing
+        if degraded is not None:
+            # chip-level degradation: the answer is the EXACT skyline of the
+            # surviving chips' records (not a subset of the truth — a point
+            # dominated only by excluded-chip data legitimately appears),
+            # marked with who is missing and the record mass it covers
+            result["partial"] = True
+            result["excluded_chips"] = degraded["excluded_chips"]
+            result["completeness_bound"] = degraded["completeness_bound"]
         if points is not None:
             result["skyline_points"] = points.tolist()
         if self.telemetry is not None:
             if q.trace_id is not None:
                 # the wire's optional extension field, after the reference's
                 result["trace_id"] = q.trace_id
+            # every emitted answer counts; a chip-degraded one also burns the
+            # degraded budget (skyline_degraded_answers_total) and joins the
+            # durable ops journal
             self.telemetry.inc("queries.answered")
+            if degraded is not None:
+                self.telemetry.inc("degraded_answers")
+                ops = getattr(self.telemetry, "opslog", None)
+                if ops is not None:
+                    ops.record(
+                        "degraded_publish",
+                        trace_id=q.trace_id,
+                        excluded_chips=degraded["excluded_chips"],
+                        completeness_bound=degraded["completeness_bound"],
+                    )
             self.telemetry.histogram("query_latency_ms").observe(latency_ms)
             if q.span_t0_ns:
                 self.telemetry.spans.record(
@@ -799,7 +847,7 @@ class SkylineEngine:
                     trace_id=q.trace_id,
                     args={"query_id": q.qid, "skyline_size": skyline_size},
                 )
-        if self.workload is not None and partial_missing is None:
+        if self.workload is not None and partial_missing is None and degraded is None:
             # one trajectory point per complete answer (a partial one would
             # poison the dominance-rate series)
             self.workload.note_query(skyline_size, self.records_in)
@@ -815,6 +863,7 @@ class SkylineEngine:
         if (
             self.auditor is not None
             and partial_missing is None
+            and degraded is None
             and self.snapshots is not None
         ):
             # shadow-verify AFTER the answer is out the door (plan already

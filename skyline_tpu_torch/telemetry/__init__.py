@@ -10,11 +10,12 @@ and the ``DispatchTuner``.
 
 The worker (``bridge/worker.py``) with crash safety on attaches its ops
 journal as ``opslog`` (``telemetry/opslog.py``) and its WAL's retention
-gauges to ``replication``. Slots of the reference's hub whose planes are
-not ported yet stay as they are on the reference's flat (non-sharded,
-non-clustered) worker: ``fleet``, ``health``, ``cluster`` and
-``clusterview`` are ``None``. ``fleet_doc`` builds the ``/fleet`` document
-both HTTP surfaces serve.
+gauges to ``replication``. The sharded engine (``distributed/sharded.py``)
+attaches its ``FleetStats`` as ``fleet`` (``telemetry/fleet.py``, the
+``skyline_chip_*{chip=...}`` families) and its ``ChipHealth`` as ``health``
+(``resilience/health.py``); a flat engine leaves both ``None``. The cluster
+plane is not ported yet, so ``cluster`` and ``clusterview`` stay ``None``.
+``fleet_doc`` builds the ``/fleet`` document both HTTP surfaces serve.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from skyline_tpu_torch.metrics.collector import Counters
 from skyline_tpu_torch.metrics.tracing import NULL_TRACER, Tracer
 from skyline_tpu_torch.telemetry.audit import AuditRecorder
 from skyline_tpu_torch.telemetry.explain import ExplainRecorder, QueryPlan
-from skyline_tpu_torch.telemetry.fleet import fleet_doc
+from skyline_tpu_torch.telemetry.fleet import FleetStats, fleet_doc
 from skyline_tpu_torch.telemetry.freshness import FreshnessTracker
 from skyline_tpu_torch.telemetry.histogram import DEFAULT_EDGES, Histogram
 from skyline_tpu_torch.telemetry.profiler import FlightRecorder, KernelProfiler
@@ -71,9 +72,9 @@ class Telemetry:
         # dispatch tuner (None when their gates are off)
         self.workload = None
         self.tuner = None
-        # the reference's sharded, cluster and replication planes; a flat
-        # engine leaves them empty (a resilient worker attaches its ops
-        # journal and WAL gauges)
+        # the sharded engine's fleet and chip-health planes, the cluster and
+        # replication planes; a flat engine leaves them empty (a resilient
+        # worker attaches its ops journal and WAL gauges)
         self.fleet = None
         self.health = None
         self.cluster = None
@@ -177,6 +178,7 @@ __all__ = [
     "Counters",
     "DEFAULT_EDGES",
     "ExplainRecorder",
+    "FleetStats",
     "FlightRecorder",
     "FreshnessTracker",
     "Histogram",

@@ -2,8 +2,11 @@
 
 Counterpart of ``skyline_tpu/utils/checkpoint.py``, with the same ``.npz``
 format: a checkpoint written by either package loads into the other and
-gives the same next answer. The port's engine is flat; the sharded and
-cluster restores (ROADMAP queue 1 items 7–8) raise.
+gives the same next answer. The format is topology-free: a flat or sharded
+engine's checkpoint restores as flat or as sharded over any chip count
+(``mesh_chips``), because ``restore_all`` splits the per-partition state by
+owning chip. The cluster engine and a device mesh are not ported yet
+(ROADMAP queue 1 item 8): restoring onto them raises.
 
 The reference job declares all operator state as Flink managed state but never
 enables checkpointing, so a crash loses everything (SURVEY.md §5 —
@@ -140,16 +143,18 @@ def load_engine(
     either package) onto ``device`` — the card unless the caller asks for
     the CPU.
 
-    ``mesh``/``mesh_chips``/``cluster_hosts`` re-apply a multi-device
-    placement in the reference; the port's sharded and cluster engines are
-    not ported yet (ROADMAP queue 1 items 7–8), so any of them raises.
+    ``mesh_chips`` > 0 restores into a ``distributed.ShardedEngine`` of
+    that many chips (placement is runtime state, not checkpoint state: any
+    checkpoint restores onto any chip count). ``mesh`` and
+    ``cluster_hosts`` re-apply placements the port has not ported yet
+    (ROADMAP queue 1 item 8), so either raises.
     ``with_meta=True`` returns ``(engine, meta)`` so callers can read the
     ``extra`` doc (recovery offsets). ``tracer``/``telemetry`` thread the
     worker's observability hubs into the restored engine. A checkpoint
     whose content CRC disagrees raises ``ValueError`` (and a torn npz
     raises from ``np.load``) — the checkpoint manager treats either as
     "fall back to the previous good checkpoint"."""
-    if mesh is not None or mesh_chips or cluster_hosts:
+    if mesh is not None or cluster_hosts:
         _unported_placement()
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
@@ -167,7 +172,12 @@ def load_engine(
             **{k: v for k, v in meta["config"].items() if k in known and k != "device"},
             device=device,
         )
-        engine = SkylineEngine(cfg, tracer=tracer, telemetry=telemetry)
+        if mesh_chips:
+            from skyline_tpu_torch.distributed import ShardedEngine
+
+            engine = ShardedEngine(cfg, chips=mesh_chips, tracer=tracer, telemetry=telemetry)
+        else:
+            engine = SkylineEngine(cfg, tracer=tracer, telemetry=telemetry)
         engine.records_in = meta["records_in"]
         engine.dropped = meta["dropped"]
         engine._results = meta["results"]
@@ -213,8 +223,8 @@ def load_engine(
 
 def _unported_placement():
     raise NotImplementedError(
-        "checkpoints of sharded or cluster engines (a mesh, mesh_chips or "
-        "cluster_hosts) are not ported yet (ROADMAP queue 1 items 7-8)"
+        "restoring onto a device mesh or a cluster engine (mesh, "
+        "cluster_hosts) is not ported yet (ROADMAP queue 1 item 8)"
     )
 
 

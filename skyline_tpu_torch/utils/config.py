@@ -13,11 +13,11 @@ environment defaults and validation, plus ``--device {cuda,cpu}`` (default
 ``cuda``; a ``cuda`` request without a card raises when the engine is
 built, never falls back). Each environment read spells its default as a
 literal, the reference registry's, which ``JobConfig``'s field defaults
-equal (``tests/test_torch_worker.py`` holds both). The sharded, cluster and
-mesh placements (``--mesh``, ``--mesh-chips``, ``--cluster-hosts``) and the
-read replicas (``--replicas``, ``--replica-of``) parse and validate as in
-the reference; the worker raises on them until ROADMAP queue 1 items 6-8
-port them.
+equal (``tests/test_torch_worker.py`` holds both). ``--mesh-chips N`` runs
+the sharded engine over the visible cards. The cluster and mesh placements
+(``--mesh``, ``--cluster-hosts``) and the read replicas (``--replicas``,
+``--replica-of``) parse and validate as in the reference; the worker raises
+on them until ROADMAP queue 1 items 6 and 8 port them.
 """
 
 from __future__ import annotations
@@ -372,13 +372,13 @@ class JobConfig:
 
     def build_mesh(self):
         """The device mesh ``--mesh`` asks for: None when ``mesh`` is 0.
-        Sharding the partition state over several cards waits for ROADMAP
-        queue 1 items 7-8, so a mesh raises."""
+        A device mesh waits for ROADMAP queue 1 item 8, so a mesh raises
+        (``--mesh-chips`` shards over several cards without one)."""
         if not self.mesh:
             return None
         raise NotImplementedError(
-            f"--mesh {self.mesh}: sharding the partition state over several "
-            "devices is not ported yet (ROADMAP queue 1 items 7-8)"
+            f"--mesh {self.mesh}: sharding the partition state over a device "
+            "mesh is not ported yet (ROADMAP queue 1 item 8)"
         )
 
 

@@ -154,8 +154,10 @@ def merge_prune_enabled() -> bool:
 
 def chip_prune_enabled() -> bool:
     """``SKYLINE_CHIP_PRUNE``: the chip-level witness prefilter of the
-    multi-card merge (not ported yet; its table row is declared). On by
-    default, as in the reference."""
+    sharded engine's two-level merge (``distributed/sharded.py``): a chip
+    whose least corner another chip's witness row strictly dominates ships
+    nothing to the root. On by default, as in the reference; the answer
+    bytes are the same either way."""
     return env_bool("SKYLINE_CHIP_PRUNE", True)
 
 
@@ -172,6 +174,112 @@ def query_overlap_enabled() -> bool:
     landed), trigger or result poll. On by default, as in the reference;
     ``0`` blocks at every trigger. The results are the same either way."""
     return env_bool("SKYLINE_QUERY_OVERLAP", True)
+
+
+# -- the sharded engine's chip planes -------------------------------------------
+#
+# Read lazily, at the merge launch, the failover or the attach that uses them,
+# as in the reference (``skyline_tpu/ops/dispatch.py``,
+# ``skyline_tpu/resilience/health.py``).
+
+
+def chip_barrier_policy() -> str:
+    """``SKYLINE_CHIP_BARRIER``: when the sharded engine writes its chip
+    journals' consistency barriers (``resilience/chip_wal.py``): ``merge``
+    (the default) after every complete two-level merge, ``checkpoint`` only
+    at checkpoints, ``off`` no chip journals at all. Any other value reads
+    as ``merge``."""
+    v = env_str("SKYLINE_CHIP_BARRIER", "merge")
+    return v if v in ("merge", "checkpoint", "off") else "merge"
+
+
+def chip_merge_deadline_ms() -> float:
+    """``SKYLINE_CHIP_MERGE_DEADLINE_MS``: each chip's budget for its
+    level-1 merge. ``0`` (the default) runs the chips' merges in turn with
+    no bound; above it each runs on a watchdog thread, and a chip that
+    misses the budget after its retries is left out of the answer, which
+    is published marked partial."""
+    return max(0.0, env_float("SKYLINE_CHIP_MERGE_DEADLINE_MS", 0.0))
+
+
+def chip_merge_retries() -> int:
+    """``SKYLINE_CHIP_MERGE_RETRIES``: extra level-1 attempts after a
+    chip's merge fails inside its deadline; 1 by default."""
+    return max(0, env_int("SKYLINE_CHIP_MERGE_RETRIES", 1))
+
+
+def chip_merge_backoff_ms() -> float:
+    """``SKYLINE_CHIP_MERGE_BACKOFF_MS``: the first wait before a retry,
+    doubled at each; 50 ms by default."""
+    return max(0.0, env_float("SKYLINE_CHIP_MERGE_BACKOFF_MS", 50.0))
+
+
+def chip_hedge_ms() -> float:
+    """``SKYLINE_CHIP_HEDGE_MS``: above 0, a level-1 attempt still running
+    after this long gets a second attempt beside it, and the first to take
+    the chip's lock computes; 0 (the default) hedges nothing."""
+    return max(0.0, env_float("SKYLINE_CHIP_HEDGE_MS", 0.0))
+
+
+def failover_lock_ms() -> float:
+    """``SKYLINE_CHIP_FAILOVER_LOCK_MS``: how long a failover waits for
+    the chip's lock (a merge attempt may still hold it) before it defers
+    to the next merge launch or idle tick; 5000 ms by default."""
+    return max(0.0, env_float("SKYLINE_CHIP_FAILOVER_LOCK_MS", 5000.0))
+
+
+def chip_failover_enabled() -> bool:
+    """``SKYLINE_CHIP_FAILOVER``: online failover — a quarantined chip's
+    partition group is rebuilt on a healthy chip's device at the next
+    merge launch (or worker idle tick) and the slot heals. On by default;
+    ``0`` leaves a quarantined chip out of every answer."""
+    return env_bool("SKYLINE_CHIP_FAILOVER", True)
+
+
+def chip_fail_threshold() -> int:
+    """``SKYLINE_CHIP_FAIL_THRESHOLD``: consecutive merge failures that
+    quarantine a chip; 1 by default."""
+    return max(1, env_int("SKYLINE_CHIP_FAIL_THRESHOLD", 1))
+
+
+def chip_quarantine_score() -> float:
+    """``SKYLINE_CHIP_QUARANTINE_SCORE``: a chip whose health score falls
+    below it is quarantined; 0.5 by default."""
+    return env_float("SKYLINE_CHIP_QUARANTINE_SCORE", 0.5)
+
+
+def chip_straggler_factor() -> float:
+    """``SKYLINE_CHIP_STRAGGLER_FACTOR``: a level-1 wall above this many
+    times the other chips' median EMA counts as a straggle; 4 by
+    default."""
+    return env_float("SKYLINE_CHIP_STRAGGLER_FACTOR", 4.0)
+
+
+def chip_heartbeat_ms() -> float:
+    """``SKYLINE_CHIP_HEARTBEAT_MS``: a chip whose last merge or flush is
+    older than this while another chip's is fresher is quarantined at the
+    next health tick; 30 s by default."""
+    return env_float("SKYLINE_CHIP_HEARTBEAT_MS", 30000.0)
+
+
+def fleet_enabled() -> bool:
+    """``SKYLINE_FLEET``: the sharded engine's per-chip fleet plane
+    (``telemetry/fleet.py``), with a telemetry hub. Host-side counts
+    around the two-level merge; on by default."""
+    return env_bool("SKYLINE_FLEET", True)
+
+
+def fleet_imbalance_threshold() -> float:
+    """``SKYLINE_FLEET_IMBALANCE_THRESHOLD``: the imbalance index (most
+    loaded chip over the mean) past which the fleet plane notes a flight
+    entry, once per excursion; 2 by default."""
+    return env_float("SKYLINE_FLEET_IMBALANCE_THRESHOLD", 2.0)
+
+
+def fleet_ring() -> int:
+    """``SKYLINE_FLEET_RING``: merges in the fleet plane's rolling skew
+    score, at least 2; 64 by default."""
+    return max(2, env_int("SKYLINE_FLEET_RING", 64))
 
 
 # -- the dispatch cascade's modes ----------------------------------------------
@@ -314,6 +422,20 @@ KNOBS: tuple[Knob, ...] = tuple(
         ("SKYLINE_MERGE_TREE", True),
         ("SKYLINE_MERGE_PRUNE", True),
         ("SKYLINE_CHIP_PRUNE", True),
+        ("SKYLINE_CHIP_BARRIER", "merge"),
+        ("SKYLINE_CHIP_MERGE_DEADLINE_MS", 0.0),
+        ("SKYLINE_CHIP_MERGE_RETRIES", 1),
+        ("SKYLINE_CHIP_MERGE_BACKOFF_MS", 50.0),
+        ("SKYLINE_CHIP_HEDGE_MS", 0.0),
+        ("SKYLINE_CHIP_FAILOVER", True),
+        ("SKYLINE_CHIP_FAILOVER_LOCK_MS", 5000.0),
+        ("SKYLINE_CHIP_FAIL_THRESHOLD", 1),
+        ("SKYLINE_CHIP_QUARANTINE_SCORE", 0.5),
+        ("SKYLINE_CHIP_STRAGGLER_FACTOR", 4.0),
+        ("SKYLINE_CHIP_HEARTBEAT_MS", 30000.0),
+        ("SKYLINE_FLEET", True),
+        ("SKYLINE_FLEET_IMBALANCE_THRESHOLD", 2.0),
+        ("SKYLINE_FLEET_RING", 64),
         ("SKYLINE_CLUSTER_HOST_PRUNE", True),
         ("SKYLINE_QUERY_OVERLAP", True),
         ("SKYLINE_SORTED_SFS", "auto"),

@@ -785,6 +785,59 @@ def test_serving_and_audit_modules_import_neither_jax_nor_the_reference():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_sharded_engine_replies_match_jax():
+    """``/fleet``, ``/health`` and ``/stats``'s ``sharded`` block of a
+    sharded engine on both HTTP surfaces, beside the flat replies above:
+    the codes and the JSON bodies equal the JAX servers' over the JAX
+    sharded engine, wall-clock fields and device names aside."""
+    from skyline_tpu.distributed import ShardedEngine as JaxShardedEngine
+    from skyline_tpu.metrics.httpstats import StatsServer as JaxStatsServer
+    from skyline_tpu.serve.server import SkylineServer as JaxServer
+    from skyline_tpu.stream import EngineConfig as JaxConfig
+    from skyline_tpu_torch.distributed import ShardedEngine
+    from skyline_tpu_torch.metrics.httpstats import StatsServer
+    from skyline_tpu_torch.stream import EngineConfig
+
+    def untimed(doc):
+        if isinstance(doc, dict):
+            return {k: untimed(v) for k, v in doc.items()
+                    if not k.endswith(("_ms", "_s")) and k not in ("devices", "trace_id")}
+        return [untimed(v) for v in doc] if isinstance(doc, list) else doc
+
+    kw = dict(parallelism=2, dims=3, buffer_size=64, domain_max=1.0, emit_skyline_points=True)
+    x = uniform(np.random.default_rng(3), 500, 3, 0, 1)
+    docs = []
+    for Engine, Config, Server, Stats, Store, Tel, dev in (
+        (ShardedEngine, EngineConfig, SkylineServer, StatsServer, SnapshotStore, Telemetry,
+         {"device": "cpu"}),
+        (JaxShardedEngine, JaxConfig, JaxServer, JaxStatsServer, jserve.SnapshotStore,
+         JaxTelemetry, {}),
+    ):
+        eng = Engine(Config(**kw, **dev), chips=4, telemetry=Tel())
+        ids = np.arange(500, dtype=np.int64)
+        eng.process_records(ids, x)
+        eng.process_trigger("q,0")
+        eng.poll_results()
+        eng.health.quarantine(3, "drill")
+        srv = Server(Store(history=2), telemetry=eng.telemetry, stats_cb=eng.stats)
+        stats = Stats(eng.stats, 0, telemetry=eng.telemetry)
+        try:
+            got = []
+            for port in (srv.port, stats.port):
+                for path in ("/fleet", "/health", "/stats"):
+                    code, body, _ = _raw(f"http://127.0.0.1:{port}{path}")
+                    doc = json.loads(body)
+                    got.append((code, untimed(doc["sharded"] if path == "/stats" else doc)))
+            docs.append(got)
+        finally:
+            srv.close()
+            stats.close()
+    assert docs[0] == docs[1]
+    health = docs[0][1][1]
+    assert health["enabled"] is True and health["ok"] is False and health["quarantined"] == [3]
+    assert docs[0][0][1]["enabled"] is True and docs[0][0][1]["chips"] == 4
+
+
 def test_stats_server_endpoints_match_jax():
     """The stats surface's codes and bodies against the JAX package's, each
     server handed a fresh hub and the same ``/stats`` doc; the clocks,

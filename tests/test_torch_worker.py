@@ -234,8 +234,9 @@ def test_port_config_device_and_unported_placements():
         tconfig.parse_job_args(["--device", "tpu"])
     cfg = tconfig.parse_job_args(["--device", "cpu", "--dims", "3"])
     assert cfg.engine_config() == EngineConfig(dims=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="items 7-8"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         tconfig.parse_job_args(["--mesh", "2"]).build_mesh()
+    assert tconfig.parse_job_args(["--mesh-chips", "2"]).mesh_chips == 2
     assert tconfig.parse_job_args([]).build_mesh() is None
 
 
@@ -264,6 +265,39 @@ def test_worker_output_and_wal_match_jax(pinned, tmp_path, policy, d):
     assert [r["type"] for r in recs].count("batch") == -(-1200 // 500)
     segs = [Path(p).read_bytes() for _, p in list_segments(str(tmp_path / "port" / "wal"))]
     assert segs == [Path(p).read_bytes() for _, p in jsegs(str(tmp_path / "jax" / "wal"))]
+
+
+@pytest.mark.parametrize("chips,policy,d", [(2, "incremental", 3), (4, "lazy", 8)])
+def test_sharded_worker_output_and_journals_match_jax(pinned, tmp_path, chips, policy, d):
+    """``mesh_chips``: the sharded engine behind the worker. The output
+    lines, every main-WAL record and segment byte, and every chip-journal
+    record and segment byte equal the JAX sharded worker's; the answer is
+    the flat worker's."""
+    from skyline_tpu.resilience.chip_wal import read_chip_records as jchips
+    from skyline_tpu.resilience.wal import list_segments as jsegs
+    from skyline_tpu.resilience.wal import read_records as jread
+    from skyline_tpu_torch.resilience.chip_wal import read_chip_records, verify_chip_barriers
+    from skyline_tpu_torch.resilience.wal import list_segments, read_records
+
+    rows = anti_correlated(np.random.default_rng(d), 1200, d, 0, 10000)
+    cfg = dict(parallelism=2, dims=d, domain_max=10000.0, buffer_size=128,
+               flush_policy=policy, emit_skyline_points=True)
+    (a, wa), (b, wb) = both(lines_of(rows), cfg, tmp_path=tmp_path, mesh_chips=chips)
+    assert type(wa.engine).__name__ == "ShardedEngine" and wa.engine.mesh_chips == chips
+    assert len(a) == len(b) == 1
+    assert [untimed(x) for x in a] == [untimed(x) for x in b]
+    flat, _ = drive("port", lines_of(rows), cfg)
+    assert [untimed(x) for x in a] == [untimed(x) for x in flat]
+    port_wal, jax_wal = tmp_path / "port" / "wal", tmp_path / "jax" / "wal"
+    assert read_records(str(port_wal)) == jread(str(jax_wal))
+    chips_port = read_chip_records(str(port_wal), chips)
+    assert chips_port == jchips(str(jax_wal), chips)
+    assert all(any(r["type"] == "chip-barrier" for r in recs) for recs in chips_port)
+    assert verify_chip_barriers(str(port_wal))["agree"]
+    for c in [None, *range(chips)]:
+        sub = "" if c is None else f"chip-{c:02d}"
+        segs = [Path(p).read_bytes() for _, p in list_segments(str(port_wal / sub))]
+        assert segs == [Path(p).read_bytes() for _, p in jsegs(str(jax_wal / sub))], sub
 
 
 def test_malformed_lines_drop_like_jax(pinned):
@@ -410,9 +444,20 @@ def test_sliding_branch_matches_jax(pinned, d, window, slide):
 def test_worker_raises_on_unported_placements_and_missing_card():
     bus = MemoryBus()
     cfg = EngineConfig(device="cpu")
-    for kw in (dict(mesh_chips=2), dict(cluster_hosts=2), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="items 7-8"):
+    for kw in (dict(cluster_hosts=2), dict(mesh=object())):
+        with pytest.raises(NotImplementedError, match="item 8"):
             tworker.SkylineWorker(bus, cfg, **kw)
+    # the sharded engine is ported: mesh_chips builds it, and rejects what
+    # the reference's worker rejects
+    w = tworker.SkylineWorker(bus, cfg, mesh_chips=2)
+    assert type(w.engine).__name__ == "ShardedEngine"
+    w.close()
+    for kw in (dict(mesh_chips=2, window_size=64, slide=32), dict(mesh_chips=2, mesh=object())):
+        with pytest.raises(ValueError) as port:
+            tworker.SkylineWorker(bus, cfg, **kw)
+        with pytest.raises(ValueError) as ref:
+            jworker.SkylineWorker(JBus(), JConfig(), **kw)
+        assert str(port.value) == str(ref.value)
     with pytest.raises(NotImplementedError, match="item 6"):
         tworker.SkylineWorker(bus, cfg, replicas=1)
     if not __import__("torch").cuda.is_available():
