@@ -136,7 +136,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    share ``cuda:0``); then ``benchmarks/failover.py``'s drill on the card
    (``slow@sharded.chip_merge#1:1`` under a 500 ms deadline: a marked
    degraded answer, quarantine, failover, the healthy run's bytes after;
-   ``time_to_healed_ms``);
+   ``time_to_healed_ms``); the cluster plane (``CLUSTER_PARITY``, leg
+   ``cluster``): ``ClusterEngine`` at (hosts, chips_per_host) in {(1, 1),
+   (2, 1), (2, 2), (4, 2), (8, 1)} under the lazy (d = 8, uniform rows),
+   incremental (d = 3, anti-correlated) and overlap (d = 8, uniform, a flush
+   every 32,768 rows) policies, two 65,536-row windows, P = 8, on the card
+   against the flat engine on the card and against the same configuration
+   on the CPU (results, counts, survivors, sizes, the points' sha1 — rows
+   and order — and ``cluster_stats()`` with the host prune's counts; the
+   CPU side in eight child processes beside the card side), strict; then on
+   the card the skewed host prune (pruned hosts ship zero rows, the answer
+   equals the flat set's and the unpruned set's, fewer ladder pairs), a
+   live migration of a host to 2 chips and back and a slice checkpoint
+   restored on another facade's host, each with the flat answer after; the
+   members' devices (flat members on the engine's card, a sharded member's
+   chip c on ``cuda:c % n``) and the host roots copied onto the root card;
+   the read replicas (``REPLICA_PARITY``, leg ``replica``): a worker on the
+   card with the serving plane, crash safety, two in-process replicas and
+   the cluster engine over 2 hosts (the write lease and fenced frames), two
+   65,536-row 3-D windows: each replica's points, digest and meta at every
+   version it shares with the primary, and its ``/skyline`` CSV bytes and
+   digest, are the primary's (``--out`` keeps the WAL as
+   ``replica_wal/`` for ``tests/fold_wal_jax.py``, the JAX replica's
+   fold); then the promotion drill (the lease expires,
+   ``ClusterSupervisor.tick()`` raises the fence and promotes the most
+   caught-up replica at the primary's head, the time to promote printed;
+   the deposed writer's next append raises ``WalFencedError``, counted);
 5. main paths at 1,000,000 rows, each one warm window and ``--windows``
    measured ones, driven in 65,536-row chunks with the trigger "0,0", under
    the reference's merge defaults (the pruned tree merge at d > 2, the
@@ -226,12 +251,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (K1 mp, K2 mp and the pre-drop on (v); each > 0) and the cross-chip K2
    launches (> 0); the last answer equals the flat engine's on the same
    rows (a sorted set) and the warm answer passes the sampled checks; each
-   printed beside (c) and (d) when they ran in the call;
+   printed beside (c) and (d) when they ran in the call. Two cluster paths:
+   (x) is (c) through ``ClusterEngine(hosts=4)`` (one flat member a host)
+   and (y) is (d) through ``ClusterEngine(hosts=2, chips_per_host=2)`` (the
+   three-level tournament), one fresh engine a window: tuples/s, p50
+   window, flush and merge walls, the host-level ms (the ``host_merge``
+   spans) and the cross-host ms (``cross_host_merge``), the hosts pruned,
+   the rows shipped and saved, launches (each > 0) and the host ladder's K2
+   launches (> 0 on (x)); the last answer equals the flat engine's, the
+   warm answer passes the sampled checks; each printed beside (c) and (d);
 6. timings: each kernel at its main path's shapes (K1–K3 from (c), K4–K7
    from (a), rebuilt from the last window's state; K2 also on the heaviest
    incremental round of (d), its three calls, on the heaviest tree
    pair of a north-star window, its two calls, each recorded from one more
-   window, and on the heaviest cross-chip pair of (v), its two calls),
+   window, on the heaviest cross-chip pair of (v) and on the heaviest
+   host-ladder pair of (x), each its two calls),
    CUDA-event ms beside
    the plain version's ms (timed once per input) and the bound: needed
    pairs x d compares at the FP32 peak (K1–K3) or x (d + 1) at the INT32
@@ -5655,6 +5689,643 @@ def cross_chip_k2(torch, np, heavy: dict, summary: dict) -> dict:
     return out
 
 
+# -- the cluster plane: CLUSTER_PARITY, REPLICA_PARITY and the paths (x), (y) --
+
+# two 65,536-row windows, P = 8, under each policy (lazy d = 8 on uniform
+# rows, as SHARDED_PARITY: the north-star generator's zero rows cost the
+# CPU side minutes; overlap flushing every 32,768 rows so its automatic
+# flushes land mid-window)
+CLUSTER_PARITY = (
+    ("lazy d=8", dict(NORTH_STAR, ingest="host"), "uniform"),
+    ("incremental d=3", dict(GRID_3D, ingest="host"), "anti_correlated"),
+    ("overlap d=8", dict(NORTH_STAR, ingest="host", flush_policy="overlap",
+                         overlap_rows=32768), "uniform"),
+)
+# (hosts, chips_per_host): the grid of tests/test_cluster.py:484-502
+CLUSTER_GRID = ((1, 1), (2, 1), (2, 2), (4, 2), (8, 1))
+CLUSTER_PARITY_ROWS = 65536
+# the CPU side's configurations run in this many child processes beside the
+# card side, one thread each (the card side takes seconds, the CPU side
+# minutes of the CPU's plain dominance)
+CLUSTER_CPU_WORKERS = 8
+CLUSTER_RUNS = ROOT / "skyline_tpu_torch" / "_build" / "cluster_runs"
+
+
+def _points_sha1(pts) -> str:
+    import hashlib
+
+    return hashlib.sha1(pts.tobytes()).hexdigest()
+
+
+def _cluster_stats(eng) -> dict:
+    doc = untimed(eng.stats()["cluster"])
+    doc.pop("health", None)  # the host scorer's wall EMAs and heartbeat ages
+    return doc
+
+
+def _drive_cluster(cfg, windows, hosts, chips, chunk=8192):
+    """Windows back to back through one engine (``ClusterEngine`` over
+    ``hosts`` x ``chips``, or the flat engine when ``hosts`` is None), a
+    trigger after each. Per window: the results (timings aside) and the
+    merge state — counts, survivors, size and the points' sha1 (rows and
+    order). Returns (windows, ``cluster_stats()`` or None, engine)."""
+    import numpy as np
+
+    from skyline_tpu_torch.cluster import ClusterEngine
+    from skyline_tpu_torch.stream import SkylineEngine
+
+    eng = (SkylineEngine(cfg) if hosts is None
+           else ClusterEngine(cfg, hosts=hosts, chips_per_host=chips))
+    out, base = [], 0
+    for i, x in enumerate(windows):
+        ids = np.arange(base, base + x.shape[0], dtype=np.int64)
+        base += x.shape[0]
+        for s in range(0, x.shape[0], chunk):
+            eng.process_records(ids[s : s + chunk], x[s : s + chunk])
+        eng.process_trigger(f"q{i},0")
+        res = [untimed(r) for r in eng.poll_results()]
+        counts, surv, g, pts = eng.pset.global_merge_stats(emit_points=True)
+        out.append({"results": res, "counts": counts.tolist(), "surv": surv.tolist(),
+                    "g": int(g), "points_sha1": _points_sha1(pts)})
+    return out, (None if hosts is None else _cluster_stats(eng)), eng
+
+
+def _cluster_windows(gen: str, d: int, rows: int):
+    import numpy as np
+
+    from skyline_tpu_torch.workload import generators
+
+    rng = np.random.default_rng(17)
+    return [getattr(generators, gen)(rng, rows, d, 0, 10000) for _ in range(2)]
+
+
+def _cluster_cpu_side(job):
+    """One ``CLUSTER_PARITY`` configuration on the CPU, in a child process:
+    (leg, hosts, chips, windows, stats, seconds)."""
+    name, cfg, gen, hosts, chips, rows, env = job
+    import torch
+
+    torch.set_num_threads(1)
+    os.environ.update(env)
+    from skyline_tpu_torch.stream import EngineConfig
+
+    t0 = time.perf_counter()
+    ecfg = EngineConfig(**cfg, window_capacity=rows, device="cpu")
+    out, stats, _ = _drive_cluster(ecfg, _cluster_windows(gen, cfg["dims"], rows), hosts, chips)
+    return name, hosts, chips, out, stats, time.perf_counter() - t0
+
+
+def _member_devices(m) -> list:
+    return [str(dv) for dv in (m.devices if hasattr(m, "devices") else [m.device])]
+
+
+def _cluster_spread(eng) -> str:
+    """The members' devices and where each surviving host root lived before
+    the host ladder put it on the root device."""
+    from skyline_tpu_torch.cluster.merge import member_device
+
+    ps = eng.pset
+    roots = [str(member_device(m)) for m in ps._members]
+    last = ps.last_host_info or {}
+    crossed = [h for h in last.get("survivors", []) if roots[h] != str(ps.root_device)]
+    return (f"members on {[_member_devices(m) for m in ps._members]}, host roots on {roots}, "
+            f"root {ps.root_device}, survivors {last.get('survivors')}, roots copied across "
+            f"cards {crossed}")
+
+
+def check_cluster_parity(torch, np, devices=("cuda", "cpu")) -> dict:
+    """``ClusterEngine`` at every (hosts, chips_per_host) of ``CLUSTER_GRID``
+    under each ``CLUSTER_PARITY`` policy, two 65,536-row windows, P = 8: on
+    the card against the flat engine on the card, and against the same
+    configuration on the CPU (results, counts, survivors, sizes, the points'
+    sha1 — rows and order — and ``cluster_stats()`` with the host prune's
+    counts, timings aside), strict. The CPU side runs in child processes
+    beside the card side. Then, on the card: the skewed host prune, a live
+    migration to another chip count and a slice checkpoint restored on
+    another facade's host (``cluster_rebalance``)."""
+    import concurrent.futures
+    import multiprocessing
+
+    from skyline_tpu_torch.stream import EngineConfig
+
+    card, cpu = devices
+    n_cards = torch.cuda.device_count() if card != "cpu" else 0
+    if n_cards == 1:
+        log("cluster: one card visible: every host member and every chip of a sharded "
+            "member share cuda:0")
+    out = {"cards": n_cards, "legs": {}}
+    t_leg = time.perf_counter()
+    # the lazy flush races on both sides (the CPU's host sorted cascade is
+    # ~3x faster than its plain SFS rounds); nothing compared here depends on
+    # the path the race takes
+    jobs = [(name, cfg, gen, h, c, CLUSTER_PARITY_ROWS, {})
+            for name, cfg, gen in CLUSTER_PARITY for h, c in CLUSTER_GRID]
+    card_stats = {}
+    with concurrent.futures.ProcessPoolExecutor(
+            CLUSTER_CPU_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = [pool.submit(_cluster_cpu_side, job) for job in jobs]
+        try:
+            for name, cfg, gen in CLUSTER_PARITY:
+                windows = _cluster_windows(gen, cfg["dims"], CLUSTER_PARITY_ROWS)
+                ecfg = EngineConfig(**cfg, window_capacity=CLUSTER_PARITY_ROWS, device=card)
+                t0 = time.perf_counter()
+                want, _, _ = _drive_cluster(ecfg, windows, None, None)
+                got = {}
+                for hosts, chips in CLUSTER_GRID:
+                    res, stats, eng = _drive_cluster(ecfg, windows, hosts, chips)
+                    if res != want:
+                        raise AssertionError(f"cluster {name}: {hosts} hosts x {chips} chips on "
+                                             "the card differ from the flat engine on the card")
+                    got[(hosts, chips)] = stats
+                    log(f"cluster {name}: {hosts} hosts x {chips} chips = the flat engine, rows, "
+                        f"order, counts and sha1 {[w['points_sha1'][:12] for w in res]}; "
+                        f"{stats['merges']} merges, {stats['hosts_pruned']} of "
+                        f"{stats['hosts_considered']} hosts pruned, rows shipped "
+                        f"{stats['rows_shipped']} saved {stats['rows_saved']}, levels "
+                        f"{stats['last']['levels']}; {_cluster_spread(eng)}")
+                out["legs"][name] = {
+                    "rows_per_window": CLUSTER_PARITY_ROWS, "windows": 2,
+                    "skyline_sizes": [w["g"] for w in want],
+                    "points_sha1": [w["points_sha1"] for w in want],
+                    "grid": {f"{h}x{c}": {k: s[k] for k in ("merges", "hosts_pruned",
+                                                           "hosts_considered", "rows_shipped",
+                                                           "rows_saved", "last")}
+                             for (h, c), s in got.items()},
+                    "card_s": time.perf_counter() - t0, "cpu_s": {}, "want": want,
+                }
+                card_stats[name] = got
+            t1 = time.perf_counter()
+            for f in concurrent.futures.as_completed(futures):
+                name, hosts, chips, res, stats, secs = f.result()
+                if res != out["legs"][name]["want"]:
+                    raise AssertionError(f"cluster {name}: {hosts} x {chips} on the CPU differs "
+                                         "from the card")
+                if stats != card_stats[name][(hosts, chips)]:
+                    raise AssertionError(f"cluster {name}: {hosts} x {chips}: cluster_stats() on "
+                                         f"the CPU {stats} != the card's "
+                                         f"{card_stats[name][(hosts, chips)]}")
+                out["legs"][name]["cpu_s"][f"{hosts}x{chips}"] = secs
+            wait_s = time.perf_counter() - t1
+        except BaseException:
+            # a failed card side stops the CPU side too
+            pool.shutdown(wait=True, cancel_futures=True)
+            raise
+    for name, leg in out["legs"].items():
+        leg.pop("want")
+        log(f"cluster {name}: every configuration on the CPU = the card, answers and "
+            f"cluster_stats(); card {leg['card_s']:.1f} s, CPU side "
+            f"{sum(leg['cpu_s'].values()):.1f} s in {CLUSTER_CPU_WORKERS} processes of one "
+            "thread")
+    log(f"cluster: waited {wait_s:.1f} s for the CPU side after the card side")
+    out["cpu_wait_s"] = wait_s
+    out["rebalance"] = cluster_rebalance(torch, np, card)
+    out["wall_s"] = time.perf_counter() - t_leg
+    log(f"cluster: parity leg done in {out['wall_s']:.1f} s")
+    return out
+
+
+def _feed_round_robin(pset, x, P: int, chunk: int = 8192) -> None:
+    """Rows to partitions round-robin, the set's own flush cadence after
+    every chunk (tests/test_cluster.py's feed, at full size)."""
+    import numpy as np
+
+    n = x.shape[0]
+    pids = np.arange(n) % P
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        for p in range(P):
+            rows = np.ascontiguousarray(x[lo:hi][pids[lo:hi] == p])
+            if rows.shape[0]:
+                pset.add_batch(p, rows, max_id=hi, now_ms=0.0)
+        pset.maybe_flush()
+    pset.flush_all()
+
+
+def _merge_state(pset):
+    counts, surv, g, pts = pset.global_merge_stats(emit_points=True)
+    return counts.tolist(), surv.tolist(), int(g), _points_sha1(pts)
+
+
+@contextlib.contextmanager
+def host_ladder_watch(torch):
+    """For the duration, every host-ladder ``tree_pair_merge`` (the cluster
+    merge's pairs on the root device) is counted with the K2 launches it
+    made, and the heaviest pair's inputs kept (cloned). Yields the
+    record."""
+    from skyline_tpu_torch.cluster import merge as cmerge
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+
+    real = cmerge.tree_pair_merge
+    rec = {"pairs": 0, "k2_launches": 0, "work": -1}
+
+    def watch(a, apids, acnt, b, bpids, bcnt, out_cap):
+        rec["pairs"] += 1
+        work = a.shape[0] * b.shape[0]
+        if work >= rec["work"]:
+            rec.update(work=work, a=a.clone(), acnt=acnt.clone(), b=b.clone(),
+                       bcnt=bcnt.clone())
+        k0 = dk.LAUNCHES["dominated_by_rect"]
+        out = real(a, apids, acnt, b, bpids, bcnt, out_cap)
+        rec["k2_launches"] += dk.LAUNCHES["dominated_by_rect"] - k0
+        return out
+
+    cmerge.tree_pair_merge = watch
+    try:
+        yield rec
+    finally:
+        cmerge.tree_pair_merge = real
+
+
+def cluster_rebalance(torch, np, dev) -> dict:
+    """On the card, ``ClusterPartitionSet`` over P = 8 with round-robin
+    routing: (1) the skewed host prune — a near-origin cluster on partition
+    0 whose witness dominates every other host's least corner: pruned hosts
+    ship zero rows, the answer equals the flat set's and the set's with
+    ``SKYLINE_CLUSTER_HOST_PRUNE=0``, and the ladder merges fewer pairs; (2)
+    ``migrate`` of host 1 to 2 chips and back, the next answers the flat
+    set's after more rows; (3) ``checkpoint_slice`` of host 1 restored into
+    another facade's host 1 at another chip count, the flat answer."""
+    from skyline_tpu_torch.cluster import ClusterPartitionSet
+    from skyline_tpu_torch.stream.batched import PartitionSet
+    from skyline_tpu_torch.workload.generators import uniform
+
+    P, n = 8, CLUSTER_PARITY_ROWS
+    rng = np.random.default_rng(29)
+    out = {}
+
+    def flat(d):
+        return PartitionSet(P, d, 8192, device=dev)
+
+    def cluster(d, hosts, chips):
+        return ClusterPartitionSet(P, d, 8192, hosts=hosts, chips_per_host=chips, device=dev)
+
+    # (1) the skewed prune
+    d = 3
+    x = (rng.random((n, d)) * 4000 + 6000).astype(np.float32)
+    x[::P] = (rng.random((n // P, d)) * 50).astype(np.float32)
+    ref = flat(d)
+    _feed_round_robin(ref, x, P)
+    want = _merge_state(ref)
+    runs = {}
+    for prune in ("1", "0"):
+        with knob_env({"SKYLINE_CLUSTER_HOST_PRUNE": prune}), host_ladder_watch(torch) as lad:
+            cp = cluster(d, 4, 2)
+            _feed_round_robin(cp, x, P)
+            got = _merge_state(cp)
+        if got != want:
+            raise AssertionError(f"cluster prune={prune}: the skewed answer differs from the "
+                                 "flat set's")
+        runs[prune] = (cp.cluster_stats(), lad["pairs"], lad["k2_launches"])
+    stats, pairs, k2 = runs["1"]
+    info = stats["last"]
+    pruned = {e["host"] for e in info["pruned"]}
+    if not pruned or pruned & set(info["survivors"]) or info["rows_saved"] <= 0:
+        raise AssertionError(f"cluster: the skewed host prune did not fire cleanly: {info}")
+    if pairs >= runs["0"][1] or runs["0"][0]["hosts_pruned"]:
+        raise AssertionError(f"cluster: pruning {sorted(pruned)} merged {pairs} ladder pairs, "
+                             f"unpruned {runs['0'][1]}")
+    out["prune"] = {"hosts_pruned": sorted(pruned), "survivors": info["survivors"],
+                    "rows_shipped": info["rows_shipped"], "rows_saved": info["rows_saved"],
+                    "ladder_pairs": pairs, "ladder_k2": k2,
+                    "ladder_pairs_unpruned": runs["0"][1], "ladder_k2_unpruned": runs["0"][2]}
+    log(f"cluster: skewed prune on the card: hosts {sorted(pruned)} pruned (ship zero rows; "
+        f"rows shipped {info['rows_shipped']}, saved {info['rows_saved']}), the answer = the "
+        f"flat set's = unpruned; ladder pairs {pairs} (K2 {k2}) against {runs['0'][1]} "
+        f"(K2 {runs['0'][2]}) unpruned")
+    # (2) live migration to another chip count and back
+    d = 8
+    xs = [uniform(rng, n, d, 0, 10000) for _ in range(2)]
+    ref = flat(d)
+    cp = cluster(d, 2, 1)
+    for s in (ref, cp):
+        _feed_round_robin(s, xs[0], P)
+    want = _merge_state(ref)
+    if _merge_state(cp) != want:
+        raise AssertionError("cluster: the pre-migration answer differs from the flat set's")
+    t0 = time.perf_counter()
+    doc = cp.migrate(1, chips=2, reason="drill")
+    mig_ms = (time.perf_counter() - t0) * 1e3
+    if _merge_state(cp) != want or cp._member_chips != [1, 2]:
+        raise AssertionError("cluster: the answer after migrating host 1 to 2 chips differs")
+    for s in (ref, cp):
+        _feed_round_robin(s, xs[1], P)
+    want = _merge_state(ref)
+    if _merge_state(cp) != want:
+        raise AssertionError("cluster: the answer after more rows on the migrated host differs")
+    back = cp.migrate(1, chips=1, reason="drill")
+    if _merge_state(cp) != want:
+        raise AssertionError("cluster: the answer after migrating host 1 back differs")
+    out["migrate"] = {"to_2_chips_ms": mig_ms, "doc": doc, "back": back,
+                      "migrations": cp.migrations}
+    log(f"cluster: host 1 migrated to 2 chips in {mig_ms:.1f} ms and back "
+        f"({back['wall_ms']:.1f} ms): the next answers = the flat set's")
+    # (3) a slice checkpoint of host 1, restored on another facade's host 1
+    CLUSTER_RUNS.mkdir(parents=True, exist_ok=True)
+    path = str(CLUSTER_RUNS / "slice_host1.npz")
+    cp.checkpoint_slice(1, path)
+    dst = cluster(d, 2, 2)
+    skies, pendings = cp.audit_state()
+    G = cp.group_size
+    empty = [np.empty((0, d), dtype=np.float32)] * G
+    dst.restore_all(list(skies[:G]) + empty, list(pendings[:G]) + empty)
+    rdoc = dst.restore_slice(1, path, chips=1)
+    if _merge_state(dst) != want or dst._member_chips != [2, 1]:
+        raise AssertionError("cluster: the slice restored on another facade's host differs")
+    out["slice"] = {"bytes": os.path.getsize(path), "doc": rdoc}
+    log(f"cluster: host 1's slice ({os.path.getsize(path)} bytes) restored on another "
+        "facade's host 1 at 1 chip: the next answer = the flat set's")
+    return out
+
+
+REPLICA_ROWS = 65536
+REPLICA_RUNS = ROOT / "skyline_tpu_torch" / "_build" / "replica_runs"
+
+
+def _http_get(url: str):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return r.read(), dict(r.headers)
+
+
+def check_replica_parity(torch, np, devices=("cuda", "cpu")) -> dict:
+    """A worker on the card with the serving plane, crash safety and two
+    in-process read replicas, over a ``MemoryBus`` fed two windows of
+    ``REPLICA_ROWS`` 3-D anti-correlated rows ((d)'s configuration) through
+    the cluster engine over 2 hosts (so the worker holds the write lease and
+    stamps every WAL frame with its fencing token). At every version the
+    primary and a replica both hold, the replica's points, digest and meta
+    are the primary's; after each window the replicas' ``/skyline`` CSV
+    bytes and ``X-Skyline-Digest`` are the primary's. The WAL stays in
+    ``REPLICA_RUNS`` (``--out`` copies it beside the details, where
+    ``tests/fold_wal_jax.py`` folds it with the JAX replica). Then the
+    promotion drill: the lease expires, ``ClusterSupervisor.tick()`` raises
+    the fence and promotes the most caught-up replica, whose head is the
+    primary's; the deposed writer's next append raises ``WalFencedError``
+    and is counted."""
+    import hashlib
+    import shutil
+
+    from skyline_tpu_torch.bridge import MemoryBus, SkylineWorker
+    from skyline_tpu_torch.cluster import ClusterSupervisor, WalFencedError
+    from skyline_tpu_torch.resilience import ResilienceConfig
+    from skyline_tpu_torch.resilience.wal import read_records
+    from skyline_tpu_torch.serve import ServeConfig
+    from skyline_tpu_torch.stream import EngineConfig
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    card = devices[0]
+    t_leg = time.perf_counter()
+    shutil.rmtree(REPLICA_RUNS, ignore_errors=True)
+    REPLICA_RUNS.mkdir(parents=True)
+    rng = np.random.default_rng(23)
+    bus = MemoryBus()
+    res = ResilienceConfig(checkpoint_dir=str(REPLICA_RUNS), wal_fsync="off")
+    versions = {}
+    with knob_env({"SKYLINE_CLUSTER_LEASE_TTL_MS": "600000"}):
+        w = SkylineWorker(bus, EngineConfig(**GRID_3D, ingest="host", device=card),
+                          serve_port=0, serve_config=ServeConfig(), resilience=res,
+                          replicas=2, cluster_hosts=2)
+        try:
+            wal_dir = w._wal_dir
+            base = 0
+            for window in range(2):
+                x = np.rint(anti_correlated(rng, REPLICA_ROWS, 3, 0, 10000))
+                bus.produce_many("input-tuples", [
+                    f"{base + i}," + ",".join(str(int(v)) for v in row)
+                    for i, row in enumerate(x)])
+                base += REPLICA_ROWS
+                bus.produce("queries", f"q{window},0")
+                while w.step() > 0:
+                    pass
+                t0 = time.perf_counter()
+                store = w.serve_server.store
+                head = store.latest()
+                lag, common = [], 0
+                for rep in w.replicas:
+                    if not rep.wait_for_version(store.head_version, timeout_s=60.0):
+                        raise AssertionError(f"replica {rep.replica_id} stuck at "
+                                             f"{rep.store.head_version} < {store.head_version}")
+                    lag.append((time.perf_counter() - t0) * 1e3)
+                    common = 0
+                    for snap in list(store._history):
+                        mine = rep.store.get(snap.version)
+                        if mine is None:
+                            continue
+                        common += 1
+                        if (mine.points.tobytes() != snap.points.tobytes()
+                                or mine.digest != snap.digest or mine.meta != snap.meta):
+                            raise AssertionError(f"replica {rep.replica_id} differs from the "
+                                                 f"primary at version {snap.version}")
+                        versions[snap.version] = snap.digest
+                    rb, rh = _http_get(f"http://127.0.0.1:{rep.port}/skyline?format=csv")
+                    pb, ph = _http_get(f"http://127.0.0.1:{w.serve_server.port}"
+                                       "/skyline?format=csv")
+                    if rb != pb or rh["X-Skyline-Digest"] != ph["X-Skyline-Digest"]:
+                        raise AssertionError(f"replica {rep.replica_id}'s /skyline bytes differ")
+                log(f"replica: window {window}: head version {store.head_version} "
+                    f"({head.points.shape[0]} rows, digest {head.digest[:12]}), both replicas "
+                    f"equal at every common version ({common}) and over HTTP (CSV sha256 "
+                    f"{hashlib.sha256(pb).hexdigest()[:12]}); caught up "
+                    f"{[round(v, 1) for v in lag]} ms after the worker's last step")
+            tokens = {r.get("fence") for r in read_records(wal_dir)[0]}
+            if tokens != {w._lease_keeper.epoch}:
+                raise AssertionError(f"WAL frames carry fencing tokens {tokens}")
+            # the promotion drill: the primary's lease expires
+            head = w.serve_server.store.latest()
+            sup = ClusterSupervisor(wal_dir, w.replicas, lease_ttl_ms=1000.0,
+                                    telemetry=w.telemetry,
+                                    clock=lambda: time.time() * 1000.0 + 1e9)
+            doc = sup.tick()
+            if doc is None or (doc["head_version"], doc["head_digest"]) != (
+                    head.version, head.digest):
+                raise AssertionError(f"promotion: {doc} does not carry the primary's head "
+                                     f"{head.version} {head.digest}")
+            try:
+                w._wal.append({"type": "delta", "drill": True})
+            except WalFencedError as e:
+                fenced_err = str(e)
+            else:
+                raise AssertionError("the deposed writer's append after the fence went through")
+            if w._wal.fenced_writes != 1:
+                raise AssertionError(f"fenced writes counted {w._wal.fenced_writes}, not 1")
+            promoted = [r.replica_id for r in w.replicas if r.role == "primary"]
+            log(f"replica: promotion drill: lease expired, fence raised to epoch "
+                f"{doc['epoch']}, {promoted} promoted in {doc['time_to_promote_ms']:.3f} ms "
+                f"(time to promote) at head {doc['head_version']} = the primary's digest; the "
+                f"deposed writer's next append refused ({fenced_err}), counted "
+                f"{w._wal.fenced_writes}")
+        finally:
+            w.close()
+    out = {"rows_per_window": REPLICA_ROWS, "windows": 2, "wal_dir": str(wal_dir),
+           "versions": sorted(versions.items()), "promotion": doc,
+           "time_to_promote_ms": doc["time_to_promote_ms"], "fenced_writes": 1,
+           "wall_s": time.perf_counter() - t_leg}
+    log(f"replica: parity leg done in {out['wall_s']:.1f} s")
+    return out
+
+
+# the cluster paths: (x) is (c) through 4 hosts of one flat member each, (y)
+# is (d) through 2 hosts of 2 chips each (the three-level tournament)
+CLUSTER_PATHS = {"x": ("c", 4, 1), "y": ("d", 2, 2)}
+CLUSTER_WANTED = {"x": MP_ROUNDS + TREE_K2, "y": (PREDROP_FUSED, MP_PATH[1]) + TREE_K2}
+
+
+def _carry_flush_prof(new, old) -> None:
+    """Each member (each chip of a sharded member) takes over its lazy
+    flush race's profiler from the engine of the window before."""
+    for m, o in zip(new._members, old._members):
+        for a, b in (zip(m._chips, o._chips) if hasattr(m, "_chips") else [(m, o)]):
+            a._flush_prof = b._flush_prof
+
+
+def cluster_path(torch, np, path: str, n: int, windows: int, base_runs=None,
+                 dev="cuda") -> tuple:
+    """Path (x) or (y): its flat path's configuration and rows (the same
+    seed) through a fresh ``ClusterEngine`` a window, one warm window and
+    ``windows`` measured, launch counts set to 0 before and read after. Each
+    window prints its wall, the flush and merge walls, the host-level ms
+    (the ``host_merge`` spans: each host's own merge) and the cross-host ms
+    (the ``cross_host_merge`` span: the ladder's launches), the hosts
+    pruned, the rows shipped and saved and the ladder's pairs and K2
+    launches; the last window's answer equals the flat engine's on the same
+    rows (a sorted set) and the warm answer passes the sampled checks. With
+    the flat path's run in ``base_runs``, printed beside it."""
+    from skyline_tpu_torch.cluster import ClusterEngine
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+    from skyline_tpu_torch.stream import SkylineEngine
+    from skyline_tpu_torch.telemetry.spans import SpanRecorder
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    base, hosts, chips = CLUSTER_PATHS[path]
+    cfg, _, _, env = PATHS[base]
+    d = cfg["dims"]
+    rng = np.random.default_rng(0)
+    ids = np.arange(n, dtype=np.int64)
+    xs = [anti_correlated(rng, n, d, 0, 10000) for _ in range(windows + 1)]
+    lat, rows = [], []
+    with rank_gate(False, env), host_ladder_watch(torch) as lad:
+        dk.reset_launches()
+        prev = None
+        for w, x in enumerate(xs):
+            eng = ClusterEngine(_config(base, n, emit_skyline_points=w == 0), hosts=hosts,
+                                chips_per_host=chips)
+            if prev is not None:
+                _carry_flush_prof(eng.pset, prev.pset)
+            prev = eng
+            spans = SpanRecorder(256)
+            eng.pset._spans = spans
+            pairs0, k0 = lad["pairs"], lad["k2_launches"]
+            t0 = time.perf_counter()
+            for i in range(0, n, 65536):
+                eng.process_records(ids[i : i + 65536], x[i : i + 65536])
+            eng.process_trigger("0,0")
+            (res,) = eng.poll_results()
+            _sync_all(torch)
+            dt = time.perf_counter() - t0
+            snap = spans.snapshot()
+            host_ms = sum(s["dur_ns"] for s in snap if s["name"] == "host_merge") / 1e6
+            cross_ms = sum(s["dur_ns"] for s in snap if s["name"] == "cross_host_merge") / 1e6
+            info = eng.pset.last_host_info
+            row = {"window_ms": dt * 1e3, "flush_ms": eng.last_flush_ms,
+                   "merge_ms": eng.last_merge_ms, "host_ms": host_ms, "cross_host_ms": cross_ms,
+                   "skyline_size": res["skyline_size"], "hosts_pruned": len(info["pruned"]),
+                   "survivors": info["survivors"], "rows_shipped": info["rows_shipped"],
+                   "rows_saved": info["rows_saved"], "ladder_pairs": lad["pairs"] - pairs0,
+                   "ladder_k2": lad["k2_launches"] - k0,
+                   "per_host_skyline": [h["skyline"] for h in info["per_host"]],
+                   "local_sizes": eng.pset.sky_counts().tolist(),
+                   "records_seen": eng.pset.records_seen.tolist()}
+            if w == 0:
+                warm = (dt, res, x)
+                log(f"main ({path}): warm window {dt * 1e3:.1f} ms, skyline "
+                    f"{res['skyline_size']}; {_cluster_spread(eng)}")
+                continue
+            lat.append(dt)
+            rows.append(row)
+            log(f"main ({path}): window {w - 1}: {dt * 1e3:.1f} ms (flush "
+                f"{row['flush_ms']:.1f} ms, merge {row['merge_ms']:.1f} ms: hosts {host_ms:.1f} "
+                f"ms, cross-host {cross_ms:.1f} ms), skyline {res['skyline_size']}, hosts' "
+                f"skylines {row['per_host_skyline']}, {row['hosts_pruned']} of {hosts} hosts "
+                f"pruned, survivors {row['survivors']}, rows shipped {row['rows_shipped']} "
+                f"saved {row['rows_saved']}, {row['ladder_pairs']} ladder pairs "
+                f"({row['ladder_k2']} K2); partitions' skylines {row['local_sizes']} of "
+                f"records {row['records_seen']}")
+        launches = dict(dk.LAUNCHES)
+        ladder_k2, ladder_pairs = lad["k2_launches"], lad["pairs"]
+        heavy = {k: lad.get(k) for k in ("a", "acnt", "b", "bcnt")}
+        stats = eng.pset.cluster_stats()
+        devices = [str(dv) for dv in eng.pset.devices]
+    want_k = CLUSTER_WANTED[path]
+    missing = [k for k in want_k if launches[k] == 0]
+    if missing or (path == "x" and ladder_k2 == 0):
+        raise AssertionError(f"main path ({path}) launched no {missing or 'host-ladder K2'}")
+
+    def points(engine):
+        return engine.pset.global_merge_stats(emit_points=True)[3]
+
+    flat = SkylineEngine(_config(base, n))
+    with rank_gate(False, env):
+        for i in range(0, n, 65536):
+            flat.process_records(ids[i : i + 65536], xs[-1][i : i + 65536])
+        flat.process_trigger("0,0")
+        flat.poll_results()
+        if _sorted_bytes(points(flat)) != _sorted_bytes(points(eng)):
+            raise AssertionError(f"main path ({path}): the answer differs from the flat engine's")
+    check_answer(torch, np, warm[2], np.asarray(warm[1]["skyline_points"], np.float32), dev)
+    summary = {
+        "base": base, "hosts": hosts, "chips_per_host": chips, "rows_per_window": n,
+        "windows_measured": windows, "tuples_per_s": n * windows / sum(lat),
+        "p50_window_ms": float(np.median(lat)) * 1e3,
+        "p50_flush_ms": float(np.median([r["flush_ms"] for r in rows])),
+        "p50_merge_ms": float(np.median([r["merge_ms"] for r in rows])),
+        "p50_host_ms": float(np.median([r["host_ms"] for r in rows])),
+        "p50_cross_host_ms": float(np.median([r["cross_host_ms"] for r in rows])),
+        "hosts_pruned_per_merge": [r["hosts_pruned"] for r in rows],
+        "rows_shipped_per_merge": [r["rows_shipped"] for r in rows],
+        "rows_saved_per_merge": [r["rows_saved"] for r in rows],
+        "warm_window_ms": warm[0] * 1e3, "windows": rows, "launches": launches,
+        "launches_per_window": {k: v / (windows + 1) for k, v in launches.items()},
+        "ladder_k2_launches": ladder_k2, "ladder_pairs": ladder_pairs,
+        "devices": devices, "cluster_stats": untimed(stats), "merge_env": env,
+    }
+    log(f"main ({path}): {summary['tuples_per_s']:.0f} tuples/s, p50 window "
+        f"{summary['p50_window_ms']:.1f} ms (flush {summary['p50_flush_ms']:.1f}, merge "
+        f"{summary['p50_merge_ms']:.1f}: hosts {summary['p50_host_ms']:.1f}, cross-host "
+        f"{summary['p50_cross_host_ms']:.1f}) over {windows} windows of {n} rows, {hosts} hosts "
+        f"x {chips} chips on {devices}; hosts pruned per merge "
+        f"{summary['hosts_pruned_per_merge']}, rows shipped {summary['rows_shipped_per_merge']}"
+        f" saved {summary['rows_saved_per_merge']}; launches over {windows + 1} windows "
+        f"{({k: launches[k] for k in want_k})}, host-ladder K2 {ladder_k2} ({ladder_pairs} "
+        "pairs); the last answer = the flat engine's (a sorted set)")
+    if base_runs and base in base_runs:
+        b = base_runs[base][0]
+        summary["beside_" + base] = {"p50_window_ms": b["p50_window_ms"],
+                                     "tuples_per_s": b["tuples_per_s"],
+                                     "ratio": summary["p50_window_ms"] / b["p50_window_ms"]}
+        log(f"main ({path}) beside ({base}): p50 {summary['p50_window_ms']:.1f} ms vs "
+            f"{b['p50_window_ms']:.1f} ms ({summary['p50_window_ms'] / b['p50_window_ms']:.3f}x), "
+            f"{summary['tuples_per_s']:.0f} vs {b['tuples_per_s']:.0f} tuples/s")
+    return summary, heavy
+
+
+def host_ladder_k2(torch, np, heavy: dict, summary: dict) -> dict:
+    """K2 at the host level: the heaviest host-ladder pair over (x)'s
+    windows (host roots on the root device), its two calls as
+    ``tree_pair_k2`` times them, with (x)'s ladder K2 launches a window."""
+    if heavy.get("a") is None:
+        raise AssertionError("(x) merged no host-ladder pair")
+    out = _time_tree_pair(torch, heavy["a"], heavy["acnt"], heavy["b"], heavy["bcnt"],
+                          "K2 host-ladder pair")
+    out["launches"] = summary["ladder_k2_launches"]
+    out["launches_per_window"] = out["launches"] / (summary["windows_measured"] + 1)
+    out["devices"] = summary["devices"]
+    log(f"timings: K2 host-ladder pair ({out['valid_a_rows']} a rows, {out['valid_b_rows']} b "
+        f"rows) {out['pair_ms']:.3f} ms, {out['launches_per_window']:.1f} host-ladder K2 "
+        "launches per window on (x)")
+    return out
+
+
 # the worker's paths: (t) over the wire, (u) the crash drill
 WORKER_PATHS = {
     "t": lambda torch, np, windows, profile: wire_path(torch, np, windows, profile),
@@ -5676,6 +6347,8 @@ PARITY_LEGS = {
     "sliding": ("sliding_parity", check_sliding_parity),
     "worker": ("worker_parity", check_worker_parity),
     "sharded": ("sharded_parity", check_sharded_parity),
+    "cluster": ("cluster_parity", check_cluster_parity),
+    "replica": ("replica_parity", check_replica_parity),
 }
 
 
@@ -5714,9 +6387,9 @@ def main() -> int:
     ap.add_argument(
         "--paths", default="",
         help="comma-separated paths for the main phase, in this order: the tumbling "
-        "paths, the sharded v and w, and the worker's t (over the wire) and u (the crash "
-        "drill) (default: all, then v and w, the sliding paths, t and u); not with the "
-        "timings phase, which reads them all",
+        "paths, the sharded v and w, the cluster x and y, and the worker's t (over the "
+        "wire) and u (the crash drill) (default: all, then v, w, x and y, the sliding "
+        "paths, t and u); not with the timings phase, which reads them all",
     )
     args = ap.parse_args()
     if args.paths and "timings" in args.only:
@@ -5793,6 +6466,13 @@ def main() -> int:
             details[key] = run(torch, np)
             if leg in ("host", "device"):
                 log(f"parity: {leg} ingest, cuda vs cpu: {details[key]}")
+        if args.out is not None and "replica_parity" in details:
+            # the replica leg's WAL, read as files by tests/fold_wal_jax.py
+            import shutil
+
+            dst = args.out / "replica_wal"
+            shutil.rmtree(dst, ignore_errors=True)
+            shutil.copytree(details["replica_parity"]["wal_dir"], dst)
         log(f"parity: done at {time.perf_counter() - t_start:.1f} s")
     table = []
     parent = None
@@ -5808,6 +6488,11 @@ def main() -> int:
             elif path in SHARDED_PATHS:
                 details.setdefault("sharded", {})[path] = sharded_path(
                     torch, np, path, args.n, args.windows, runs)[0]
+            elif path in CLUSTER_PATHS:
+                cl = details.setdefault("cluster", {})
+                cl[path], heavy = cluster_path(torch, np, path, args.n, args.windows, runs)
+                if path == "x":
+                    cl["host_ladder_k2"] = host_ladder_k2(torch, np, heavy, cl[path])
             else:
                 runs[path] = main_path(torch, np, path, args.n, args.windows)
             log(f"main ({path}): {time.perf_counter() - t0:.1f} s in all")
@@ -5849,6 +6534,13 @@ def main() -> int:
             heavy = h if path == "v" else heavy
             log(f"main ({path}): {time.perf_counter() - t0:.1f} s in all")
         details["sharded"] = sharded
+        cluster, cluster_heavy = {}, None
+        for path in CLUSTER_PATHS:
+            t0 = time.perf_counter()
+            cluster[path], h = cluster_path(torch, np, path, args.n, args.windows, runs)
+            cluster_heavy = h if path == "x" else cluster_heavy
+            log(f"main ({path}): {time.perf_counter() - t0:.1f} s in all")
+        details["cluster"] = cluster
         t0 = time.perf_counter()
         sliding = {"n": sliding_northstar(torch, np, args.windows), "o": sliding_4d(torch, np)}
         details["sliding"] = {path: r[0] for path, r in sliding.items()}
@@ -5899,6 +6591,8 @@ def main() -> int:
         rows["dominated_by_rect"]["inputs"]["tree_pair"] = pair
         rows["dominated_by_rect"]["inputs"]["cross_chip"] = cross_chip_k2(
             torch, np, heavy, sharded["v"])
+        rows["dominated_by_rect"]["inputs"]["host_ladder"] = host_ladder_k2(
+            torch, np, cluster_heavy, cluster["x"])
         casc = cascade_timings(torch, np, eng_c, x_c, w, launches_of["l"],
                                launches_of["m"])
         details["device_cascade"] = casc

@@ -10,18 +10,22 @@ wiring :84-97, :177-183). Works over any bus exposing
 
 Ported: the flat, sliding and sharded engines (``mesh_chips``,
 ``--mesh-chips``: ``distributed.ShardedEngine`` with its chip journals,
-chip health and online failover), the serving plane, the stats server, the
-WAL, checkpoints and crash recovery, and the ops journal. Not yet, and
-raising with a pointer: the cluster engine and a device mesh (``mesh``,
-``cluster_hosts``, with the lease-fenced WAL: ROADMAP queue 1 item 8) and
-the read replicas (``replicas``, ``--replica-of``: item 6).
+chip health and online failover), the cluster engine (``cluster_hosts``,
+``--cluster-hosts``: ``cluster.ClusterEngine``, with the lease-fenced WAL
+and honest demotion when deposed), the serving plane with its WAL-tailing
+read replicas (``replicas``, ``--replicas``; ``--replica-of`` runs a
+standalone replica), the stats server, the WAL, checkpoints and crash
+recovery, and the ops journal. Not yet, and raising with a pointer: a
+device mesh (``mesh``: ROADMAP queue 1 item 8b).
 """
 
 from __future__ import annotations
 
 import os
+import socket
 import sys
 import time
+import uuid
 
 from skyline_tpu_torch.bridge.wire import format_result, parse_tuple_lines
 from skyline_tpu_torch.resilience.faults import fault_point, install_from_env
@@ -65,9 +69,9 @@ class SkylineWorker:
         (``distributed.ShardedEngine``): the partitions in ``mesh_chips``
         contiguous groups over the visible cards, queries answered by the
         two-level tournament, with chip journals beside the WAL under
-        ``SKYLINE_CHIP_BARRIER`` when crash safety is on. ``mesh`` and
-        ``cluster_hosts`` shard over a device mesh or several hosts in the
-        reference; the port raises on either until ROADMAP queue 1 item 8.
+        ``SKYLINE_CHIP_BARRIER`` when crash safety is on. ``mesh`` shards
+        over a device mesh in the reference; the port raises on it until
+        ROADMAP queue 1 item 8b.
         ``stats_port``: serve
         live /stats + /healthz JSON on this port (0 picks a free one; None
         disables) — the Flink-Web-UI role for this stack. ``window_size`` +
@@ -108,9 +112,13 @@ class SkylineWorker:
         serving plane's snapshot + delta ring, then records every consumed
         span and published delta to a fresh WAL segment; periodic
         checkpoints truncate the log. None (default) keeps the reference's
-        lose-everything behavior. ``replicas``: the reference's in-process
-        read replicas; the port raises on > 0 until ROADMAP queue 1 item 6
-        ports ``serve/replica.py``."""
+        lose-everything behavior. ``cluster_hosts``: > 0 runs the cluster
+        engine (``cluster/``) over that many in-process hosts, with
+        ``mesh_chips`` as the chips of each; with ``resilience`` the worker
+        takes the write lease and stamps every WAL frame with its fencing
+        token. ``replicas``: in-process WAL-tailing read replicas
+        (``serve/replica.py``) beside the engine, each on its own port;
+        they need ``resilience`` and the serving plane."""
         from skyline_tpu_torch.metrics.tracing import Tracer
         from skyline_tpu_torch.telemetry import Telemetry
 
@@ -122,17 +130,13 @@ class SkylineWorker:
             raise ValueError("mesh and cluster_hosts are mutually exclusive")
         if cluster_hosts and window_size:
             raise ValueError("sliding-window mode does not support cluster_hosts")
-        if mesh is not None or cluster_hosts:
+        if mesh is not None:
             raise NotImplementedError(
-                "the cluster engine and a device mesh (mesh, cluster_hosts) "
-                "are not ported yet (ROADMAP queue 1 item 8)"
-            )
-        if replicas:
-            raise NotImplementedError(
-                "read replicas (replicas, --replica-of) are not ported yet "
-                "(ROADMAP queue 1 item 6: serve/replica.py)"
+                "a device mesh (mesh) is not ported yet (ROADMAP queue 1 "
+                "item 8b: the device mesh over torch.distributed)"
             )
         self.mesh_chips = int(mesh_chips)
+        self.cluster_hosts = int(cluster_hosts)
         self.bus = bus
         self.max_drain_polls = max_drain_polls
         self.tracer = tracer if tracer is not None else Tracer(sync_device=False)
@@ -156,6 +160,9 @@ class SkylineWorker:
         self._wal = None
         self._opslog = None
         self._chip_wal = None
+        self._lease_plane = None
+        self._lease_keeper = None
+        self._deposed = False
         self._snap_store = None
         self._serve_ring = None
         self._bodystore = None
@@ -186,7 +193,7 @@ class SkylineWorker:
                 telemetry=self.telemetry,
             )
             hit = self._ckpt_mgr.restore_latest(
-                mesh_chips=mesh_chips, tracer=self.tracer,
+                mesh_chips=mesh_chips, cluster_hosts=cluster_hosts, tracer=self.tracer,
                 telemetry=self.telemetry, device=config.device,
             )
             ckpt_path = None
@@ -227,6 +234,17 @@ class SkylineWorker:
             # passed config so a restarted incarnation can't silently change
             # result semantics mid-stream
             self.engine = restored_engine
+        elif cluster_hosts:
+            # multi-host cluster ingest: mesh_chips becomes the per-host
+            # chip count, so --cluster-hosts 4 --mesh-chips 2 runs the full
+            # three-level tournament
+            from skyline_tpu_torch.cluster import ClusterEngine
+
+            self.engine = ClusterEngine(
+                config, hosts=cluster_hosts,
+                chips_per_host=mesh_chips or 1, tracer=self.tracer,
+                telemetry=self.telemetry,
+            )
         elif mesh_chips:
             from skyline_tpu_torch.distributed import ShardedEngine
 
@@ -268,8 +286,8 @@ class SkylineWorker:
             self._serve_ring = ring
             # zero-copy body store: wire bodies serialize once per
             # publish, off the read path. With resilience the store file
-            # lands beside the WAL (where the reference's read replicas map
-            # the primary's exact bytes); without a WAL dir it stays
+            # lands beside the WAL so --replicas / --replica-of processes
+            # map the primary's exact bytes); without a WAL dir it stays
             # in-process (publish-time serialization still wins).
             from skyline_tpu_torch.utils.knobs import env_bool
 
@@ -338,7 +356,57 @@ class SkylineWorker:
                 pset = getattr(self.engine, "pset", None)
                 if pset is not None and hasattr(pset, "attach_opslog"):
                     pset.attach_opslog(self._opslog)
-            self._wal = WalWriter(self._wal_dir, **wal_kw)
+            if cluster_hosts:
+                # write-path HA: this worker is the lease holder; every WAL
+                # frame carries its fencing token, and the instant another
+                # primary is promoted over us every append is rejected at
+                # the WAL layer
+                from skyline_tpu_torch.cluster import (
+                    FencedWalWriter,
+                    LeaseKeeper,
+                    LeasePlane,
+                )
+
+                self._lease_plane = LeasePlane(self._wal_dir)
+                # globally unique holder id: pid alone collides across
+                # containers (pid 1) or hosts sharing the WAL dir, and
+                # LeasePlane.acquire treats a same-named holder as self — a
+                # collision would depose a live primary instead of refusing
+                # to start
+                self._lease_keeper = LeaseKeeper(
+                    self._lease_plane,
+                    f"worker-{socket.gethostname()}-{os.getpid()}"
+                    f"-{uuid.uuid4().hex[:8]}",
+                    telemetry=self.telemetry,
+                )
+                if self._lease_keeper.acquire() is None:
+                    held = self._lease_plane.read_lease()
+                    raise ValueError(
+                        "write lease is held by "
+                        f"{held.holder!r} (epoch {held.epoch}); refusing to "
+                        "start a second primary against the same WAL"
+                    )
+                if self._opslog is not None:
+                    self._opslog.record(
+                        "lease_acquired",
+                        epoch=self._lease_keeper.epoch,
+                        fence=self._lease_plane.read_fence(),
+                        holder=self._lease_keeper.holder,
+                    )
+                self._wal = FencedWalWriter(
+                    self._wal_dir,
+                    self._lease_keeper.epoch,
+                    plane=self._lease_plane,
+                    opslog=self._opslog,
+                    **wal_kw,
+                )
+                status = getattr(self.telemetry, "cluster", None)
+                if status is not None:
+                    status.node_id = self._lease_keeper.holder
+                    status.role = "primary"
+                    status.lease_cb = self._lease_plane.doc
+            else:
+                self._wal = WalWriter(self._wal_dir, **wal_kw)
             # WAL replication-plane families (RUNBOOK §2s): retained
             # segments plus per-tailer ack age — a growing ack age is a
             # stalled replica still pinning retention
@@ -363,7 +431,7 @@ class SkylineWorker:
             # lineage + merge-time consistency barriers (policy "merge", the
             # default), or checkpoint-time barriers only ("checkpoint");
             # "off" skips the plane entirely
-            if self.mesh_chips:
+            if self.mesh_chips and not cluster_hosts:
                 from skyline_tpu_torch.resilience.chip_wal import ChipWalPlane
                 from skyline_tpu_torch.utils.knobs import chip_barrier_policy
 
@@ -396,7 +464,36 @@ class SkylineWorker:
                 }
             )
             self._wal.flush(force=True)
-        self.replicas: list = []  # read replicas: ROADMAP queue 1 item 6
+        # WAL-tailing read replicas (serve/replica.py): each gets its own
+        # SnapshotStore + ring + HTTP port, bootstraps from the newest
+        # barrier in the WAL and live-tails publish deltas. In-process spawn
+        # is the embedded/test mode; production runs them as separate
+        # processes (--replica-of) so an engine death leaves them serving.
+        self.replicas = []
+        if replicas:
+            if resilience is None or self._snap_store is None:
+                raise ValueError(
+                    "replicas require resilience (--checkpoint-dir) and the "
+                    "serve plane (--serve)"
+                )
+            from skyline_tpu_torch.serve.replica import SkylineReplica
+
+            # in-process replicas share the worker's hub for the labeled
+            # replica families, the worker's ops journal, and see the
+            # primary head directly for replica_lag_versions
+            store = self._snap_store
+            for i in range(int(replicas)):
+                self.replicas.append(
+                    SkylineReplica(
+                        self._wal_dir,
+                        port=0,
+                        serve_config=serve_config,
+                        replica_id=f"replica-{i}",
+                        telemetry=self.telemetry,
+                        opslog=self._opslog,
+                        primary_head_cb=lambda s=store: s.head_version,
+                    )
+                )
         self.stats_server = None
         if stats_port is not None:
             from skyline_tpu_torch.metrics.httpstats import StatsServer
@@ -435,6 +532,13 @@ class SkylineWorker:
             }
             if self._wal is not None:
                 res["wal"] = self._wal.stats()
+            if self._lease_keeper is not None:
+                res["lease"] = {
+                    "holder": self._lease_keeper.holder,
+                    "epoch": self._lease_keeper.epoch,
+                    "deposed": self._deposed,
+                    **self._lease_plane.doc(),
+                }
             if self._chip_wal is not None:
                 res["chip_wal"] = self._chip_wal.stats()
             if self._opslog is not None:
@@ -785,12 +889,63 @@ class SkylineWorker:
     def shutdown(self) -> None:
         """Clean exit (SIGTERM/SIGINT): final checkpoint, force-fsync the
         WAL, close every server — a restart from this state replays
-        nothing and loses nothing."""
-        if self._ckpt_mgr is not None and self._dirty:
+        nothing and loses nothing. A DEPOSED worker skips the final
+        checkpoint: its WAL barrier would be rejected at the fence anyway,
+        and the promoted primary now owns the durable state."""
+        if self._ckpt_mgr is not None and self._dirty and not self._deposed:
             self.checkpoint_now()
         if self._wal is not None:
             self._wal.flush(force=True)
         self.close()
+
+    def _maybe_renew_lease(self) -> None:
+        """Renew the write lease when due; on deposition (a higher epoch on
+        disk, or the fence moved past ours) demote instead of writing on —
+        the honest half of the promotion drill."""
+        if self._lease_keeper is None or self._deposed:
+            return
+        from skyline_tpu_torch.cluster import LeaseLostError
+
+        try:
+            self._lease_keeper.maybe_renew()
+        except LeaseLostError as e:
+            if self._opslog is not None:
+                self._opslog.record(
+                    "lease_renew_lost",
+                    epoch=self._lease_keeper.epoch,
+                    fence=self._lease_plane.read_fence(),
+                    error=str(e),
+                )
+            self._demote(str(e))
+
+    def _demote(self, reason: str) -> None:
+        """This worker lost the write path: stop ingesting, mark the role,
+        and let the loop exit WITHOUT a final checkpoint (the fence rejects
+        our barrier; the promoted primary owns durability now)."""
+        self._deposed = True
+        self._stop_requested = True
+        self.telemetry.inc("cluster.demotions")
+        if self._opslog is not None:
+            self._opslog.record(
+                "demoted",
+                epoch=(
+                    self._lease_keeper.epoch
+                    if self._lease_keeper is not None else None
+                ),
+                fence=(
+                    self._lease_plane.read_fence()
+                    if self._lease_plane is not None else None
+                ),
+                reason=reason,
+            )
+        status = getattr(self.telemetry, "cluster", None)
+        if status is not None:
+            status.role = "deposed"
+        print(
+            f"skyline worker: write lease lost ({reason}); demoting — "
+            "no further WAL appends, no final checkpoint",
+            file=sys.stderr,
+        )
 
     def _signal_handler(self, signum, frame) -> None:
         self._stop_requested = True
@@ -887,6 +1042,9 @@ class SkylineWorker:
         in ``max_drain_polls * max_records`` drained rows.
         """
         fault_point("kafka.poll")
+        self._maybe_renew_lease()
+        if self._deposed:
+            return 0  # a deposed primary must not ingest another frame
         with self.tracer.phase("worker/poll"):
             triggers = self._queries.poll(max_records)
             ids, values, dropped, got = self._poll_data(max_records)
@@ -1069,8 +1227,20 @@ class SkylineWorker:
             if self._stop_requested:
                 self.shutdown()
                 return
-            n = self.step()
+            try:
+                n = self.step()
+            except Exception as e:
+                from skyline_tpu_torch.cluster import WalFencedError
+
+                if not isinstance(e, WalFencedError):
+                    raise
+                # an append raced the promotion past the renew check: the
+                # frame was rejected at the WAL layer (counted, loud) —
+                # demote and exit without the final checkpoint
+                self._demote(str(e))
+                continue
             if n == 0:
+                self._maybe_renew_lease()
                 now = time.time()
                 if idle_since is None:
                     idle_since = now
@@ -1109,9 +1279,9 @@ def build_worker(cfg, bus=None) -> SkylineWorker:
     from skyline_tpu_torch.bridge.kafka import KafkaBus
 
     if cfg.replica_of:
-        raise NotImplementedError(
-            "--replica-of: standalone read replicas are not ported yet "
-            "(ROADMAP queue 1 item 6: serve/replica.py)"
+        raise ValueError(
+            "--replica-of runs a standalone read replica, not a worker: "
+            "use main() (or serve.replica.run_replica)"
         )
     # no compile cache to enable: the CUDA kernels and the native helper
     # build once into skyline_tpu_torch/_build/ and every restart loads them
@@ -1148,14 +1318,30 @@ def main(argv=None):
     from skyline_tpu_torch.utils.config import parse_job_args
 
     cfg = parse_job_args(argv)
+    if cfg.replica_of:
+        # standalone read replica: no broker, no engine, no device — bootstrap
+        # from the primary's WAL directory and tail it until signalled
+        from skyline_tpu_torch.serve.replica import run_replica
+
+        return run_replica(
+            cfg.replica_of,
+            port=cfg.serve_port if cfg.serve_port >= 0 else 0,
+            serve_config=cfg.serve_config(),
+        )
     worker = build_worker(cfg)
     print(
         f"skyline worker: algo={cfg.algo} partitions={worker.engine.config.num_partitions} "
         f"dims={cfg.dims} broker={cfg.bootstrap} device={cfg.device}"
         f" chips={cfg.mesh_chips or 'off'}"
+        f" cluster={cfg.cluster_hosts or 'off'}"
         + (f" stats=:{worker.stats_server.port}" if worker.stats_server else "")
         + (f" serve=:{worker.serve_server.port}" if worker.serve_server else "")
-        + (f" checkpoints={cfg.checkpoint_dir}" if cfg.checkpoint_dir else ""),
+        + (f" checkpoints={cfg.checkpoint_dir}" if cfg.checkpoint_dir else "")
+        + (
+            " replicas=" + ",".join(f":{r.port}" for r in worker.replicas)
+            if worker.replicas
+            else ""
+        ),
         file=sys.stderr,
     )
     try:

@@ -35,14 +35,16 @@ Endpoints:
   GET /health   chip-health block: per-chip score/status + quarantine
                 state from the sharded engine's ChipHealth on the hub; a
                 flat engine answers {"ok": true, "enabled": false}
-  GET /cluster  cluster block: {"ok": true, "enabled": false} (the cluster
-                plane is not ported)
+  GET /cluster  cluster block: lease/role state, fenced-write and
+                promotion counts, per-host ingest/merge/prune stats from the
+                hub's ClusterStatus; {"ok": true, "enabled": false} on a
+                non-cluster worker
   GET /ops      the ops journal's merged timeline (?since_seq=N, ?limit=N);
                 {"ok": true, "enabled": false} when no journal is attached
-  GET /cluster/overview  fleet-wide aggregation: {"ok": true, "enabled":
-                false} with no members configured; with members
-                ($SKYLINE_CLUSTERVIEW_MEMBERS) a 500 naming the unported
-                scrape
+  GET /cluster/overview  fleet-wide aggregation: the hub's ClusterView (or
+                one over $SKYLINE_CLUSTERVIEW_MEMBERS) scraping every
+                member's /healthz, /cluster, /ops and /metrics; {"ok": true,
+                "enabled": false} with no members configured
   GET /healthz  {"ok": true} once serving — readiness probe for supervisors
 """
 

@@ -11,8 +11,8 @@ with its siblings. The dispatch sites resolve here:
 (``resolve_flush``), the global merge's path (``merge_cache_on``,
 ``delta_applies``, ``merge_tree_on``) and the gates (``gate``,
 ``applies``). The sharded engine's chip prune reads its row
-(``gate("chip_prune")``); the cluster's host prune row is declared, its
-site not ported yet.
+(``gate("chip_prune")``), the cluster merge's host prune its own
+(``gate("host_prune")``, ``cluster/coordinator.py``).
 
 Resolution is the reference's: explicit ``auto|on|off`` modes force or
 exclude rows, ``auto`` races the applicable candidates on measured

@@ -33,8 +33,7 @@ The reader tolerates a torn tail: replay stops cleanly at the first short
 or CRC-mismatching frame and reports how many segments were cut short.
 
 Fencing (cluster mode): when a ``fence.json`` sits beside the segments
-(written by the lease plane, ``skyline_tpu/cluster/lease.py`` in the
-reference; the port's waits for ROADMAP queue 1 item 8), readers enforce
+(written by the lease plane, ``cluster/lease.py``), readers enforce
 it too. The fence doc
 records the durable byte position at the moment the fence was raised
 (``cut_seq``/``cut_pos``); any frame AT OR PAST that cut whose stamped

@@ -10,9 +10,9 @@ expensive forced-merge path is admission-controlled with explicit load
 shedding (``admission``). ``server.SkylineServer`` exposes all of it over a
 stdlib asyncio HTTP server.
 
-The read replica (``serve/replica.py`` of the reference: ``SkylineReplica``,
-``ReplicaDivergence``, ``run_replica``) is not ported yet (ROADMAP queue 1
-item 6); asking for it raises ``ImportError``.
+The WAL-tailing read replica (``replica.SkylineReplica``,
+``ReplicaDivergence``, ``run_replica``) loads lazily, as in the reference:
+plain serve users do not pay for the resilience plane.
 """
 
 from skyline_tpu_torch.serve.admission import AdmissionController, QueryGate, TokenBucket
@@ -28,11 +28,12 @@ from skyline_tpu_torch.serve.snapshot import Snapshot, SnapshotStore
 
 
 def __getattr__(name):
+    # the replica pulls in the resilience plane; load it lazily so plain
+    # serve users don't pay for (or depend on) the WAL machinery
     if name in ("SkylineReplica", "ReplicaDivergence", "run_replica"):
-        raise ImportError(
-            f"skyline_tpu_torch.serve.{name}: the read replica "
-            "(serve/replica.py) is not ported yet (ROADMAP queue 1 item 6)"
-        )
+        from skyline_tpu_torch.serve import replica as _replica
+
+        return getattr(_replica, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -41,12 +42,15 @@ __all__ = [
     "DeltaRing",
     "QueryBridge",
     "QueryGate",
+    "ReplicaDivergence",
     "ServeConfig",
+    "SkylineReplica",
     "Snapshot",
     "SnapshotStore",
     "TokenBucket",
     "apply_delta_record",
     "delta_wal_record",
+    "run_replica",
     "snapshot_delta",
     "snapshot_wal_record",
 ]

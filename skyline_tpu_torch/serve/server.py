@@ -49,15 +49,17 @@ operator observability; this one serves the skyline itself. Endpoints:
                   state from the sharded engine's ``ChipHealth`` on the hub
                   (``resilience/health.py``); a flat engine answers
                   ``{"ok": true, "enabled": false}``.
-  GET  /cluster   cluster block: ``{"ok": true, "enabled": false}`` (the
-                  cluster plane is not ported).
+  GET  /cluster   cluster block: lease/role state, fenced-write and
+                  promotion counts, per-host stats from the hub's
+                  ``ClusterStatus`` (``cluster/lease.py``); ``{"ok": true,
+                  "enabled": false}`` outside a cluster.
   GET  /ops       the ops journal's merged timeline (``?since_seq=N``,
                   ``?limit=N``); ``{"ok": true, "enabled": false}`` when no
                   journal is attached.
   GET  /cluster/overview  fleet-wide aggregation: ``{"ok": true,
-                  "enabled": false}`` with no members configured; with
-                  members (``SKYLINE_CLUSTERVIEW_MEMBERS``) it raises, since
-                  the scrape is not ported.
+                  "enabled": false}`` with no members configured; else the
+                  ``ClusterView`` scrape of every member
+                  (``telemetry/clusterview.py``).
 
 Requests never touch the engine: reads come off the ``SnapshotStore``;
 forced queries cross to the engine-owner thread through ``QueryBridge``
@@ -919,9 +921,10 @@ class SkylineServer:
 
     async def _overview(self, writer):
         """The /cluster/overview fleet aggregation. The scrape is blocking
-        network I/O, so it runs in an executor; with no members configured
-        it answers ``{"ok": true, "enabled": false}``, and with members it
-        raises (``telemetry/clusterview.py``)."""
+        network I/O, so it runs in an executor (a member listing its own URL
+        answers its own ``/healthz`` mid-scrape); with no members configured
+        it answers ``{"ok": true, "enabled": false}``
+        (``telemetry/clusterview.py``)."""
         from skyline_tpu_torch.telemetry.clusterview import overview_doc
 
         loop = asyncio.get_running_loop()

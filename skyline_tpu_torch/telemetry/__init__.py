@@ -14,7 +14,12 @@ gauges to ``replication``. The sharded engine (``distributed/sharded.py``)
 attaches its ``FleetStats`` as ``fleet`` (``telemetry/fleet.py``, the
 ``skyline_chip_*{chip=...}`` families) and its ``ChipHealth`` as ``health``
 (``resilience/health.py``); a flat engine leaves both ``None``. The cluster
-plane is not ported yet, so ``cluster`` and ``clusterview`` stay ``None``.
+engine (``cluster/coordinator.py``) and a worker holding the write lease
+attach a ``cluster.lease.ClusterStatus`` as ``cluster`` (``GET /cluster``,
+the ``skyline_host_*{host=...}`` families); read replicas sharing the hub
+append themselves to ``replication``; an operator may attach a
+``telemetry.clusterview.ClusterView`` as ``clusterview`` behind ``GET
+/cluster/overview``.
 ``fleet_doc`` builds the ``/fleet`` document both HTTP surfaces serve.
 """
 

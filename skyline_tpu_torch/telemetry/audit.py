@@ -1,11 +1,9 @@
 """Audit plane backing store: the bounded ring of shadow-verification
 verdicts served at ``GET /audit``.
 
-Counterpart of ``skyline_tpu/telemetry/audit.py``. The auditor itself
-comes with the snapshot store (not ported yet): until then no check is
-recorded here, as the reference records none before a store is attached.
-The auditor recomputes sampled published
-snapshots through the independent host oracle and records one check
+Counterpart of ``skyline_tpu/telemetry/audit.py``. The auditor
+(``audit/__init__.py``) runs once the engine publishes into a snapshot
+store, as in the reference: it recomputes sampled published snapshots through the independent host oracle and records one check
 document per comparison here; canary sweeps additionally maintain a
 per-merge-path coverage map so ``/audit`` can prove every decision path
 (cache_hit / tree_delta / tree / flat / host) was exercised recently even

@@ -12,7 +12,7 @@ At each stage transition the tracker observes ``now - oldest waiting
 event-time`` into a per-stage lag histogram, exported as the labeled
 Prometheus family ``skyline_freshness_lag_ms{stage=...}``. The published
 event watermark (newest event-time fully reflected in the live snapshot) is
-what ``on_publish`` returns for a snapshot store (not ported yet).
+what ``on_publish`` returns for the snapshot store (``serve/snapshot.py``).
 
 Event-time source: a caller that has producer event times passes them as
 ``process_records(event_ms=...)``; without them the engine stamps the wall

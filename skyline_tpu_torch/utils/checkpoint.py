@@ -4,9 +4,10 @@ Counterpart of ``skyline_tpu/utils/checkpoint.py``, with the same ``.npz``
 format: a checkpoint written by either package loads into the other and
 gives the same next answer. The format is topology-free: a flat or sharded
 engine's checkpoint restores as flat or as sharded over any chip count
-(``mesh_chips``), because ``restore_all`` splits the per-partition state by
-owning chip. The cluster engine and a device mesh are not ported yet
-(ROADMAP queue 1 item 8): restoring onto them raises.
+(``mesh_chips``) or as a cluster over any host count (``cluster_hosts``),
+because ``restore_all`` splits the per-partition state by owning chip or
+host. A device mesh is not ported yet (ROADMAP queue 1 item 8b): restoring
+onto one raises.
 
 The reference job declares all operator state as Flink managed state but never
 enables checkpointing, so a crash loses everything (SURVEY.md §5 —
@@ -145,16 +146,18 @@ def load_engine(
 
     ``mesh_chips`` > 0 restores into a ``distributed.ShardedEngine`` of
     that many chips (placement is runtime state, not checkpoint state: any
-    checkpoint restores onto any chip count). ``mesh`` and
-    ``cluster_hosts`` re-apply placements the port has not ported yet
-    (ROADMAP queue 1 item 8), so either raises.
+    checkpoint restores onto any chip count); ``cluster_hosts`` > 0 restores
+    into a ``cluster.ClusterEngine`` of that many hosts, with ``mesh_chips``
+    as the chips of each (``restore_all`` splits by owned partition id).
+    ``mesh`` re-applies a device mesh, which the port has not ported yet
+    (ROADMAP queue 1 item 8b), so it raises.
     ``with_meta=True`` returns ``(engine, meta)`` so callers can read the
     ``extra`` doc (recovery offsets). ``tracer``/``telemetry`` thread the
     worker's observability hubs into the restored engine. A checkpoint
     whose content CRC disagrees raises ``ValueError`` (and a torn npz
     raises from ``np.load``) — the checkpoint manager treats either as
     "fall back to the previous good checkpoint"."""
-    if mesh is not None or cluster_hosts:
+    if mesh is not None:
         _unported_placement()
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
@@ -172,7 +175,14 @@ def load_engine(
             **{k: v for k, v in meta["config"].items() if k in known and k != "device"},
             device=device,
         )
-        if mesh_chips:
+        if cluster_hosts:
+            from skyline_tpu_torch.cluster import ClusterEngine
+
+            engine = ClusterEngine(
+                cfg, hosts=cluster_hosts, chips_per_host=mesh_chips or 1,
+                tracer=tracer, telemetry=telemetry,
+            )
+        elif mesh_chips:
             from skyline_tpu_torch.distributed import ShardedEngine
 
             engine = ShardedEngine(cfg, chips=mesh_chips, tracer=tracer, telemetry=telemetry)
@@ -223,8 +233,8 @@ def load_engine(
 
 def _unported_placement():
     raise NotImplementedError(
-        "restoring onto a device mesh or a cluster engine (mesh, "
-        "cluster_hosts) is not ported yet (ROADMAP queue 1 item 8)"
+        "restoring onto a device mesh (mesh) is not ported yet (ROADMAP "
+        "queue 1 item 8b: the device mesh over torch.distributed)"
     )
 
 

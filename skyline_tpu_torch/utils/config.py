@@ -14,10 +14,11 @@ environment defaults and validation, plus ``--device {cuda,cpu}`` (default
 built, never falls back). Each environment read spells its default as a
 literal, the reference registry's, which ``JobConfig``'s field defaults
 equal (``tests/test_torch_worker.py`` holds both). ``--mesh-chips N`` runs
-the sharded engine over the visible cards. The cluster and mesh placements
-(``--mesh``, ``--cluster-hosts``) and the read replicas (``--replicas``,
-``--replica-of``) parse and validate as in the reference; the worker raises
-on them until ROADMAP queue 1 items 6 and 8 port them.
+the sharded engine over the visible cards, ``--cluster-hosts H`` the
+cluster engine (``--mesh-chips`` then the chips of each host), and
+``--replicas N`` / ``--replica-of <wal_dir>`` the WAL-tailing read
+replicas. ``--mesh`` parses and validates as in the reference; a device mesh
+raises until ROADMAP queue 1 item 8b ports it.
 """
 
 from __future__ import annotations
@@ -372,13 +373,13 @@ class JobConfig:
 
     def build_mesh(self):
         """The device mesh ``--mesh`` asks for: None when ``mesh`` is 0.
-        A device mesh waits for ROADMAP queue 1 item 8, so a mesh raises
+        A device mesh waits for ROADMAP queue 1 item 8b, so a mesh raises
         (``--mesh-chips`` shards over several cards without one)."""
         if not self.mesh:
             return None
         raise NotImplementedError(
             f"--mesh {self.mesh}: sharding the partition state over a device "
-            "mesh is not ported yet (ROADMAP queue 1 item 8)"
+            "mesh is not ported yet (ROADMAP queue 1 item 8b)"
         )
 
 

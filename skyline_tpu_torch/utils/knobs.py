@@ -163,8 +163,8 @@ def chip_prune_enabled() -> bool:
 
 def host_prune_enabled() -> bool:
     """``SKYLINE_CLUSTER_HOST_PRUNE``: the host-level witness prefilter of
-    the cluster merge (not ported yet; its table row is declared). On by
-    default, as in the reference."""
+    the cluster merge (``cluster/coordinator.py``, through the dispatch
+    table's ``host_prune`` gate). On by default, as in the reference."""
     return env_bool("SKYLINE_CLUSTER_HOST_PRUNE", True)
 
 
@@ -437,6 +437,9 @@ KNOBS: tuple[Knob, ...] = tuple(
         ("SKYLINE_FLEET_IMBALANCE_THRESHOLD", 2.0),
         ("SKYLINE_FLEET_RING", 64),
         ("SKYLINE_CLUSTER_HOST_PRUNE", True),
+        ("SKYLINE_CLUSTER_MIGRATION_BUDGET", 8),
+        ("SKYLINE_CLUSTER_LEASE_TTL_MS", 3000.0),
+        ("SKYLINE_CLUSTER_LEASE_RENEW_MS", 0.0),
         ("SKYLINE_QUERY_OVERLAP", True),
         ("SKYLINE_SORTED_SFS", "auto"),
         ("SKYLINE_DEVICE_CASCADE", "auto"),
@@ -492,6 +495,11 @@ KNOBS: tuple[Knob, ...] = tuple(
         ("SKYLINE_SERVE_HEADER_TIMEOUT_S", 10.0),
         ("SKYLINE_SERVE_SSE_QUEUE", 64),
         ("SKYLINE_CLUSTERVIEW_MEMBERS", None),
+        ("SKYLINE_CLUSTERVIEW_TIMEOUT_S", 2.0),
+        ("SKYLINE_CLUSTERVIEW_OPS_TAIL", 64),
+        # the read replicas
+        ("SKYLINE_REPLICA_MAX_STALE_MS", 30000.0),
+        ("SKYLINE_REPLICA_POLL_MS", 25.0),
         # the audit plane
         ("SKYLINE_AUDIT_SAMPLE", 1.0),
         ("SKYLINE_AUDIT_CANARY_S", 300.0),

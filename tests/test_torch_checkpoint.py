@@ -170,16 +170,17 @@ def test_inflight_queries_survive_the_checkpoint_both_ways(rng, tmp_path):
 @pytest.mark.parametrize("placement", [dict(mesh_chips=2), dict(cluster_hosts=2), dict(mesh=object())])
 def test_sharded_and_cluster_restores_raise(rng, tmp_path, placement):
     """A flat checkpoint restores onto the sharded engine (``mesh_chips``)
-    with the JAX package's next answer; the cluster engine and a device
-    mesh are not ported yet and raise."""
+    and onto the cluster engine (``cluster_hosts``) with the JAX package's
+    next answer; a device mesh is not ported yet (item 8b) and raises."""
     eng = SkylineEngine(EngineConfig(**_cfg(3), device="cpu"))
     _feed(eng, gen_points(rng, 300, 3, "uniform"), 0)
     path = str(tmp_path / "e.npz")
     ckpt.save_engine(eng, path)
-    if "mesh_chips" not in placement:
-        with pytest.raises(NotImplementedError, match="item 8"):
+    if "mesh" in placement:
+        with pytest.raises(NotImplementedError, match="item 8b"):
             ckpt.load_engine(path, device="cpu", **placement)
         return
+    from skyline_tpu_torch.cluster import ClusterEngine
     from skyline_tpu_torch.distributed import ShardedEngine
 
     tail = gen_points(rng, 200, 3, "anti")
@@ -188,7 +189,11 @@ def test_sharded_and_cluster_restores_raise(rng, tmp_path, placement):
               jax_ckpt.load_engine(path, **placement)):
         _feed(e, tail, 300)
         out.append(_answer(e, "q"))
-    assert isinstance(ckpt.load_engine(path, device="cpu", **placement), ShardedEngine)
+    want = ClusterEngine if "cluster_hosts" in placement else ShardedEngine
+    restored = ckpt.load_engine(path, device="cpu", **placement)
+    assert type(restored) is want
+    if "cluster_hosts" in placement:
+        assert restored.pset.hosts == 2 and restored.pset._member_chips == [1, 1]
     assert out[0] == out[1]
 
 

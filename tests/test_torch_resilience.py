@@ -239,11 +239,12 @@ def test_checkpoint_restore_raises_without_a_card_or_on_placements(tmp_path):
     if not __import__("torch").cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             mgr.restore_latest()
-    # the sharded engine restores (nothing to restore here); the cluster
-    # engine is not ported yet
+    # the sharded and cluster engines restore (nothing to restore here);
+    # a device mesh is not ported yet
     assert mgr.restore_latest(mesh_chips=2, device="cpu") is None
-    with pytest.raises(NotImplementedError, match="item 8"):
-        mgr.restore_latest(cluster_hosts=2, device="cpu")
+    assert mgr.restore_latest(cluster_hosts=2, device="cpu") is None
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        mgr.restore_latest(mesh=object(), device="cpu")
 
 
 def test_crash_before_replace_and_retain(rng, tmp_path):

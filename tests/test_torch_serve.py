@@ -496,20 +496,36 @@ def test_server_that_cannot_bind_raises(rng):
 
 
 def test_unported_branches_raise(monkeypatch, tmp_path):
-    with pytest.raises(ImportError, match="item 6"):
-        serve.SkylineReplica  # noqa: B018
+    """The branches that raised before the replica and the cluster view were
+    ported: the replica loads lazily from ``serve`` (the reference's
+    classes' names), and a configured overview scrapes its members as the
+    JAX package's does — a dead member is a row, never an exception."""
+    from skyline_tpu.serve import replica as jreplica
+    from skyline_tpu.telemetry import clusterview as jview
+    from skyline_tpu_torch.serve import replica as treplica
     from skyline_tpu_torch.telemetry.clusterview import overview_doc
 
+    assert serve.SkylineReplica is treplica.SkylineReplica
+    assert serve.run_replica is treplica.run_replica
+    assert issubclass(serve.ReplicaDivergence, serve.replica.WalError)
+    assert serve.SkylineReplica.__name__ == jreplica.SkylineReplica.__name__
     assert overview_doc(Telemetry()) == {"ok": True, "enabled": False}
     monkeypatch.setenv("SKYLINE_CLUSTERVIEW_MEMBERS", "http://127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        overview_doc(Telemetry())
+    doc = overview_doc(Telemetry())
+    ref = jview.overview_doc(None)
+    for d in (doc, ref):
+        d.pop("at_ms")
+        d.pop("scrape_wall_ms")
+        d["members"][0].pop("error")
+    assert doc == ref and doc["fleet"]["live"] == 0
     store = SnapshotStore()
     tel = Telemetry()
     srv = SkylineServer(store, port=0, telemetry=tel)
     try:
-        with pytest.raises(Exception):  # the connection closes: no doc answered
-            urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/cluster/overview", timeout=5).read()
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/cluster/overview",
+                                    timeout=30) as r:
+            over = json.load(r)
+        assert over["enabled"] and over["members"][0]["ok"] is False
         monkeypatch.delenv("SKYLINE_CLUSTERVIEW_MEMBERS")
         # the ops journal is ported now: a hub that carries one answers /ops
         from skyline_tpu_torch.telemetry.opslog import OpsLog

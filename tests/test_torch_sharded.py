@@ -15,8 +15,12 @@ against the JAX package's ``ShardedEngine`` and the port's flat engine.
   aside (``untimed``); the audit plane checks the sharded answer.
 - ``ChipWalPlane``: the same segment bytes as the JAX writer on the same
   calls; a torn fan-out ignored and a divergence raised, by both readers.
+- The awkward rows (+-inf, NaN, -0.0 against +0.0, mixed and duplicate
+  rows) at chips 2 and 4, P = 8, under the three policies, against the JAX
+  set.
 - Checkpoints across topologies, both ways and through the JAX package's
-  npz, with the same next answer.
+  npz, with the same next answer; a sharded checkpoint onto the cluster
+  engine.
 - The worker with ``mesh_chips`` (``tests/test_torch_worker.py`` holds the
   output lines and journals against the JAX worker's) under the chaos
   drill: a chip crash under the ``Supervisor`` replays to the flat
@@ -198,6 +202,46 @@ def test_chip_prune_matches_jax(monkeypatch, prune):
         assert all(e["witness"] not in pruned for e in stats["last"]["pruned"])
     else:
         assert stats["chips_pruned"] == 0
+
+
+# -- the awkward rows (ROADMAP queue 3's gaps) ------------------------------------------
+
+
+def _feed_p8(pset, x: np.ndarray, chunk: int = 97) -> None:
+    """``_feed_pset`` over P = 8 partitions."""
+    n = x.shape[0]
+    pids = np.arange(n) % 8
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        for p in range(8):
+            rows = np.ascontiguousarray(x[lo:hi][pids[lo:hi] == p])
+            if rows.shape[0]:
+                pset.add_batch(p, rows, max_id=hi, now_ms=0.0)
+        pset.maybe_flush()
+    pset.flush_all()
+
+
+@pytest.mark.parametrize("policy", ["incremental", "lazy", "overlap"])
+@pytest.mark.parametrize("chips", [2, 4])
+@pytest.mark.parametrize("rows", ["inf", "nan", "signed_zero", "mixed", "duplicates"])
+def test_awkward_rows_match_jax(rounds_only, rows, chips, policy):
+    """+-inf, NaN, -0.0 against +0.0, a mix of them and duplicate rows, P =
+    8: the port's sharded set gives the JAX set's merge state, sharded stats
+    (the chip witness included) and per-partition skyline sizes."""
+    from test_torch_cluster import _awkward_rows
+
+    d = 3
+    x = _awkward_rows(rows, d)
+    jax_set = JaxShardedSet(8, d, 64, chips=chips, flush_policy=policy)
+    sp = ShardedPartitionSet(8, d, 64, chips=chips, flush_policy=policy, device="cpu")
+    for s in (jax_set, sp):
+        _feed_p8(s, x)
+    ctx = f"rows={rows} chips={chips} policy={policy}"
+    got = merge_state(sp)
+    assert_same_merge(merge_state(jax_set), got, ctx=ctx)
+    assert _stats(sp) == _stats(jax_set), ctx
+    assert sp.sky_counts().tolist() == jax_set.sky_counts().tolist()
+    assert sp.epoch_key == jax_set.epoch_key
 
 
 # -- the engine ----------------------------------------------------------------------
@@ -385,9 +429,13 @@ def test_checkpoint_mesh_and_cluster_restores_raise(tmp_path):
     eng = ShardedEngine(EngineConfig(parallelism=2, dims=3, device="cpu"), chips=2)
     path = str(tmp_path / "e.npz")
     ckpt.save_engine(eng, path)
-    for placement in (dict(cluster_hosts=2), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ckpt.load_engine(path, device="cpu", **placement)
+    # a sharded checkpoint restores onto the cluster engine (2 hosts of 2
+    # chips: the same partition state); a device mesh still raises
+    cl = ckpt.load_engine(path, device="cpu", cluster_hosts=2, mesh_chips=2)
+    assert type(cl).__name__ == "ClusterEngine" and cl.pset._member_chips == [2, 2]
+    assert cl.pset.sky_counts().tolist() == eng.pset.sky_counts().tolist()
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        ckpt.load_engine(path, device="cpu", mesh=object())
     mgr = CheckpointManager(str(tmp_path / "m"))
     mgr.save(eng)
     engine, _meta, _path = mgr.restore_latest(mesh_chips=4, device="cpu")

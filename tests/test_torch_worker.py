@@ -234,8 +234,11 @@ def test_port_config_device_and_unported_placements():
         tconfig.parse_job_args(["--device", "tpu"])
     cfg = tconfig.parse_job_args(["--device", "cpu", "--dims", "3"])
     assert cfg.engine_config() == EngineConfig(dims=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 8b"):
         tconfig.parse_job_args(["--mesh", "2"]).build_mesh()
+    cl = tconfig.parse_job_args(["--cluster-hosts", "2", "--mesh-chips", "2"])
+    ref = jconfig.parse_job_args(["--cluster-hosts", "2", "--mesh-chips", "2"])
+    assert (cl.cluster_hosts, cl.mesh_chips) == (ref.cluster_hosts, ref.mesh_chips) == (2, 2)
     assert tconfig.parse_job_args(["--mesh-chips", "2"]).mesh_chips == 2
     assert tconfig.parse_job_args([]).build_mesh() is None
 
@@ -441,30 +444,48 @@ def test_sliding_branch_matches_jax(pinned, d, window, slide):
     assert [untimed(x) for x in a] == [untimed(x) for x in b]
 
 
-def test_worker_raises_on_unported_placements_and_missing_card():
+def test_worker_raises_on_unported_placements_and_missing_card(tmp_path):
+    """A device mesh still raises (ROADMAP queue 1 item 8b). The sharded and
+    cluster engines and the read replicas are ported: the worker builds
+    them, and rejects what the reference's worker rejects."""
     bus = MemoryBus()
     cfg = EngineConfig(device="cpu")
-    for kw in (dict(cluster_hosts=2), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tworker.SkylineWorker(bus, cfg, **kw)
-    # the sharded engine is ported: mesh_chips builds it, and rejects what
-    # the reference's worker rejects
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        tworker.SkylineWorker(bus, cfg, mesh=object())
     w = tworker.SkylineWorker(bus, cfg, mesh_chips=2)
     assert type(w.engine).__name__ == "ShardedEngine"
     w.close()
-    for kw in (dict(mesh_chips=2, window_size=64, slide=32), dict(mesh_chips=2, mesh=object())):
+    w = tworker.SkylineWorker(bus, EngineConfig(parallelism=4, device="cpu"), cluster_hosts=2,
+                              mesh_chips=2)
+    ref = jworker.SkylineWorker(JBus(), JConfig(parallelism=4), cluster_hosts=2, mesh_chips=2)
+    assert type(w.engine).__name__ == type(ref.engine).__name__ == "ClusterEngine"
+    assert w.engine.pset._member_chips == ref.engine.pset._member_chips == [2, 2]
+    w.close()
+    ref.close()
+    for kw in (dict(mesh_chips=2, window_size=64, slide=32), dict(mesh_chips=2, mesh=object()),
+               dict(cluster_hosts=2, window_size=64, slide=32),
+               dict(cluster_hosts=2, mesh=object()), dict(replicas=1),
+               dict(replicas=1, serve_port=0)):
         with pytest.raises(ValueError) as port:
             tworker.SkylineWorker(bus, cfg, **kw)
         with pytest.raises(ValueError) as ref:
             jworker.SkylineWorker(JBus(), JConfig(), **kw)
         assert str(port.value) == str(ref.value)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tworker.SkylineWorker(bus, cfg, replicas=1)
+    w = tworker.SkylineWorker(bus, cfg, serve_port=0, replicas=1,
+                              resilience=ResilienceConfig(checkpoint_dir=str(tmp_path)))
+    try:
+        (rep,) = w.replicas
+        assert rep.replica_id == "replica-0" and rep.wal_dir == str(tmp_path / "wal")
+    finally:
+        w.close()
+    assert rep._thread is None or not rep._thread.is_alive()
     if not __import__("torch").cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tworker.main(["--device", "cuda"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tworker.main(["--device", "cpu", "--replica-of", "somewhere"])
+    # --replica-of runs the standalone replica (main), never a worker; its
+    # CLI is held against the JAX package's in tests/test_torch_replica.py
+    with pytest.raises(ValueError, match="standalone read replica"):
+        tworker.build_worker(tconfig.parse_job_args(["--device", "cpu", "--replica-of", "x"]))
 
 
 # -- the CLIs and the import boundary -------------------------------------------
