@@ -162,6 +162,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``ClusterSupervisor.tick()`` raises the fence and promotes the most
    caught-up replica at the primary's head, the time to promote printed;
    the deposed writer's next append raises ``WalFencedError``, counted);
+   the device mesh (``MESH_PARITY``, leg ``mesh``): on the card the
+   sharded two-phase (``skyline_keep_np_sharded``) at 1, 2, 4 and 8 places
+   and the window pipeline on a 1,048,576-row north-star window against the
+   flat ``skyline_keep_np``, the hierarchical step at 2x2 and 2x4 exact and
+   with an overflowing ``host_cap`` (a superset, the overflow counted); the
+   two-phase, the pipeline and the hierarchical step on an 8,192-row window
+   on the card against the CPU (a child process), every output bit for
+   bit; ``SkylineEngine(mesh=)`` under the lazy, incremental and overlap
+   policies at d = 8 (two 65,536-row windows, P = 8) at 2 and 4 places
+   against the flat engine on the card, and at 4 places over two
+   8,192-row windows against the CPU (child processes beside the card
+   side; results, partition skylines, answer sha1, ``stats()``); the
+   sliding engine at 2 and 4 places against
+   its flat form on the card and the CPU; a checkpoint across topologies
+   (4 places, flat, 2 places); with two cards or more, two NCCL ranks, one
+   host each, against the one-process step (with fewer, a line says it did
+   not run);
 5. main paths at 1,000,000 rows, each one warm window and ``--windows``
    measured ones, driven in 65,536-row chunks with the trigger "0,0", under
    the reference's merge defaults (the pruned tree merge at d > 2, the
@@ -259,13 +276,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    spans) and the cross-host ms (``cross_host_merge``), the hosts pruned,
    the rows shipped and saved, launches (each > 0) and the host ladder's K2
    launches (> 0 on (x)); the last answer equals the flat engine's, the
-   warm answer passes the sampled checks; each printed beside (c) and (d);
+   warm answer passes the sampled checks; each printed beside (c) and (d).
+   Two mesh paths: (z) is (c) and (z2) is (d) through
+   ``SkylineEngine(mesh=make_mesh(4))`` (places ``cuda:i % n``), one fresh
+   engine a window: tuples/s, p50 window, the two-phase merge's wall and
+   the rest, launches (each > 0), K3 and K2 launched inside the two phases
+   on the mesh's places, and each meshed flush step's CUDA-event ms and
+   launches; the last answer equals the flat engine's, the warm answer
+   passes the sampled checks; each printed beside (c) and (d);
 6. timings: each kernel at its main path's shapes (K1–K3 from (c), K4–K7
    from (a), rebuilt from the last window's state; K2 also on the heaviest
    incremental round of (d), its three calls, on the heaviest tree
    pair of a north-star window, its two calls, each recorded from one more
    window, on the heaviest cross-chip pair of (v) and on the heaviest
-   host-ladder pair of (x), each its two calls),
+   host-ladder pair of (x), each its two calls; K3 on the largest shard
+   of (z)'s two-phase local phase and K2 on that shard against every
+   place's gathered rows),
    CUDA-event ms beside
    the plain version's ms (timed once per input) and the bound: needed
    pairs x d compares at the FP32 peak (K1–K3) or x (d + 1) at the INT32
@@ -3494,16 +3520,18 @@ def heaviest_incremental_round(torch, n: int):
     return best
 
 
-def incremental_k2(torch, np, n: int, launches: dict, windows: int, parent=None) -> dict:
-    """K2 on the incremental input: the heaviest round of path (d), its three
-    calls — the batch against itself, the sky prefix against the batch, the
-    kept batch against the sky — neither side sum-sorted. Each with ms, the
-    plain version's ms, needed pairs (summed over the partitions), the
-    bound's two terms and the skipped share; plus K2's launches per window
-    on (d)."""
+def incremental_k2(torch, np, n: int, launches: dict, windows: int, parent=None,
+                   r=None, path: str = "d") -> dict:
+    """K2 on the incremental input: the heaviest round of path (d) (or the
+    round ``r`` captured on ``path``), its three calls — the batch against
+    itself, the sky prefix against the batch, the kept batch against the
+    sky — neither side sum-sorted. Each with ms, the plain version's ms,
+    needed pairs (summed over the partitions), the bound's two terms and
+    the skipped share; plus K2's launches per window on the path."""
     from skyline_tpu_torch.ops import dominance_kernels as dk
 
-    r = heaviest_incremental_round(torch, n)
+    if r is None:
+        r = heaviest_incremental_round(torch, n)
     sky_t = r["sky"].transpose(1, 2).contiguous()
     batch_t = r["batch"].transpose(1, 2).contiguous()
     sv, bv = r["sky_valid"], r["bvalid"]
@@ -3566,7 +3594,7 @@ def incremental_k2(torch, np, n: int, launches: dict, windows: int, parent=None)
     log(f"timings: K2 incremental round (three calls; {out['valid_batch_rows']} batch rows, "
         f"{out['valid_sky_rows']} sky rows) {total_ms:.3f} ms, mp {out['round_mp_ms']:.3f} ms; "
         f"{out['launches_per_window']:.1f} K2 and {out['launches_mp_per_window']:.1f} K2 mp "
-        "launches per window on (d)")
+        f"launches per window on ({path})")
     return out
 
 
@@ -6327,6 +6355,866 @@ def host_ladder_k2(torch, np, heavy: dict, summary: dict) -> dict:
 
 
 # the worker's paths: (t) over the wire, (u) the crash drill
+# -- the device mesh: MESH_PARITY and the paths (z), (z2) ----------------------
+
+# place counts of the two-phase and the pipeline; the 1,048,576-row
+# north-star window they run on the card against the flat mask; the window
+# they run on the card and the CPU, bit for bit (the CPU's blocked mask is
+# O(N^2) on the north-star's zero rows: minutes at the full window)
+MESH_PLACES = (1, 2, 4, 8)
+MESH_WINDOW_ROWS = 1 << 20
+MESH_CPU_ROWS = 8192
+# (hosts, chips) of the hierarchical step; its overflowing host_cap is an
+# eighth of a host's rows (65,536 of the 1M window's 524,288)
+MESH_HIER = ((2, 2), (2, 4))
+# the meshed engine: three policies at d = 8, two 65,536-row windows, P = 8,
+# on the card at 2 and 4 places against the flat engine on the card; and two
+# 8,192-row windows at 4 places on the card against the CPU (child processes
+# beside the card side: a meshed set takes no flush race and no sequential
+# rounds, so the CPU's plain batched K1 over every partition lane costs
+# ~40 s a configuration at this size)
+MESH_PARITY = (
+    ("lazy d=8", dict(NORTH_STAR, ingest="host"), "uniform"),
+    ("incremental d=8", dict(NORTH_STAR, ingest="host", flush_policy="incremental"),
+     "uniform"),
+    ("overlap d=8", dict(NORTH_STAR, ingest="host", flush_policy="overlap",
+                         overlap_rows=32768), "uniform"),
+)
+MESH_PARITY_ROWS = 65536
+MESH_CPU_ENGINE_ROWS = 8192
+MESH_ENGINE_PLACES = (2, 4)
+MESH_CPU_PLACES = 4
+# the sliding engine over a mesh: 8-D, window 16,384, slide 4,096 (K3 on the
+# card: K * C >= 8,192), 32,768 rows
+MESH_SLIDING = dict(parallelism=4, algo="mr-angle", dims=8, domain_max=10000.0)
+MESH_SLIDING_ROWS = 32768
+MESH_PATHS = {"z": ("c", 4), "z2": ("d", 4)}
+MESH_WANTED = {"z": MP_ROUNDS + ("skyline_mask_kernel", "dominated_by_rect"),
+               "z2": (PREDROP_FUSED, MP_PATH[1], "skyline_mask_kernel", "dominated_by_rect")}
+
+NCCL_RANK = """
+import sys
+import numpy as np
+import torch
+rank, cards, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+chips = max(1, cards // 2)
+torch.cuda.set_device(rank * chips % cards)
+from skyline_tpu_torch.parallel.multihost import (
+    build_hierarchical_two_phase, init_multihost, make_host_chip_mesh)
+init_multihost(device="cuda")
+mesh = make_host_chip_mesh(chips_per_host=chips, device="cuda")
+x = np.load(sys.argv[4])
+res = {"devices": np.array([str(d) for d in mesh.places])}
+for tag, cap in (("exact", None), ("capped", 1024)):
+    step = build_hierarchical_two_phase(mesh, rows_per_shard=x.shape[0] // mesh.size,
+                                        host_cap=cap)
+    hk, gk, ov = step(x, np.ones(x.shape[0], dtype=bool))
+    res["hk_" + tag], res["gk_" + tag] = hk.cpu().numpy(), gk.cpu().numpy()
+    res["ov_" + tag] = int(ov)
+np.savez(out, **res)
+torch.distributed.destroy_process_group()
+"""
+
+
+def _mesh_window(np, rows: int, seed: int = 23):
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    return anti_correlated(np.random.default_rng(seed), rows, 8, 0, 10000)
+
+
+def _mesh_small(torch, np, x, dev: str) -> dict:
+    """The two-phase at every place count, the pipeline and the
+    hierarchical step (exact and with an overflowing host_cap) on ``x``
+    with every place on ``dev``: every output as host arrays."""
+    from skyline_tpu_torch.parallel.mesh import build_two_phase, make_mesh
+    from skyline_tpu_torch.parallel.multihost import (
+        build_hierarchical_two_phase, make_host_chip_mesh)
+    from skyline_tpu_torch.parallel.pipeline import build_window_pipeline
+
+    n = x.shape[0]
+    valid = np.ones(n, dtype=bool)
+    out = {}
+    for k in MESH_PLACES:
+        lk, gk = build_two_phase(make_mesh(k, device=dev))(x, valid)
+        out[f"two_phase_{k}"] = (lk.cpu().numpy(), gk.cpu().numpy())
+        g, lc, gc, order = build_window_pipeline(make_mesh(k, device=dev),
+                                                 domain_max=10000.0)(
+            torch.from_numpy(x).to(dev), torch.from_numpy(valid).to(dev))
+        out[f"pipeline_{k}"] = (g.cpu().numpy(), int(lc), int(gc), order.cpu().numpy())
+    for hosts, chips in MESH_HIER:
+        mesh = make_host_chip_mesh(hosts, chips, places=hosts * chips, device=dev)
+        for cap in (None, 1024):
+            hk, gk, ov = build_hierarchical_two_phase(
+                mesh, rows_per_shard=n // mesh.size, host_cap=cap)(x, valid)
+            out[f"hier_{hosts}x{chips}_{cap}"] = (hk.cpu().numpy(), gk.cpu().numpy(), int(ov))
+    return out
+
+
+def _same_outputs(a: dict, b: dict) -> list:
+    """Keys whose outputs differ (arrays by bytes, counts by value)."""
+    bad = []
+    for key in a:
+        if len(a[key]) != len(b[key]) or any(
+            (u.tobytes() != v.tobytes()) if hasattr(u, "tobytes") else u != v
+            for u, v in zip(a[key], b[key])
+        ):
+            bad.append(key)
+    return bad
+
+
+def _mesh_cpu_side(job):
+    """One ``MESH_PARITY`` job on the CPU, in a child process: the small
+    window's outputs, or a meshed engine's windows."""
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(1)
+    kind = job[0]
+    t0 = time.perf_counter()
+    if kind == "small":
+        return kind, None, _mesh_small(torch, np, _mesh_window(np, MESH_CPU_ROWS), "cpu"), \
+            time.perf_counter() - t0
+    _, name, cfg, gen, places, rows = job
+    # the card's default: the bf16 passes on, so the cascade counters compare
+    os.environ["SKYLINE_MIXED_PRECISION"] = "1"
+    from skyline_tpu_torch.parallel.mesh import make_mesh
+    from skyline_tpu_torch.stream import EngineConfig
+
+    ecfg = EngineConfig(**cfg, window_capacity=rows, emit_skyline_points=True, device="cpu")
+    out, stats = _drive_meshed(ecfg, _cluster_windows(gen, cfg["dims"], rows),
+                               make_mesh(places, device="cpu"))
+    return kind, name, (out, stats), time.perf_counter() - t0
+
+
+def _drive_meshed(cfg, windows, mesh, chunk=8192):
+    """Windows back to back through one engine (over ``mesh``, or flat when
+    it is None), a trigger after each: per window the results (timings
+    aside), each partition's skyline bytes' sha1 and the answer's points'
+    sha1 (rows and order). Returns (windows, ``stats()`` untimed, with the
+    backend aside)."""
+    import numpy as np
+
+    from skyline_tpu_torch.stream import SkylineEngine
+
+    eng = SkylineEngine(cfg, mesh=mesh)
+    out, base = [], 0
+    for i, x in enumerate(windows):
+        ids = np.arange(base, base + x.shape[0], dtype=np.int64)
+        base += x.shape[0]
+        for s in range(0, x.shape[0], chunk):
+            eng.process_records(ids[s : s + chunk], x[s : s + chunk])
+        eng.process_trigger(f"q{i},0")
+        res = eng.poll_results()
+        pts = np.asarray(res[0].pop("skyline_points", []), np.float32) if res else None
+        out.append({
+            "results": [untimed(r) for r in res],
+            "points_sha1": None if pts is None else _points_sha1(pts),
+            "partitions_sha1": [_points_sha1(eng.pset.skyline_host(p))
+                                for p in range(eng.config.num_partitions)],
+        })
+    return out, untimed(eng.stats(include_skyline_counts=True), drop=("backend",))
+
+
+def _meshed_sliding(torch, np, x, device: str, places):
+    from skyline_tpu_torch.parallel.mesh import make_mesh
+    from skyline_tpu_torch.stream import EngineConfig
+    from skyline_tpu_torch.stream.sliding_engine import SlidingEngine
+
+    mesh = None if places is None else make_mesh(places, device=device)
+    eng = SlidingEngine(EngineConfig(**MESH_SLIDING, emit_skyline_points=True, device=device),
+                        window_size=16384, slide=4096, mesh=mesh, emit_per_slide=True)
+    ids = np.arange(x.shape[0], dtype=np.int64)
+    for i in range(0, x.shape[0], 3000):
+        eng.process_records(ids[i : i + 3000], x[i : i + 3000], now_ms=1.0)
+    eng.process_trigger("end,0", now_ms=2.0)
+    res = eng.poll_results()
+    return ([(r["skyline_size"], r["window_filled"],
+              np.asarray(r["skyline_points"], np.float32).tobytes()) for r in res],
+            eng.stats()["mask_kernel"])
+
+
+def _mesh_checkpoint(torch, np, dev: str, tmp: Path) -> dict:
+    """A meshed engine saved on four places, restored flat, saved and
+    restored on two places: each step's next answer equals the
+    uninterrupted flat engine's (bytes and order)."""
+    from skyline_tpu_torch.parallel.mesh import make_mesh
+    from skyline_tpu_torch.stream import EngineConfig, SkylineEngine
+    from skyline_tpu_torch.utils.checkpoint import load_engine, save_engine
+
+    cfg = EngineConfig(**dict(NORTH_STAR, ingest="host"), emit_skyline_points=True, device=dev)
+    xs = _cluster_windows("uniform", 8, 32768)
+    whole = SkylineEngine(cfg)
+    eng = SkylineEngine(cfg, mesh=make_mesh(4, device=dev))
+    tmp.mkdir(parents=True, exist_ok=True)
+    steps = []
+
+    def feed(e, x, base, q):
+        ids = np.arange(base, base + x.shape[0], dtype=np.int64)
+        for s in range(0, x.shape[0], 8192):
+            e.process_records(ids[s : s + 8192], x[s : s + 8192])
+        e.process_trigger(f"{q},0")
+        return np.asarray(e.poll_results()[0]["skyline_points"], np.float32).tobytes()
+
+    feed(eng, xs[0][:16384], 0, "a")
+    feed(whole, xs[0][:16384], 0, "a")
+    save_engine(eng, str(tmp / "m4.npz"))
+    flat = load_engine(str(tmp / "m4.npz"), device=dev)
+    steps.append(feed(flat, xs[0][16384:], 16384, "b") == feed(whole, xs[0][16384:], 16384, "b"))
+    save_engine(flat, str(tmp / "flat.npz"))
+    m2 = load_engine(str(tmp / "flat.npz"), mesh=make_mesh(2, device=dev))
+    steps.append(feed(m2, xs[1], 32768, "c") == feed(whole, xs[1], 32768, "c"))
+    if not all(steps) or flat.mesh is not None or m2.mesh is None:
+        raise AssertionError(f"mesh: the checkpoint across topologies differs: {steps}")
+    return {"steps": ["mesh 4 -> flat", "flat -> mesh 2"], "equal": steps}
+
+
+def _nccl_ranks(torch, np, x, tmp: Path) -> dict:
+    """Two ranks over NCCL, one host each (a card per rank): the joined
+    masks and the overflow against the one-process step on the card."""
+    import socket
+
+    from skyline_tpu_torch.parallel.multihost import (
+        build_hierarchical_two_phase, make_host_chip_mesh)
+
+    cards = torch.cuda.device_count()
+    chips = max(1, cards // 2)
+    tmp.mkdir(parents=True, exist_ok=True)
+    np.save(tmp / "x.npy", x)
+    (tmp / "rank.py").write_text(NCCL_RANK)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=str(ROOT), SKYLINE_COORDINATOR=f"127.0.0.1:{port}",
+                   SKYLINE_NUM_PROCESSES="2", SKYLINE_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(tmp / "rank.py"), str(rank), str(cards),
+             str(tmp / f"r{rank}.npz"), str(tmp / "x.npy")],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    try:
+        logs = [p.communicate(timeout=240)[0].decode()[-2000:] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"mesh: an NCCL rank failed: {logs}")
+    ranks = [np.load(tmp / f"r{r}.npz") for r in range(2)]
+    mesh = make_host_chip_mesh(2, chips, places=2 * chips, device="cuda")
+    out = {"chips_per_host": chips, "devices": [str(d) for d in ranks[0]["devices"]]}
+    for tag, cap in (("exact", None), ("capped", 1024)):
+        hk, gk, ov = build_hierarchical_two_phase(
+            mesh, rows_per_shard=x.shape[0] // mesh.size, host_cap=cap)(
+            x, np.ones(x.shape[0], dtype=bool))
+        joined = (np.concatenate([r["hk_" + tag] for r in ranks]),
+                  np.concatenate([r["gk_" + tag] for r in ranks]))
+        if (joined[0].tobytes() != hk.cpu().numpy().tobytes()
+                or joined[1].tobytes() != gk.cpu().numpy().tobytes()
+                or [int(r["ov_" + tag]) for r in ranks] != [int(ov)] * 2):
+            raise AssertionError(f"mesh: two NCCL ranks ({tag}) differ from one process")
+        out[tag] = {"overflowed": int(ov), "global": int(gk.sum())}
+    return out
+
+
+def check_mesh_parity(torch, np, devices=("cuda", "cpu")) -> dict:
+    """``MESH_PARITY`` (leg ``mesh``). On the card: the two-phase
+    (``skyline_keep_np_sharded``) at 1, 2, 4 and 8 places and the window
+    pipeline (its mask mapped back through ``order``) on a 1,048,576-row
+    north-star window against the flat ``skyline_keep_np``; the
+    hierarchical step at 2x2 and 2x4 exact (= flat) and with an overflowing
+    ``host_cap`` (a superset, the overflow counted). Card against the CPU
+    (a child process) on an 8,192-row window: every output of the
+    two-phase, the pipeline and the hierarchical step bit for bit. The
+    meshed engine (``MESH_PARITY``: lazy, incremental and overlap at d = 8,
+    two 65,536-row windows, P = 8) at 2 and 4 places on the card against
+    the flat engine on the card (results, partition skylines, answer
+    sha1), and at 4 places over two 8,192-row windows against the CPU (and
+    ``stats()`` untimed); the
+    sliding engine at 2 and 4 places against its flat form on the card and
+    the CPU; the checkpoint across topologies (4 places -> flat -> 2
+    places). With two or more cards, two NCCL ranks (one host each) against
+    the one-process step; with fewer, a line says it did not run."""
+    import concurrent.futures
+    import multiprocessing
+
+    from skyline_tpu_torch.ops.dispatch import skyline_keep_np
+    from skyline_tpu_torch.parallel.mesh import make_mesh, skyline_keep_np_sharded
+    from skyline_tpu_torch.parallel.multihost import (
+        build_hierarchical_two_phase, make_host_chip_mesh)
+    from skyline_tpu_torch.parallel.pipeline import build_window_pipeline
+    from skyline_tpu_torch.stream import EngineConfig
+
+    card, cpu = devices
+    n_cards = torch.cuda.device_count() if card != "cpu" else 0
+    out = {"cards": n_cards, "places": {str(k): [str(d) for d in make_mesh(k, device=card).places]
+                                        for k in MESH_PLACES}}
+    if n_cards == 1:
+        log("mesh: one card visible: every place of every mesh is cuda:0")
+    t_leg = time.perf_counter()
+    jobs = [("small",)] + [("engine", name, cfg, gen, MESH_CPU_PLACES, MESH_CPU_ENGINE_ROWS)
+                           for name, cfg, gen in MESH_PARITY]
+    with concurrent.futures.ProcessPoolExecutor(
+            len(jobs), mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = [pool.submit(_mesh_cpu_side, job) for job in jobs]
+        try:
+            # the full window on the card against the flat mask
+            x = _mesh_window(np, MESH_WINDOW_ROWS)
+            t0 = time.perf_counter()
+            flat = skyline_keep_np(x, card)
+            flat_ms = (time.perf_counter() - t0) * 1e3
+            full = {"rows": MESH_WINDOW_ROWS, "skyline": int(flat.sum()), "flat_ms": flat_ms}
+            for k in MESH_PLACES:
+                mesh = make_mesh(k, device=card)
+                skyline_keep_np_sharded(mesh, x)  # warm
+                _sync_all(torch)
+                t0 = time.perf_counter()
+                keep = skyline_keep_np_sharded(mesh, x)
+                ms = (time.perf_counter() - t0) * 1e3
+                if keep.tobytes() != flat.tobytes():
+                    raise AssertionError(f"mesh: the two-phase at {k} places differs from the "
+                                         "flat mask on the 1M window")
+                g, lc, gc, order = build_window_pipeline(mesh, domain_max=10000.0)(
+                    torch.from_numpy(x).to(card),
+                    torch.ones(x.shape[0], dtype=torch.bool, device=card))
+                back = torch.empty_like(g)
+                back[order] = g
+                if back.cpu().numpy().tobytes() != flat.tobytes() or int(gc) != int(flat.sum()):
+                    raise AssertionError(f"mesh: the pipeline at {k} places differs from the "
+                                         "flat mask")
+                full[f"places_{k}"] = {"keep_np_sharded_ms": ms, "pipeline_local": int(lc),
+                                       "pipeline_global": int(gc)}
+                log(f"mesh: {k} places on {out['places'][str(k)]}: two-phase = flat "
+                    f"skyline_keep_np on {MESH_WINDOW_ROWS} rows ({ms:.1f} ms against flat "
+                    f"{flat_ms:.1f} ms); pipeline = flat, local {int(lc)}, global {int(gc)}")
+            for hosts, chips in MESH_HIER:
+                cap = MESH_WINDOW_ROWS // hosts // 8
+                mesh = make_host_chip_mesh(hosts, chips, places=hosts * chips, device=card)
+                step = build_hierarchical_two_phase(
+                    mesh, rows_per_shard=MESH_WINDOW_ROWS // mesh.size)
+                _, gk, ov = step(x, np.ones(x.shape[0], dtype=bool))
+                if gk.cpu().numpy().tobytes() != flat.tobytes() or int(ov):
+                    raise AssertionError(f"mesh: hierarchical {hosts}x{chips} exact differs")
+                capped = build_hierarchical_two_phase(
+                    mesh, rows_per_shard=MESH_WINDOW_ROWS // mesh.size, host_cap=cap)
+                _, gc_, ovc = capped(x, np.ones(x.shape[0], dtype=bool))
+                gc_ = gc_.cpu().numpy()
+                if not gc_[flat].all() or int(ovc) == 0:
+                    raise AssertionError(f"mesh: hierarchical {hosts}x{chips} capped at {cap} "
+                                         f"is no superset or did not overflow ({int(ovc)})")
+                full[f"hier_{hosts}x{chips}"] = {"host_cap": cap, "overflowed": int(ovc),
+                                                 "capped_global": int(gc_.sum())}
+                log(f"mesh: hierarchical {hosts}x{chips}: exact = flat; host_cap {cap}: "
+                    f"{int(ovc)} participants overflowed, {int(gc_.sum())} kept against "
+                    f"{int(flat.sum())} (a superset)")
+            out["full_window"] = full
+            # the small window on the card, against the CPU below
+            small_card = _mesh_small(torch, np, _mesh_window(np, MESH_CPU_ROWS), card)
+            # the meshed engine on the card against the flat engine on the card
+            engines = {}
+            for name, cfg, gen in MESH_PARITY:
+                windows = _cluster_windows(gen, cfg["dims"], MESH_PARITY_ROWS)
+                ecfg = EngineConfig(**cfg, window_capacity=MESH_PARITY_ROWS,
+                                    emit_skyline_points=True, device=card)
+                t0 = time.perf_counter()
+                want, _ = _drive_meshed(ecfg, windows, None)
+                engines[name] = {}
+                for k in MESH_ENGINE_PLACES:
+                    got, stats = _drive_meshed(ecfg, windows, make_mesh(k, device=card))
+                    if got != want:
+                        raise AssertionError(f"mesh {name}: {k} places differ from the flat "
+                                             "engine on the card")
+                    log(f"mesh {name}: {k} places = the flat engine on the card (results, "
+                        f"partition skylines, answer sha1 "
+                        f"{[w['points_sha1'][:12] for w in got]})")
+                small = EngineConfig(**cfg, window_capacity=MESH_CPU_ENGINE_ROWS,
+                                     emit_skyline_points=True, device=card)
+                engines[name] = _drive_meshed(
+                    small, _cluster_windows(gen, cfg["dims"], MESH_CPU_ENGINE_ROWS),
+                    make_mesh(MESH_CPU_PLACES, device=card))
+                out.setdefault("engine", {})[name] = {
+                    "rows_per_window": MESH_PARITY_ROWS, "windows": 2,
+                    "card_s": time.perf_counter() - t0}
+            # the sliding engine over a mesh
+            xs = _mesh_window(np, MESH_SLIDING_ROWS, seed=31)
+            slid_flat, branch = _meshed_sliding(torch, np, xs, card, None)
+            for k in (2, 4):
+                got, kb = _meshed_sliding(torch, np, xs, card, k)
+                if got != slid_flat:
+                    raise AssertionError(f"mesh: the sliding engine at {k} places differs")
+            slid_cpu, _ = _meshed_sliding(torch, np, xs, cpu, 4)
+            if slid_cpu != slid_flat:
+                raise AssertionError("mesh: the sliding engine at 4 places on the CPU differs")
+            out["sliding"] = {"results": len(slid_flat), "branch": kb}
+            log(f"mesh: sliding engine at 2 and 4 places = flat on the card and 4 places on "
+                f"the CPU, {len(slid_flat)} results, the slide step's branch {kb!r}")
+            out["checkpoint"] = _mesh_checkpoint(torch, np, card, WORKER_RUNS / "mesh_ckpt")
+            log("mesh: checkpoint across topologies (4 places -> flat -> 2 places) = the "
+                "uninterrupted flat engine")
+            t1 = time.perf_counter()
+            for f in concurrent.futures.as_completed(futures):
+                kind, name, res, secs = f.result()
+                if kind == "small":
+                    bad = _same_outputs(small_card, res)
+                    if bad:
+                        raise AssertionError(f"mesh: the CPU differs from the card on {bad}")
+                    out["small_cpu_s"] = secs
+                    log(f"mesh: {MESH_CPU_ROWS}-row window: two-phase (1, 2, 4, 8 places, "
+                        f"local and global masks), pipeline (mask, counts, order) and "
+                        f"hierarchical (host and global masks, overflow; exact and host_cap "
+                        f"1024) on the CPU = the card ({secs:.1f} s on the CPU)")
+                    continue
+                got, stats = res
+                card_got, card_stats = engines[name]
+                if got != card_got:
+                    raise AssertionError(f"mesh {name}: {MESH_CPU_PLACES} places on the CPU "
+                                         "differ from the card")
+                if stats != card_stats:
+                    keys = sorted(k for k in set(stats) | set(card_stats)
+                                  if stats.get(k) != card_stats.get(k))
+                    raise AssertionError(f"mesh {name}: stats() on the CPU differs from the "
+                                         f"card's in {keys}")
+                out["engine"][name]["cpu_s"] = secs
+                log(f"mesh {name}: {MESH_CPU_PLACES} places on the CPU = the card over two "
+                    f"{MESH_CPU_ENGINE_ROWS}-row windows (results, partition skylines, answer "
+                    f"sha1, stats()) in {secs:.1f} s")
+            out["cpu_wait_s"] = time.perf_counter() - t1
+        except BaseException:
+            pool.shutdown(wait=True, cancel_futures=True)
+            raise
+    if n_cards >= 2:
+        out["nccl"] = _nccl_ranks(torch, np, _mesh_window(np, MESH_CPU_ROWS),
+                                  WORKER_RUNS / "mesh_nccl")
+        log(f"mesh: two NCCL ranks (one host each) = the one-process step: {out['nccl']}")
+    else:
+        out["nccl"] = None
+        log(f"mesh: the two-process NCCL form did not run: {n_cards} card visible, and NCCL "
+            "needs a card of its own per rank")
+    out["wall_s"] = time.perf_counter() - t_leg
+    log(f"mesh: parity leg done in {out['wall_s']:.1f} s (waited {out['cpu_wait_s']:.1f} s "
+        "for the CPU side)")
+    return out
+
+
+@contextlib.contextmanager
+def mesh_watch(torch):
+    """For the duration, every call of the mesh's two phases
+    (``parallel/mesh.py``'s ``skyline_mask_blocked``, the local phase, and
+    ``dominated_by_blocked``, the cross prune) is counted with the K3 and
+    K2 launches it made and the device it ran on, and each two-phase merge
+    timed (synchronised); every meshed flush step (``meshed_sfs_round``,
+    ``meshed_merge_step``: all places' partitions) is timed by CUDA events
+    on the state's card, with the launches it made by kernel. With
+    ``rec["probe"]`` set (a window outside the measured ones), each
+    place's inputs to the last two-phase merge are kept (cloned), the
+    heaviest meshed merge step's inputs too, and each meshed step is split
+    by synchronised host clocks into its cores, its copies between cards
+    (``gather_to`` of the step's inputs and outputs, ``Placed.split`` of a
+    state read whole since the last step) and the rest (slicing and
+    concatenation). Yields the record."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+    from skyline_tpu_torch.parallel import mesh as mesh_mod
+    from skyline_tpu_torch.stream import batched as batched_mod
+    from skyline_tpu_torch.stream import window as window_mod
+
+    real_local, real_cross = mesh_mod.skyline_mask_blocked, mesh_mod.dominated_by_blocked
+    real_keep = mesh_mod.skyline_keep_np_sharded
+    real_steps = {"meshed_sfs_round": batched_mod.meshed_sfs_round,
+                  "meshed_merge_step": batched_mod.meshed_merge_step}
+    real_cores = {k: getattr(window_mod, k)
+                  for k in ("sfs_round", "merge_step_active", "sfs_cleanup")}
+    real_gather = window_mod.gather_to
+    real_split = mesh_mod.Placed.split.__func__
+    rec = {"local_calls": 0, "cross_calls": 0, "k3": 0, "k2": 0, "devices": set(),
+           "merge_ms": [], "probe": False, "local": [], "cross": [], "merge_round": None,
+           "split": {k: [] for k in real_steps}, "_split": None,
+           "steps": {k: {"events": [], "launches": {}} for k in real_steps}}
+
+    def synced(fn, key):
+        def run(*a, **kw):
+            if rec["_split"] is None:
+                return fn(*a, **kw)
+            _sync_all(torch)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            _sync_all(torch)
+            rec["_split"][key] += (time.perf_counter() - t0) * 1e3
+            return out
+
+        return run
+
+    def keep_round(active, ins):
+        sky, sky_valid, batch, bvalid = ins
+        if isinstance(sky, mesh_mod.Placed):
+            sky = sky.gather(sky_valid.device)
+        work = int(bvalid.sum()) * (batch.shape[1] + 2 * active)
+        best = rec["merge_round"]
+        if best is None or work >= best["work"]:
+            rec["merge_round"] = dict(
+                work=work, active=active, sky=sky[:, :active].clone(),
+                sky_valid=sky_valid[:, :active].clone(), batch=batch.clone(),
+                bvalid=bvalid.clone())
+
+    def timed(name, factory):
+        def make(*a, **kw):
+            fn = factory(*a, **kw)
+
+            def run(*ins):
+                if rec["probe"]:
+                    if name == "meshed_merge_step":
+                        keep_round(a[2], ins)
+                    rec["_split"] = {"core_ms": 0.0, "copy_ms": 0.0}
+                    _sync_all(torch)
+                    t0 = time.perf_counter()
+                    out = fn(*ins)
+                    _sync_all(torch)
+                    split, rec["_split"] = rec["_split"], None
+                    split["step_ms"] = (time.perf_counter() - t0) * 1e3
+                    split["rest_ms"] = split["step_ms"] - split["core_ms"] - split["copy_ms"]
+                    rec["split"][name].append(split)
+                    return out
+                timing = ins[1].device.type == "cuda"
+                if timing:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                before = dict(dk.LAUNCHES)
+                out = fn(*ins)
+                step = rec["steps"][name]
+                if timing:
+                    end.record()
+                    step["events"].append((start, end))
+                for k, v in dk.LAUNCHES.items():
+                    if v - before[k]:
+                        step["launches"][k] = step["launches"].get(k, 0) + v - before[k]
+                return out
+
+            return run
+
+        return make
+
+    def local(x, valid=None, block=2048):
+        k0 = dk.LAUNCHES["skyline_mask_kernel"]
+        out = real_local(x, valid, block=block)
+        rec["k3"] += dk.LAUNCHES["skyline_mask_kernel"] - k0
+        rec["local_calls"] += 1
+        rec["devices"].add(str(x.device))
+        if rec["probe"]:
+            rec["local"].append((x.clone(), valid.clone()))
+        return out
+
+    def cross(y, x, x_valid=None, block=8192, y_valid=None, mp=False):
+        k0 = dk.LAUNCHES["dominated_by_rect"]
+        out = real_cross(y, x, x_valid=x_valid, block=block, y_valid=y_valid, mp=mp)
+        rec["k2"] += dk.LAUNCHES["dominated_by_rect"] - k0
+        rec["cross_calls"] += 1
+        if rec["probe"]:
+            rec["cross"].append((y.clone(), x.clone(), x_valid.clone()))
+        return out
+
+    def keep(mesh, x, **kw):
+        if rec["probe"]:  # the last merge's inputs, one entry a place
+            rec["local"], rec["cross"] = [], []
+        _sync_all(torch)
+        t0 = time.perf_counter()
+        out = real_keep(mesh, x, **kw)
+        _sync_all(torch)
+        rec["merge_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    from skyline_tpu_torch.stream import engine as engine_mod
+
+    real_engine_keep = engine_mod.skyline_keep_np_sharded
+    mesh_mod.skyline_mask_blocked, mesh_mod.dominated_by_blocked = local, cross
+    engine_mod.skyline_keep_np_sharded = keep
+    for name, factory in real_steps.items():
+        setattr(batched_mod, name, timed(name, factory))
+    for name, fn in real_cores.items():
+        setattr(window_mod, name, synced(fn, "core_ms"))
+    window_mod.gather_to = synced(real_gather, "copy_ms")
+    mesh_mod.Placed.split = classmethod(synced(real_split, "copy_ms"))
+    try:
+        yield rec
+    finally:
+        mesh_mod.skyline_mask_blocked, mesh_mod.dominated_by_blocked = real_local, real_cross
+        engine_mod.skyline_keep_np_sharded = real_engine_keep
+        for name, factory in real_steps.items():
+            setattr(batched_mod, name, factory)
+        for name, fn in real_cores.items():
+            setattr(window_mod, name, fn)
+        window_mod.gather_to = real_gather
+        mesh_mod.Placed.split = classmethod(real_split)
+        _sync_all(torch)
+        for name, step in rec["steps"].items():
+            ms = [a.elapsed_time(b) for a, b in step.pop("events")]
+            step.update(calls=len(ms), mean_ms=(sum(ms) / len(ms)) if ms else None,
+                        max_ms=max(ms) if ms else None)
+            parts = rec["split"][name]
+            step["probe_split"] = None if not parts else dict(
+                {k: sum(p[k] for p in parts)
+                 for k in ("step_ms", "core_ms", "copy_ms", "rest_ms")},
+                calls=len(parts))
+
+
+def mesh_path(torch, np, path: str, n: int, windows: int, base_runs=None, dev="cuda"):
+    """Path (z) or (z2): its flat path's configuration and rows (the same
+    seed) through a fresh ``SkylineEngine(mesh=make_mesh(4))`` a window,
+    one warm window, ``windows`` measured and one probe window, launch
+    counts set to 0 before and read after the measured ones. Each window
+    prints its wall, the two-phase merge's wall (synchronised) and the rest
+    (ingest, the meshed flush, the partials to the host), the skyline and
+    the K3 and K2 launches of the two phases. The run fails unless the
+    path's kernels launched, K3 and K2 among them inside the mesh's two
+    phases, on the mesh's places. The last measured window's answer is
+    held against the flat engine's on the same rows (``check_mesh_answer``);
+    the warm answer passes the sampled checks. The probe window keeps each
+    place's two-phase inputs and splits the meshed steps' time
+    (``mesh_watch``). With the flat path's run in ``base_runs``, printed
+    beside it."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+    from skyline_tpu_torch.parallel.mesh import make_mesh
+    from skyline_tpu_torch.stream import SkylineEngine
+    from skyline_tpu_torch.workload.generators import anti_correlated
+
+    base, places = MESH_PATHS[path]
+    cfg, _, _, env = PATHS[base]
+    d = cfg["dims"]
+    rng = np.random.default_rng(0)
+    ids = np.arange(n, dtype=np.int64)
+    xs = [anti_correlated(rng, n, d, 0, 10000) for _ in range(windows + 2)]
+    mesh = make_mesh(places, device=dev)
+    lat, rows = [], []
+    with rank_gate(False, env), mesh_watch(torch) as watch:
+        dk.reset_launches()
+        for w, x in enumerate(xs):
+            probe = w == windows + 1
+            if probe:
+                launches = dict(dk.LAUNCHES)
+                k3_all, k2_all = watch["k3"], watch["k2"]
+                watch["probe"] = True
+            eng = SkylineEngine(_config(base, n, emit_skyline_points=w == 0), mesh=mesh)
+            k3, k2, m0 = watch["k3"], watch["k2"], len(watch["merge_ms"])
+            _sync_all(torch)
+            t0 = time.perf_counter()
+            for i in range(0, n, 65536):
+                eng.process_records(ids[i : i + 65536], x[i : i + 65536])
+            eng.process_trigger("0,0")
+            (res,) = eng.poll_results()
+            _sync_all(torch)
+            dt = time.perf_counter() - t0
+            merge_ms = sum(watch["merge_ms"][m0:])
+            row = {"window_ms": dt * 1e3, "merge_ms": merge_ms,
+                   "rest_ms": dt * 1e3 - merge_ms, "skyline_size": res["skyline_size"],
+                   "k3": watch["k3"] - k3, "k2": watch["k2"] - k2,
+                   "local_sizes": eng.pset.sky_counts().tolist()}
+            if w == 0:
+                warm = (dt, res, x)
+                log(f"main ({path}): warm window {dt * 1e3:.1f} ms, skyline "
+                    f"{res['skyline_size']}; places {[str(p) for p in mesh.places]}")
+                continue
+            if probe:
+                log(f"main ({path}): probe window (synchronised clocks, inputs kept) "
+                    f"{dt * 1e3:.1f} ms, skyline {res['skyline_size']}")
+                continue
+            lat.append(dt)
+            rows.append(row)
+            last = (eng, res, x)
+            log(f"main ({path}): window {w - 1}: {dt * 1e3:.1f} ms (two-phase merge "
+                f"{merge_ms:.1f} ms, the rest {row['rest_ms']:.1f} ms), skyline "
+                f"{res['skyline_size']}, two-phase K3 {row['k3']} and K2 {row['k2']} "
+                f"launches; partitions' skylines {row['local_sizes']}")
+        heavy = {"local": watch["local"], "cross": watch["cross"],
+                 "merge_round": watch["merge_round"], "engine": last[0], "x": last[2]}
+        seen = sorted(watch["devices"])
+    steps = watch["steps"]
+    want_k = MESH_WANTED[path]
+    missing = [k for k in want_k if launches[k] == 0]
+    if missing or k3_all == 0 or k2_all == 0:
+        raise AssertionError(f"main path ({path}) launched no {missing or 'K3/K2 in the mesh'}")
+    if seen != sorted({str(p) for p in mesh.places}):
+        raise AssertionError(f"main path ({path}): the local phase ran on {seen}, not on the "
+                             f"mesh's places {[str(p) for p in mesh.places]}")
+    check_mesh_answer(np, path, base, env, n, last)
+    check_answer(torch, np, warm[2], np.asarray(warm[1]["skyline_points"], np.float32), dev)
+    summary = {
+        "base": base, "places": [str(p) for p in mesh.places], "rows_per_window": n,
+        "windows_measured": windows, "tuples_per_s": n * windows / sum(lat),
+        "p50_window_ms": float(np.median(lat)) * 1e3,
+        "p50_merge_ms": float(np.median([r["merge_ms"] for r in rows])),
+        "p50_rest_ms": float(np.median([r["rest_ms"] for r in rows])),
+        "warm_window_ms": warm[0] * 1e3, "windows": rows, "launches": launches,
+        "launches_per_window": {k: v / (windows + 1) for k, v in launches.items()},
+        "mesh_k3_launches": k3_all, "mesh_k2_launches": k2_all, "merge_env": env,
+        "meshed_steps": steps,
+    }
+    log(f"main ({path}): {summary['tuples_per_s']:.0f} tuples/s, p50 window "
+        f"{summary['p50_window_ms']:.1f} ms (two-phase merge {summary['p50_merge_ms']:.1f}, "
+        f"the rest {summary['p50_rest_ms']:.1f}) over {windows} windows of {n} rows, "
+        f"{places} places on {summary['places']}; launches over {windows + 1} windows "
+        f"{({k: launches[k] for k in want_k})}, of them in the two phases K3 {k3_all} and K2 "
+        f"{k2_all}")
+    for name, step in steps.items():
+        if step["calls"]:
+            log(f"main ({path}): {name}: {step['calls']} calls in the warm and measured "
+                f"windows, {step['mean_ms']:.3f} ms mean ({step['max_ms']:.3f} max) by CUDA "
+                f"events, launches {step['launches']}")
+        sp = step["probe_split"]
+        if sp:
+            log(f"main ({path}): {name} on the probe window, synchronised: {sp['calls']} "
+                f"calls, {sp['step_ms']:.3f} ms in all = cores {sp['core_ms']:.3f} + copies "
+                f"between cards {sp['copy_ms']:.3f} + the rest {sp['rest_ms']:.3f} ms")
+    if base_runs and base in base_runs:
+        b = base_runs[base][0]
+        summary["beside_" + base] = {"p50_window_ms": b["p50_window_ms"],
+                                     "tuples_per_s": b["tuples_per_s"],
+                                     "ratio": summary["p50_window_ms"] / b["p50_window_ms"]}
+        log(f"main ({path}) beside ({base}): p50 {summary['p50_window_ms']:.1f} ms vs "
+            f"{b['p50_window_ms']:.1f} ms ({summary['p50_window_ms'] / b['p50_window_ms']:.3f}x), "
+            f"{summary['tuples_per_s']:.0f} vs {b['tuples_per_s']:.0f} tuples/s")
+    return summary, heavy
+
+
+def check_mesh_answer(np, path, base, env, n, last) -> None:
+    """The last measured window of (z)/(z2) against a flat engine on the
+    same rows: the meshed trigger's size and optimality, each partition's
+    skyline size, and the points the meshed engine itself emits on a
+    second trigger (its host partials and two-phase merge again, the
+    points kept), as a sorted set."""
+    from skyline_tpu_torch.stream import SkylineEngine
+
+    eng, res, x = last
+    ids = np.arange(n, dtype=np.int64)
+    flat = SkylineEngine(_config(base, n, emit_skyline_points=True))
+    with rank_gate(False, env):
+        for i in range(0, n, 65536):
+            flat.process_records(ids[i : i + 65536], x[i : i + 65536])
+        flat.process_trigger("0,0")
+        (fres,) = flat.poll_results()
+        eng.config.emit_skyline_points = True
+        eng.process_trigger("1,0")
+        (again,) = eng.poll_results()
+    got = (res["skyline_size"], res["optimality"], eng.pset.sky_counts().tolist())
+    want = (fres["skyline_size"], fres["optimality"], flat.pset.sky_counts().tolist())
+    if got != want:
+        raise AssertionError(f"main path ({path}): size, optimality and partitions' skylines "
+                             f"{got} differ from the flat engine's {want}")
+    mesh_pts = _sorted_bytes(np.asarray(again["skyline_points"], np.float32))
+    flat_pts = _sorted_bytes(np.asarray(fres["skyline_points"], np.float32))
+    if again["skyline_size"] != res["skyline_size"] or mesh_pts != flat_pts:
+        raise AssertionError(f"main path ({path}): the emitted answer differs from the flat "
+                             "engine's")
+    log(f"main ({path}): the last window's answer = the flat engine's: {res['skyline_size']} "
+        f"rows, optimality {res['optimality']!r}, partitions' skylines {got[2]}, the emitted "
+        f"points as a sorted set (sha1 {_points_sha1(np.frombuffer(mesh_pts, np.uint8))})")
+
+
+def _costliest(torch, np, rows, fn):
+    """Time ``fn(*row)`` on every place's row, each under its own card's
+    context: (index of the costliest, the ms of every place)."""
+    ms = []
+    for r in rows:
+        with torch.cuda.device(r[0].device):
+            ms.append(_event_ms(torch, lambda: fn(*r), reps=10))  # noqa: B023
+    return int(np.argmax(ms)), ms
+
+
+def mesh_site_timings(torch, np, heavy: dict, summary: dict) -> dict:
+    """K3 in the two-phase's local phase (each place's shard of the padded
+    union on the probe window: a quarter of it on (z)) and K2 in its cross
+    prune (each place's rows against every place's gathered rows, the
+    local survivors valid): every place timed by CUDA events on its own
+    card; on the costliest place the plain version's ms, needed pairs, the
+    bound and the skipped share; and (z)'s launches of each inside the two
+    phases over its windows."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+
+    out = {}
+    at, place_ms = _costliest(torch, np, heavy["local"], dk.skyline_mask_kernel)
+    x, v = heavy["local"][at]
+    with torch.cuda.device(x.device):
+        keep, ms, plain_ms, err = _time_pair(
+            torch, lambda: dk.skyline_mask_kernel(x, v), lambda: dk.skyline_mask_plain(x, v),
+            "K3 mesh local phase")
+        order = torch.argsort(torch.where(v, x.sum(-1), float("inf")), stable=True)
+        xs_t, vs = x[order].T.contiguous(), v[order]
+        n, d = x.shape
+        pairs = _needed_pairs(torch, xs_t, vs, xs_t, ~keep[order] & vs, vs)
+        skip = dk.tile_skip_plain(xs_t[None], vs[None], xs_t[None], dk.TILE_ROWS,
+                                  dk.BLOCK_VICTIMS)
+    bound = ((n * d * 4 + 2 * n) / HBM_BYTES_S * 1e3, pairs * d / FP32_FLOPS * 1e3)
+    out["local"] = {
+        "ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "needed_pairs": pairs,
+        "bound_ms": max(bound), "bound_by": "operations" if bound[1] >= bound[0] else "bytes",
+        "skipped_share": float(skip.float().mean()), "shape": {"n": n, "d": d},
+        "valid_rows": int(v.sum()), "launches": summary["mesh_k3_launches"],
+        "launches_per_window": summary["mesh_k3_launches"] / (summary["windows_measured"] + 1),
+        "place": at, "device": str(x.device), "place_ms": place_ms,
+    }
+    rect = [(g.T.contiguous(), gv, y.T.contiguous()) for y, g, gv in heavy["cross"]]
+    at2, place_ms2 = _costliest(torch, np, rect, dk.dominated_by_rect)
+    gt, gv, yt = rect[at2]
+    with torch.cuda.device(gt.device):
+        dom, ms2, plain2, err2 = _time_pair(
+            torch, lambda: dk.dominated_by_rect(gt, gv, yt),
+            lambda: dk.dominated_by_rect_plain(gt, gv, yt), "K2 mesh cross prune")
+        wanted = torch.ones(yt.shape[1], dtype=torch.bool, device=yt.device)
+        pairs2 = _needed_pairs(torch, gt, gv, yt, dom, wanted)
+        skip2 = dk.tile_skip_plain(gt[None], gv[None], yt[None], dk.TILE_ROWS,
+                                   dk.BLOCK_VICTIMS)
+    nx, ny = gt.shape[1], yt.shape[1]
+    bound2 = ((d * nx * 4 + nx + d * ny * 4 + ny) / HBM_BYTES_S * 1e3,
+              pairs2 * d / FP32_FLOPS * 1e3)
+    out["cross"] = {
+        "ms": ms2, "plain_ms": plain2, "max_abs_err": err2, "needed_pairs": pairs2,
+        "bound_ms": max(bound2), "bound_by": "operations" if bound2[1] >= bound2[0] else "bytes",
+        "skipped_share": float(skip2.float().mean()), "shape": {"nx": nx, "ny": ny, "d": d},
+        "valid_dominators": int(gv.sum()), "launches": summary["mesh_k2_launches"],
+        "launches_per_window": summary["mesh_k2_launches"] / (summary["windows_measured"] + 1),
+        "place": at2, "device": str(gt.device), "place_ms": place_ms2,
+    }
+    for key, what in (("local", "K3 mesh local phase"), ("cross", "K2 mesh cross prune")):
+        r = out[key]
+        log(f"timings: {what} {r['shape']}, costliest place {r['place']} on {r['device']}: "
+            f"{r['ms']:.3f} ms (every place {[round(t, 4) for t in r['place_ms']]} ms; plain "
+            f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+            f"{r['needed_pairs']} needed pairs, {r['skipped_share']:.6f} of (block, tile) "
+            f"pairs skipped), {r['launches_per_window']:.1f} launches per window on (z)")
+        if r["ms"] < r["bound_ms"]:
+            raise AssertionError(f"{what} reads under its bound")
+    return out
+
+
+def mesh_flush_timings(torch, np, heavy: dict, summary: dict, path: str) -> dict:
+    """The kernels of a meshed flush step on the path's own state: on (z)
+    the SFS round's K1 mp and K2 mp (the heaviest partition's big block of
+    the last measured window against its skyline prefix, as ``value_inputs``
+    builds (c)'s) and its fused pre-drop (``predrop_timing``: P = 8
+    partitions of 65,536 victims against 512 prefix rows); on (z2) the
+    merge step's three K2 calls on the probe window's heaviest round
+    (``incremental_k2``). Each with ms, the plain version's ms, the bound,
+    the skipped share and the path's launches over its windows."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+
+    launches, w = summary["launches"], summary["windows_measured"] + 1
+    if path == "z2":
+        with rank_gate(False):
+            return {"merge_step_k2": incremental_k2(
+                torch, np, 0, launches, w, r=heavy["merge_round"], path=path)}
+    eng, x_last = heavy["engine"], heavy["x"]
+    out = {}
+    with rank_gate(False):
+        ns = value_inputs(torch, np, eng, x_last)["north_star"]
+        for name in MP_ROUNDS[1:]:
+            got = _time_value_kernel(torch, dk, name, *ns)
+            out[name] = _row(name, launches, w, got["err"], got["ms"], got["plain_ms"],
+                             got["bound"], got["shape"], got["pairs"],
+                             {"skipped_share": got["skipped_share"]})
+        for row in predrop_timing(torch, np, eng, x_last, launches, w):
+            if row["name"] == PREDROP_FUSED:
+                out[PREDROP_FUSED] = row
+    return out
+
+
 WORKER_PATHS = {
     "t": lambda torch, np, windows, profile: wire_path(torch, np, windows, profile),
     "u": lambda torch, np, windows, profile: crash_path(torch, np),
@@ -6349,6 +7237,7 @@ PARITY_LEGS = {
     "sharded": ("sharded_parity", check_sharded_parity),
     "cluster": ("cluster_parity", check_cluster_parity),
     "replica": ("replica_parity", check_replica_parity),
+    "mesh": ("mesh_parity", check_mesh_parity),
 }
 
 
@@ -6387,9 +7276,10 @@ def main() -> int:
     ap.add_argument(
         "--paths", default="",
         help="comma-separated paths for the main phase, in this order: the tumbling "
-        "paths, the sharded v and w, the cluster x and y, and the worker's t (over the "
-        "wire) and u (the crash drill) (default: all, then v, w, x and y, the sliding "
-        "paths, t and u); not with the timings phase, which reads them all",
+        "paths, the sharded v and w, the cluster x and y, the mesh z and z2, and the "
+        "worker's t (over the wire) and u (the crash drill) (default: all, then v, w, x, "
+        "y, z and z2, the sliding paths, t and u); not with the timings phase, which reads "
+        "them all",
     )
     args = ap.parse_args()
     if args.paths and "timings" in args.only:
@@ -6493,6 +7383,12 @@ def main() -> int:
                 cl[path], heavy = cluster_path(torch, np, path, args.n, args.windows, runs)
                 if path == "x":
                     cl["host_ladder_k2"] = host_ladder_k2(torch, np, heavy, cl[path])
+            elif path in MESH_PATHS:
+                me = details.setdefault("mesh", {})
+                me[path], heavy = mesh_path(torch, np, path, args.n, args.windows, runs)
+                if path == "z":
+                    me["sites"] = mesh_site_timings(torch, np, heavy, me[path])
+                me[path]["flush_kernels"] = mesh_flush_timings(torch, np, heavy, me[path], path)
             else:
                 runs[path] = main_path(torch, np, path, args.n, args.windows)
             log(f"main ({path}): {time.perf_counter() - t0:.1f} s in all")
@@ -6541,6 +7437,13 @@ def main() -> int:
             cluster_heavy = h if path == "x" else cluster_heavy
             log(f"main ({path}): {time.perf_counter() - t0:.1f} s in all")
         details["cluster"] = cluster
+        meshed, mesh_heavy = {}, {}
+        for path in MESH_PATHS:
+            t0 = time.perf_counter()
+            meshed[path], mesh_heavy[path] = mesh_path(torch, np, path, args.n, args.windows,
+                                                       runs)
+            log(f"main ({path}): {time.perf_counter() - t0:.1f} s in all")
+        details["mesh"] = meshed
         t0 = time.perf_counter()
         sliding = {"n": sliding_northstar(torch, np, args.windows), "o": sliding_4d(torch, np)}
         details["sliding"] = {path: r[0] for path, r in sliding.items()}
@@ -6593,6 +7496,31 @@ def main() -> int:
             torch, np, heavy, sharded["v"])
         rows["dominated_by_rect"]["inputs"]["host_ladder"] = host_ladder_k2(
             torch, np, cluster_heavy, cluster["x"])
+        sites = mesh_site_timings(torch, np, mesh_heavy["z"], meshed["z"])
+        rows["skyline_mask_kernel"]["inputs"]["mesh_local"] = sites["local"]
+        rows["dominated_by_rect"]["inputs"]["mesh_cross"] = sites["cross"]
+        # the meshed flush steps: each step timed whole with the launches of
+        # each kernel inside, and the kernels on the path's own inputs —
+        # the round's K1 mp, K2 mp and fused pre-drop on (z), the merge
+        # step's K2 on (z2)
+        for path, step_name in (("z", "meshed_sfs_round"), ("z2", "meshed_merge_step")):
+            step = meshed[path]["meshed_steps"][step_name]
+            flush = mesh_flush_timings(torch, np, mesh_heavy[path], meshed[path], path)
+            meshed[path]["flush_kernels"] = flush
+            for kname, count in step["launches"].items():
+                if kname not in rows:
+                    continue
+                site = {"calls": step["calls"], "step_mean_ms": step["mean_ms"],
+                        "step_max_ms": step["max_ms"], "launches": count,
+                        "launches_per_window": count / w,
+                        "probe_split": step["probe_split"]}
+                if kname in flush:
+                    site["kernel"] = {k: flush[kname][k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by", "skipped_share", "shape",
+                        "needed_pairs")}
+                elif kname.startswith("dominated_by_rect") and "merge_step_k2" in flush:
+                    site["kernel"] = flush["merge_step_k2"]
+                rows[kname].setdefault("inputs", {})[f"{step_name}_{path}"] = site
         casc = cascade_timings(torch, np, eng_c, x_c, w, launches_of["l"],
                                launches_of["m"])
         details["device_cascade"] = casc

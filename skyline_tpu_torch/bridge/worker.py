@@ -8,15 +8,15 @@ result per completed query on the output topic (FlinkSkyline.java job
 wiring :84-97, :177-183). Works over any bus exposing
 ``produce``/``consumer`` (MemoryBus or KafkaBus).
 
-Ported: the flat, sliding and sharded engines (``mesh_chips``,
-``--mesh-chips``: ``distributed.ShardedEngine`` with its chip journals,
-chip health and online failover), the cluster engine (``cluster_hosts``,
-``--cluster-hosts``: ``cluster.ClusterEngine``, with the lease-fenced WAL
-and honest demotion when deposed), the serving plane with its WAL-tailing
-read replicas (``replicas``, ``--replicas``; ``--replica-of`` runs a
-standalone replica), the stats server, the WAL, checkpoints and crash
-recovery, and the ops journal. Not yet, and raising with a pointer: a
-device mesh (``mesh``: ROADMAP queue 1 item 8b).
+Ported: the flat and sliding engines, each on one device or over a device
+mesh (``mesh``, ``--mesh N``: ``parallel/mesh.py``), the sharded engine
+(``mesh_chips``, ``--mesh-chips``: ``distributed.ShardedEngine`` with its
+chip journals, chip health and online failover), the cluster engine
+(``cluster_hosts``, ``--cluster-hosts``: ``cluster.ClusterEngine``, with
+the lease-fenced WAL and honest demotion when deposed), the serving plane
+with its WAL-tailing read replicas (``replicas``, ``--replicas``;
+``--replica-of`` runs a standalone replica), the stats server, the WAL,
+checkpoints and crash recovery, and the ops journal.
 """
 
 from __future__ import annotations
@@ -69,9 +69,10 @@ class SkylineWorker:
         (``distributed.ShardedEngine``): the partitions in ``mesh_chips``
         contiguous groups over the visible cards, queries answered by the
         two-level tournament, with chip journals beside the WAL under
-        ``SKYLINE_CHIP_BARRIER`` when crash safety is on. ``mesh`` shards
-        over a device mesh in the reference; the port raises on it until
-        ROADMAP queue 1 item 8b.
+        ``SKYLINE_CHIP_BARRIER`` when crash safety is on. ``mesh``: a
+        ``parallel.mesh.Mesh`` the partition state shards over (the flat
+        or the sliding engine; exclusive with ``mesh_chips`` and
+        ``cluster_hosts``).
         ``stats_port``: serve
         live /stats + /healthz JSON on this port (0 picks a free one; None
         disables) — the Flink-Web-UI role for this stack. ``window_size`` +
@@ -130,11 +131,6 @@ class SkylineWorker:
             raise ValueError("mesh and cluster_hosts are mutually exclusive")
         if cluster_hosts and window_size:
             raise ValueError("sliding-window mode does not support cluster_hosts")
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (mesh) is not ported yet (ROADMAP queue 1 "
-                "item 8b: the device mesh over torch.distributed)"
-            )
         self.mesh_chips = int(mesh_chips)
         self.cluster_hosts = int(cluster_hosts)
         self.bus = bus
@@ -193,7 +189,8 @@ class SkylineWorker:
                 telemetry=self.telemetry,
             )
             hit = self._ckpt_mgr.restore_latest(
-                mesh_chips=mesh_chips, cluster_hosts=cluster_hosts, tracer=self.tracer,
+                mesh=mesh, mesh_chips=mesh_chips, cluster_hosts=cluster_hosts,
+                tracer=self.tracer,
                 telemetry=self.telemetry, device=config.device,
             )
             ckpt_path = None
@@ -225,6 +222,7 @@ class SkylineWorker:
                 config,
                 window_size=window_size,
                 slide=slide,
+                mesh=mesh,
                 emit_per_slide=emit_per_slide,
                 tracer=self.tracer,
                 telemetry=self.telemetry,
@@ -254,7 +252,7 @@ class SkylineWorker:
             )
         else:
             self.engine = SkylineEngine(
-                config, tracer=self.tracer, telemetry=self.telemetry
+                config, mesh=mesh, tracer=self.tracer, telemetry=self.telemetry
             )
         self.output_topic = output_topic
         self._data = bus.consumer(input_topic, from_beginning=True)
@@ -1332,7 +1330,7 @@ def main(argv=None):
     print(
         f"skyline worker: algo={cfg.algo} partitions={worker.engine.config.num_partitions} "
         f"dims={cfg.dims} broker={cfg.bootstrap} device={cfg.device}"
-        f" chips={cfg.mesh_chips or 'off'}"
+        f" mesh={cfg.mesh or 'off'} chips={cfg.mesh_chips or 'off'}"
         f" cluster={cfg.cluster_hosts or 'off'}"
         + (f" stats=:{worker.stats_server.port}" if worker.stats_server else "")
         + (f" serve=:{worker.serve_server.port}" if worker.serve_server else "")

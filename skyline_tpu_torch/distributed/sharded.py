@@ -47,14 +47,13 @@ from __future__ import annotations
 import hashlib
 import threading
 import time
-from contextlib import nullcontext
 
 import numpy as np
 import torch
 
 from skyline_tpu_torch.metrics.tracing import NULL_TRACER
 from skyline_tpu_torch.ops import cascade
-from skyline_tpu_torch.parallel.chips import chip_devices, gather_to
+from skyline_tpu_torch.parallel.chips import chip_devices, gather_to, on_device
 from skyline_tpu_torch.resilience.faults import InjectedCrash, fault_point
 from skyline_tpu_torch.stream.batched import PartitionSet, to_host_async
 from skyline_tpu_torch.stream.engine import SkylineEngine
@@ -83,12 +82,6 @@ def epoch_hex(key: bytes) -> str:
     """Short stable digest of an epoch key for WAL barrier records and
     logs (the raw key is a P*8-byte vector — too wide to journal)."""
     return hashlib.sha1(key).hexdigest()[:16]
-
-
-def on_device(dev):
-    """``torch.cuda.device(dev)`` on a card (the current device for every
-    implicit allocation, stream and event), a null context on the CPU."""
-    return torch.cuda.device(dev) if dev.type == "cuda" else nullcontext()
 
 
 class _ShardedMergeHandle:

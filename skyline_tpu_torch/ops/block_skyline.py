@@ -1,15 +1,28 @@
-"""Large-window skyline computation: the chunked scan and ``skyline_large``.
+"""Large-window and sharded skyline computation: the chunked scan,
+``skyline_large`` and the mesh's blocked mask and cross prune.
 
-Counterpart of ``skyline_tpu/ops/block_skyline.py`` (``skyline_mask_scan``
-and ``skyline_large``; ``skyline_mask_blocked`` and
-``dominated_by_blocked`` serve only the device-mesh and multi-host merges,
-which are not ported yet).
+Counterpart of ``skyline_tpu/ops/block_skyline.py``.
 
 ``skyline_mask_scan`` is the dispatch's ``mask_scan`` row, the CPU's
 fallback: one pass of dominator chunks against every row, a chunk skipped
 when its least valid row sum exceeds every undecided victim's (a
 dominator's sum never exceeds its victim's), with an optional bf16 margin
 pre-pass over a short dominator prefix whose certified victims are final.
+
+``skyline_mask_blocked`` and ``dominated_by_blocked`` are the two phases of
+the device mesh's merge (``parallel/mesh.py``, ``parallel/multihost.py``):
+each place's local mask over its shard, then its survivors pruned against
+every place's gathered survivors. On a card the first is K3
+(``skyline_mask_kernel``) over the whole shard and the second K2
+(``dominated_by_rect``) over the whole gathered set — the kernels skip
+tiles by their own exact bounds, so ``block`` does not reach them. On the
+CPU both run the chunked scan's loop (``_dominated_chunks``), ``block``
+dominator rows at a time. Both are exact whatever ``block`` is. The
+reference's blocked mask skips a later block by its position in sum
+order, so it keeps a row whose dominator has an equal sum (ties of
+infinite sums, or sums that round together) and sits in a later block;
+the mesh's cross phase prunes such a row again, so only the reference's
+local mask differs, never its answer.
 
 ``skyline_large`` is the library op for a whole window: a host sum sort,
 then append-only SFS rounds on the device (``ops/sfs.py``
@@ -67,21 +80,95 @@ def skyline_mask_scan(
     else:
         certified = torch.zeros((padded,), dtype=torch.bool, device=dev)
     sums = torch.where(vp, row_sums(xp), float("inf"))
-    chunk_min = sums.reshape(nb, chunk).amin(dim=1)
-    victim_max = torch.where(vp & ~certified, sums, float("-inf")).amax().reshape(1)
-    bounds = torch.cat([chunk_min, victim_max]).tolist()
-    xt = xp.T.contiguous()
+    victim_max = torch.where(vp & ~certified, sums, float("-inf")).amax()
     # the padding rows are invalid: they neither dominate nor survive, so
     # the compares take the n real rows only
-    victims = xt[:, :n].contiguous()
-    dom = torch.zeros((n,), dtype=torch.bool, device=dev)
+    victims = xp[:n].T.contiguous()
+    dom = _dominated_chunks(victims, vp[:n], sums[:n], victims, victim_max, chunk)
+    return ~(dom | certified[:n]) & vp[:n]
+
+
+def _dominated_chunks(xt, x_valid, x_sums, yt, victim_max, chunk: int) -> torch.Tensor:
+    """(M,) bool: some valid column of ``xt`` (d, N) dominates column j of
+    ``yt`` (d, M), by K2 (``dominated_by_rect``) over ``chunk`` dominators at
+    a time. A chunk whose least sum (``x_sums``, +inf on invalid rows)
+    exceeds ``victim_max``, the largest sum of a victim still undecided, is
+    skipped (a dominator's sum never exceeds its victim's); the bounds are
+    read to the host once, and a NaN bound never skips."""
+    n = xt.shape[1]
+    nb = -(-n // chunk)
+    pad = torch.full((nb * chunk - n,), float("inf"), dtype=x_sums.dtype, device=x_sums.device)
+    chunk_min = torch.cat([x_sums, pad]).reshape(nb, chunk).amin(dim=1)
+    bounds = torch.cat([chunk_min, victim_max.reshape(1)]).tolist()
+    dom = torch.zeros((yt.shape[1],), dtype=torch.bool, device=yt.device)
     for i in range(nb):
-        # NaN bounds compare False: such a chunk is never skipped
         if bounds[i] > bounds[-1]:
             continue
         s = slice(i * chunk, min((i + 1) * chunk, n))
-        dom |= dominated_by_rect(xt[:, s].contiguous(), vp[s], victims)
-    return ~(dom | certified[:n]) & vp[:n]
+        dom |= dominated_by_rect(xt[:, s].contiguous(), x_valid[s], yt)
+    return dom
+
+
+def skyline_mask_blocked(
+    x: torch.Tensor, valid: torch.Tensor | None = None, block: int = 2048
+) -> torch.Tensor:
+    """Survivor mask of (N, d) points — valid and dominated by no valid
+    point — in the caller's row order, the local phase of the mesh's merge.
+    On a card one K3 launch over all N rows; on the CPU the chunked scan
+    (``skyline_mask_scan``) with ``block``-row dominator chunks."""
+    if x.device.type == "cuda":
+        if valid is None:
+            valid = torch.ones((x.shape[0],), dtype=torch.bool, device=x.device)
+        return skyline_mask_kernel(x.contiguous(), valid.contiguous())
+    return skyline_mask_scan(x, valid, chunk=block)
+
+
+def dominated_by_blocked(
+    y: torch.Tensor,
+    x: torch.Tensor,
+    x_valid: torch.Tensor | None = None,
+    block: int = 8192,
+    y_valid: torch.Tensor | None = None,
+    mp: bool = False,
+) -> torch.Tensor:
+    """(M,) bool: some valid row of ``x`` (N, d) dominates row j of ``y``
+    (M, d) — the mesh's cross-shard prune. On a card one K2 launch over
+    all N dominators; on the CPU ``block`` dominator rows at a time, a
+    block skipped when its least valid row sum exceeds the largest
+    undecided victim sum. ``y_valid`` narrows that bound to valid victims,
+    so an invalid victim's verdict is unspecified: callers mask by victim
+    validity. ``mp`` first certifies victims strictly dominated, in bf16
+    margin arithmetic, by one of the first 512 dominator rows; they are
+    final (OR-ed in) and leave the bound, and K2 counts as ``mp``. The
+    verdict of every valid victim is the same either way."""
+    m, n = y.shape[0], x.shape[0]
+    dev = y.device
+    if m == 0:
+        return torch.zeros((0,), dtype=torch.bool, device=dev)
+    if x_valid is None:
+        x_valid = torch.ones((n,), dtype=torch.bool, device=dev)
+    if mp:
+        limit = min(n, _MP_PREFIX)
+        certified = strictly_dominated_bf16_kernel(
+            y.contiguous(), x[:limit].contiguous(), x_valid[:limit].contiguous()
+        )
+        if y_valid is not None:
+            certified = certified & y_valid
+    else:
+        certified = torch.zeros((m,), dtype=torch.bool, device=dev)
+    if n == 0:
+        return certified
+    if dev.type == "cuda":
+        dom = dominated_by_rect(
+            x.T.contiguous(), x_valid.contiguous(), y.T.contiguous(), mp=mp
+        )
+        return dom | certified
+    live = ~certified if y_valid is None else y_valid & ~certified
+    victim_max = torch.where(live, row_sums(y), float("-inf")).amax()
+    x_sums = torch.where(x_valid, row_sums(x), float("inf"))
+    return certified | _dominated_chunks(
+        x.T.contiguous(), x_valid, x_sums, y.T.contiguous(), victim_max, block
+    )
 
 
 def skyline_large(

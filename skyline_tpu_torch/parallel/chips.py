@@ -14,6 +14,8 @@ copies are local.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
+
 import torch
 
 from skyline_tpu_torch.utils.devices import resolve_device
@@ -45,3 +47,9 @@ def gather_to(device, tensors):
     feeding the tournament root (no copy where a tensor is already
     there)."""
     return [t.to(device) for t in tensors]
+
+
+def on_device(dev):
+    """``torch.cuda.device(dev)`` on a card (the current device for every
+    implicit allocation, stream and event), a null context on the CPU."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else nullcontext()

@@ -87,20 +87,15 @@ class CheckpointManager:
         ``mesh_chips`` > 0 restores a ``distributed.ShardedEngine`` of that
         many chips from any checkpoint, flat or sharded; ``cluster_hosts`` > 0
         a ``cluster.ClusterEngine`` of that many hosts (``mesh_chips`` chips
-        each). ``mesh`` places an engine on a device mesh, which the port
-        has not ported yet (ROADMAP queue 1 item 8b), so it raises before a
-        file is read."""
+        each); ``mesh`` a flat engine on that device mesh, whose places'
+        device type then stands for ``device``."""
         from skyline_tpu_torch.utils.checkpoint import load_engine
         from skyline_tpu_torch.utils.devices import resolve_device
 
+        if mesh is not None:
+            device = mesh.device_type
         # a missing card raises here, never counted as a bad file
         resolve_device(device)
-        if mesh is not None:
-            raise NotImplementedError(
-                "restoring onto a device mesh (mesh) is not ported yet "
-                "(ROADMAP queue 1 item 8b: the device mesh over "
-                "torch.distributed)"
-            )
 
         for _seq, path in reversed(self.list()):
             try:

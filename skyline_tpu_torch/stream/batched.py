@@ -77,7 +77,19 @@ with it or without.
 engine's cross-chip level on the device (``distributed/sharded.py``). Every
 device-side step names its device (``self.device``), so a set placed on
 ``cuda:1`` by the sharded engine never touches the current device's stream
-or memory; the device mesh is not ported yet.
+or memory.
+
+With a ``mesh`` (``parallel/mesh.py``) the partitions split over the places
+of its first axis, P/n contiguous each, as the reference shards them: the
+state lives on the first place's device, and each flush step runs every
+place's partitions on that place's device (``stream/window.py``
+``meshed_*``: one batched call for each run of places on one device, so a
+mesh on one card steps as a flat set does; over several devices each
+keeps its partitions' slice between steps, and reading ``sky`` gathers).
+The reference's gates for a mesh hold: no device ingest, no d <= 2
+sweep, no sequential SFS variant, no flush race, no grid prefilter, and
+no merge cache or tree (the engine merges a meshed set's partials by the
+sharded two-phase).
 
 Per-partition CPU attribution follows the reference: flush wall time is
 accounted to the set, and every partition reports the set total as its
@@ -86,6 +98,7 @@ accounted to the set, and every partition reports the set total as its
 
 from __future__ import annotations
 
+import functools
 import time
 from contextlib import contextmanager, nullcontext
 
@@ -98,6 +111,7 @@ from skyline_tpu_torch.ops.device_cascade import device_cascade_keep
 from skyline_tpu_torch.ops.sfs import sfs_cleanup, sfs_round, sfs_round_single
 from skyline_tpu_torch.ops.sorted_sfs import sorted_sfs_keep
 from skyline_tpu_torch.ops.sweep2d import partitioned_sweep2_core, scatter_sweep2
+from skyline_tpu_torch.parallel.mesh import Placed
 from skyline_tpu_torch.resilience.faults import fault_point
 from skyline_tpu_torch.stream import device_window as dw
 from skyline_tpu_torch.stream.window import (
@@ -113,6 +127,9 @@ from skyline_tpu_torch.stream.window import (
     global_points_device,
     grid_summary_device,
     merge_step_active,
+    meshed_merge_step,
+    meshed_sfs_cleanup,
+    meshed_sfs_round,
     partition_summaries_device,
     prune_witness_mask,
     tree_pair_merge,
@@ -259,6 +276,7 @@ class PartitionSet:
         counters=None,
         profiler=None,
         flight=None,
+        mesh=None,
     ):
         """``initial_capacity``: pre-size the per-partition skyline buffers
         (rounded up to the power-of-two bucket) so a workload that knows
@@ -291,11 +309,29 @@ class PartitionSet:
         ``counters``: a ``metrics.collector.Counters``-like sink
         (``inc(name, n)``) for the merge plane's and the flush cascade's
         counts. ``profiler`` and ``flight``: see
-        ``attach_observability``."""
+        ``attach_observability``.
+
+        ``mesh``: a ``parallel.mesh.Mesh`` whose first axis the partitions
+        split over (``num_partitions`` a multiple of its extent); the state
+        then lives on that axis's first place, whatever ``device`` says."""
         if flush_policy not in ("incremental", "lazy", "overlap"):
             raise ValueError(f"unknown flush_policy {flush_policy!r}")
-        if route is not None and flush_policy == "incremental":
-            raise ValueError("device ingest (route=...) requires a lazy/overlap PartitionSet")
+        if route is not None and (mesh is not None or flush_policy == "incremental"):
+            raise ValueError(
+                "device ingest (route=...) requires a single-device lazy/overlap "
+                "PartitionSet"
+            )
+        self.mesh = mesh
+        if mesh is not None:
+            # the first axis carries the partitions; other axes replicate
+            self._axis = mesh.axis_names[0]
+            n_axis = int(mesh.shape[self._axis])
+            if num_partitions % n_axis:
+                raise ValueError(
+                    f"num_partitions {num_partitions} must be divisible by "
+                    f"mesh axis {self._axis!r} size {n_axis}"
+                )
+            device = mesh.axis_places(self._axis)[0]
         self.device = resolve_device(device)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.num_partitions = num_partitions
@@ -320,6 +356,7 @@ class PartitionSet:
         self._pending_rows = np.zeros(p, dtype=np.int64)
         # stacked running skylines: (P, cap, d), rows >= count are +inf
         self._cap = _next_pow2(max(initial_capacity, _MIN_CAP))
+        self._sky_parts = None
         self.sky = torch.full(
             (p, self._cap, dims), float("inf"), dtype=torch.float32,
             device=self.device,
@@ -392,6 +429,35 @@ class PartitionSet:
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
+
+    # -- the stacked state ------------------------------------------------
+
+    @property
+    def sky(self) -> torch.Tensor:
+        """The stacked (P, cap, d) skyline buffers on ``self.device``. A
+        meshed set whose places span several devices keeps each device's
+        partitions there between flush steps (``_sky_parts``, a ``Placed``);
+        reading ``sky`` gathers them here, and the next meshed step splits
+        the state again."""
+        if self._sky_parts is not None:
+            self._sky, self._sky_parts = self._sky_parts.gather(self.device), None
+        return self._sky
+
+    @sky.setter
+    def sky(self, value) -> None:
+        if isinstance(value, Placed):
+            whole = value.on(self.device)
+            if whole is None:
+                self._sky, self._sky_parts = None, value
+                return
+            value = whole
+        self._sky, self._sky_parts = value, None
+
+    def _step_state(self):
+        """The state as a flush step takes it: the resident ``Placed``
+        slices a meshed step left, else the stacked tensor (a meshed step
+        splits it)."""
+        return self._sky_parts if self._sky_parts is not None else self._sky
 
     # -- observability hooks ------------------------------------------------
 
@@ -695,7 +761,7 @@ class PartitionSet:
         requested. Query-time flushes keep the default."""
         fault_point("flush.pre_merge")
         total = int(self._pending_rows.sum())
-        if self.dims <= 2:
+        if self.dims <= 2 and self.mesh is None:
             if total or self._dev_rows:
                 self._flush_sweep()
             return
@@ -751,21 +817,30 @@ class PartitionSet:
                 self._count_ub = self._host(self._count_dev)
                 grow = _grow_bucket()
             out_cap = max(self._cap, grow)
-            active = min(
-                self._cap, _active_bucket(max(int(self._count_ub.max()), 1))
-            )
             sky_valid = (
                 torch.arange(self._cap, device=self.device)[None, :]
                 < self._count_dev[:, None]
             )
+            active = min(
+                self._cap, _active_bucket(max(int(self._count_ub.max()), 1))
+            )
             cost_thunk = None
-            if self._profiler is not None and profile_cost_enabled():
-                cost_thunk = self._merge_cost_thunk(batch_dev, bvalid_dev, active, grow, mp)
-            with self._merge_kernel("merge_step", out_cap, mp, cost_thunk):
+            if self.mesh is not None:
+                # each place merges its own partitions
+                variant = "meshed_merge_step"
+                step = meshed_merge_step(self.mesh, self._axis, active, grow, mp)
+            else:
+                variant = "merge_step"
+                step = functools.partial(
+                    merge_step_active, active=active, out_active=grow, mp=mp
+                )
+                if self._profiler is not None and profile_cost_enabled():
+                    cost_thunk = self._merge_cost_thunk(batch_dev, bvalid_dev, active, grow, mp)
+            with self._merge_kernel(variant, out_cap, mp, cost_thunk):
                 # out_active is the bucket out_cap grew from, so the step's
                 # max(cap, out_active) is out_cap
-                self.sky, _, self._count_dev, res = merge_step_active(
-                    self.sky, sky_valid, batch_dev, bvalid_dev, active, grow, mp
+                self.sky, _, self._count_dev, res = step(
+                    self._step_state(), sky_valid, batch_dev, bvalid_dev
                 )
                 if mp:
                     self._accum_resolved(res)
@@ -860,12 +935,12 @@ class PartitionSet:
         # block-count invariant, so fewer rounds just save launches
         return _next_pow2(min(max_rows, max(self.buffer_size, 8192)))
 
-    @staticmethod
-    def _sequential(widths: np.ndarray) -> bool:
+    def _sequential(self, widths: np.ndarray) -> bool:
         # the batched round costs P lanes of (B x active) work per round
         # whatever the lanes carry (~P * max_rows lane-rows); per-partition
         # rounds cost ~total_rows. Under routing skew sequential wins by ~P/2.
-        return len(widths) * int(widths.max()) > 2 * int(widths.sum())
+        # A meshed set keeps the batched rounds, each place its own lanes.
+        return self.mesh is None and len(widths) * int(widths.max()) > 2 * int(widths.sum())
 
     def _flush_lazy(self) -> None:
         """Host-ingest flush: sum-sort each partition's accumulated rows and
@@ -923,6 +998,10 @@ class PartitionSet:
                     batch, bvalid, _ = self._round_batch(rows, rnd, B)
                 with self.tracer.phase("flush/device_put"):
                     batch_d, bvalid_d = self._put(batch), self._put(bvalid)
+                if self.mesh is not None:
+                    rnd_fn = meshed_sfs_round(self.mesh, self._axis, active, mp)
+                    with self._merge_kernel("meshed_sfs_round", active, mp):
+                        return rnd_fn(self._step_state(), counts, batch_d, bvalid_d)
                 with self._merge_kernel("sfs_vmapped", active, mp):
                     return sfs_round(self.sky, counts, batch_d, bvalid_d, active, mp)
 
@@ -958,7 +1037,10 @@ class PartitionSet:
         (d, N-bucket, backend) signature and the least EMA decides
         thereafter. On the CPU the host cascade and the rounds race (the
         device cascade joins only with ``SKYLINE_SORTED_SFS=off``); on a
-        card the rounds and the device cascade."""
+        card the rounds and the device cascade. A meshed set keeps the
+        rounds."""
+        if self.mesh is not None:
+            return device_variant
         if cascade.flush_chooser_active(False, self.device) and self._flush_prof is None:
             self._flush_prof = KernelProfiler(backend=self.device.type)
         return cascade.resolve_flush(
@@ -1258,12 +1340,18 @@ class PartitionSet:
 
     def _grow_cap(self, new_cap: int) -> None:
         """Grow the stacked skyline storage to ``new_cap`` rows (+inf
-        padding, which is invalid by the count invariant)."""
-        pad = torch.full(
-            (self.num_partitions, new_cap - self._cap, self.dims),
-            float("inf"), dtype=torch.float32, device=self.device,
-        )
-        self.sky = torch.cat([self.sky, pad], dim=1)
+        padding, which is invalid by the count invariant); a meshed state
+        grows each slice on its own device."""
+
+        def grow(t):
+            pad = torch.full(
+                (t.shape[0], new_cap - self._cap, self.dims),
+                float("inf"), dtype=torch.float32, device=t.device,
+            )
+            return torch.cat([t, pad], dim=1)
+
+        parts = self._sky_parts
+        self.sky = parts.map(grow) if parts is not None else grow(self._sky)
         self._cap = new_cap
 
     def _check_had_old(self):
@@ -1302,6 +1390,9 @@ class PartitionSet:
                     self.sky, counts = dw.sfs_cleanup_rank(
                         self.sky, counts, old_counts, rank[1], old_active, active,
                     )
+                elif self.mesh is not None:
+                    cl = meshed_sfs_cleanup(self.mesh, self._axis, old_active, active)
+                    self.sky, counts = cl(self._step_state(), counts, old_counts)
                 else:
                     self.sky, counts = sfs_cleanup(
                         self.sky, counts, old_counts, old_active, active
@@ -1325,7 +1416,7 @@ class PartitionSet:
 
     def _prefilter_on(self) -> bool:
         """The grid prefilter for this set: d >= 3, one device, the knob."""
-        return cascade.applies("flush_prefilter", d=self.dims)
+        return cascade.applies("flush_prefilter", d=self.dims, meshed=self.mesh is not None)
 
     def _maybe_launch_grid(self) -> None:
         """Flush tail: queue the grid summary of the state just flushed and
@@ -1460,7 +1551,7 @@ class PartitionSet:
         # claim the parked EXPLAIN plan (one-shot): it rides the handle, so an
         # overlapped merge annotates the query that launched it
         h.explain, self._explain = self._explain, None
-        h.use_cache = cascade.merge_cache_on(False)
+        h.use_cache = cascade.merge_cache_on(self.mesh is not None)
         cache = self._gm_cache if h.use_cache else None
         if cache is not None and cache["key"] == h.key:
             # exact hit: no flush touched any partition since this result
@@ -1494,7 +1585,7 @@ class PartitionSet:
                 dirty = dirty_mask
         elif h.use_cache:
             self.last_dirty_fraction = 1.0  # a cold miss: everything dirty
-        use_tree = cascade.merge_tree_on(False, self.dims)
+        use_tree = cascade.merge_tree_on(self.mesh is not None, self.dims)
         path = cascade.merge_path(use_tree, dirty is not None)
         self._fnote("merge.launch", path=path, dirty_fraction=self.last_dirty_fraction)
         if h.explain is not None:
@@ -1618,7 +1709,9 @@ class PartitionSet:
         """Flush tail: queue the per-partition prune summaries (small) so the
         next merge's prefilter finds them landed; only where the tree and
         the prefilter are on."""
-        if cascade.merge_tree_on(False, self.dims) and cascade.gate("partition_prune"):
+        if cascade.merge_tree_on(self.mesh is not None, self.dims) and cascade.gate(
+            "partition_prune"
+        ):
             self._launch_summaries()
 
     def _launch_summaries(self) -> None:

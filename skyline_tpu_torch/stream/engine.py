@@ -57,6 +57,13 @@ store attached the answers materialise their points even when
 ``audit.Auditor`` shadow-checks the published snapshot against the host
 oracle at the tail of each emission (``SKYLINE_AUDIT_SAMPLE`` of them).
 An engine without a store does none of this.
+
+A device mesh (``SkylineEngine(config, mesh=...)``, a
+``parallel.mesh.Mesh``) splits the partitions over its places
+(``PartitionSet(mesh=)``), forces host ingest, answers every trigger by the
+per-partition host path, and merges the partials by the sharded two-phase
+(``parallel/mesh.py`` ``skyline_keep_np_sharded``), as the reference does:
+the answer bytes are the flat engine's.
 """
 
 from __future__ import annotations
@@ -70,6 +77,7 @@ import torch
 from skyline_tpu_torch.bridge.wire import parse_trigger
 from skyline_tpu_torch.metrics.tracing import NULL_TRACER
 from skyline_tpu_torch.ops.dispatch import skyline_keep_np
+from skyline_tpu_torch.parallel.mesh import skyline_keep_np_sharded
 from skyline_tpu_torch.parallel.partitioners import partition_ids_np
 from skyline_tpu_torch.stream.batched import PartitionSet, PartitionView
 from skyline_tpu_torch.stream.window import DEFAULT_BUFFER_SIZE
@@ -186,8 +194,16 @@ class SkylineEngine:
     wall holds its own kernels. An overlapped merge's wall is its launch
     plus its harvest."""
 
-    def __init__(self, config: EngineConfig, tracer=None, telemetry=None):
-        """``tracer``: an optional ``metrics.tracing.Tracer`` timing the
+    def __init__(self, config: EngineConfig, mesh=None, tracer=None, telemetry=None):
+        """``mesh``: an optional ``parallel.mesh.Mesh`` over which the
+        partitions split (each flush step runs every place's partitions on
+        its own device) and whose places run the global merge as the
+        sharded two-phase. It forces host ingest and takes the engine's
+        device from its first place, which must be of ``config.device``'s
+        type. ``None`` (the default) runs on one device. Placement is not
+        query semantics: the answers are the same bytes either way.
+
+        ``tracer``: an optional ``metrics.tracing.Tracer`` timing the
         reference's phases (routing, flush kernels, transfers, the global
         merge); ``None`` costs nothing.
 
@@ -197,14 +213,27 @@ class SkylineEngine:
         EXPLAIN plans and the dispatch tuner; ``None`` records none of
         these."""
         self.config = config
+        self.mesh = mesh
         self.device = resolve_device(config.device)
+        if mesh is not None:
+            home = mesh.axis_places(mesh.axis_names[0])[0]
+            if home.type != self.device.type:
+                raise ValueError(
+                    f"the mesh's places are on {home.type}, the config asks for "
+                    f"{self.device.type}"
+                )
+            self.device = home
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.telemetry = telemetry
         # the serving plane's snapshot store (attach_snapshots)
         self.snapshots = None
-        # device ingest needs the lazy or overlap policy (the engine is
-        # single-device) and no grid prefilter, which reads raw host values
-        device_ok = config.flush_policy in ("lazy", "overlap") and not config.grid_prefilter
+        # device ingest needs one device, the lazy or overlap policy and no
+        # grid prefilter, which reads raw host values
+        device_ok = (
+            mesh is None
+            and config.flush_policy in ("lazy", "overlap")
+            and not config.grid_prefilter
+        )
         if config.ingest == "device":
             if not device_ok:
                 raise ValueError(
@@ -256,6 +285,7 @@ class SkylineEngine:
             counters=telemetry.counters if telemetry is not None else None,
             profiler=self.profiler,
             flight=telemetry.flight if telemetry is not None else None,
+            mesh=self.mesh,
         )
 
     def _sync_devices(self) -> None:
@@ -513,7 +543,7 @@ class SkylineEngine:
             self.pset.set_explain(q.plan)
         self._inflight[payload] = q
         try:
-            if all(
+            if self.mesh is None and all(
                 part.max_seen_id >= required or part.max_seen_id == -1
                 for part in self.partitions
             ):
@@ -592,7 +622,10 @@ class SkylineEngine:
                 if origins.size
                 else np.empty((0, self.config.dims), dtype=np.float32)
             )
-            keep = skyline_keep_np(union, self.device)
+            if self.mesh is not None:
+                keep = skyline_keep_np_sharded(self.mesh, union)
+            else:
+                keep = skyline_keep_np(union, self.device)
             global_sky = union[keep]
         survivors_per_pid = np.bincount(
             origins[keep], minlength=self.config.num_partitions
@@ -658,7 +691,7 @@ class SkylineEngine:
         # an attached snapshot store needs the points even when the result
         # omits them: the snapshot is the serving read path
         emit = self.config.emit_skyline_points or self.snapshots is not None
-        if knobs.query_overlap_enabled():
+        if knobs.query_overlap_enabled() and self.mesh is None:
             handle = self.pset.global_merge_launch(emit_points=emit)
             launch_ms = (time.perf_counter_ns() - t1) / 1e6
             self._inflight_merge = (q, handle, now_ms, self.last_flush_ms, launch_ms)
@@ -894,8 +927,8 @@ class SkylineEngine:
         try:
             plan = q.plan
             if plan.merge is None:
-                # the host merge (pending barriers, timeouts): no device
-                # merge claimed the plan
+                # the host merge (a mesh, pending barriers, timeouts): no
+                # device merge claimed the plan
                 plan.merge = {"path": "host", "cached": False,
                               "skyline_size": int(skyline_size)}
             plan.cascade = cascade_delta(self._explain_cascade_mark, cascade_now)
@@ -996,7 +1029,7 @@ class SkylineEngine:
                 "records_seen": self.pset.records_seen.tolist(),
                 "max_seen_id": self.pset.max_seen_id.tolist(),
             },
-            "meshed": False,
+            "meshed": self.mesh is not None,
             "merge_cache": {
                 "hits": self.pset.merge_cache_hits,
                 "misses": self.pset.merge_cache_misses,

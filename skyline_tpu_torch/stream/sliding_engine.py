@@ -22,12 +22,23 @@ compact) and one host read, the per-partition survivor counts. On a card
 once the flat window reaches 8,192 rows both skyline passes are K3 over
 every partition in one launch each (``skyline_mask_kernel`` on (P, N, d));
 below that, and on the CPU, the chunked scan per partition; at d <= 2 the
-sweep. The reference's ``mesh`` (the P axis sharded across devices) is not
-ported.
+sweep.
+
+With a ``mesh`` (``parallel/mesh.py``) the P axis of the rings splits over
+the places of its first axis, P/n contiguous partitions each: every slide
+close runs one batched slide step for each run of places on one device,
+over their partitions, on that device (with every place on one card, one
+step over every partition; over several devices each keeps its
+partitions' rings and window skylines, and only the slide's rows, the
+counts and the answer's prefixes cross). The reference keeps its scan
+kernels under a mesh, for GSPMD's sake; the answers are exact and
+compacted either way, so each place here takes the same branch as a flat
+engine would (K3 on a card past the threshold).
 """
 
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
@@ -40,6 +51,8 @@ from skyline_tpu_torch.ops.dispatch import skyline_keep_np
 from skyline_tpu_torch.ops.dominance import compact
 from skyline_tpu_torch.ops.dominance_kernels import skyline_mask_kernel
 from skyline_tpu_torch.ops.sweep2d import skyline_mask_sweep
+from skyline_tpu_torch.parallel.chips import gather_to, on_device
+from skyline_tpu_torch.parallel.mesh import Placed
 from skyline_tpu_torch.parallel.partitioners import partition_ids_np
 from skyline_tpu_torch.stream.engine import (
     EngineConfig,
@@ -109,6 +122,7 @@ class SlidingEngine:
         config: EngineConfig,
         window_size: int,
         slide: int,
+        mesh=None,
         emit_per_slide: bool = False,
         tracer=None,
         telemetry=None,
@@ -118,7 +132,16 @@ class SlidingEngine:
                 f"window_size {window_size} must be a multiple of slide {slide}"
             )
         self.config = config
+        self.mesh = mesh
         self.device = resolve_device(config.device)
+        if mesh is not None:
+            axis = mesh.axis_names[0]
+            if config.num_partitions % int(mesh.shape[axis]):
+                raise ValueError(
+                    f"num_partitions {config.num_partitions} must be divisible by "
+                    f"mesh axis size {mesh.shape[axis]}"
+                )
+            self.device = resolve_device(mesh.axis_places(axis)[0])
         self.window_size = window_size
         self.slide = slide
         self.k = window_size // slide
@@ -137,9 +160,16 @@ class SlidingEngine:
         self._ring_valids = torch.zeros(
             (P, self.k, self._cap), dtype=torch.bool, device=self.device
         )
+        if mesh is not None:
+            rings = Placed.split(mesh, self._rings, mesh.axis_names[0])
+            if rings.on(self.device) is None:
+                # places on several devices: each keeps its partitions' rings
+                self._rings = rings
+                self._ring_valids = Placed.split(mesh, self._ring_valids, mesh.axis_names[0])
         # per-partition current-window skylines (device cache from the last
-        # slide close) + exact survivor counts on the host
-        self._win_sky: torch.Tensor | None = None
+        # slide close; ``Placed`` as the rings are) + exact survivor counts on
+        # the host
+        self._win_sky: torch.Tensor | Placed | None = None
         self._win_host: list[np.ndarray] | None = None  # host cache of _win_sky
         self._win_counts = np.zeros(P, dtype=np.int64)
         self._slot = 0
@@ -252,13 +282,8 @@ class SlidingEngine:
         self._pend = [[] for _ in range(P)]
         self._pend_rows[:] = 0
         with self.tracer.phase("slide/step"):
-            self._win_sky, _, counts = _slide_step_batched(
-                self._rings,
-                self._ring_valids,
-                self._slot,
-                upload_async(rows, self.device),
-                upload_async(rvalid, self.device),
-                use_k3=self._use_k3,
+            self._win_sky, counts = self._slide_step(
+                upload_async(rows, self.device), upload_async(rvalid, self.device)
             )
             # the slide's one host read
             self._win_counts = counts.cpu().numpy().astype(np.int64)
@@ -278,18 +303,41 @@ class SlidingEngine:
             now_ms = self._answer_window(q, now_ms)
         return now_ms
 
+    def _slide_step(self, rows: torch.Tensor, rvalid: torch.Tensor):
+        """The slide step over every partition. With a mesh whose places
+        span several devices the rings are ``Placed`` slices: one batched
+        step a slice, on its device, writing its ring slot in place there.
+        Returns (window skylines (P, K*C, d) — ``Placed`` likewise —,
+        counts (P,) on the engine's device)."""
+        if not isinstance(self._rings, Placed):
+            win, _, counts = _slide_step_batched(
+                self._rings, self._ring_valids, self._slot, rows, rvalid,
+                use_k3=self._use_k3,
+            )
+            return win, counts
+        wins, cnts = [], []
+        for (span, dev, rg), (_, _, rv) in zip(self._rings.parts, self._ring_valids.parts):
+            with on_device(dev):
+                r, v = gather_to(dev, [rows[span], rvalid[span]])
+                win, _, counts = _slide_step_batched(rg, rv, self._slot, r, v, use_k3=self._use_k3)
+            wins.append((span, dev, win))
+            cnts.append(counts)
+        return Placed(tuple(wins)), torch.cat(gather_to(self.device, cnts))
+
     def _grow(self, new_cap: int) -> None:
         """Routing skew overflowed a ring's row capacity: grow all rings
         (rare; the closed buckets keep their slots and rows)."""
-        P = self.config.num_partitions
         extra = new_cap - self._cap
-        pad = torch.full(
-            (P, self.k, extra, self.config.dims), float("inf"), dtype=torch.float32,
-            device=self.device,
-        )
-        self._rings = torch.cat([self._rings, pad], dim=2)
-        vpad = torch.zeros((P, self.k, extra), dtype=torch.bool, device=self.device)
-        self._ring_valids = torch.cat([self._ring_valids, vpad], dim=2)
+
+        def grow(t, fill):
+            pad = torch.full((*t.shape[:2], extra, *t.shape[3:]), fill, dtype=t.dtype,
+                             device=t.device)
+            return torch.cat([t, pad], dim=2)
+
+        for name, fill in (("_rings", float("inf")), ("_ring_valids", False)):
+            t = getattr(self, name)
+            fn = functools.partial(grow, fill=fill)
+            setattr(self, name, t.map(fn) if isinstance(t, Placed) else fn(t))
         self._cap = new_cap
         # growth can push the flat window past the K3 threshold
         self._use_k3 = self._k3_gate()
@@ -349,8 +397,13 @@ class SlidingEngine:
             if self._win_host is None:
                 with self.tracer.phase("query/snapshot_transfer"):
                     counts = self._win_counts.tolist()
-                    flat = torch.cat([self._win_sky[p, :c] for p, c in enumerate(counts)])
-                    host = flat.cpu().numpy()
+                    win = self._win_sky
+                    parts = win.parts if isinstance(win, Placed) else ((slice(0, P), None, win),)
+                    host = np.concatenate([
+                        torch.cat([t[p - s.start, : counts[p]] for p in range(s.start, s.stop)])
+                        .cpu().numpy()
+                        for s, _, t in parts
+                    ])
                     self.answer_host_bytes += host.nbytes
                     self._win_host = np.split(host, np.cumsum(counts)[:-1])
             parts = list(self._win_host)
@@ -504,7 +557,7 @@ class SlidingEngine:
                 "records_seen": self.records_seen.tolist(),
                 "max_seen_id": self.max_seen_id.tolist(),
             },
-            "meshed": False,
+            "meshed": self.mesh is not None,
         }
         if include_skyline_counts:
             out["partitions"]["skyline_counts"] = self._win_counts.tolist()

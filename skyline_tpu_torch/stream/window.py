@@ -1,8 +1,9 @@
-"""Capacity buckets, the incremental merge step and the global merges (flat,
-delta and pruned tournament tree) over the stacked state.
+"""Capacity buckets, the incremental merge step, the global merges (flat,
+delta and pruned tournament tree) over the stacked state, and the meshed
+flush steps.
 
-Counterpart of the single-device part of ``skyline_tpu/stream/window.py``
-(the merge step, the merges and the flush prefilter's grid summary).
+Counterpart of ``skyline_tpu/stream/window.py`` (the merge step, the
+merges, the flush prefilter's grid summary and the ``meshed_*`` steps).
 Running skylines live on the device as padded power-of-two-capacity
 buffers; compute prefixes use a finer quarter-power-of-two ladder. The bucket arithmetic is the reference's,
 constant for constant, so both packages size every pass alike.
@@ -30,7 +31,9 @@ from skyline_tpu_torch.ops.dominance import (
     skyline_mask,
 )
 from skyline_tpu_torch.ops.dominance_kernels import dominated_by_rect, row_sums
-from skyline_tpu_torch.ops.sfs import _MP_PREFIX, mp_predrop
+from skyline_tpu_torch.ops.sfs import _MP_PREFIX, mp_predrop, sfs_cleanup, sfs_round
+from skyline_tpu_torch.parallel.chips import gather_to, on_device
+from skyline_tpu_torch.parallel.mesh import Placed
 from skyline_tpu_torch.utils.buckets import next_pow2
 
 # Reference flushes its input buffer at 5000 tuples (BUFFER_SIZE,
@@ -46,6 +49,8 @@ DEFAULT_BUFFER_SIZE = 4096
 # the dispatch's mask profiler.
 KERNEL_VARIANTS = {
     "merge_step": "batched merge of one micro-batch into all partitions",
+    "meshed_merge_step": "the merge step, each mesh place over its own partitions",
+    "meshed_sfs_round": "the SFS round, each mesh place over its own partitions",
     "sfs_vmapped": "batched sort-filter-skyline flush round",
     "sfs_sequential": "single-partition SFS flush round",
     "sfs_rank": "device-window SFS round in rank space (per partition or "
@@ -567,3 +572,75 @@ def tree_points_device(vals, out_cap: int):
         return vals[:out_cap]
     pad = torch.full((out_cap - w, d), float("inf"), dtype=vals.dtype, device=vals.device)
     return torch.cat([vals, pad])
+
+
+# -- the meshed flush steps ------------------------------------------------------
+#
+# The reference wraps each per-partition core in ``shard_map(vmap(core))``
+# over the partition axis: every device runs its resident partitions, with no
+# collective. Here the state is ``parallel/mesh.py`` ``Placed``: a slice for
+# each run of places that share a device (``device_spans``), resident there.
+# A step runs the batched core once a slice, on its device, over those
+# places' contiguous partitions, and returns the new state in the same
+# form; only the step's other inputs (the batch, the counts) cross to the
+# slices' devices and its small outputs (counts, certified drops) back. A
+# mesh whose places all sit on the state's device — one card, or the CPU —
+# is one slice: the flat step itself. A core's in-place append writes only
+# its own slice, so no device reads what another writes.
+
+
+def _per_place(mesh, axis: str, core, n_out: int):
+    def run(state, *ins):
+        placed = state if isinstance(state, Placed) else Placed.split(mesh, state, axis)
+        home = ins[0].device
+        outs = []
+        for span, dev, part in placed.parts:
+            with on_device(dev):
+                outs.append(core(part, *gather_to(dev, [t[span] for t in ins])))
+        new = Placed(tuple((span, dev, o[0]) for (span, dev, _), o in zip(placed.parts, outs)))
+        if len(outs) == 1:
+            return (new, *outs[0][1:])
+        with on_device(home):
+            return (new, *(
+                torch.cat(gather_to(home, [o[k] for o in outs])) for k in range(1, n_out)
+            ))
+
+    return run
+
+
+@functools.lru_cache(maxsize=None)
+def meshed_merge_step(mesh, axis: str, active: int, out_active: int, mp: bool = False):
+    """``merge_step_active`` each place over its own partitions:
+    ``step(sky, sky_valid, batch, bvalid) -> (values, valid, count,
+    resolved)``, ``sky`` and ``values`` a ``Placed`` state (``sky`` may be
+    one tensor, split on the way in), over the ``active`` prefix, compacted into ``out_active``
+    rows and padded to ``max(cap, out_active)`` (K2 on a card, the plain
+    core on the CPU). The reference's step runs over the whole capacity;
+    the rows past the live counts are invalid, so the state is the same
+    bytes. Cached per (mesh, axis, buckets, ``mp``)."""
+    return _per_place(
+        mesh, axis,
+        lambda s, sv, b, bv: merge_step_active(s, sv, b, bv, active, out_active, mp), 4,
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def meshed_sfs_round(mesh, axis: str, active: int, mp: bool = False):
+    """``ops.sfs.sfs_round`` each place over its own partitions — the
+    lazy policy's meshed flush: ``step(sky, counts, blocks, bvalids) ->
+    (sky, counts, resolved)``, ``sky`` as in ``meshed_merge_step``. Cached
+    per (mesh, axis, active bucket, ``mp``)."""
+    return _per_place(
+        mesh, axis, lambda s, c, b, bv: sfs_round(s, c, b, bv, active, mp), 3
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def meshed_sfs_cleanup(mesh, axis: str, old_active: int, active: int):
+    """``ops.sfs.sfs_cleanup`` each place over its own partitions — the
+    old-vs-new prune after SFS rounds on a non-empty state:
+    ``step(sky, counts, old_counts) -> (sky, counts)``, ``sky`` as in
+    ``meshed_merge_step``."""
+    return _per_place(
+        mesh, axis, lambda s, c, oc: sfs_cleanup(s, c, oc, old_active, active), 2
+    )

@@ -4,10 +4,9 @@ Counterpart of ``skyline_tpu/utils/checkpoint.py``, with the same ``.npz``
 format: a checkpoint written by either package loads into the other and
 gives the same next answer. The format is topology-free: a flat or sharded
 engine's checkpoint restores as flat or as sharded over any chip count
-(``mesh_chips``) or as a cluster over any host count (``cluster_hosts``),
-because ``restore_all`` splits the per-partition state by owning chip or
-host. A device mesh is not ported yet (ROADMAP queue 1 item 8b): restoring
-onto one raises.
+(``mesh_chips``), as a cluster over any host count (``cluster_hosts``) or
+onto any device mesh (``mesh``), because ``restore_all`` splits the
+per-partition state by owning chip, host or place.
 
 The reference job declares all operator state as Flink managed state but never
 enables checkpointing, so a crash loses everything (SURVEY.md §5 —
@@ -149,8 +148,9 @@ def load_engine(
     checkpoint restores onto any chip count); ``cluster_hosts`` > 0 restores
     into a ``cluster.ClusterEngine`` of that many hosts, with ``mesh_chips``
     as the chips of each (``restore_all`` splits by owned partition id).
-    ``mesh`` re-applies a device mesh, which the port has not ported yet
-    (ROADMAP queue 1 item 8b), so it raises.
+    ``mesh`` (a ``parallel.mesh.Mesh``) restores a flat engine onto that
+    device mesh, from any checkpoint, meshed or not; its places' device
+    type then stands for ``device``.
     ``with_meta=True`` returns ``(engine, meta)`` so callers can read the
     ``extra`` doc (recovery offsets). ``tracer``/``telemetry`` thread the
     worker's observability hubs into the restored engine. A checkpoint
@@ -158,7 +158,7 @@ def load_engine(
     raises from ``np.load``) — the checkpoint manager treats either as
     "fall back to the previous good checkpoint"."""
     if mesh is not None:
-        _unported_placement()
+        device = mesh.device_type
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
         if meta["version"] != _FORMAT_VERSION:
@@ -187,7 +187,7 @@ def load_engine(
 
             engine = ShardedEngine(cfg, chips=mesh_chips, tracer=tracer, telemetry=telemetry)
         else:
-            engine = SkylineEngine(cfg, tracer=tracer, telemetry=telemetry)
+            engine = SkylineEngine(cfg, mesh=mesh, tracer=tracer, telemetry=telemetry)
         engine.records_in = meta["records_in"]
         engine.dropped = meta["dropped"]
         engine._results = meta["results"]
@@ -229,13 +229,6 @@ def load_engine(
     if with_meta:
         return engine, meta
     return engine
-
-
-def _unported_placement():
-    raise NotImplementedError(
-        "restoring onto a device mesh (mesh) is not ported yet (ROADMAP "
-        "queue 1 item 8b: the device mesh over torch.distributed)"
-    )
 
 
 def _slug(payload: str) -> str:

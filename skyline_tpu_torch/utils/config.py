@@ -17,8 +17,8 @@ equal (``tests/test_torch_worker.py`` holds both). ``--mesh-chips N`` runs
 the sharded engine over the visible cards, ``--cluster-hosts H`` the
 cluster engine (``--mesh-chips`` then the chips of each host), and
 ``--replicas N`` / ``--replica-of <wal_dir>`` the WAL-tailing read
-replicas. ``--mesh`` parses and validates as in the reference; a device mesh
-raises until ROADMAP queue 1 item 8b ports it.
+replicas, and ``--mesh N`` the flat engine over a device mesh of the first
+N cards (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -372,15 +372,26 @@ class JobConfig:
         )
 
     def build_mesh(self):
-        """The device mesh ``--mesh`` asks for: None when ``mesh`` is 0.
-        A device mesh waits for ROADMAP queue 1 item 8b, so a mesh raises
-        (``--mesh-chips`` shards over several cards without one)."""
+        """The device mesh ``--mesh`` asks for (None when ``mesh`` is 0): a
+        one-axis (``"part"``) ``parallel.mesh.Mesh`` over the first
+        ``mesh`` cards, raising ``RuntimeError`` when fewer are visible, as
+        the reference does; with ``--device cpu`` every place is the CPU.
+        (The library's ``make_mesh`` wraps places onto fewer cards; the job
+        refuses.)"""
         if not self.mesh:
             return None
-        raise NotImplementedError(
-            f"--mesh {self.mesh}: sharding the partition state over a device "
-            "mesh is not ported yet (ROADMAP queue 1 item 8b)"
-        )
+        import torch
+
+        from skyline_tpu_torch.parallel.mesh import make_mesh
+
+        if self.device == "cuda":
+            visible = torch.cuda.device_count()
+            if visible < self.mesh:
+                raise RuntimeError(
+                    f"--mesh {self.mesh} requested but only {visible} "
+                    f"device(s) visible"
+                )
+        return make_mesh(self.mesh, axis="part", device=self.device)
 
 
 def parse_job_args(argv=None) -> JobConfig:

@@ -440,6 +440,10 @@ KNOBS: tuple[Knob, ...] = tuple(
         ("SKYLINE_CLUSTER_MIGRATION_BUDGET", 8),
         ("SKYLINE_CLUSTER_LEASE_TTL_MS", 3000.0),
         ("SKYLINE_CLUSTER_LEASE_RENEW_MS", 0.0),
+        # the multi-host mesh (parallel/multihost.py)
+        ("SKYLINE_COORDINATOR", None),
+        ("SKYLINE_NUM_PROCESSES", None),
+        ("SKYLINE_PROCESS_ID", None),
         ("SKYLINE_QUERY_OVERLAP", True),
         ("SKYLINE_SORTED_SFS", "auto"),
         ("SKYLINE_DEVICE_CASCADE", "auto"),

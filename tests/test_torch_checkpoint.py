@@ -4,8 +4,9 @@ and the state capture behind them against the JAX package's, on the CPU:
 ingest, giving the uninterrupted engine's next answer; npz files written
 by the JAX package load into the port and the port's into the JAX
 package, each followed by the same next answer; ``audit_state`` and
-``pending_rows_of`` equal to the JAX set's; ``restore_all``; the
-unported sharded and cluster branches raise. Also the fault-plan grammar
+``pending_rows_of`` equal to the JAX set's; ``restore_all``; flat
+checkpoints restored onto the sharded and cluster engines and onto a
+device mesh. Also the fault-plan grammar
 (``resilience/faults.py``) and its sites in the flush and the checkpoint
 writer. Comparisons are exact.
 """
@@ -167,31 +168,36 @@ def test_inflight_queries_survive_the_checkpoint_both_ways(rng, tmp_path):
     assert out[0] == out[1]
 
 
-@pytest.mark.parametrize("placement", [dict(mesh_chips=2), dict(cluster_hosts=2), dict(mesh=object())])
+@pytest.mark.parametrize("placement", [dict(mesh_chips=2), dict(cluster_hosts=2), dict(mesh=2)])
 def test_sharded_and_cluster_restores_raise(rng, tmp_path, placement):
-    """A flat checkpoint restores onto the sharded engine (``mesh_chips``)
-    and onto the cluster engine (``cluster_hosts``) with the JAX package's
-    next answer; a device mesh is not ported yet (item 8b) and raises."""
+    """A flat checkpoint restores onto the sharded engine (``mesh_chips``),
+    onto the cluster engine (``cluster_hosts``) and onto a two-place
+    device mesh (``mesh``) with the JAX package's next answer."""
+    from skyline_tpu.parallel import make_mesh as jax_mesh
+    from skyline_tpu_torch.cluster import ClusterEngine
+    from skyline_tpu_torch.distributed import ShardedEngine
+    from skyline_tpu_torch.parallel import make_mesh
+
     eng = SkylineEngine(EngineConfig(**_cfg(3), device="cpu"))
     _feed(eng, gen_points(rng, 300, 3, "uniform"), 0)
     path = str(tmp_path / "e.npz")
     ckpt.save_engine(eng, path)
+    port_kw, jax_kw = dict(placement), dict(placement)
     if "mesh" in placement:
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            ckpt.load_engine(path, device="cpu", **placement)
-        return
-    from skyline_tpu_torch.cluster import ClusterEngine
-    from skyline_tpu_torch.distributed import ShardedEngine
-
+        port_kw["mesh"] = make_mesh(placement["mesh"], device="cpu")
+        jax_kw["mesh"] = jax_mesh(placement["mesh"])
     tail = gen_points(rng, 200, 3, "anti")
     out = []
-    for e in (ckpt.load_engine(path, device="cpu", **placement),
-              jax_ckpt.load_engine(path, **placement)):
+    for e in (ckpt.load_engine(path, device="cpu", **port_kw),
+              jax_ckpt.load_engine(path, **jax_kw)):
         _feed(e, tail, 300)
         out.append(_answer(e, "q"))
-    want = ClusterEngine if "cluster_hosts" in placement else ShardedEngine
-    restored = ckpt.load_engine(path, device="cpu", **placement)
+    want = (ClusterEngine if "cluster_hosts" in placement
+            else SkylineEngine if "mesh" in placement else ShardedEngine)
+    restored = ckpt.load_engine(path, device="cpu", **port_kw)
     assert type(restored) is want
+    if "mesh" in placement:
+        assert restored.mesh == port_kw["mesh"] and restored.stats()["meshed"]
     if "cluster_hosts" in placement:
         assert restored.pset.hosts == 2 and restored.pset._member_chips == [1, 1]
     assert out[0] == out[1]

@@ -618,13 +618,24 @@ def test_replica_of_cli_serves_the_wal_like_jax(tmp_path, t0):
                  str(tmp_path / "wal"), "--serve", "0"],
                 stdout=f, stderr=f, env=env, cwd=str(tmp_path))
         try:
-            port = _serving_port(log, proc)
-            deadline = time.monotonic() + 30.0
+            port = _serving_port(log, proc, timeout_s=120.0)
+            # a replica serves before its tail thread has folded the WAL:
+            # until then /skyline answers 503 (no snapshot yet) or an older
+            # version, so wait for version 5 — long enough for a loaded host
+            deadline = time.monotonic() + 120.0
             while True:
                 code, doc, _ = _get(f"http://127.0.0.1:{port}/healthz")
-                _, body, headers = _get_raw(f"http://127.0.0.1:{port}/skyline?format=csv")
-                if headers.get("X-Skyline-Version") == "5" or time.monotonic() > deadline:
+                try:
+                    status, body, headers = _get_raw(f"http://127.0.0.1:{port}/skyline?format=csv")
+                except urllib.error.HTTPError as e:
+                    status, body, headers = e.code, e.read(), dict(e.headers)
+                if status == 200 and headers.get("X-Skyline-Version") == "5":
                     break
+                if time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"{pkg} replica: /skyline {status}, version "
+                        f"{headers.get('X-Skyline-Version')} after 120 s: {log.read_text()}"
+                    )
                 time.sleep(0.05)
             assert code == 200 and doc["role"] == "replica"
             acks = list((tmp_path / "wal").glob("tail-*.ack"))

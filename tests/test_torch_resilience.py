@@ -239,12 +239,13 @@ def test_checkpoint_restore_raises_without_a_card_or_on_placements(tmp_path):
     if not __import__("torch").cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             mgr.restore_latest()
-    # the sharded and cluster engines restore (nothing to restore here);
-    # a device mesh is not ported yet
+    # the sharded and cluster engines and a device mesh restore (nothing to
+    # restore here); a CPU mesh stands for the device
+    from skyline_tpu_torch.parallel import make_mesh
+
     assert mgr.restore_latest(mesh_chips=2, device="cpu") is None
     assert mgr.restore_latest(cluster_hosts=2, device="cpu") is None
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        mgr.restore_latest(mesh=object(), device="cpu")
+    assert mgr.restore_latest(mesh=make_mesh(2, device="cpu")) is None
 
 
 def test_crash_before_replace_and_retain(rng, tmp_path):

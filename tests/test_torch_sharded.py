@@ -430,12 +430,15 @@ def test_checkpoint_mesh_and_cluster_restores_raise(tmp_path):
     path = str(tmp_path / "e.npz")
     ckpt.save_engine(eng, path)
     # a sharded checkpoint restores onto the cluster engine (2 hosts of 2
-    # chips: the same partition state); a device mesh still raises
+    # chips: the same partition state) and onto a device mesh
     cl = ckpt.load_engine(path, device="cpu", cluster_hosts=2, mesh_chips=2)
     assert type(cl).__name__ == "ClusterEngine" and cl.pset._member_chips == [2, 2]
     assert cl.pset.sky_counts().tolist() == eng.pset.sky_counts().tolist()
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        ckpt.load_engine(path, device="cpu", mesh=object())
+    from skyline_tpu_torch.parallel import make_mesh
+
+    meshed = ckpt.load_engine(path, mesh=make_mesh(2, device="cpu"))
+    assert type(meshed).__name__ == "SkylineEngine" and meshed.mesh is not None
+    assert meshed.pset.sky_counts().tolist() == eng.pset.sky_counts().tolist()
     mgr = CheckpointManager(str(tmp_path / "m"))
     mgr.save(eng)
     engine, _meta, _path = mgr.restore_latest(mesh_chips=4, device="cpu")

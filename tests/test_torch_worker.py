@@ -234,8 +234,14 @@ def test_port_config_device_and_unported_placements():
         tconfig.parse_job_args(["--device", "tpu"])
     cfg = tconfig.parse_job_args(["--device", "cpu", "--dims", "3"])
     assert cfg.engine_config() == EngineConfig(dims=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        tconfig.parse_job_args(["--mesh", "2"]).build_mesh()
+    mesh = tconfig.parse_job_args(["--mesh", "2", "--device", "cpu"]).build_mesh()
+    assert (mesh.axis_names, mesh.grid, mesh.device_type) == (("part",), (2,), "cpu")
+    ref = jconfig.parse_job_args(["--mesh", "2"]).build_mesh()
+    assert ref.axis_names == mesh.axis_names and ref.devices.shape == mesh.devices.shape
+    if not __import__("torch").cuda.is_available():
+        # the job refuses a mesh of more cards than it sees, as the reference
+        with pytest.raises(RuntimeError, match="--mesh 2 requested"):
+            tconfig.parse_job_args(["--mesh", "2"]).build_mesh()
     cl = tconfig.parse_job_args(["--cluster-hosts", "2", "--mesh-chips", "2"])
     ref = jconfig.parse_job_args(["--cluster-hosts", "2", "--mesh-chips", "2"])
     assert (cl.cluster_hosts, cl.mesh_chips) == (ref.cluster_hosts, ref.mesh_chips) == (2, 2)
@@ -445,13 +451,16 @@ def test_sliding_branch_matches_jax(pinned, d, window, slide):
 
 
 def test_worker_raises_on_unported_placements_and_missing_card(tmp_path):
-    """A device mesh still raises (ROADMAP queue 1 item 8b). The sharded and
-    cluster engines and the read replicas are ported: the worker builds
-    them, and rejects what the reference's worker rejects."""
+    """The device mesh, the sharded and cluster engines and the read
+    replicas are ported: the worker builds them, and rejects what the
+    reference's worker rejects."""
+    from skyline_tpu_torch.parallel import make_mesh
+
     bus = MemoryBus()
     cfg = EngineConfig(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        tworker.SkylineWorker(bus, cfg, mesh=object())
+    w = tworker.SkylineWorker(bus, cfg, mesh=make_mesh(2, device="cpu"))
+    assert type(w.engine).__name__ == "SkylineEngine" and w.engine.stats()["meshed"]
+    w.close()
     w = tworker.SkylineWorker(bus, cfg, mesh_chips=2)
     assert type(w.engine).__name__ == "ShardedEngine"
     w.close()
