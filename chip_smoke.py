@@ -140,11 +140,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``cluster``): ``ClusterEngine`` at (hosts, chips_per_host) in {(1, 1),
    (2, 1), (2, 2), (4, 2), (8, 1)} under the lazy (d = 8, uniform rows),
    incremental (d = 3, anti-correlated) and overlap (d = 8, uniform, a flush
-   every 32,768 rows) policies, two 65,536-row windows, P = 8, on the card
-   against the flat engine on the card and against the same configuration
-   on the CPU (results, counts, survivors, sizes, the points' sha1 — rows
-   and order — and ``cluster_stats()`` with the host prune's counts; the
-   CPU side in eight child processes beside the card side), strict; then on
+   every 32,768 rows) policies, P = 8, over two 65,536-row windows on the
+   card against the flat engine on the card and over two 16,384-row windows
+   on the card against the same configuration on the CPU (results, counts,
+   survivors, sizes, the points' sha1 — rows and order — and
+   ``cluster_stats()`` with the host prune's counts; the CPU side in eight
+   child processes beside the card side), strict; then on
    the card the skewed host prune (pruned hosts ship zero rows, the answer
    equals the flat set's and the unpruned set's, fewer ladder pairs), a
    live migration of a host to 2 chips and back and a slice checkpoint
@@ -172,7 +173,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    bit; ``SkylineEngine(mesh=)`` under the lazy, incremental and overlap
    policies at d = 8 (two 65,536-row windows, P = 8) at 2 and 4 places
    against the flat engine on the card, and at 4 places over two
-   8,192-row windows against the CPU (child processes beside the card
+   4,096-row windows against the CPU (child processes beside the card
    side; results, partition skylines, answer sha1, ``stats()``); the
    sliding engine at 2 and 4 places against
    its flat form on the card and the CPU; a checkpoint across topologies
@@ -326,7 +327,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the last slide): the wrapper's and its launch's ms, the plain
    version's, the bound and the skipped share. ``--profile`` also profiles
    one more slide of (n) and (o), and gives each profiled path's device
-   time by kernel name.
+   time by kernel name;
+7. analysis (``check_analysis``): the backend probe in a child process
+   (``utils/backend_probe.py``; the verdict must be ``cuda`` with a
+   device), the knob and lock lints over the port's tree (zero errors),
+   ``--check-doc`` (``docs/KNOBS_TORCH.md`` against the registry), the
+   graph audit of the flush hot ops on the card (``analysis/graph_audit.py``:
+   22 configurations, zero errors, each under
+   ``torch.cuda.set_sync_debug_mode("error")`` too; the known port fault a
+   warning; every kernel it launched printed with its count, each of
+   ``AUDIT_WANTED`` at least once), and the trajectory sentinel on a
+   healthy (exit 0) and a drifting (exit 1) fixture trajectory.
+
+Each phase's, parity leg's and path's seconds are logged as it ends and
+kept under ``seconds`` in the details JSON.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -390,7 +404,7 @@ RANK_PATH = (
     "rank_transform", "dominated_by_any_rank", "dominated_by_rank_rect",
     "skyline_mask_rank_kernel",
 )
-PHASES = ("kernels", "parity", "main", "timings")
+PHASES = ("kernels", "parity", "main", "timings", "analysis")
 
 
 def log(msg: str) -> None:
@@ -1325,7 +1339,7 @@ PLANE_PATHS = ("b", "d", "f")
 def knob_env(env: dict):
     """Environment knobs for the duration (the port reads them at flush,
     merge and trigger time)."""
-    old = {k: os.environ.get(k) for k in env}
+    old = {k: os.environ.get(k) for k in env}  # lint: allow-raw-env
     os.environ.update(env)
     try:
         yield
@@ -1914,6 +1928,8 @@ SERVE_PARITY = (
 # divergence bundles of the audit drill (git-ignored, inside the checkout)
 AUDIT_BUNDLES = ROOT / "skyline_tpu_torch" / "_build" / "audit"
 DRILL_PLAN = "corrupt@audit.corrupt:1"
+# the drill's window, and so the depth of its offline replay
+DRILL_ROWS = 8192
 
 
 @contextlib.contextmanager
@@ -2054,7 +2070,8 @@ def check_serve_parity(torch, np, devices=("cuda", "cpu")) -> dict:
         log(f"parity: serve canaries on the card: 5 of 5 passed, each on its path {taken}; "
             f"launches {launched}")
         # the divergence drill and the offline replay of its bundle
-        name, cfg, n = SERVE_PARITY[0]
+        name, cfg, _ = SERVE_PARITY[0]
+        n = DRILL_ROWS
         AUDIT_BUNDLES.mkdir(parents=True, exist_ok=True)
         with knob_env({"SKYLINE_FAULT_PLAN": DRILL_PLAN, "SKYLINE_AUDIT_DIR": str(AUDIT_BUNDLES)}):
             faults.install_from_env()
@@ -3298,14 +3315,21 @@ def _row(name, launches, windows, err, ms, plain_ms, bound, shape, pairs=None, e
     return row
 
 
-def _time_pair(torch, kern, plain, what):
+def _time_pair(torch, kern, plain, what, memo: dict | None = None, key=None):
     """(kernel output, its ms over 10 launches, plain ms, max abs err);
-    raises when the two disagree."""
+    raises when the two disagree. ``memo`` keeps the plain run (output,
+    ms) under ``key``: one plain run on an input serves every launch of a
+    kernel on it (the f32 launch and the mp one compute the same mask)."""
     out_k = kern()
-    t0 = time.perf_counter()
-    out_p = plain()
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    if memo is not None and key in memo:
+        out_p, plain_ms = memo[key]
+    else:
+        t0 = time.perf_counter()
+        out_p = plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if memo is not None:
+            memo[key] = (out_p, plain_ms)
     err = int((out_k.long() - out_p.long()).abs().max()) if out_k.numel() else 0
     if err:
         raise AssertionError(f"{what} at its main-path shape disagrees with its plain version")
@@ -3391,13 +3415,14 @@ def value_inputs(torch, np, eng, x_last, dev="cuda") -> dict:
 
 
 def _time_value_kernel(torch, dk, name, block_t, bvalid, sky_t, sky_ok, u, uv,
-                       parent=None) -> dict:
+                       parent=None, memo=None, label=None) -> dict:
     """One of K1–K3 (``name`` ending in ``_mp``: its mixed-precision
     launch) on one input: its ms against the plain version's (which must
-    agree), needed pairs, the bound's two terms, and the share of (victim
-    block, dominator tile) pairs ``tile_skip_plain`` skips; with ``parent``
-    also the same wrapper's ms on the parent tree's kernel (``on_parent``),
-    whose output must agree."""
+    agree; the plain run on input ``label`` kept in ``memo`` for the other
+    launch of the same kernel), needed pairs, the bound's two terms, and
+    the share of (victim block, dominator tile) pairs ``tile_skip_plain``
+    skips; with ``parent`` also the same wrapper's ms on the parent tree's
+    kernel (``on_parent``), whose output must agree."""
     mp = name.endswith("_mp")
     base = name.removesuffix("_mp")
     if base == "dominated_by_any":
@@ -3413,7 +3438,8 @@ def _time_value_kernel(torch, dk, name, block_t, bvalid, sky_t, sky_ok, u, uv,
         plain = lambda: dk.skyline_mask_plain(u, uv)  # noqa: E731
         order, xv = dk._sum_sorted(u, uv)
         xt = yt = u[order].T.contiguous()
-    out_k, ms, plain_ms, err = _time_pair(torch, kern, plain, KERNELS[name][0])
+    out_k, ms, plain_ms, err = _time_pair(torch, kern, plain, KERNELS[name][0], memo,
+                                          (base, label))
     parent_ms = None
     if parent is not None:
         with on_parent(torch, parent):
@@ -3472,9 +3498,11 @@ def value_timings(torch, np, eng, x_last, launches: dict, windows: int, dev="cud
 
     inputs = value_inputs(torch, np, eng, x_last, dev)
     table = []
+    memo = {}  # the plain runs, one an input and kernel, read by both launches
     for name in (n for pair in zip(VALUE_PATH, MP_PATH) for n in pair):
         got = {
-            label: _time_value_kernel(torch, dk, name, *args, parent=parent)
+            label: _time_value_kernel(torch, dk, name, *args, parent=parent, memo=memo,
+                                      label=label)
             for label, args in inputs.items()
         }
         ns = got["north_star"]
@@ -5732,6 +5760,10 @@ CLUSTER_PARITY = (
 # (hosts, chips_per_host): the grid of tests/test_cluster.py:484-502
 CLUSTER_GRID = ((1, 1), (2, 1), (2, 2), (4, 2), (8, 1))
 CLUSTER_PARITY_ROWS = 65536
+# the rows a window of the card-against-CPU comparison: the CPU side's
+# depth, cut from CLUSTER_PARITY_ROWS to keep the run under its limit (the
+# card's grid against the flat engine keeps CLUSTER_PARITY_ROWS)
+CLUSTER_CPU_ROWS = 16384
 # the CPU side's configurations run in this many child processes beside the
 # card side, one thread each (the card side takes seconds, the CPU side
 # minutes of the CPU's plain dominance)
@@ -5823,8 +5855,9 @@ def _cluster_spread(eng) -> str:
 
 def check_cluster_parity(torch, np, devices=("cuda", "cpu")) -> dict:
     """``ClusterEngine`` at every (hosts, chips_per_host) of ``CLUSTER_GRID``
-    under each ``CLUSTER_PARITY`` policy, two 65,536-row windows, P = 8: on
-    the card against the flat engine on the card, and against the same
+    under each ``CLUSTER_PARITY`` policy, P = 8: two 65,536-row windows on
+    the card against the flat engine on the card, and two
+    ``CLUSTER_CPU_ROWS``-row windows on the card against the same
     configuration on the CPU (results, counts, survivors, sizes, the points'
     sha1 — rows and order — and ``cluster_stats()`` with the host prune's
     counts, timings aside), strict. The CPU side runs in child processes
@@ -5846,9 +5879,9 @@ def check_cluster_parity(torch, np, devices=("cuda", "cpu")) -> dict:
     # the lazy flush races on both sides (the CPU's host sorted cascade is
     # ~3x faster than its plain SFS rounds); nothing compared here depends on
     # the path the race takes
-    jobs = [(name, cfg, gen, h, c, CLUSTER_PARITY_ROWS, {})
+    jobs = [(name, cfg, gen, h, c, CLUSTER_CPU_ROWS, {})
             for name, cfg, gen in CLUSTER_PARITY for h, c in CLUSTER_GRID]
-    card_stats = {}
+    card_small = {}
     with concurrent.futures.ProcessPoolExecutor(
             CLUSTER_CPU_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
         futures = [pool.submit(_cluster_cpu_side, job) for job in jobs]
@@ -5871,27 +5904,33 @@ def check_cluster_parity(torch, np, devices=("cuda", "cpu")) -> dict:
                         f"{stats['hosts_considered']} hosts pruned, rows shipped "
                         f"{stats['rows_shipped']} saved {stats['rows_saved']}, levels "
                         f"{stats['last']['levels']}; {_cluster_spread(eng)}")
+                # the same grid on the card at the CPU side's depth
+                small_windows = _cluster_windows(gen, cfg["dims"], CLUSTER_CPU_ROWS)
+                small_cfg = EngineConfig(**cfg, window_capacity=CLUSTER_CPU_ROWS, device=card)
+                for hosts, chips in CLUSTER_GRID:
+                    res, stats, _ = _drive_cluster(small_cfg, small_windows, hosts, chips)
+                    card_small[(name, hosts, chips)] = (res, stats)
                 out["legs"][name] = {
                     "rows_per_window": CLUSTER_PARITY_ROWS, "windows": 2,
+                    "cpu_rows_per_window": CLUSTER_CPU_ROWS,
                     "skyline_sizes": [w["g"] for w in want],
                     "points_sha1": [w["points_sha1"] for w in want],
                     "grid": {f"{h}x{c}": {k: s[k] for k in ("merges", "hosts_pruned",
                                                            "hosts_considered", "rows_shipped",
                                                            "rows_saved", "last")}
                              for (h, c), s in got.items()},
-                    "card_s": time.perf_counter() - t0, "cpu_s": {}, "want": want,
+                    "card_s": time.perf_counter() - t0, "cpu_s": {},
                 }
-                card_stats[name] = got
             t1 = time.perf_counter()
             for f in concurrent.futures.as_completed(futures):
                 name, hosts, chips, res, stats, secs = f.result()
-                if res != out["legs"][name]["want"]:
+                card_res, card_stats = card_small[(name, hosts, chips)]
+                if res != card_res:
                     raise AssertionError(f"cluster {name}: {hosts} x {chips} on the CPU differs "
                                          "from the card")
-                if stats != card_stats[name][(hosts, chips)]:
+                if stats != card_stats:
                     raise AssertionError(f"cluster {name}: {hosts} x {chips}: cluster_stats() on "
-                                         f"the CPU {stats} != the card's "
-                                         f"{card_stats[name][(hosts, chips)]}")
+                                         f"the CPU {stats} != the card's {card_stats}")
                 out["legs"][name]["cpu_s"][f"{hosts}x{chips}"] = secs
             wait_s = time.perf_counter() - t1
         except BaseException:
@@ -5899,8 +5938,8 @@ def check_cluster_parity(torch, np, devices=("cuda", "cpu")) -> dict:
             pool.shutdown(wait=True, cancel_futures=True)
             raise
     for name, leg in out["legs"].items():
-        leg.pop("want")
-        log(f"cluster {name}: every configuration on the CPU = the card, answers and "
+        log(f"cluster {name}: every configuration on the CPU = the card over two "
+            f"{CLUSTER_CPU_ROWS}-row windows, answers and "
             f"cluster_stats(); card {leg['card_s']:.1f} s, CPU side "
             f"{sum(leg['cpu_s'].values()):.1f} s in {CLUSTER_CPU_WORKERS} processes of one "
             "thread")
@@ -6369,10 +6408,10 @@ MESH_CPU_ROWS = 8192
 MESH_HIER = ((2, 2), (2, 4))
 # the meshed engine: three policies at d = 8, two 65,536-row windows, P = 8,
 # on the card at 2 and 4 places against the flat engine on the card; and two
-# 8,192-row windows at 4 places on the card against the CPU (child processes
+# 4,096-row windows at 4 places on the card against the CPU (child processes
 # beside the card side: a meshed set takes no flush race and no sequential
-# rounds, so the CPU's plain batched K1 over every partition lane costs
-# ~40 s a configuration at this size)
+# rounds, so the CPU's plain batched K1 over every partition lane cost ~60 s
+# a configuration at 8,192 rows)
 MESH_PARITY = (
     ("lazy d=8", dict(NORTH_STAR, ingest="host"), "uniform"),
     ("incremental d=8", dict(NORTH_STAR, ingest="host", flush_policy="incremental"),
@@ -6381,7 +6420,7 @@ MESH_PARITY = (
                          overlap_rows=32768), "uniform"),
 )
 MESH_PARITY_ROWS = 65536
-MESH_CPU_ENGINE_ROWS = 8192
+MESH_CPU_ENGINE_ROWS = 4096
 MESH_ENGINE_PLACES = (2, 4)
 MESH_CPU_PLACES = 4
 # the sliding engine over a mesh: 8-D, window 16,384, slide 4,096 (K3 on the
@@ -6629,7 +6668,7 @@ def check_mesh_parity(torch, np, devices=("cuda", "cpu")) -> dict:
     meshed engine (``MESH_PARITY``: lazy, incremental and overlap at d = 8,
     two 65,536-row windows, P = 8) at 2 and 4 places on the card against
     the flat engine on the card (results, partition skylines, answer
-    sha1), and at 4 places over two 8,192-row windows against the CPU (and
+    sha1), and at 4 places over two 4,096-row windows against the CPU (and
     ``stats()`` untimed); the
     sliding engine at 2 and 4 places against its flat form on the card and
     the CPU; the checkpoint across topologies (4 places -> flat -> 2
@@ -7215,6 +7254,116 @@ def mesh_flush_timings(torch, np, heavy: dict, summary: dict, path: str) -> dict
     return out
 
 
+# -- phase 7: the analysis gate ------------------------------------------------
+
+# the kernels the graph audit's matrix launches on the card: K1 and K2 (f32
+# and mp) in the SFS round, the merge step and the device cascade, K3 in the
+# merge-time mask at d > 2, the fused pre-drop in the rounds and the
+# pre-drop's mask in the cascade
+AUDIT_WANTED = ("dominated_by_any", "dominated_by_any_mp", "dominated_by_rect",
+                "dominated_by_rect_mp", "skyline_mask_kernel", PREDROP_FUSED, PREDROP)
+AUDIT_CONFIGS = 22
+SENTINEL_RUNS = ROOT / "skyline_tpu_torch" / "_build" / "sentinel"
+
+
+def _sentinel_trajectory(directory: Path, values) -> None:
+    """BENCH_r*.json rounds with ``values`` as their throughput, and one
+    healthy MULTICHIP round, as the sentinel reads them."""
+    import shutil
+
+    shutil.rmtree(directory, ignore_errors=True)
+    directory.mkdir(parents=True)
+    for r, v in enumerate(values, start=1):
+        doc = {"parsed": {"value": v, "backend": "cuda", "p50_window_latency_ms": 1e6 / v}}
+        (directory / f"BENCH_r{r:02d}.json").write_text(json.dumps(doc))
+    (directory / "MULTICHIP_r01.json").write_text(json.dumps(
+        {"n_devices": 1, "rc": 0, "ok": True, "skipped": False, "tail": ""}))
+
+
+def check_analysis(torch, np, dev="cuda") -> dict:
+    """The port's analysis gate on the card: the backend probe (a child
+    process; the verdict must be cuda with a device), the knob and lock
+    lints over the port's tree (zero errors), the knob doc against the
+    registry, the graph audit of the flush hot ops on ``dev`` (22
+    configurations, zero errors; the kernels it launched, counted from 0,
+    each of ``AUDIT_WANTED`` at least once) and the trajectory sentinel on a
+    healthy (exit 0) and a drifting (exit 1) fixture trajectory."""
+    import io
+
+    from skyline_tpu_torch.analysis.__main__ import check_doc, run_passes
+    from skyline_tpu_torch.analysis.findings import errors
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+    from skyline_tpu_torch.telemetry import sentinel
+    from skyline_tpu_torch.utils import backend_probe
+
+    out = {}
+    t0 = time.perf_counter()
+    verdict = backend_probe.probe_backend(backend_probe.probe_timeout_s(), use_cache=False)
+    out["probe"] = verdict
+    log(f"analysis: backend probe {verdict['backend']}, {verdict['n_devices']} device(s), "
+        f"{verdict.get('name')} (capability {verdict.get('capability')}) in "
+        f"{verdict['probe_total_s']} s; errors {verdict['errors'] or 'none'}")
+    if verdict["backend"] != dev or verdict["n_devices"] < 1:
+        raise AssertionError(f"analysis: the backend probe's verdict is {verdict}, not {dev} "
+                             "with a device")
+
+    lint, summary = run_passes(("knobs", "locks"), str(ROOT))
+    for f in lint:
+        log(f"analysis: {f.format()}")
+    if errors(lint):
+        raise AssertionError(f"analysis: the lints found {len(errors(lint))} error(s)")
+    out["lints"] = summary
+    log(f"analysis: knob lint {summary['knobs']['findings']} finding(s) over "
+        f"{summary['knobs']['registry_size']} declared knobs, lock lint "
+        f"{summary['locks']['findings']} finding(s)")
+    with contextlib.redirect_stdout(io.StringIO()) as doc_out:
+        doc_rc = check_doc(str(ROOT))
+    if doc_rc:
+        raise AssertionError(f"analysis: --check-doc exit {doc_rc}: {doc_out.getvalue()}")
+    log(f"analysis: {doc_out.getvalue().strip()}")
+
+    dk.reset_launches()
+    t1 = time.perf_counter()
+    graph, gsum = run_passes(("graph",), str(ROOT), device=dev)
+    launches = {k: v for k, v in dk.LAUNCHES.items() if v}
+    out["graph"] = {**gsum["graph"], "findings": [f.format() for f in graph],
+                    "launches_counted": launches, "seconds": time.perf_counter() - t1}
+    for f in graph:
+        log(f"analysis: {f.format()}")
+    log(f"analysis: graph audit on {gsum['graph']['card'] or dev}: {gsum['graph']['configs']} "
+        f"configurations, {len(errors(graph))} error(s), {len(graph) - len(errors(graph))} "
+        f"warning(s) (known port faults) in {out['graph']['seconds']:.1f} s; kernels "
+        f"launched: {', '.join(f'{k} {v}' for k, v in launches.items())}")
+    if gsum["graph"]["configs"] != AUDIT_CONFIGS:
+        raise AssertionError(f"analysis: {gsum['graph']['configs']} configurations audited, "
+                             f"not {AUDIT_CONFIGS}")
+    if errors(graph):
+        raise AssertionError(f"analysis: the graph audit found {len(errors(graph))} error(s)")
+    missing = [k for k in AUDIT_WANTED if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"analysis: the graph audit launched no {missing}")
+
+    runs = {}
+    for name, values, want in (("healthy", (100.0, 110.0, 105.0, 112.0), 0),
+                               ("drifting", (100.0, 98.0, 101.0, 99.0, 60.0), 1)):
+        directory = SENTINEL_RUNS / name
+        _sentinel_trajectory(directory, values)
+        with contextlib.redirect_stdout(io.StringIO()) as so, \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = sentinel.main(["--dir", str(directory)])
+        report = so.getvalue()
+        runs[name] = {"exit": rc, "report": report.splitlines()}
+        if rc != want or (want == 1) != ("REGRESSION" in report):
+            raise AssertionError(f"analysis: the sentinel on the {name} trajectory exited {rc}, "
+                                 f"not {want}:\n{report}")
+        line = next(ln for ln in report.splitlines() if ln.strip().startswith("value"))
+        log(f"analysis: sentinel on the {name} trajectory exit {rc}: {line.strip()}")
+    out["sentinel"] = runs
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"analysis: phase done in {out['wall_s']:.1f} s")
+    return out
+
+
 WORKER_PATHS = {
     "t": lambda torch, np, windows, profile: wire_path(torch, np, windows, profile),
     "u": lambda torch, np, windows, profile: crash_path(torch, np),
@@ -7322,6 +7471,8 @@ def main() -> int:
         return 3
     log(f"build: native {native.library_path().relative_to(ROOT)} in {lib_s:.1f} s")
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    # each phase's, leg's and path's seconds, also logged as each ends
+    seconds = details["seconds"] = {"build": time.perf_counter() - t0}
     for name, (_, build_log) in built.items():
         usage, spills = ptxas_usage(build_log)
         for kernel, used in usage.items():
@@ -7349,13 +7500,19 @@ def main() -> int:
             f"on each partition alone, {od} entries refusing operands on two devices in "
             f"{time.perf_counter() - t0:.1f} s")
         details["skyline_large"] = check_skyline_large(torch, np, args.n, "cuda")
+        seconds["kernels"] = time.perf_counter() - t0
+        log(f"kernels: phase done in {seconds['kernels']:.1f} s")
     if "parity" in args.only:
         legs = args.legs.split(",") if args.legs else list(PARITY_LEGS)
+        t_parity = time.perf_counter()
         for leg in legs:
             key, run = PARITY_LEGS[leg]
+            t0 = time.perf_counter()
             details[key] = run(torch, np)
             if leg in ("host", "device"):
                 log(f"parity: {leg} ingest, cuda vs cpu: {details[key]}")
+            secs = seconds.setdefault("parity", {})[leg] = time.perf_counter() - t0
+            log(f"parity: leg {leg} in {secs:.1f} s")
         if args.out is not None and "replica_parity" in details:
             # the replica leg's WAL, read as files by tests/fold_wal_jax.py
             import shutil
@@ -7363,7 +7520,9 @@ def main() -> int:
             dst = args.out / "replica_wal"
             shutil.rmtree(dst, ignore_errors=True)
             shutil.copytree(details["replica_parity"]["wal_dir"], dst)
-        log(f"parity: done at {time.perf_counter() - t_start:.1f} s")
+        seconds["parity_all"] = time.perf_counter() - t_parity
+        log(f"parity: done at {time.perf_counter() - t_start:.1f} s "
+            f"({seconds['parity_all']:.1f} s for the phase)")
     table = []
     parent = None
     if args.parent is not None and "timings" in args.only:
@@ -7391,7 +7550,8 @@ def main() -> int:
                 me[path]["flush_kernels"] = mesh_flush_timings(torch, np, heavy, me[path], path)
             else:
                 runs[path] = main_path(torch, np, path, args.n, args.windows)
-            log(f"main ({path}): {time.perf_counter() - t0:.1f} s in all")
+            secs = seconds.setdefault("main", {})[path] = time.perf_counter() - t0
+            log(f"main ({path}): {secs:.1f} s in all")
         details["main"] = {path: r[0] for path, r in runs.items()}
         if "b" in runs and "t" in details.get("worker", {}):
             compare_wire(details["worker"]["t"], runs["b"][0])
@@ -7413,7 +7573,8 @@ def main() -> int:
         for path in PATHS:
             t0 = time.perf_counter()
             runs[path] = main_path(torch, np, path, args.n, args.windows)
-            log(f"main ({path}): {time.perf_counter() - t0:.1f} s in all")
+            secs = seconds.setdefault("main", {})[path] = time.perf_counter() - t0
+            log(f"main ({path}): {secs:.1f} s in all")
         details["main"] = {path: r[0] for path, r in runs.items()}
         for path, base in PLANE_PAIRS:
             a, b = runs[path][0], runs[base][0]
@@ -7428,32 +7589,38 @@ def main() -> int:
             t0 = time.perf_counter()
             sharded[path], h = sharded_path(torch, np, path, args.n, args.windows, runs)
             heavy = h if path == "v" else heavy
-            log(f"main ({path}): {time.perf_counter() - t0:.1f} s in all")
+            secs = seconds.setdefault("main", {})[path] = time.perf_counter() - t0
+            log(f"main ({path}): {secs:.1f} s in all")
         details["sharded"] = sharded
         cluster, cluster_heavy = {}, None
         for path in CLUSTER_PATHS:
             t0 = time.perf_counter()
             cluster[path], h = cluster_path(torch, np, path, args.n, args.windows, runs)
             cluster_heavy = h if path == "x" else cluster_heavy
-            log(f"main ({path}): {time.perf_counter() - t0:.1f} s in all")
+            secs = seconds.setdefault("main", {})[path] = time.perf_counter() - t0
+            log(f"main ({path}): {secs:.1f} s in all")
         details["cluster"] = cluster
         meshed, mesh_heavy = {}, {}
         for path in MESH_PATHS:
             t0 = time.perf_counter()
             meshed[path], mesh_heavy[path] = mesh_path(torch, np, path, args.n, args.windows,
                                                        runs)
-            log(f"main ({path}): {time.perf_counter() - t0:.1f} s in all")
+            secs = seconds.setdefault("main", {})[path] = time.perf_counter() - t0
+            log(f"main ({path}): {secs:.1f} s in all")
         details["mesh"] = meshed
         t0 = time.perf_counter()
         sliding = {"n": sliding_northstar(torch, np, args.windows), "o": sliding_4d(torch, np)}
         details["sliding"] = {path: r[0] for path, r in sliding.items()}
-        log(f"main (n), (o): {time.perf_counter() - t0:.1f} s in all")
+        secs = seconds.setdefault("main", {})["n,o"] = time.perf_counter() - t0
+        log(f"main (n), (o): {secs:.1f} s in all")
         details["worker"] = {}
         for path, run in WORKER_PATHS.items():
             t0 = time.perf_counter()
             details["worker"][path] = run(torch, np, args.windows, args.profile)
-            log(f"main ({path}): {time.perf_counter() - t0:.1f} s in all")
+            secs = seconds.setdefault("main", {})[path] = time.perf_counter() - t0
+            log(f"main ({path}): {secs:.1f} s in all")
         compare_wire(details["worker"]["t"], runs["b"][0])
+        t_timings = time.perf_counter()
         details["routing"] = routing_mismatch(torch, np, runs["a"][2], "cuda")
         log(f"routing: the card vs the CPU and vs partition_ids_np on the last "
             f"{args.n}-row window of (a): {details['routing']}")
@@ -7548,6 +7715,11 @@ def main() -> int:
                                   if p not in SERVE_PATHS}
             details["profile"].update(
                 {p: profile_slide(torch, np, p, r[1]) for p, r in sliding.items()})
+        seconds["timings"] = time.perf_counter() - t_timings
+        log(f"timings: phase done in {seconds['timings']:.1f} s")
+    if "analysis" in args.only:
+        details["analysis"] = check_analysis(torch, np)
+        seconds["analysis"] = details["analysis"]["wall_s"]
     if args.ab_paths:
         if args.parent is None:
             raise SystemExit("--ab-paths needs --parent")

@@ -130,7 +130,7 @@ def knob_snapshot() -> list[dict]:
     from skyline_tpu_torch.utils.knobs import KNOBS, env_str
 
     return [
-        {"name": k.name, "value": env_str(k.name), "default": k.default}
+        {"name": k.name, "value": env_str(k.name), "default": k.default}  # lint: allow-raw-env
         for k in KNOBS
     ]
 

@@ -212,7 +212,7 @@ _pins: dict[tuple, str] = {}           # guarded-by: _lock
 def _env_pinned(name: str) -> bool:
     """True when the environment sets ``name``: it beats any override,
     checked when the knob is read."""
-    v = os.environ.get(name)
+    v = os.environ.get(name)  # lint: allow-raw-env
     return v is not None and v != ""
 
 

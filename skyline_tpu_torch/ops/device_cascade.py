@@ -103,13 +103,13 @@ def _cascade_core(x: torch.Tensor, valid: torch.Tensor, block: int, mp: bool) ->
     n_pad, d = x.shape
     nb = n_pad // block
     dev = x.device
-    nan = torch.tensor(float("nan"), dtype=torch.float32, device=dev)
+    nan = torch.full((), float("nan"), dtype=torch.float32, device=dev)
 
     # selection-only copy: fold -0.0, make invalid/NaN rows all-NaN
     inert = ~valid | torch.isnan(x).any(dim=1)
     xc = torch.where(inert[:, None], nan, x + 0.0)
     key = row_sums(xc)
-    radius = torch.tensor((d - 1) * 2.0 ** -23, dtype=torch.float32, device=dev) * row_sums(
+    radius = torch.full((), (d - 1) * 2.0 ** -23, dtype=torch.float32, device=dev) * row_sums(
         xc.abs()
     )
     lo, hi = key - radius, key + radius
@@ -131,12 +131,14 @@ def _cascade_core(x: torch.Tensor, valid: torch.Tensor, block: int, mp: bool) ->
     cand = torch.where(cand_ok[:, None], xs, nan).contiguous()
     lo_s = torch.where(cand_ok, lo[perm], float("inf"))
     hi_s = torch.where(cand_ok, hi[perm], float("-inf"))
+    # one float32 row each, the counts' int32 bits carried unchanged
     summary = torch.stack([
-        lo_s.reshape(nb, block).amin(dim=1).double(),
-        hi_s.reshape(nb, block).amax(dim=1).double(),
-        cand_ok.reshape(nb, block).sum(dim=1).double(),
+        lo_s.reshape(nb, block).amin(dim=1),
+        hi_s.reshape(nb, block).amax(dim=1),
+        cand_ok.reshape(nb, block).sum(dim=1, dtype=torch.int32).view(torch.float32),
     ]).cpu().numpy()  # the one host read of the call
-    block_lo, block_hi, n_cand = summary[0], summary[1], summary[2].astype(np.int64)
+    block_lo, block_hi = summary[0], summary[1]
+    n_cand = summary[2].view(np.int32).astype(np.int64)
     band_end = _band_ends(block_lo, block_hi)
 
     buf = torch.full((n_pad, d), PAD_VALUE, dtype=torch.float32, device=dev)

@@ -33,6 +33,7 @@ from skyline_tpu_torch.ops.dominance_kernels import (
     sort_columns,
     with_rank_sum,
 )
+from skyline_tpu_torch.ops import cascade
 from skyline_tpu_torch.ops.sfs import (
     cleanup_compact,
     cleanup_new_rows,
@@ -41,7 +42,6 @@ from skyline_tpu_torch.ops.sfs import (
     sfs_round_single,
 )
 from skyline_tpu_torch.parallel.partitioners import partition_ids
-from skyline_tpu_torch.utils.knobs import rank_cascade
 
 # Padding tail appended to the sorted window, so a B-row block starting at
 # any valid row offset stays inside the buffer. Must be >= the largest SFS
@@ -136,8 +136,10 @@ def sort_window(
 def rank_flush_enabled() -> bool:
     """Rank-cascade SFS flush: on when ``SKYLINE_RANK_CASCADE`` is on — with
     the rank kernels on a card and their plain versions on the CPU (the
-    counterpart of the reference's interpret mode). Read at flush time."""
-    return rank_cascade()
+    counterpart of the reference's interpret mode). Read at flush time,
+    through the dispatch table's ``mask_rank_pallas`` gate (the knob, else
+    a tuner override), as in the reference."""
+    return cascade.gate("mask_rank_pallas")
 
 
 def rank_window(ws, sky, counts, n_bucket: int, active_old: int, univ_bucket: int):

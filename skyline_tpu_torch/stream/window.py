@@ -361,7 +361,7 @@ def partition_summaries_device(sky, counts, active: int):
     P, cap, d = sky.shape
     s = sky[:, :active]
     valid = torch.arange(active, device=sky.device)[None, :] < counts[:, None]
-    inf = torch.tensor(float("inf"), dtype=sky.dtype, device=sky.device)
+    inf = torch.full((), float("inf"), dtype=sky.dtype, device=sky.device)
     min_corner = torch.where(valid[:, :, None], s, inf).amin(dim=1)
     raw = row_sums(s.transpose(1, 2))
     sums = torch.where(valid, raw, inf)
@@ -416,21 +416,44 @@ GRID_REPS = 64
 _UNFUSED_LAST_DIM = (3, 7)
 
 
+def _two_sum(a: torch.Tensor, b: torch.Tensor):
+    """``s + e == a + b`` exactly, ``s`` the rounded sum (Knuth's 2Sum)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
 def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 ``a * b + c`` rounded once, as a fused multiply-add. In
-    float64 the product of a small integer ``a`` and a float32 ``b`` is
-    exact, TwoSum gives the sum's exact error, and rounding to odd before
-    the float32 rounding keeps the double rounding from ever differing
-    from one rounding."""
-    p = a.double() * b.double()
-    c = c.double()
-    s = p + c
-    bb = s - p
-    err = (p - (s - bb)) + (c - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, float("inf"), float("-inf")).to(s.dtype)
-    odd = torch.where((err != 0) & even & torch.isfinite(s), torch.nextafter(s, toward), s)
-    return odd.float()
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add, in
+    float32 arithmetic only, over the ladder's domain: ``a`` holds the
+    integers 0..GRID_BINS, ``b`` and ``c`` any float32 (past GRID_BINS the
+    scaled sums below can overflow to NaN). ``b`` splits into a part with
+    its low 6 mantissa bits cleared and the rest, so ``a`` times each is
+    exact and 2Sum makes them a normalized pair; the correctly rounded sum
+    of that pair and ``c`` is Boldo and Melquiond's: 2Sum, then the low
+    parts added rounded to odd, then one rounding. Where the product could
+    overflow, ``b`` and ``c`` are scaled by 2^-6 (a ``c`` too small to
+    survive the scale only breaks a tie, so it stands in as +-2^-100). A
+    zero product, an infinite or NaN operand take the plain expression,
+    which is then exact or the IEEE result. The tests hold it to the
+    float64 single-rounding form over this domain, edges included."""
+    big = (b.abs() >= 2.0 ** 90) | (c.abs() >= 2.0 ** 120)
+    tiny = (c != 0) & (c.abs() < 2.0 ** -100)
+    c_s = torch.where(big & tiny, torch.copysign(torch.full_like(c, 2.0 ** -100), c), c)
+    scale = torch.where(big, 2.0 ** -6, 1.0)
+    bs, cs = b * scale, c_s * scale
+    hi = (bs.view(torch.int32) & ~63).view(torch.float32)
+    ph, pl = _two_sum(a * hi, a * (bs - hi))
+    th, tl = _two_sum(cs, ph)
+    v, e = _two_sum(tl, pl)
+    # round v + e to odd: move an even inexact v one step toward e
+    even = (v.view(torch.int32) & 1) == 0
+    toward = torch.where(e > 0, float("inf"), float("-inf"))
+    v = torch.where((e != 0) & even, torch.nextafter(v, toward), v)
+    z = (th + v) / scale
+    finite_b = torch.isfinite(b)
+    exact = finite_b & torch.isfinite(c) & (a != 0) & (b != 0)
+    return torch.where(exact, z, torch.where(finite_b & ~torch.isfinite(c), c + 0.0, a * b + c))
 
 
 def _ladder(lo: torch.Tensor, step: torch.Tensor, d: int) -> torch.Tensor:
@@ -468,15 +491,15 @@ def grid_summary_device(sky, counts, active: int):
     P, cap, d = sky.shape
     dev = sky.device
     s = sky[:, :active]
-    inf = torch.tensor(float("inf"), dtype=sky.dtype, device=dev)
+    inf = torch.full((), float("inf"), dtype=sky.dtype, device=dev)
     valid = torch.arange(active, device=dev)[None, :] < counts[:, None]
     finite = torch.isfinite(s) & valid[:, :, None]
     lo = torch.where(finite, s, inf).amin(dim=1)  # (P, d)
     hi = torch.where(finite, s, -inf).amax(dim=1)
     # step > 0 even for a single-value dimension, so the ladder increases
     # strictly whenever lo is finite and the step survives f32 addition
-    floor = torch.maximum(lo.abs(), torch.ones_like(lo)) * torch.tensor(
-        1e-6, dtype=sky.dtype, device=dev
+    floor = torch.maximum(lo.abs(), torch.ones_like(lo)) * torch.full(
+        (), 1e-6, dtype=sky.dtype, device=dev
     )
     step = torch.maximum((hi - lo) / GRID_BINS, floor)
     bounds = _ladder(lo, step, d)

@@ -460,7 +460,7 @@ _READERS = {"env_bool", "env_int", "env_float", "env_str", "_mode"}
 
 
 def _knob_reads():
-    """Every read of a ``SKYLINE_*`` knob in the port's sources, as
+    """Every read of a ``SKYLINE_*`` or ``BENCH_*`` knob in the port's sources, as
     ``(name, default, where)``: ``default`` is the read site's literal
     default (None when it passes none; ``"auto"`` for the ``auto|on|off``
     modes; ``...`` when the default is computed)."""
@@ -473,7 +473,7 @@ def _knob_reads():
         for node in ast.walk(ast.parse(path.read_text())):
             if not (isinstance(node, ast.Call) and node.args
                     and isinstance(node.args[0], ast.Constant)
-                    and str(node.args[0].value).startswith("SKYLINE_")):
+                    and str(node.args[0].value).startswith(("SKYLINE_", "BENCH_"))):
                 continue
             fn = node.func.attr if isinstance(node.func, ast.Attribute) else getattr(
                 node.func, "id", None)

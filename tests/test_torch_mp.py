@@ -351,6 +351,74 @@ def test_grid_summary_matches_jax_bit_for_bit(rng, d):
         assert got[1].numpy().tobytes() == np.asarray(want[1]).tobytes()
 
 
+def _fma_f32_f64(a, b, c):
+    """float32 ``a * b + c`` rounded once, through float64: the product of
+    a small integer and a float32 is exact there, 2Sum gives the sum's
+    error, and rounding the sum to odd makes the float32 rounding a single
+    one."""
+    p, c = a.double() * b.double(), c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf")).to(s.dtype)
+    return torch.where((err != 0) & even & torch.isfinite(s), torch.nextafter(s, toward),
+                       s).float()
+
+
+def _f32_bits(rng, n):
+    return torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+                            .view(np.int32)).view(torch.float32)
+
+
+def _fma_cases(rng, kind):
+    """(a, b, c) for ``_fma_f32``: ``a`` the ladder's integers 0..GRID_BINS."""
+    n = 1 << 20
+    a = torch.from_numpy(rng.integers(0, twin.GRID_BINS + 1, n).astype(F32))
+    if kind == "bits":  # every class: subnormals, both branches, +-inf, NaN
+        return a, _f32_bits(rng, n), _f32_bits(rng, n)
+    if kind == "cancelling":  # c within 70 ulps of -a*b, zero sums among them
+        b = _f32_bits(rng, n)
+        noise = torch.from_numpy(rng.integers(-70, 71, n).astype(np.int32))
+        return a, b, ((-(a * b)).view(torch.int32) + noise).view(torch.float32)
+    if kind == "ties":  # a*b halfway between two floats, c's sign breaks the tie
+        b = _f32_bits(rng, n)
+        p = a.double() * b.double()
+        p32 = p.float().double()
+        step = (torch.nextafter(p.float(), torch.where(p > p32, float("inf"),
+                                                      float("-inf"))).double() - p32).abs()
+        tie = torch.isfinite(p) & (p != p32) & (2 * (p - p32).abs() == step)
+        a, b = a[tie], b[tie]
+        tiny = torch.tensor([0.0, -0.0, 2.0**-149, -(2.0**-149), 2.0**-101, -(2.0**-101),
+                             2.0**-100, -(2.0**-100), 2.0**-126, -(2.0**-126), 1e-30,
+                             -1e-30], dtype=torch.float32)
+        pick = torch.from_numpy(rng.integers(0, len(tiny), len(a)))
+        return a, b, tiny[pick]
+    fmax, fmin = float(np.finfo(F32).max), float(np.finfo(F32).tiny)
+    edge = [0.0, 2.0**-149, fmin, 2.0**-101, 2.0**-100, 1.0, 1.0 + 2.0**-23,
+            float(np.nextafter(F32(2.0**90), F32(0))), 2.0**90, 2.0**119,
+            float(np.nextafter(F32(2.0**120), F32(0))), 2.0**120, fmax / 32, fmax,
+            float("inf"), float("nan")]
+    edge = torch.tensor(edge + [-v for v in edge] + [-0.0], dtype=torch.float32)
+    a, b, c = torch.meshgrid(torch.tensor([0.0, 1.0, 3.0, float(twin.GRID_BINS)]), edge,
+                             edge, indexing="ij")
+    return a.flatten(), b.flatten(), c.flatten()
+
+
+@pytest.mark.parametrize("kind", ["bits", "cancelling", "ties", "edges"])
+def test_fma_f32_is_one_rounding(kind):
+    """The grid ladder's float32 FMA equals the float64 single-rounding
+    form bit for bit (any NaN for a NaN) over its domain, ``a`` in
+    0..GRID_BINS and any ``b`` and ``c``: random bit patterns, sums that
+    cancel, products halfway between two floats with a tiny ``c`` of
+    either sign, and the edges of both branches, subnormals, +-inf, NaN."""
+    a, b, c = _fma_cases(np.random.default_rng(18), kind)
+    assert len(a) > 1000
+    got, want = twin._fma_f32(a, b, c), _fma_f32_f64(a, b, c)
+    same = (got.view(torch.int32) == want.view(torch.int32)) | (got.isnan() & want.isnan())
+    assert bool(same.all()), (a[~same][:4], b[~same][:4], c[~same][:4])
+
+
 def test_grid_codes_are_sound(rng):
     """Whenever every dimension has representative code < victim code, the
     representative strictly dominates the victim in f32."""
