@@ -32,17 +32,18 @@ on a second input of the same shapes with other valid counts:
   shapes (the second input gives the first input's output shapes).
 - ``graph-bf16-gate``: bfloat16 appears iff the mixed-precision flag is on
   for the call. On the card the bf16 work is inside the kernels, so there
-  a launch of a pre-drop entry (``mp_predrop_kernel`` or
-  ``strictly_dominated_bf16_kernel``) counts as bfloat16 too.
+  a launch of a pre-drop entry (``mp_predrop_kernel``,
+  ``strictly_dominated_bf16_kernel``, or ``cascade_scan_mp``, the device
+  cascade's scan with its pre-drop) counts as bfloat16 too.
 - ``graph-retrace-unstable``: the two runs on one input dispatch the same
   op sequence, and the second does not grow the kernel build count
   (``utils/compile_cache.py``).
 
-A finding this table of known port faults names (``KNOWN``: the
-configuration, the rule and the aten op) is reported as a warning and
-points at its entry in ``ROADMAP.md`` queue 3; every other finding is an
-error. The audit takes an explicit ``device``: ``cuda`` (the default) or
-``cpu``. It never falls back from one to the other.
+Every finding is an error: the port has no known fault left to excuse (the
+device cascade's core, which read its block summary to the host to plan
+its launches, now runs on the device end to end). The audit takes an
+explicit ``device``: ``cuda`` (the default) or ``cpu``. It never falls
+back from one to the other.
 """
 
 from __future__ import annotations
@@ -68,18 +69,7 @@ HOST_SYNC_OPS = frozenset((
 ))
 _INDEX_OPS = frozenset(("index", "index_put", "index_put_", "_index_put_impl_"))
 _COPY_OPS = frozenset(("_to_copy", "copy_", "_copy_from", "_copy_from_and_resize"))
-PREDROP_ENTRIES = ("mp_predrop_kernel", "strictly_dominated_bf16_kernel")
-
-# Known port faults: (configuration label prefix, rule, aten op) -> where it
-# is logged. Each is reported as a warning naming its entry.
-_CASCADE_PLAN = (
-    "ROADMAP.md queue 3: the device cascade copies its block summary to the host "
-    "(ops/device_cascade.py _cascade_core) to plan its launches"
-)
-KNOWN: dict[tuple[str, str, str], str] = {
-    ("device_cascade_core", "graph-host-sync", "_to_copy"): _CASCADE_PLAN,
-    ("skyline_mask_auto[device_cascade=on]", "graph-host-sync", "_to_copy"): _CASCADE_PLAN,
-}
+PREDROP_ENTRIES = ("mp_predrop_kernel", "strictly_dominated_bf16_kernel", "cascade_scan_mp")
 
 
 def _op_name(func) -> str:
@@ -187,14 +177,9 @@ class _Audit:
         self.labels: list[tuple[str, bool | None]] = []
         self.launches: dict[str, int] = {}
 
-    def flag(self, label: str, rule: str, message: str, op: str = "") -> None:
-        known = next((where for (pre, r, o), where in KNOWN.items()
-                      if label.startswith(pre) and r == rule and o == op), None)
-        if known is not None:
-            self.findings.append(Finding(HERE, 1, "warn", rule,
-                                         f"[{label}] {message} (known: {known})"))
-        else:
-            self.findings.append(Finding(HERE, 1, "error", rule, f"[{label}] {message}"))
+    def flag(self, label: str, rule: str, message: str) -> None:
+        """An error finding of ``rule`` for configuration ``label``."""
+        self.findings.append(Finding(HERE, 1, "error", rule, f"[{label}] {message}"))
 
     def _count(self, before: dict) -> dict:
         """The kernel launches since ``before`` (a copy of ``LAUNCHES``),
@@ -256,7 +241,7 @@ class _Audit:
             if extra > 0:
                 self.flag(label, "graph-host-sync",
                           f"aten.{name} synchronizes under set_sync_debug_mode('error') "
-                          f"({extra} call(s)) where no host read shows", name)
+                          f"({extra} call(s)) where no host read shows")
 
     def config(self, label: str, fn, make_args, expect_bf16=None, env=None) -> None:
         """Audit one configuration: ``make_args(second)`` builds fresh
@@ -277,11 +262,11 @@ class _Audit:
                       if dt in {x for x, _, _ in ins + outs})
             self.flag(label, "graph-f64",
                       f"{dt.removeprefix('torch.')} value in aten.{op} — the engine is "
-                      "f32-only", op)
+                      "f32-only")
         for name in sorted(set(reads)):
             self.flag(label, "graph-host-sync",
                       f"aten.{name} reads a device value to the host ({reads.count(name)} "
-                      "call(s))", name)
+                      "call(s))")
         shapes1 = [tuple(t.shape) for t in _tensors(out1)]
         shapes3 = [tuple(t.shape) for t in _tensors(out3)]
         if shapes1 != shapes3:

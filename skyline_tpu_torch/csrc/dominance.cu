@@ -2,7 +2,7 @@
 //
 // out[p, j] = some valid x[p, :, i] dominates y[p, :, j]   (minimization:
 // all(x_k <= y_k) and any(x_k < y_k)), for an optional leading partition
-// dimension p. One kernel serves three entry points of
+// dimension p. One kernel serves four entry points of
 // skyline_tpu_torch/ops/dominance_kernels.py:
 //
 //   K1 dominated_by_any  (x == y, one set)   replaces skyline_tpu/ops/
@@ -10,9 +10,14 @@
 //        _tile_body, _dom_tile, _tile_sum_skip)
 //   K2 dominated_by_rect (rectangular)       replaces dominated_by_pallas
 //   K3 skyline_mask_kernel (sum-sort + K1)   replaces skyline_mask_pallas
+//   K2 dominated_by_rect_windows: one dominator set, each partition against
+//        its own row window (the device cascade's self and band pass,
+//        every block's in one launch; step 3's WIN)
 //
 // The layout at the surface follows the TPU kernels: coordinates transposed
-// as (P, d, N), validity one uint8 per dominator.
+// as (P, d, N), validity one uint8 per dominator. The device code that
+// cascade.cu shares (steps 1, 2, 5 and 8's pieces) is in
+// dominance_common.cuh.
 //
 // The mixed-precision entry points (the TPU kernels' static mp flag,
 // pallas_dominance.py _tile_body and _dom_tile_mp) launch the same compare
@@ -162,105 +167,32 @@
 // all(<=) && any(<), never as min/max of differences. Build without
 // --use_fast_math: flush-to-zero would turn a tiny x_k < y_k into equality.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "dominance_common.cuh"
 
 namespace {
 
-constexpr int TILE = 256;     // dominator rows per tile (== summary threads)
-constexpr int THREADS = 128;  // threads per block of the compare kernel
-constexpr int V = 2;          // victims per thread
-constexpr int WARPS = THREADS / 32;
-constexpr int STAGES = 3;     // tiles in flight in the shared-memory ring
-constexpr int CHUNK = 2048;   // tile indices scanned per survivor list
-constexpr unsigned FULL = 0xffffffffu;
-// the pre-drop's f32 margin (step 8), the reference's _BF16_EPS and
-// _BF16_TINY
-constexpr float PRE_EPS = 0.0078125f;  // 2^-7
-constexpr float PRE_TINY = 1e-30f;
-
-// floats per dominator row in shared memory (16-byte rows), and per summary
-// (d bounds, then the sum, 16-byte aligned)
-template <int D>
-struct Geo {
-  static constexpr int DP = (D + 3) / 4 * 4;
-  static constexpr int SW = (D + 4) / 4 * 4;
-};
-
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-// Coordinate sum in dimension order; dominators and victims share it, which
-// is what makes rule (a) exact.
-template <int D>
-__device__ __forceinline__ float row_sum(const float* v) {
-  float s = v[0];
-#pragma unroll
-  for (int k = 1; k < D; ++k) s = s + v[k];
-  return s;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Reduce acc[0..D] across the block (op = fminf or fmaxf) and let threads
-// 0..D write one summary row.
-template <int D, int NT, bool MIN>
-__device__ __forceinline__ void write_summary(float (&acc)[D + 1], float* dst) {
-  __shared__ float red[NT / 32][D + 1];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k <= D; ++k) {
-    acc[k] = MIN ? warp_min(acc[k]) : warp_max(acc[k]);
-    if (lane == 0) red[warp][k] = acc[k];
-  }
-  __syncthreads();
-  if (threadIdx.x <= D) {
-    float m = red[0][threadIdx.x];
-#pragma unroll
-    for (int w = 1; w < NT / 32; ++w)
-      m = MIN ? fminf(m, red[w][threadIdx.x]) : fmaxf(m, red[w][threadIdx.x]);
-    dst[threadIdx.x] = m;
-  }
-}
-
 // Step 1. grid (ntiles + nblocks, P), TILE threads: blocks below ntiles
 // summarise a dominator tile and write its rows row-major into xr; the rest
-// summarise a victim block of bv victims.
+// summarise a victim block of bv victims. With ``shared`` (the windowed
+// entry: one dominator set for every partition) the grid is (ntiles +
+// nblocks * P, 1): the tiles once, then every partition's victim blocks.
 template <int D>
 __global__ void __launch_bounds__(TILE)
 summarize_kernel(const float* __restrict__ x, const uint8_t* __restrict__ xv,
                  const float* __restrict__ y, float* __restrict__ xr,
                  float* __restrict__ tsum, float* __restrict__ bsum, int nx,
-                 int ny, int ntiles, int nblocks, int bv) {
+                 int ny, int ntiles, int nblocks, int bv, bool shared) {
   constexpr int DP = Geo<D>::DP, SW = Geo<D>::SW;
-  const int p = blockIdx.y;
+  int p = blockIdx.y;
+  int idx = blockIdx.x;
+  if (shared && idx >= ntiles) {
+    p = (idx - ntiles) / nblocks;
+    idx = ntiles + (idx - ntiles) % nblocks;
+  }
   const int tid = threadIdx.x;
   float acc[D + 1];
-  if ((int)blockIdx.x < ntiles) {
-    const int t = blockIdx.x;
+  if (idx < ntiles) {
+    const int t = idx;
     const int i = t * TILE + tid;
     x += (size_t)p * D * nx;
     xv += (size_t)p * nx;
@@ -290,7 +222,7 @@ summarize_kernel(const float* __restrict__ x, const uint8_t* __restrict__ xv,
       dst[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
     write_summary<D, TILE, true>(acc, tsum + ((size_t)p * ntiles + t) * SW);
   } else {
-    const int b = blockIdx.x - ntiles;
+    const int b = idx - ntiles;
     y += (size_t)p * D * ny;
 #pragma unroll
     for (int k = 0; k <= D; ++k) acc[k] = -INFINITY;
@@ -314,83 +246,6 @@ summarize_kernel(const float* __restrict__ x, const uint8_t* __restrict__ xv,
 }
 
 template <int D>
-__device__ __forceinline__ void load_summary(const float* __restrict__ ts,
-                                             float (&lo)[Geo<D>::SW]) {
-#pragma unroll
-  for (int q = 0; q < Geo<D>::SW / 4; ++q) {
-    const float4 f = reinterpret_cast<const float4*>(ts)[q];
-    lo[4 * q] = f.x;
-    lo[4 * q + 1] = f.y;
-    lo[4 * q + 2] = f.z;
-    lo[4 * q + 3] = f.w;
-  }
-}
-
-// Step 2: true when no row of the tile summarised by lo (d minima, then the
-// least sum) can dominate any victim of the set summarised by hi (d maxima,
-// then the largest sum) — a block, or one victim (its coordinates and sum).
-template <int D>
-__device__ __forceinline__ bool skip_tile(const float* lo, const float* hi) {
-  bool gt = lo[D] > hi[D];  // rule (a)
-  bool ge = true;
-#pragma unroll
-  for (int k = 0; k < D; ++k) {
-    gt = gt | (lo[k] > hi[k]);  // rule (b)
-    ge = ge & (lo[k] >= hi[k]);  // rule (c)
-  }
-  return gt | ge;
-}
-
-// Step 5: every row of one tile against this thread's V victims; a warp
-// whose victims are all decided stops (checked every 32 rows).
-template <int D>
-__device__ __forceinline__ void compare_tile(const float4* __restrict__ tile,
-                                             const float (&yv)[V][D + 1],
-                                             const bool (&open)[V], bool (&dom)[V],
-                                             bool& pending) {
-  constexpr int Q = Geo<D>::DP / 4;
-  for (int r0 = 0; r0 < TILE; r0 += 32) {
-    if (!__any_sync(FULL, pending)) return;
-#pragma unroll 4
-    for (int r = r0; r < r0 + 32; ++r) {
-      float a[4 * Q];
-#pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        const float4 f = tile[r * Q + q];
-        a[4 * q] = f.x;
-        a[4 * q + 1] = f.y;
-        a[4 * q + 2] = f.z;
-        a[4 * q + 3] = f.w;
-      }
-      // all(<=) first; any(<) only where some lane of the warp found one:
-      // on data that is not mostly duplicates that is rare, and d compares
-      // a pair are saved
-      bool le[V];
-      bool any_le = false;
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        le[v] = true;
-#pragma unroll
-        for (int k = 0; k < D; ++k) le[v] = le[v] & (a[k] <= yv[v][k]);
-        any_le = any_le | le[v];
-      }
-      if (__any_sync(FULL, any_le)) {
-#pragma unroll
-        for (int v = 0; v < V; ++v) {
-          bool lt = false;
-#pragma unroll
-          for (int k = 0; k < D; ++k) lt = lt | (a[k] < yv[v][k]);
-          dom[v] = dom[v] | (le[v] & lt);
-        }
-      }
-    }
-    pending = false;
-#pragma unroll
-    for (int v = 0; v < V; ++v) pending = pending | (open[v] & !dom[v]);
-  }
-}
-
-template <int D>
 __device__ __forceinline__ void load_tile(float4* dst, const float* src) {
   constexpr int F4 = TILE * Geo<D>::DP / 4;
   const float4* s = reinterpret_cast<const float4*>(src);
@@ -409,11 +264,21 @@ constexpr size_t smem_bytes() {
 // the tile's summary against each of its undecided victims alone (a set of
 // one: the proof of step 2 holds for it), and a warp compares a tile only
 // when some lane found a victim the summary does not rule out.
-template <int D>
+//
+// WIN (the windowed entry, the device cascade's self and band pass): each
+// partition reads the one dominator set (xr and tsum of partition 0), only its
+// rows [wbegin[p], wend[p]), offsets read from device memory. The walk
+// covers the tiles that meet the window; in a tile that crosses its edge
+// the rows outside get a NaN first coordinate in shared memory once the
+// tile has landed (NaN <= y is false), so they never dominate. The tile's
+// summary still covers those rows: a summary of a superset skips less,
+// never wrongly. Windows on multiples of TILE cross no edge.
+template <int D, bool WIN>
 __global__ void __launch_bounds__(THREADS)
 dominated_kernel(const float* __restrict__ xr, const float* __restrict__ tsum,
                  const float* __restrict__ bsum, const float* __restrict__ y,
-                 uint8_t* __restrict__ out, int ny, int ntiles, int nblocks) {
+                 uint8_t* __restrict__ out, int nx, int ny, int ntiles, int nblocks,
+                 const int* __restrict__ wbegin, const int* __restrict__ wend) {
   constexpr int DP = Geo<D>::DP, SW = Geo<D>::SW;
   constexpr int TILE_F4 = TILE * DP / 4;
   extern __shared__ float4 smem[];
@@ -425,8 +290,16 @@ dominated_kernel(const float* __restrict__ xr, const float* __restrict__ tsum,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  xr += (size_t)p * ntiles * TILE * DP;
-  tsum += (size_t)p * ntiles * SW;
+  int t_lo = 0, t_hi = ntiles, rb = 0, re = nx;
+  if (WIN) {
+    rb = max(wbegin[p], 0);
+    re = min(wend[p], nx);
+    t_lo = rb / TILE;
+    t_hi = re > rb ? (re + TILE - 1) / TILE : t_lo;
+  } else {
+    xr += (size_t)p * ntiles * TILE * DP;
+    tsum += (size_t)p * ntiles * SW;
+  }
   const float* bs = bsum + ((size_t)p * nblocks + blockIdx.x) * SW;
   y += (size_t)p * D * ny;
   out += (size_t)p * ny;
@@ -457,8 +330,8 @@ dominated_kernel(const float* __restrict__ xr, const float* __restrict__ tsum,
   load_summary<D>(bs, hi);
 
   bool busy = __syncthreads_or(pending);
-  for (int c0 = 0; busy && c0 < ntiles; c0 += CHUNK) {
-    const int cend = min(ntiles, c0 + CHUNK);
+  for (int c0 = t_lo; busy && c0 < t_hi; c0 += CHUNK) {
+    const int cend = min(t_hi, c0 + CHUNK);
     // step 3: the surviving tiles of this chunk, in order
     int kept = 0;
     for (int base = c0; base < cend; base += THREADS) {
@@ -497,6 +370,15 @@ dominated_kernel(const float* __restrict__ xr, const float* __restrict__ tsum,
       cp_async_commit();
       cp_async_wait<STAGES - 1>();  // tile `it` has landed (this thread's part)
       __syncthreads();              // ... and every thread's
+      if (WIN) {
+        const int tb = list[it] * TILE;
+        if (tb < rb || tb + TILE > re) {  // the same for every thread
+          float* rows = reinterpret_cast<float*>(ring + (it % STAGES) * TILE_F4);
+          for (int r = tid; r < TILE; r += THREADS)
+            if (tb + r < rb || tb + r >= re) rows[r * DP] = __int_as_float(0x7fc00000);
+          __syncthreads();
+        }
+      }
       float lo[SW];
       load_summary<D>(tsum + (size_t)list[it] * SW, lo);
       bool need = false;
@@ -518,42 +400,38 @@ dominated_kernel(const float* __restrict__ xr, const float* __restrict__ tsum,
   }
 }
 
-template <int D>
-cudaError_t launch(const float* x, const uint8_t* xv, const float* y, uint8_t* out,
-                   float* xr, float* tsum, float* bsum, int P, int nx, int ny,
-                   cudaStream_t stream) {
-  const int ntiles = (nx + TILE - 1) / TILE;
-  const int nblocks = (ny + V * THREADS - 1) / (V * THREADS);
-  summarize_kernel<D><<<dim3(ntiles + nblocks, P), TILE, 0, stream>>>(
-      x, xv, y, xr, tsum, bsum, nx, ny, ntiles, nblocks, V * THREADS);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+template <int D, bool WIN>
+cudaError_t launch_compare(const float* xr, const float* tsum, const float* bsum,
+                           const float* y, uint8_t* out, int P, int nx, int ny, int ntiles,
+                           int nblocks, const int* wbegin, const int* wend,
+                           cudaStream_t stream) {
   // above 48 KB, dynamic shared memory must be asked for
   const size_t smem = smem_bytes<D>();
-  err = cudaFuncSetAttribute(dominated_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      dominated_kernel<D, WIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dominated_kernel<D><<<dim3(nblocks, P), THREADS, smem, stream>>>(xr, tsum, bsum, y, out, ny,
-                                                                   ntiles, nblocks);
+  dominated_kernel<D, WIN><<<dim3(nblocks, P), THREADS, smem, stream>>>(
+      xr, tsum, bsum, y, out, nx, ny, ntiles, nblocks, wbegin, wend);
   return cudaGetLastError();
 }
 
-// Step 8: the pre-drop. bf16r rounds to bf16 (nearest even, the reference's
-// convert) and back to f32.
-__device__ __forceinline__ float bf16r(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// True when no dominator of the tile summarised by lo (d minima of the
-// rounded coordinates, then the least rounded sum) can certify any victim
-// of the set summarised by hi (d maxima, then the greatest sum) — a block,
-// or one victim: rules (a') and (b').
 template <int D>
-__device__ __forceinline__ bool predrop_skip(const float* lo, const float* hi) {
-  bool skip = lo[D] > hi[D];  // (b')
-#pragma unroll
-  for (int k = 0; k < D; ++k) skip = skip | (lo[k] >= hi[k]);  // (a')
-  return skip;
+cudaError_t launch(const float* x, const uint8_t* xv, const float* y, uint8_t* out,
+                   float* xr, float* tsum, float* bsum, int P, int nx, int ny,
+                   const int* wbegin, const int* wend, cudaStream_t stream) {
+  const int ntiles = (nx + TILE - 1) / TILE;
+  const int nblocks = (ny + V * THREADS - 1) / (V * THREADS);
+  const bool win = wbegin != nullptr;
+  const dim3 grid = win ? dim3(ntiles + nblocks * P, 1) : dim3(ntiles + nblocks, P);
+  summarize_kernel<D><<<grid, TILE, 0, stream>>>(x, xv, y, xr, tsum, bsum, nx, ny, ntiles,
+                                                 nblocks, V * THREADS, win);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (win)
+    return launch_compare<D, true>(xr, tsum, bsum, y, out, P, nx, ny, ntiles, nblocks,
+                                   wbegin, wend, stream);
+  return launch_compare<D, false>(xr, tsum, bsum, y, out, P, nx, ny, ntiles, nblocks,
+                                  nullptr, nullptr, stream);
 }
 
 // Step 8's summary pass. grid (ntiles + nblocks, P), TILE threads: blocks
@@ -625,59 +503,6 @@ predrop_summarize_kernel(const float* __restrict__ x, const uint8_t* __restrict_
       }
     }
     write_summary<D, TILE, false>(acc, bsum + ((size_t)p * nblocks + b) * SW);
-  }
-}
-
-// Every row of one tile against the thread's V victims (yb: rounded, then
-// the rounded sum), for the victims in need: first the necessary condition
-// yb_k > xb_k in every k (one compare a dimension), then, where some lane
-// of the warp passed it, the reference's margin test operation for
-// operation. A warp stops when none of its victims in need is undecided
-// (checked every 32 rows).
-template <int D>
-__device__ __forceinline__ void predrop_tile(const float4* __restrict__ tile,
-                                             const float (&yb)[V][D + 1],
-                                             const bool (&need)[V], bool (&found)[V]) {
-  constexpr int Q = Geo<D>::DP / 4;
-  for (int r0 = 0; r0 < TILE; r0 += 32) {
-    bool live = false;
-#pragma unroll
-    for (int v = 0; v < V; ++v) live = live | (need[v] & !found[v]);
-    if (!__any_sync(FULL, live)) return;
-#pragma unroll 4
-    for (int r = r0; r < r0 + 32; ++r) {
-      float a[4 * Q];
-#pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        const float4 f = tile[r * Q + q];
-        a[4 * q] = f.x;
-        a[4 * q + 1] = f.y;
-        a[4 * q + 2] = f.z;
-        a[4 * q + 3] = f.w;
-      }
-      bool gt[V];
-      bool any_gt = false;
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        gt[v] = need[v] & !found[v];
-#pragma unroll
-        for (int k = 0; k < D; ++k) gt[v] = gt[v] & (yb[v][k] > a[k]);
-        any_gt = any_gt | gt[v];
-      }
-      if (__any_sync(FULL, any_gt)) {
-#pragma unroll
-        for (int v = 0; v < V; ++v) {
-          bool cert = gt[v];
-#pragma unroll
-          for (int k = 0; k < D; ++k) {
-            const float m = __fadd_rn(
-                __fmul_rn(PRE_EPS, __fadd_rn(fabsf(a[k]), fabsf(yb[v][k]))), PRE_TINY);
-            cert = cert & (__fsub_rn(yb[v][k], a[k]) > m);
-          }
-          found[v] = found[v] | cert;
-        }
-      }
-    }
   }
 }
 
@@ -820,17 +645,22 @@ cudaError_t launch_predrop(const float* y, const uint8_t* yv, const float* x,
 // uint8, all contiguous on the device. Scratch, allocated by the caller:
 // xr (P, ceil(nx / 256) * 256, dp) f32 with dp = d rounded up to 4; tsum
 // (P, ceil(nx / 256), sw) and bsum (P, ceil(ny / 256), sw) f32 with sw =
-// d + 1 rounded up to 4. Launches the summary pass and the compare kernel
-// on ``stream`` without synchronising and returns cudaGetLastError() of the
-// launches.
+// d + 1 rounded up to 4. wbegin and wend null: as above. Else (P,) int32
+// row offsets on the device: one dominator set, x (d, nx) and xv (nx,), for
+// every partition (xr and tsum sized for P = 1), partition p's victims
+// against its rows [wbegin[p], wend[p]) only. Launches the summary pass and
+// the compare kernel on ``stream`` without synchronising and returns
+// cudaGetLastError() of the launches.
 extern "C" int skyline_dominated(const float* x, const uint8_t* xv, const float* y,
                                  uint8_t* out, float* xr, float* tsum, float* bsum,
-                                 int P, int d, int nx, int ny, void* stream) {
+                                 int P, int d, int nx, int ny, const int* wbegin,
+                                 const int* wend, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((wbegin == nullptr) != (wend == nullptr)) return (int)cudaErrorInvalidValue;
   switch (d) {
 #define SKYLINE_CASE(D) \
   case D:               \
-    return (int)launch<D>(x, xv, y, out, xr, tsum, bsum, P, nx, ny, s);
+    return (int)launch<D>(x, xv, y, out, xr, tsum, bsum, P, nx, ny, wbegin, wend, s);
     SKYLINE_CASE(1)
     SKYLINE_CASE(2)
     SKYLINE_CASE(3)

@@ -17,34 +17,38 @@ on a card and at a merge-time call site. Steps:
     bounds |key - exact sum| for any summation order, so if w dominates v
     then ``key(w) - r(w) <= key(v) + r(v)``. A NaN key (a row mixing +inf
     and -inf) takes lo = -inf, hi = +inf.
-5.  **Scan** the sorted candidates in blocks, each pruned against (a) the
-    grow-only buffer of survivors of earlier blocks, (b) itself — the
-    full square, since equal f32 keys let a dominator sort after its
-    victim — and (c) the later blocks whose certified ``lo`` reaches this
-    block's ``hi``. With mixed precision the block first drops rows a bf16
-    margin test certifies as strictly dominated by the buffer's first 512
-    rows. Survivors append to the buffer.
+5.  **Prune** the sorted candidates, in blocks, by (a) the grow-only
+    buffer of survivors of earlier blocks, (b) the block itself — the full
+    square, since equal f32 keys let a dominator sort after its victim — and
+    (c) the later blocks whose certified ``lo`` reaches the block's ``hi``.
+    With mixed precision each block's rows first meet a bf16 margin test
+    against the buffer's first 512 rows, which drops rows it certifies as
+    strictly dominated. Survivors append to the buffer.
 
 Every kill is exact strict dominance by a valid non-NaN candidate, and
 every dominated candidate has a surviving dominator that is in the buffer,
 in its block or in its band, so the mask is ``skyline_mask``'s exactly —
 and stays so under any superset of those dominators drawn from real
-candidates. The port uses that: where the reference runs ``lax.cond`` per
-buffer chunk and per later block inside one static-shape scan, the port
-reads each block's key range and candidate count to the host ONCE per call
-and launches, per block with candidates: the pre-drop (``mp``, buffer not
-empty), one K2 over the buffer's live prefix (bounded on the host by the
-candidates of earlier blocks, validity ``row < count`` on the device), one
-K1 over the block and one K2 over the band's whole span of later blocks.
-Blocks without candidates launch nothing. The buffer count never leaves
-the device.
+candidates. The mask is ``cand_ok & ~pre & ~(a) & ~(b) & ~(c)``, and (b)
+and (c) read candidates only, not the buffer; so where the reference runs
+them inside its ``lax.scan``, per block under ``lax.cond``, the port runs
+both once for all blocks before the scan, as ONE windowed K2 in which block
+b's rows meet the candidate rows ``[b * block, band_end[b] * block)``: the
+block itself (no row strictly dominates itself) and its band, the band's
+end computed on the device from the blocks' key ranges (``_band_ends``).
+The scan, pre-drop and (a) with the appends, is
+ONE cooperative kernel (``cascade_scan``) that walks the blocks in order,
+skipping a block with no row left, and keeps the buffer and its count on
+the device. A call makes a fixed number of launches whatever the block
+count, and reads nothing to the host.
 
 On a card the passes are the hand-written kernels (``ops/
-dominance_kernels.py``: the pre-drop kernel, K1 ``dominated_by_any`` and K2
-``dominated_by_rect``, ``mp`` from ``SKYLINE_MIXED_PRECISION``), with the
-reference's accelerator sizes (block and padding at least 1024 rows); on
-the CPU the same wrappers run their plain versions, with the reference's
-host sizes (padding at least 64 rows, so tiny blocks can be tested).
+dominance_kernels.py``: the windowed K2 ``dominated_by_rect_windows``
+and ``cascade_scan``; ``mp`` from
+``SKYLINE_MIXED_PRECISION``), with the reference's accelerator sizes (block
+and padding at least 1024 rows); on the CPU the same wrappers run their
+plain versions, with the reference's host sizes (padding at least 64 rows,
+so tiny blocks can be tested).
 """
 
 from __future__ import annotations
@@ -52,21 +56,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from skyline_tpu_torch.ops.dominance import PAD_VALUE, compact
+from skyline_tpu_torch.ops.dominance import PAD_VALUE
 from skyline_tpu_torch.ops.dominance_kernels import (
-    dominated_by_any,
-    dominated_by_rect,
+    cascade_scan,
+    dominated_by_rect_windows,
     row_sums,
-    strictly_dominated_bf16_kernel,
 )
 from skyline_tpu_torch.utils.buckets import next_pow2
 from skyline_tpu_torch.utils.devices import resolve_device
 from skyline_tpu_torch.utils.knobs import device_cascade_block, mixed_precision_enabled
-
-# bf16 pre-drop prefix (ops.sfs._MP_PREFIX): under mp each block first drops
-# rows certainly dominated by the buffer's first rows, which have the
-# smallest sums and so dominate the most
-_MP_PREFIX = 512
 
 
 def _rows_equal_prev(xs: torch.Tensor) -> torch.Tensor:
@@ -85,17 +83,15 @@ def _lexsort(keys: list[torch.Tensor]) -> torch.Tensor:
     return perm
 
 
-def _band_ends(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+def _band_ends(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     """For each block b, one past the last later block j with ``lo[j] <=
-    hi[b]`` (b + 1 when there is none): the band spans blocks b+1 .. end-1.
-    Blocks in between that miss the condition only add real dominators."""
-    nb = lo.shape[0]
-    end = np.arange(1, nb + 1)
-    for b in range(nb - 1):
-        hit = np.flatnonzero(lo[b + 1 :] <= hi[b])
-        if hit.size:
-            end[b] = b + 2 + hit[-1]
-    return end
+    hi[b]`` (b + 1 when there is none), on the blocks' device: the band
+    spans blocks b+1 .. end-1. One (nb, nb) compare masked to j > b and a
+    max over the masked indices. Blocks in between that miss the condition
+    only add real dominators."""
+    j = torch.arange(lo.shape[0], device=lo.device)
+    reach = (lo[None, :] <= hi[:, None]) & (j[None, :] > j[:, None])
+    return torch.maximum(torch.where(reach, j[None, :] + 1, 0).amax(dim=1), j + 1)
 
 
 def _cascade_core(x: torch.Tensor, valid: torch.Tensor, block: int, mp: bool) -> torch.Tensor:
@@ -131,51 +127,21 @@ def _cascade_core(x: torch.Tensor, valid: torch.Tensor, block: int, mp: bool) ->
     cand = torch.where(cand_ok[:, None], xs, nan).contiguous()
     lo_s = torch.where(cand_ok, lo[perm], float("inf"))
     hi_s = torch.where(cand_ok, hi[perm], float("-inf"))
-    # one float32 row each, the counts' int32 bits carried unchanged
-    summary = torch.stack([
-        lo_s.reshape(nb, block).amin(dim=1),
-        hi_s.reshape(nb, block).amax(dim=1),
-        cand_ok.reshape(nb, block).sum(dim=1, dtype=torch.int32).view(torch.float32),
-    ]).cpu().numpy()  # the one host read of the call
-    block_lo, block_hi = summary[0], summary[1]
-    n_cand = summary[2].view(np.int32).astype(np.int64)
-    band_end = _band_ends(block_lo, block_hi)
+    band_end = _band_ends(lo_s.reshape(nb, block).amin(dim=1),
+                          hi_s.reshape(nb, block).amax(dim=1))
 
-    buf = torch.full((n_pad, d), PAD_VALUE, dtype=torch.float32, device=dev)
-    count = torch.zeros((), dtype=torch.int64, device=dev)
-    ub = 0  # host bound on count: the candidates of earlier blocks
-    alive_all = torch.zeros((n_pad,), dtype=torch.bool, device=dev)
-    ones = torch.ones((block,), dtype=torch.bool, device=dev)
-    for b in np.flatnonzero(n_cand):
-        s, e = int(b) * block, (int(b) + 1) * block
-        blk = cand[s:e]
-        blk_t = blk.T.contiguous()
-        alive = cand_ok[s:e]
-        if ub:
-            buf_ok = torch.arange(ub, device=dev) < count
-            if mp:
-                # bf16 margin pre-drop against the buffer prefix (a
-                # certified drop is a proof of f32 strict dominance)
-                pre = min(ub, _MP_PREFIX)
-                alive = alive & ~strictly_dominated_bf16_kernel(blk, buf[:pre], buf_ok[:pre])
-            # (a) the survivors of earlier blocks
-            alive = alive & ~dominated_by_rect(buf[:ub].T.contiguous(), buf_ok, blk_t, mp=mp)
-        # (b) the block against itself, the full square
-        alive = alive & ~dominated_by_any(blk_t, ones, triangular=False, mp=mp)
-        # (c) the band: later blocks whose certified lo reaches this hi
-        # (dominated rows acting as dominators are fine: transitivity)
-        be = int(band_end[b]) * block
-        if be > e:
-            alive = alive & ~dominated_by_rect(
-                cand[e:be].T.contiguous(), cand_ok[e:be], blk_t, mp=mp
-            )
-        alive_all[s:e] = alive
-        # append the survivors in sort order at the device-side count
-        # (count + block <= n_pad, since count <= b * block)
-        vals, _, cnt = compact(blk, alive, block)
-        buf.index_copy_(0, count + torch.arange(block, device=dev), vals)
-        count = count + cnt
-        ub += int(n_cand[b])
+    # (b) and (c): block b against the candidates of blocks b ..
+    # band_end[b]-1, itself (the full square) and its band, one windowed K2
+    # (dominated rows acting as dominators are fine: transitivity)
+    cand_t = cand.reshape(nb, block, d).transpose(1, 2).contiguous()
+    first = torch.arange(nb, device=dev, dtype=torch.int32) * block
+    dominated = dominated_by_rect_windows(
+        cand.T.contiguous(), cand_ok, cand_t, first, (band_end * block).to(torch.int32), mp=mp
+    )
+    alive = cand_ok & ~dominated.reshape(n_pad)
+    # (a) the scan: the pre-drop (mp) and the survivors of earlier blocks,
+    # each block's survivors appended in sort order
+    alive_all = cascade_scan(cand, alive, block, mp)
     # members inherit their representative's fate; valid inert (NaN) rows
     # survive
     keep_sorted = (alive_all[rep_idx] | inert_s) & valid_s

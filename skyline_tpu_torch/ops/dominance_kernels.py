@@ -21,6 +21,17 @@ CUDA kernels. ``csrc/dominance.cu`` compares float32 values:
   same source, behind two entry points: ``strictly_dominated_bf16_kernel
   (y, x, x_valid)``, the certified mask, and ``mp_predrop_kernel(dom,
   dom_ok, block, bvalid)``, the flush's drop with its epilogue fused.
+- ``dominated_by_rect_windows(xt, x_valid, yt, begin, end)``: K2 with one
+  dominator set for every partition, partition p's victims against its rows
+  ``[begin[p], end[p])`` only, the offsets read on the device (the device
+  cascade's self and band pass, every block's in one launch).
+
+``csrc/cascade.cu`` holds ``cascade_scan(cand, alive, block)``, the device
+cascade's scan (pass (a) of ``ops/device_cascade.py``: each block's live
+candidates against the survivors of the blocks before it, the bf16 pre-drop
+first with ``mp``, the survivors appended) in one cooperative launch; it
+replaces the body of the reference's ``lax.scan`` and shares the compare,
+skip and pre-drop device code of ``csrc/dominance_common.cuh``.
 
 ``csrc/dominance_rank.cu`` compares int32 dense ranks (the rank cascade):
 
@@ -77,7 +88,9 @@ from pathlib import Path
 import torch
 
 from skyline_tpu_torch.ops.dominance import (
+    PAD_VALUE,
     bf16_round,
+    compact,
     dominated_by,
     dominated_by_rank,
     skyline_mask,
@@ -89,15 +102,23 @@ _PKG = Path(__file__).resolve().parents[1]
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # library name -> (source, {C entry point: argument types}, C error-string
 # function). The compare entry points: x, validity, y, out and three scratch
-# buffers; P, d, nx, ny; the stream. The pre-drop: y, its validity, x, its
-# validity, four outputs and three scratch buffers; P, d, nx, ny; four
-# partition strides; the stream.
+# buffers; P, d, nx, ny; (values only) the windows' begin and end offsets,
+# null for none; the stream. The pre-drop: y, its validity, x, its validity,
+# four outputs and three scratch buffers; P, d, nx, ny; four partition
+# strides; the stream. The scan: the candidates, their alive flags, the
+# blocks' live flags, six scratch buffers and the output; d, nb, block, mp;
+# the stream.
 SOURCES = {
     "dominance": (
         _PKG / "csrc" / "dominance.cu",
-        {"skyline_dominated": [_P] * 7 + [_I] * 4 + [_P],
+        {"skyline_dominated": [_P] * 7 + [_I] * 4 + [_P] * 2 + [_P],
          "skyline_predrop": [_P] * 11 + [_I] * 4 + [_L] * 4 + [_P]},
         "skyline_error_string",
+    ),
+    "cascade": (
+        _PKG / "csrc" / "cascade.cu",
+        {"skyline_cascade_scan": [_P] * 9 + [_I] * 4 + [_P]},
+        "skyline_cascade_error_string",
     ),
     "dominance_rank": (
         _PKG / "csrc" / "dominance_rank.cu",
@@ -118,17 +139,24 @@ MAX_DIMS = 16
 # threads, 2 victims each)
 TILE_ROWS = 256
 BLOCK_VICTIMS = 256
+# the bf16 pre-drop's dominator prefix in the cascade's scan (ops.sfs
+# _MP_PREFIX; csrc/cascade.cu PRE_ROWS): the buffer's first rows have the
+# smallest sums and so dominate the most
+PREDROP_PREFIX = 512
 
 LAUNCHES = {
     "dominated_by_any": 0, "dominated_by_rect": 0, "skyline_mask_kernel": 0,
     "dominated_by_any_mp": 0, "dominated_by_rect_mp": 0, "skyline_mask_kernel_mp": 0,
     "strictly_dominated_bf16_kernel": 0, "mp_predrop_kernel": 0,
+    "dominated_by_rect_windows": 0, "dominated_by_rect_windows_mp": 0,
+    "cascade_scan": 0, "cascade_scan_mp": 0,
     "rank_transform": 0, "dominated_by_any_rank": 0, "dominated_by_rank_rect": 0,
     "skyline_mask_rank_kernel": 0,
 }
 # entry point -> the library whose kernel it launches
 _LIBRARY_OF = {
     "dominated_by_any": "dominance", "dominated_by_rect": "dominance",
+    "dominated_by_rect_windows": "dominance",
     "skyline_mask_kernel": "dominance", "dominated_by_any_rank": "dominance_rank",
     "dominated_by_rank_rect": "dominance_rank",
     "skyline_mask_rank_kernel": "dominance_rank",
@@ -316,17 +344,21 @@ def _one_device(name: str, **tensors) -> None:
 
 
 def _launch(
-    name: str, x3: torch.Tensor, v2: torch.Tensor, y3: torch.Tensor, mp: bool = False
+    name: str, x3: torch.Tensor, v2: torch.Tensor, y3: torch.Tensor, mp: bool = False,
+    windows: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """One kernel launch on the current stream of the operands' device for
     entry point ``name``, counted in ``LAUNCHES`` (under ``name + "_mp"``
     with ``mp``; the value kernel is the same either way): (P, ny) bool.
-    Rank inputs carry a sum row on top of their ``d`` rank rows. Every
-    operand, the output and the scratch must lie on one device
+    Rank inputs carry a sum row on top of their ``d`` rank rows. With
+    ``windows`` (begin, end: (P,) int32 row offsets) x3 (1, d, nx) is every
+    partition's dominator set and partition p compares only its window's
+    rows. Every operand, the output and the scratch must lie on one device
     (``ValueError`` otherwise)."""
-    _one_device(name, dominators=x3, validity=v2, victims=y3)
-    P, rows, nx = x3.shape
-    ny = y3.shape[2]
+    _one_device(name, dominators=x3, validity=v2, victims=y3,
+                **(dict(zip(("window_begin", "window_end"), windows)) if windows else {}))
+    rows, nx = x3.shape[1:]
+    P, ny = y3.shape[0], y3.shape[2]
     library = _LIBRARY_OF[name]
     d = rows - 1 if library == "dominance_rank" else rows
     if not 1 <= d <= MAX_DIMS:
@@ -339,9 +371,13 @@ def _launch(
     if P == 0 or ny == 0:
         return out.view(torch.bool)
     scratch = _scratch(P, rows, d, nx, ny, x3)
+    if windows is not None:  # the dominators' tiles and summaries once
+        scratch[:2] = _scratch(1, rows, d, nx, 0, x3)[:2]
     _one_device(name, dominators=x3, output=out, **{f"scratch{i}": t for i, t in enumerate(scratch)})
     args = [x3.data_ptr(), v2.view(torch.uint8).data_ptr(), y3.data_ptr(), out.data_ptr()]
     args += [t.data_ptr() for t in scratch] + [P, d, nx, ny]
+    if library == "dominance":
+        args += [t.data_ptr() for t in windows] if windows is not None else [0, 0]
     with torch.cuda.device(x3.device):
         _call(library, "skyline_dominated" if library == "dominance"
               else "skyline_rank_dominated", args)
@@ -353,11 +389,14 @@ def _launch(
 
 
 def dominated_by_any_plain(xt: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Plain K1: (d, N) or (P, d, N) -> (N,) or (P, N)."""
+    """Plain K1: (d, N) or (P, d, N) -> (N,) or (P, N). A partition with no
+    valid row is skipped (nothing in it is dominated); the flags are read
+    with ``tolist``, which on a CPU tensor dispatches no aten op."""
     x3, v2, batched = _batched(xt, valid, "dominated_by_any")
     out = torch.zeros((x3.shape[0], x3.shape[2]), dtype=torch.bool, device=xt.device)
-    for p in range(x3.shape[0]):
-        out[p] = dominated_by(x3[p].T, x3[p].T, v2[p])
+    for p, any_valid in enumerate(v2.any(dim=1).tolist()):
+        if any_valid:
+            out[p] = dominated_by(x3[p].T, x3[p].T, v2[p])
     return out if batched else out[0]
 
 
@@ -370,6 +409,41 @@ def dominated_by_rect_plain(
     for p in range(x3.shape[0]):
         out[p] = dominated_by(y3[p].T, x3[p].T, v2[p])
     return out if batched else out[0]
+
+
+def _window_args(xt, x_valid, yt, begin, end, name="dominated_by_rect_windows"):
+    """Check one (d, Nx) dominator set with (Nx,) validity, (P, d, Ny)
+    victims and (P,) int32 window offsets, all on one device."""
+    _one_device(name, dominators=xt, validity=x_valid, victims=yt, window_begin=begin,
+                window_end=end)
+    x3, v2, batched = _batched(xt, x_valid, name)
+    y3, _, ybatched = _batched(yt, None, name)
+    if batched or not ybatched or y3.shape[1] != x3.shape[1]:
+        raise ValueError(f"{name}: expected dominators (d, Nx) and victims (P, d, Ny), got "
+                         f"{tuple(xt.shape)} and {tuple(yt.shape)}")
+    for what, t in (("begin", begin), ("end", end)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (y3.shape[0],) or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be a contiguous int32 ({y3.shape[0]},) "
+                             f"tensor, got {tuple(t.shape)} {t.dtype}")
+    return x3, v2, y3
+
+
+def dominated_by_rect_windows_plain(
+    xt: torch.Tensor, x_valid: torch.Tensor, yt: torch.Tensor, begin: torch.Tensor,
+    end: torch.Tensor,
+) -> torch.Tensor:
+    """Plain windowed K2: (P, Ny), partition p's victims against the valid
+    dominator rows ``[begin[p], end[p])`` of xt alone (clipped to [0, Nx]; an
+    empty window dominates nothing). The offsets and the windows' validity
+    are read with ``tolist`` (no aten op on a CPU tensor)."""
+    x3, v2, y3 = _window_args(xt, x_valid, yt, begin, end)
+    nx = x3.shape[2]
+    out = torch.zeros((y3.shape[0], y3.shape[2]), dtype=torch.bool, device=yt.device)
+    for p, (b, e) in enumerate(zip(begin.tolist(), end.tolist())):
+        b, e = max(b, 0), min(e, nx)
+        if e > b and v2[0, b:e].any().tolist():
+            out[p] = dominated_by(y3[p].T, x3[0, :, b:e].T, v2[0, b:e])
+    return out
 
 
 def skyline_mask_plain(x: torch.Tensor, valid: torch.Tensor | None = None) -> torch.Tensor:
@@ -624,6 +698,26 @@ def dominated_by_rect(
     return out if batched else out[0]
 
 
+def dominated_by_rect_windows(
+    xt: torch.Tensor, x_valid: torch.Tensor, yt: torch.Tensor, begin: torch.Tensor,
+    end: torch.Tensor, mp: bool = False,
+) -> torch.Tensor:
+    """Windowed K2: ``out[p, j]`` = some valid dominator column i of ``xt``
+    with ``begin[p] <= i < end[p]`` dominates victim column j of ``yt[p]``.
+    xt: (d, Nx) float32, the one dominator set; x_valid: (Nx,) bool; yt: (P,
+    d, Ny) float32; begin, end: (P,) int32 row offsets, read on the device
+    (clipped to [0, Nx]). Returns (P, Ny) bool. On the card ONE launch: the
+    dominators' summary pass once, every partition's victims against the
+    tiles its window meets (``csrc/dominance.cu``, step 3's WIN); counted
+    under its own name (``_mp`` with ``mp``: the same kernel, the same
+    mask)."""
+    name = "dominated_by_rect_windows"
+    if not _device_path(xt, name):
+        return dominated_by_rect_windows_plain(xt, x_valid, yt, begin, end)
+    x3, v2, y3 = _window_args(xt, x_valid, yt, begin, end)
+    return _launch(name, x3, v2, y3, mp, windows=(begin, end))
+
+
 def _mask_args(x, valid, name="skyline_mask_kernel", batch: bool = False):
     """Check (N, d) points — or (P, N, d) with ``batch`` — and their (N,) /
     (P, N) validity."""
@@ -837,6 +931,105 @@ def mp_predrop_kernel(dom, dom_ok, block, bvalid):
     out, keep, counts = _predrop_call(y3, yv2, x3, xv2, fused=True)
     LAUNCHES[name] += int(bool(y3.shape[0] and y3.shape[1]))
     return out, keep.view(torch.bool), counts
+
+
+# -- the device cascade's scan ------------------------------------------------
+
+
+def _scan_args(cand: torch.Tensor, alive: torch.Tensor, block: int, name="cascade_scan"):
+    _one_device(name, candidates=cand, alive=alive)
+    if cand.dtype != torch.float32 or cand.dim() != 2 or not cand.is_contiguous():
+        raise ValueError(f"{name}: candidates must be contiguous float32 (N, d), got "
+                         f"{tuple(cand.shape)} {cand.dtype}")
+    n, d = cand.shape
+    if alive.dtype != torch.bool or tuple(alive.shape) != (n,) or not alive.is_contiguous():
+        raise ValueError(f"{name}: alive must be a contiguous bool ({n},) tensor, got "
+                         f"{tuple(alive.shape)} {alive.dtype}")
+    if block < 1 or n % block:
+        raise ValueError(f"{name}: {n} rows are not whole blocks of {block}")
+    if not 1 <= d <= MAX_DIMS:
+        raise ValueError(f"{name}: takes 1..{MAX_DIMS} dims, got {d}")
+    if n >= 2**31:
+        raise ValueError(f"{name}: takes fewer than 2^31 rows")
+    return n, d
+
+
+def cascade_scan_plain(
+    cand: torch.Tensor, alive: torch.Tensor, block: int, mp: bool = False
+) -> torch.Tensor:
+    """Plain scan, what ``cascade_scan``'s kernel does: for each block in
+    order with an alive row, with ``mp`` the bf16 pre-drop of its alive rows
+    against the buffer's first ``PREDROP_PREFIX`` rows, then its alive rows
+    against every buffer row (plain K2), the survivors appended to the
+    buffer in order. The block flags and the count are read into Python
+    (``tolist``: no aten op on a CPU tensor). Returns the survivors (N,)
+    bool."""
+    n, d = _scan_args(cand, alive, block)
+    dev = cand.device
+    buf = torch.full((n, d), PAD_VALUE, dtype=torch.float32, device=dev)
+    out = torch.zeros((n,), dtype=torch.bool, device=dev)
+    count = 0
+    for b, live in enumerate(alive.reshape(-1, block).any(dim=1).tolist() if n else []):
+        if not live:
+            continue
+        s, e = b * block, (b + 1) * block
+        blk, a = cand[s:e], alive[s:e]
+        if count:
+            if mp:
+                pre = min(count, PREDROP_PREFIX)
+                ok = torch.ones((pre,), dtype=torch.bool, device=dev)
+                a = a & ~strictly_dominated_bf16_plain(blk, buf[:pre], ok)
+            ok = torch.ones((count,), dtype=torch.bool, device=dev)
+            a = a & ~dominated_by_rect_plain(buf[:count].T.contiguous(), ok, blk.T.contiguous())
+        out[s:e] = a
+        vals, _, cnt = compact(blk, a, block)
+        m = cnt.tolist()
+        buf[count : count + m] = vals[:m]
+        count += m
+    return out
+
+
+def cascade_scan(
+    cand: torch.Tensor, alive: torch.Tensor, block: int, mp: bool = False
+) -> torch.Tensor:
+    """The device cascade's scan, pass (a): ``out[j]`` = row j is alive and
+    no survivor of an earlier block dominates it, the survivors kept in a
+    grow-only buffer in row order; with ``mp`` each block's alive rows first
+    meet the bf16 pre-drop against the buffer's first ``PREDROP_PREFIX``
+    rows (a certified drop is a proof of strict dominance, so the mask is
+    the same). cand: (N, d) float32 rows in scan order, non-candidates
+    all-NaN; alive: (N,) bool; N a multiple of ``block``. Returns (N,) bool.
+    On the card ONE cooperative launch of ``csrc/cascade.cu`` with nothing
+    read to the host (a launch the card refuses raises), counted under
+    ``cascade_scan`` (``_mp`` with ``mp``)."""
+    name = "cascade_scan"
+    if not _device_path(cand, name):
+        return cascade_scan_plain(cand, alive, block, mp)
+    n, d = _scan_args(cand, alive, block)
+    dev = cand.device
+    out = torch.zeros((n,), dtype=torch.uint8, device=dev)
+    if n == 0:
+        return out.view(torch.bool)
+    nb = n // block
+    dp, sw = -(-d // 4) * 4, -(-(d + 1) // 4) * 4
+    groups = -(-block // BLOCK_VICTIMS)
+    inf = float("inf")
+    scratch = dict(
+        live=alive.view(nb, block).any(dim=1).to(torch.uint8),
+        buffer=torch.full((n, dp), inf, dtype=torch.float32, device=dev),
+        tile_summaries=torch.full((-(-n // TILE_ROWS), sw), inf, dtype=torch.float32,
+                                  device=dev),
+        group_summaries=torch.empty((nb * groups, sw), dtype=torch.float32, device=dev),
+        flags=torch.zeros((-(-n // 32),), dtype=torch.int32, device=dev),
+        count=torch.zeros((1,), dtype=torch.int32, device=dev),
+    )
+    _one_device(name, candidates=cand, alive=alive, output=out, **scratch)
+    args = [cand.data_ptr(), alive.view(torch.uint8).data_ptr()]
+    args += [t.data_ptr() for t in scratch.values()] + [out.data_ptr(), d, nb, block, int(mp)]
+    with torch.cuda.device(dev):
+        _call("cascade", "skyline_cascade_scan", args)
+    LAUNCHES[name + ("_mp" if mp else "")] += 1
+    return out.view(torch.bool)
 
 
 def dominated_by_any_rank(

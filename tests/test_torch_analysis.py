@@ -476,26 +476,23 @@ def test_graph_retrace_fires_on_a_kernel_build(monkeypatch):
 
 
 def test_graph_known_findings_warn_and_are_logged():
-    """The one known port fault: the device cascade's launch plan reads its
-    block summary to the host (a copy from the card, ``aten._to_copy``) —
-    reported as a warning that names its ROADMAP entry, on exactly the two
-    configurations that run the cascade's core; any other host read stays an
-    error."""
-    assert set(graph_audit.KNOWN) == {
-        ("device_cascade_core", "graph-host-sync", "_to_copy"),
-        ("skyline_mask_auto[device_cascade=on]", "graph-host-sync", "_to_copy"),
-    }
-    audit = graph_audit._Audit("cpu")
-    audit.flag("device_cascade_core d=8 n=256 mp=1", "graph-host-sync", "m", "_to_copy")
-    audit.flag("skyline_mask_auto[device_cascade=on] d=8 n=256", "graph-host-sync", "m",
-               "_to_copy")
-    audit.flag("device_cascade_core d=8 n=256 mp=1", "graph-host-sync", "m", "nonzero")
-    audit.flag("sfs_round_single d=8 mp=1", "graph-host-sync", "m", "_to_copy")
-    assert [f.severity for f in audit.findings] == ["warn", "warn", "error", "error"]
-    assert "ROADMAP.md queue 3" in audit.findings[0].message
-    with open(os.path.join(REPO, "ROADMAP.md"), encoding="utf-8") as f:
-        roadmap = f.read()
-    assert "_cascade_core" in roadmap and "aten._to_copy" in roadmap
+    """No port fault is excused any more: a host read — a copy off the
+    device, ``aten._to_copy``, the read the device cascade's core made to
+    plan its launches — in either configuration that runs the core is an
+    error, as it is in every other configuration, and the audit keeps no
+    table of known findings."""
+    assert not hasattr(graph_audit, "KNOWN")
+
+    def reads(x, v):
+        # a copy to another device: what the card sees as a read to the host
+        return x.to("meta"), v
+
+    labels = ("device_cascade_core d=8 n=256 mp=1",
+              "skyline_mask_auto[device_cascade=on] d=8 n=256", "device_cascade_core")
+    for label in labels:
+        hits = _audit(reads, label=label)
+        assert hits == [("error", "graph-host-sync", hits[0][2])], hits
+        assert hits[0][2].startswith(f"[{label}] aten._to_copy reads a device value")
 
 
 # set_sync_debug_mode as the card would see it: a stand-in op that raises

@@ -5,8 +5,11 @@ tiles in interpret mode) over uniform, correlated and anti-correlated rows
 at d in {3, 4, 8} with duplicates and invalid rows, the reference's
 adversarial cases, the 2^24 equal-key band at block 8, NaN rows that
 survive and the key radius; ``device_cascade_keep``'s union semantics; the
-launch plan of the port's scan (one host read, launches only for blocks with
-candidates); and the lazy engine with host ingest, each flush row forced
+launch plan (one windowed K2 and one scan a call, whatever the block
+count), the band's ends on the device against their numpy form,
+the windowed K2 and the scan against their references (the scan against
+the per-block host loop the port ran before, kept here); and the lazy
+engine with host ingest, each flush row forced
 and under ``auto``, against the JAX engine — answers, published digests and
 the race's signatures. Every comparison is exact. The ``cuda``-marked test
 holds the cascade on a card to the CPU."""
@@ -27,6 +30,7 @@ from skyline_tpu_torch.ops.dominance_kernels import row_sums
 from skyline_tpu_torch.ops.sorted_sfs import sorted_sfs_keep
 from skyline_tpu_torch.stream import EngineConfig, SkylineEngine
 from skyline_tpu_torch.stream.batched import PartitionSet
+from skyline_tpu_torch.utils.buckets import next_pow2
 
 from conftest import assert_same_merge, fill_pset, gen_points, merge_state
 
@@ -171,13 +175,25 @@ def test_mask_against_pallas_interpret(monkeypatch, rng, case):
 # -- the launch plan --------------------------------------------------------------------
 
 
-def test_scan_launch_plan(monkeypatch):
-    """Blocks without candidates launch nothing; each block with candidates
-    launches one K1, one buffer K2 once the buffer has rows, and one band K2
-    where its band is not empty; the pre-drop runs with mp and a non-empty
-    buffer. The summary is read to the host once."""
+def _launch_plan_fixture():
+    """64 rows: rows 0..31 are copies of the zero tuple (one candidate), then
+    24 distinct rows of one sum, 25, whose blocks' bands reach each other;
+    invalid +inf padding last."""
+    dup = np.zeros((32, 3), np.float32)
+    rest = np.stack([np.arange(1, 25), np.arange(24, 0, -1), np.zeros(24)], 1).astype(np.float32)
+    x = np.concatenate([dup, rest])
+    x = np.concatenate([x, np.full((64 - x.shape[0], 3), np.inf, np.float32)])
+    return x, np.arange(64) < 56
+
+
+@pytest.mark.parametrize("block", [8, 16, 64])
+def test_scan_launch_plan(monkeypatch, block):
+    """Every entry — the windowed K2 (the full square and the band) and the
+    scan (the pre-drop and the buffer) — is called once a call, whatever the
+    block count (8, 4 or 1 blocks), mp off and on; the mask is
+    ``skyline_mask``'s."""
     calls = []
-    for name in ("dominated_by_any", "dominated_by_rect", "strictly_dominated_bf16_kernel"):
+    for name in ("dominated_by_rect_windows", "cascade_scan"):
         real = getattr(tdc, name)
 
         def wrap(*a, _real=real, _name=name, **kw):
@@ -185,29 +201,168 @@ def test_scan_launch_plan(monkeypatch):
             return _real(*a, **kw)
 
         monkeypatch.setattr(tdc, name, wrap)
-    reads = []
-    real_band = tdc._band_ends
-    monkeypatch.setattr(tdc, "_band_ends", lambda lo, hi: reads.append(1) or real_band(lo, hi))
-    # block 8: rows 0..31 are copies of the zero tuple (one candidate), then
-    # 24 distinct rows of one sum, 25, in three blocks whose bands reach each
-    # other; invalid padding last
-    dup = np.zeros((32, 3), np.float32)
-    rest = np.stack([np.arange(1, 25), np.arange(24, 0, -1), np.zeros(24)], 1).astype(np.float32)
-    x = np.concatenate([dup, rest])
-    n_pad = 64
-    x = np.concatenate([x, np.full((n_pad - x.shape[0], 3), np.inf, np.float32)])
-    valid = np.arange(n_pad) < 56
+    x, valid = _launch_plan_fixture()
     for mp in (False, True):
         calls.clear()
-        reads.clear()
-        keep = tdc._cascade_core(torch.from_numpy(x), torch.from_numpy(valid), 8, mp)
+        keep = tdc._cascade_core(torch.from_numpy(x), torch.from_numpy(valid), block, mp)
         assert np.array_equal(keep.numpy(), skyline_mask(
             torch.from_numpy(x), torch.from_numpy(valid)).numpy())
-        # candidates lie in blocks 0 (the zero tuple), 4, 5 and 6: K1 on each;
-        # a buffer K2 on 4, 5 and 6 and a band K2 on 4 and 5
-        assert calls.count("dominated_by_any") == 4 and reads == [1]
-        assert calls.count("dominated_by_rect") == 5
-        assert calls.count("strictly_dominated_bf16_kernel") == (3 if mp else 0)
+        assert sorted(calls) == ["cascade_scan", "dominated_by_rect_windows"], (block, mp, calls)
+
+
+def _band_ends_np(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """The numpy form the port computed on the host before: for each block b,
+    one past the last later block j with lo[j] <= hi[b], else b + 1."""
+    nb = lo.shape[0]
+    end = np.arange(1, nb + 1)
+    for b in range(nb - 1):
+        hit = np.flatnonzero(lo[b + 1 :] <= hi[b])
+        if hit.size:
+            end[b] = b + 2 + hit[-1]
+    return end
+
+
+@pytest.mark.parametrize("nb", [1, 2, 7, 512])
+@pytest.mark.parametrize("kind", ["random", "infinite", "empty", "equal"])
+def test_band_ends_device_matches_numpy(rng, nb, kind):
+    """``_band_ends`` (the (nb, nb) compare on the device) equals the numpy
+    loop bit for bit: random sorted ranges, NaN-key blocks (lo = -inf, hi =
+    +inf), empty blocks (lo = +inf, hi = -inf) and blocks of equal keys."""
+    centre = np.sort(rng.random(nb).astype(np.float32)) * np.float32(100)
+    width = (rng.random(nb) * 20).astype(np.float32)
+    lo, hi = centre - width, centre + width
+    if kind == "infinite":
+        pick = rng.random(nb) < 0.2
+        lo[pick], hi[pick] = -np.inf, np.inf
+    elif kind == "empty":
+        pick = rng.random(nb) < 0.4
+        lo[pick], hi[pick] = np.inf, -np.inf
+    elif kind == "equal":
+        lo[:], hi[:] = np.float32(16777216.0), np.float32(16777216.0)
+        lo[nb // 2 :] = np.float32(16777218.0)
+        hi[nb // 2 :] = np.float32(16777218.0)
+    got = tdc._band_ends(torch.from_numpy(lo), torch.from_numpy(hi)).numpy()
+    assert np.array_equal(got, _band_ends_np(lo, hi))
+
+
+@pytest.mark.parametrize("windows", ["aligned", "ragged", "empty", "clipped"])
+@pytest.mark.parametrize("d", [3, 8])
+def test_windowed_k2_plain_matches_each_window(rng, d, windows):
+    """The windowed K2's plain version equals ``dominated_by_rect_plain``
+    over each partition's window of the one dominator set (offsets clipped
+    to the set; an empty window dominates nothing)."""
+    nx, P, ny = 96, 5, 40
+    x = gen_points(rng, nx, d, "anti")
+    x[rng.integers(0, nx, 9)] = np.nan
+    xv = torch.from_numpy(rng.random(nx) < 0.8)
+    y = torch.from_numpy(np.stack([gen_points(rng, ny, d, "uniform") for _ in range(P)]))
+    yt = y.transpose(1, 2).contiguous()
+    begin = {"aligned": [16, 32, 48, 64, 80], "ragged": [3, 17, 0, 50, 95],
+             "empty": [10, 40, 96, 0, 5], "clipped": [-5, 90, 60, 0, 200]}[windows]
+    end = {"aligned": [32, 64, 96, 80, 96], "ragged": [9, 60, 96, 51, 96],
+           "empty": [10, 20, 96, 0, 5], "clipped": [10, 500, 96, 96, 300]}[windows]
+    xt = torch.from_numpy(x).T.contiguous()
+    got = dk.dominated_by_rect_windows(xt, xv, yt, torch.tensor(begin, dtype=torch.int32),
+                                       torch.tensor(end, dtype=torch.int32))
+    for p, (b, e) in enumerate(zip(begin, end)):
+        b, e = max(b, 0), min(e, nx)
+        want = (dk.dominated_by_rect_plain(xt[:, b:e].contiguous(), xv[b:e].contiguous(), yt[p])
+                if e > b else torch.zeros(ny, dtype=torch.bool))
+        assert torch.equal(got[p], want), (p, b, e)
+
+
+def test_windowed_k2_and_scan_refuse_bad_operands():
+    xt, xv = torch.zeros((3, 8)), torch.ones(8, dtype=torch.bool)
+    yt = torch.zeros((2, 3, 4))
+    i32 = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        dk.dominated_by_rect_windows(xt, xv, yt, i32.long(), i32)
+    with pytest.raises(ValueError, match="victims"):
+        dk.dominated_by_rect_windows(xt, xv, yt[0], i32, i32)
+    with pytest.raises(ValueError, match="whole blocks"):
+        dk.cascade_scan(torch.zeros((12, 3)), torch.ones(12, dtype=torch.bool), 8)
+    with pytest.raises(ValueError, match="alive"):
+        dk.cascade_scan(torch.zeros((16, 3)), torch.ones(8, dtype=torch.bool), 8)
+
+
+def _per_block_scan(cand: torch.Tensor, block: int, mp: bool) -> torch.Tensor:
+    """The port's per-block host loop before the scan kernel, kept as the
+    reference: the blocks' key ranges and candidate counts read to the host,
+    and per block with candidates the pre-drop (mp, a buffer), the buffer
+    pass, the full square and the band, the survivors appended."""
+    n_pad, d = cand.shape
+    cand_ok = ~torch.isnan(cand).any(dim=1)
+    key = row_sums(cand)
+    radius = torch.tensor((d - 1) * 2.0 ** -23, dtype=torch.float32) * row_sums(cand.abs())
+    lo = torch.where(cand_ok, key - radius, float("inf")).reshape(-1, block).amin(1).numpy()
+    hi = torch.where(cand_ok, key + radius, float("-inf")).reshape(-1, block).amax(1).numpy()
+    band_end = _band_ends_np(lo, hi)
+    n_cand = cand_ok.reshape(-1, block).sum(1).numpy()
+    buf = torch.full((n_pad, d), np.inf, dtype=torch.float32)
+    count = 0
+    alive_all = torch.zeros(n_pad, dtype=torch.bool)
+    ones = torch.ones(block, dtype=torch.bool)
+    for b in np.flatnonzero(n_cand):
+        s, e = int(b) * block, (int(b) + 1) * block
+        blk, alive = cand[s:e], cand_ok[s:e]
+        if count:
+            ok = torch.ones(count, dtype=torch.bool)
+            if mp:
+                pre = min(count, 512)
+                alive = alive & ~dk.strictly_dominated_bf16_plain(blk, buf[:pre], ok[:pre])
+            alive = alive & ~dk.dominated_by_rect_plain(buf[:count].T.contiguous(), ok,
+                                                        blk.T.contiguous())
+        alive = alive & ~dk.dominated_by_any_plain(blk.T.contiguous(), ones)
+        be = int(band_end[b]) * block
+        if be > e:
+            alive = alive & ~dk.dominated_by_rect_plain(cand[e:be].T.contiguous(),
+                                                        cand_ok[e:be], blk.T.contiguous())
+        alive_all[s:e] = alive
+        m = int(alive.sum())
+        buf[count : count + m] = blk[alive]
+        count += m
+    return alive_all
+
+
+SCAN_CASES = sorted(set(ADVERSARIAL) - {"empty"}) + ["anti_d4", "dups_d3", "uniform_d8"]
+
+
+def _scan_case(rng, case):
+    if case in ADVERSARIAL:
+        return ADVERSARIAL[case]
+    kind, d = case.split("_d")
+    x = gen_points(rng, 500, int(d), "uniform" if kind == "uniform" else "anti")
+    if kind == "dups":
+        x = np.concatenate([x, x[:60], np.zeros((40, 3), np.float32)])
+    return (x * 64).round().astype(np.float32)
+
+
+@pytest.mark.parametrize("block", [8, 64])
+@pytest.mark.parametrize("mp", [False, True])
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_scan_plain_matches_per_block_loop(monkeypatch, rng, case, mp, block):
+    """``cascade_scan_plain`` after the windowed full square and band gives
+    the per-block loop's survivors bit for bit, mp off and on, on the
+    adversarial cases and random ones with duplicates; the whole mask is
+    ``skyline_mask``'s."""
+    x = _scan_case(rng, case)
+    seen = []
+    real = tdc.cascade_scan
+
+    def spy(cand, alive, blk, mp_):
+        out = real(cand, alive, blk, mp_)
+        seen.append((cand.clone(), out))
+        return out
+
+    monkeypatch.setattr(tdc, "cascade_scan", spy)
+    n_pad = max(next_pow2(x.shape[0], min_cap=64), block)
+    xp = np.concatenate([x, np.full((n_pad - x.shape[0], x.shape[1]), np.inf, np.float32)])
+    valid = np.arange(n_pad) < x.shape[0]
+    keep = tdc._cascade_core(torch.from_numpy(xp), torch.from_numpy(valid), block, mp)
+    (cand, got), = seen
+    assert torch.equal(got, _per_block_scan(cand, block, mp)), case
+    assert np.array_equal(keep.numpy(), skyline_mask(
+        torch.from_numpy(xp), torch.from_numpy(valid)).numpy())
 
 
 @pytest.mark.parametrize("victims", ["finite", "inf", "nan"])
@@ -361,5 +516,8 @@ def test_cascade_on_card_matches_cpu(monkeypatch, rng, mp):
         x = np.concatenate([x, x[:500], np.zeros((300, d), np.float32)])
         dk.reset_launches()
         got = tdc.device_cascade_mask(torch.from_numpy(x).cuda()).cpu().numpy()
-        assert dk.LAUNCHES["dominated_by_any" + ("_mp" if mp == "1" else "")] > 0
+        suffix = "_mp" if mp == "1" else ""
+        # one launch of each entry a call
+        for name in ("dominated_by_rect_windows", "cascade_scan"):
+            assert dk.LAUNCHES[name + suffix] == 1, (name, dict(dk.LAUNCHES))
         assert np.array_equal(got, tdc.device_cascade_mask(torch.from_numpy(x)).numpy())
