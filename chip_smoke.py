@@ -54,13 +54,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    kernel's own skip decisions, read from its summaries, against
    ``predrop_skip_plain`` (the skipped share printed per case; the zero
    blocks skipped whole); the merge step with ``mp`` too; the device
-   sorted dominance cascade (``device_cascade_mask``: one windowed K2 over
-   every block's full square and band and one cooperative scan kernel,
-   ``cascade_scan``, for the pre-drop and the survivor buffer) against its CPU version and K3, ``mp`` off and on, on
-   those cases at d in {3, 8, 16}, signed-zero duplicates, NaN and mixed
-   +/-inf rows and a north-star block, and its core at block 8 on the 2^24
-   equal-key band; each call launching each of the three once, the same at
-   4,096 and 65,536 rows (2 and 32 blocks);
+   sorted dominance cascade (``device_cascade_mask``: one window pass,
+   ``cascade_windows``, over every block's full square and band, and one
+   scan on a thread-block cluster, ``cascade_scan``, for the pre-drop and
+   the survivor buffer, both in ``csrc/cascade.cu``) against its CPU
+   version and K3, ``mp`` off and on, on those cases at d in {3, 8, 16},
+   signed-zero duplicates, NaN and mixed +/-inf rows and a north-star
+   block, on uniform rows at d = 3, 8 (a buffer of many tiles, so the
+   cluster's CTAs split them) and 16, the north-star block and the 8-D
+   uniform rows again at blocks of 1,024 and 4,096
+   (``SKYLINE_DEVICE_CASCADE_BLOCK``), and its core at block 8 on the 2^24
+   equal-key band; each call launching each of the two once, the same at
+   4,096 and 65,536 rows (2 and 32 blocks); the window pass's device
+   worklist against ``cascade_worklist_plain``; the scan alone
+   ``SCAN_REPEATS`` times on the north-star block's and the 8-D uniform
+   rows' inputs at blocks of 1,024 and 2,048, each call against
+   ``cascade_scan_plain`` on the CPU;
    ``skyline_large`` on the ``--n``-row north-star window against K3's
    survivors in sum order, timed; K3 over a partition batch (the sliding
    slide step's form: one launch over (P, N, d)) against its plain version
@@ -323,9 +332,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    paths in both trees in turns (parent, change, change, parent). The
    device cascade at the north-star flat-merge union (K3's input), ``mp``
    on and off: its wall beside K3's and the CPU cascade's, its launches,
-   and each of its two sites' (the windowed K2, the scan)
+   and each of its two sites' (the window pass, the scan)
    device ms, plain ms and bound (``cascade_sites``); then the same sites
-   over one more window of (l), with the launches a window on (l) and (m). K3 over a partition batch at
+   over one more window of (l), with the launches a window on (l) and (m);
+   the scan's cluster barriers; the window pass split into
+   its summary and compare kernels by ``torch.profiler``, with the groups
+   that hold a candidate, the items of its worklist and the windows'
+   lengths (``cascade_breakdown``); with ``--parent`` the parent's two
+   cascade kernels on the same inputs, the windowed K2 split the same way. K3 over a partition batch at
    (n)'s and (o)'s two slide-step shapes (the bucket and window passes of
    the last slide): the wrapper's and its launch's ms, the plain
    version's, the bound and the skipped share. ``--profile`` also profiles
@@ -402,15 +416,15 @@ KERNELS = {
     "mp_predrop_kernel": (
         "pre-drop fused", "cuda", _VALUE_CU, "skyline_tpu/ops/dominance.py:87",
     ),
-    # the device cascade's self and band pass, every block's in one launch
-    # (K2's windowed entry; the reference's dominated_by_any_pallas on each
+    # the device cascade's window pass, its self and band pass for every
+    # block in one call (the reference's dominated_by_any_pallas on each
     # block and dominated_by_pallas per band block in its lax.scan,
     # skyline_tpu/ops/device_cascade.py:196-226), and its
     # scan: the pre-drop and the buffer pass of the reference's scan body
     # (device_cascade.py:164-232: strictly_dominated_bf16 and
-    # dominated_by_pallas per buffer chunk) in one cooperative launch. The
+    # dominated_by_pallas per buffer chunk) on one thread-block cluster. The
     # main paths run both with mp; their f32 launches are timed at the union
-    "dominated_by_rect_windows_mp": ("K2 windowed mp", "cuda", _VALUE_CU, f"{_PALLAS}:418"),
+    "cascade_windows_mp": ("windows mp", "cuda", _SCAN_CU, f"{_PALLAS}:418"),
     "cascade_scan_mp": ("scan mp", "cuda", _SCAN_CU, f"{_PALLAS}:418"),
 }
 VALUE_PATH = ("dominated_by_any", "dominated_by_rect", "skyline_mask_kernel")
@@ -1194,7 +1208,7 @@ BAND_ROWS = [(16777216.0 - j, float(j), 0.0) for j in range(2, 22)] + [
 
 # the device cascade's entries: one launch of each a call, whatever the
 # block count
-CASCADE_ENTRIES = ("dominated_by_rect_windows", "cascade_scan")
+CASCADE_ENTRIES = ("cascade_windows", "cascade_scan")
 # two sizes with other block counts (2 and 32 blocks of 2,048 rows)
 CASCADE_PLAN_ROWS = (4096, 65536)
 
@@ -1207,15 +1221,108 @@ def _cascade_launches(dk, fn):
     return out, {k: v - before[k] for k, v in dk.LAUNCHES.items() if v > before[k]}
 
 
+# harder inputs for the device cascade: uniform rows (a buffer of many tiles
+# at d = 8, so the cluster's CTAs split its tiles), (name, d, rows)
+CASCADE_HARD = (("uniform_d3", 3, 65536), ("uniform_d8", 8, 65536), ("uniform_d16", 16, 16384))
+# the scan blocks (SKYLINE_DEVICE_CASCADE_BLOCK) the north-star block and the
+# 8-D uniform rows also run at, beside the default 2,048
+CASCADE_BLOCKS = ("1024", "4096")
+
+
+def _cascade_check(torch, dk, tdc, name, x, v, mp, want):
+    """One device cascade call on the card against the CPU and K3, exact,
+    and its launches against ``want``."""
+    card, launched = _cascade_launches(dk, lambda: tdc.device_cascade_mask(x, v))
+    if launched != want:
+        raise AssertionError(f"cascade {name}: a call launched {launched}, not {want}")
+    cpu = tdc.device_cascade_mask(x.cpu(), None if v is None else v.cpu())
+    k3 = dk.skyline_mask_kernel(x, v, mp=mp)
+    if not (torch.equal(card.cpu(), cpu) and torch.equal(card, k3)):
+        raise AssertionError(f"cascade {name} mp={mp}: card {int(card.sum())}, CPU "
+                             f"{int(cpu.sum())}, K3 {int(k3.sum())} survivors")
+
+
+def _core_args(tdc, name, x):
+    """The arguments ``device_cascade_mask(x)`` passes to the core's entry
+    ``name`` (``cascade_windows`` or ``cascade_scan``) in its one call."""
+    seen = []
+    real = getattr(tdc, name)
+
+    def spy(*args, **kw):
+        seen.append(args)
+        return real(*args, **kw)
+
+    setattr(tdc, name, spy)
+    try:
+        tdc.device_cascade_mask(x)
+    finally:
+        setattr(tdc, name, real)
+    (args,) = seen
+    return args
+
+
+def check_worklist(torch, dk, tdc, x) -> int:
+    """The window pass's device worklist (its summary kernel's items, read
+    from its scratch) on the core's own candidates of ``x`` equals
+    ``cascade_worklist_plain`` on the CPU, and its mask the plain
+    version's. Returns the items."""
+    cand, block, band_end = _core_args(tdc, "cascade_windows", x)[:3]
+    scratch = {}
+    got = dk.cascade_windows(cand, block, band_end, scratch=scratch)
+    count = int(scratch["counters"][0])
+    items = sorted(map(tuple, scratch["items"][:count, :3].tolist()))
+    want = dk.cascade_worklist_plain(cand.cpu(), block, band_end.cpu())
+    if items != want:
+        raise AssertionError(f"cascade worklist: {count} items on the card, {len(want)} in "
+                             "cascade_worklist_plain, or they differ")
+    if not torch.equal(got.cpu(), dk.cascade_windows_plain(cand.cpu(), block, band_end.cpu())):
+        raise AssertionError("cascade window pass: the card differs from its plain version")
+    return count
+
+
+# calls of the scan alone on one input, each against the plain version: a
+# race between the CTAs or warps of the cluster shows as a call that differs
+SCAN_REPEATS = 50
+SCAN_REPEAT_BLOCKS = ("1024", "2048")
+
+
+def check_scan_repeats(torch, dk, tdc, name, x) -> int:
+    """The scan alone, ``SCAN_REPEATS`` calls at each of
+    ``SCAN_REPEAT_BLOCKS`` with mp off and on, on the inputs the core gives
+    it for ``x``; every call's mask equals ``cascade_scan_plain`` on the
+    CPU. Returns the calls."""
+    calls = 0
+    for block in SCAN_REPEAT_BLOCKS:
+        for mp in (False, True):
+            with knob_env({"SKYLINE_DEVICE_CASCADE_BLOCK": block,
+                           "SKYLINE_MIXED_PRECISION": "1" if mp else "0"}):
+                cand, alive, blk, _ = _core_args(tdc, "cascade_scan", x)
+            want = dk.cascade_scan_plain(cand.cpu(), alive.cpu(), blk, mp)
+            for i in range(SCAN_REPEATS):
+                got = dk.cascade_scan(cand, alive, blk, mp)
+                if not torch.equal(got.cpu(), want):
+                    raise AssertionError(
+                        f"cascade scan {name} block {blk} mp={mp}: call {i} of {SCAN_REPEATS} "
+                        f"differs from the plain version ({int(got.sum())} against "
+                        f"{int(want.sum())} survivors)")
+                calls += 1
+    return calls
+
+
 def check_cascade(torch, np, dev) -> int:
     """The device sorted dominance cascade (``ops/device_cascade.py``) on the
     card against its CPU version and against K3, exact masks, with
     ``SKYLINE_MIXED_PRECISION`` off and on, on ``_cascade_cases`` (the
-    card's sizes: 1,024-row blocks and padding); and its core at block 8 on
-    the 2^24 equal-key band (``BAND_ROWS``, padded to 32 rows), card
-    against CPU and K3. Each card call launches each of ``CASCADE_ENTRIES``
-    exactly once (``_mp`` with mp) and nothing else, and north-star rows at
-    ``CASCADE_PLAN_ROWS`` (2 and 32 blocks) make the same launches."""
+    card's sizes: 1,024-row blocks and padding) and ``CASCADE_HARD``, the
+    north-star block and the 8-D uniform rows again at ``CASCADE_BLOCKS``;
+    and its core at block 8 on the 2^24 equal-key band (``BAND_ROWS``,
+    padded to 32 rows), card against CPU and K3. Each card call launches
+    each of ``CASCADE_ENTRIES`` exactly once (``_mp`` with mp) and nothing
+    else, and north-star rows at ``CASCADE_PLAN_ROWS`` (2 and 32 blocks)
+    make the same launches. The window pass's device worklist equals its
+    plain mirror on the north-star block and the 8-D uniform rows, and the
+    scan alone holds its plain version call after call on both
+    (``check_scan_repeats``)."""
     from skyline_tpu_torch.ops import device_cascade as tdc
     from skyline_tpu_torch.ops import dominance_kernels as dk
     from skyline_tpu_torch.workload.generators import anti_correlated
@@ -1223,24 +1330,22 @@ def check_cascade(torch, np, dev) -> int:
     rng = np.random.default_rng(61)
     checks = 0
     cases = _cascade_cases(torch, np, rng, dev)
+    hard = [(name, torch.from_numpy(rng.random((n, d), dtype=np.float32)).to(dev), None)
+            for name, d, n in CASCADE_HARD]
+    reblocked = [c for c in cases + hard if c[0] in ("north_star_block", "uniform_d8")]
     band = np.array(BAND_ROWS + [(np.inf,) * 3] * (32 - len(BAND_ROWS)), np.float32)
     band_ok = np.arange(32) < len(BAND_ROWS)
     for mp in (False, True):
         with knob_env({"SKYLINE_MIXED_PRECISION": "1" if mp else "0"}):
             want = {k + ("_mp" if mp else ""): 1 for k in CASCADE_ENTRIES}
-            for name, x, v in cases:
-                card, launched = _cascade_launches(
-                    dk, lambda x=x, v=v: tdc.device_cascade_mask(x, v))
-                if launched != want:
-                    raise AssertionError(f"cascade {name}: a call launched {launched}, not "
-                                         f"{want}")
-                cpu = tdc.device_cascade_mask(x.cpu(), v.cpu())
-                k3 = dk.skyline_mask_kernel(x, v, mp=mp)
-                if not (torch.equal(card.cpu(), cpu) and torch.equal(card, k3)):
-                    raise AssertionError(
-                        f"cascade {name} mp={mp}: card {int(card.sum())}, CPU "
-                        f"{int(cpu.sum())}, K3 {int(k3.sum())} survivors")
+            for name, x, v in cases + hard:
+                _cascade_check(torch, dk, tdc, name, x, v, mp, want)
                 checks += 1
+            for block in CASCADE_BLOCKS:
+                with knob_env({"SKYLINE_DEVICE_CASCADE_BLOCK": block}):
+                    for name, x, v in reblocked:
+                        _cascade_check(torch, dk, tdc, f"{name} block {block}", x, v, mp, want)
+                        checks += 1
             xb, vb = torch.from_numpy(band), torch.from_numpy(band_ok)
             card = tdc._cascade_core(xb.to(dev), vb.to(dev), 8, mp)
             cpu = tdc._cascade_core(xb, vb, 8, mp)
@@ -1257,8 +1362,15 @@ def check_cascade(torch, np, dev) -> int:
                 raise AssertionError(f"cascade mp={mp}: launches at {CASCADE_PLAN_ROWS} rows "
                                      f"{plans}, not {want} each")
             checks += 1
+    items = {name: check_worklist(torch, dk, tdc, x) for name, x, _ in reblocked}
+    checks += len(items)
+    repeats = {name: check_scan_repeats(torch, dk, tdc, name, x) for name, x, _ in reblocked}
+    checks += len(repeats)
     log(f"kernels: the device cascade launches {', '.join(CASCADE_ENTRIES)} once a call "
-        f"(each case, mp off and on, and at {CASCADE_PLAN_ROWS} rows: 2 and 32 blocks)")
+        f"(each case, mp off and on, at blocks of 2,048 and {', '.join(CASCADE_BLOCKS)}, and "
+        f"at {CASCADE_PLAN_ROWS} rows: 2 and 32 blocks); the window pass's worklist = its "
+        f"plain mirror ({items} items); the scan alone = its plain version on every call "
+        f"({repeats} calls); the scan's cluster: {dk.SCAN_CTAS} CTAs")
     return checks
 
 
@@ -1325,8 +1437,8 @@ TREE_K2 = ("dominated_by_rect",)
 # the mixed-precision SFS rounds: the fused pre-drop, then K1 and K2 with mp
 MP_ROUNDS = (PREDROP_FUSED,) + MP_PATH[:2]
 # the device cascade's mixed-precision launches: the full square and the
-# band (the windowed K2) and the scan (the pre-drop and the buffer pass)
-MP_CASCADE = ("dominated_by_rect_windows_mp", "cascade_scan_mp")
+# band (the window pass) and the scan (the pre-drop and the buffer pass)
+MP_CASCADE = ("cascade_windows_mp", "cascade_scan_mp")
 MP_ANY = MP_ROUNDS + (PREDROP,) + MP_CASCADE + MP_PATH[2:]
 # the flush cascade off: the bf16 passes, and the grid prefilter
 MP_OFF = {"SKYLINE_MIXED_PRECISION": "0"}
@@ -1338,7 +1450,7 @@ ROUNDS_ONLY = {"SKYLINE_SORTED_SFS": "off", "SKYLINE_DEVICE_CASCADE": "off"}
 # the main paths: (engine configuration, rank cascade, the kernels each must
 # launch, other knobs). (l) is (c) and (m) is (g) with the device sorted
 # cascade forced: (l)'s every lazy flush is a survivor mask of old ∪ new on
-# the card (the windowed K2 and the scan, mp), (m)'s flat merge masks its
+# the card (the window pass and the scan, mp), (m)'s flat merge masks its
 # union through the cascade instead of K3. Under the reference's defaults the d > 2 merge is
 # the pruned tree (K2 pairs, no mp: the reference's tree runs mp=False) —
 # (a)–(e) — and the value flush rounds are mixed-precision on a card (the
@@ -3065,9 +3177,9 @@ def on_parent(torch, lib):
 
     real = dk._launch
 
-    def launch(name, x3, v2, y3, mp=False, windows=None):
-        if windows is not None or name not in lib._LIBRARY_OF:
-            return real(name, x3, v2, y3, mp, windows)
+    def launch(name, x3, v2, y3, mp=False):
+        if name not in lib._LIBRARY_OF:
+            return real(name, x3, v2, y3, mp)
         return lib._launch(name, x3, v2, y3, mp)
 
     dk._launch = launch
@@ -3856,18 +3968,18 @@ def tree_pair_k2(torch, np, n: int, launches: dict, windows: int) -> dict:
     return out
 
 
-# the device cascade's launch sites, one launch each a call: the full square
-# and the band (the windowed K2) and the scan (the pre-drop with mp, the
-# buffer pass and the appends: one cooperative launch)
-CASCADE_SITES = {"band": "dominated_by_rect_windows", "scan": "cascade_scan"}
+# the device cascade's launch sites, one call each a mask: the full square
+# and the band (the window pass) and the scan (the pre-drop with mp, the
+# buffer pass and the appends: one thread-block cluster)
+CASCADE_SITES = {"windows": "cascade_windows", "scan": "cascade_scan"}
 
 
 @contextlib.contextmanager
 def cascade_sites(torch):
     """For the duration, every launch of ``ops/device_cascade.py`` is
     bracketed by CUDA events and kept with its wrapper, inputs and output,
-    by site. Yields the dict of site -> [(start, end, wrapper, args, kwargs,
-    out)]."""
+    by site, with the host wall of the call. Yields the dict of site ->
+    [(start, end, wrapper, args, kwargs, out, host ms)]."""
     from skyline_tpu_torch.ops import device_cascade as tdc
 
     real = {site: getattr(tdc, name) for site, name in CASCADE_SITES.items()}
@@ -3878,9 +3990,11 @@ def cascade_sites(torch):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
+            t0 = time.perf_counter()
             out = real[site](*args, **kw)
+            host_ms = (time.perf_counter() - t0) * 1e3
             end.record()
-            sites[site].append((start, end, real[site], args, kw, out))
+            sites[site].append((start, end, real[site], args, kw, out, host_ms))
             return out
         return call
 
@@ -3891,14 +4005,6 @@ def cascade_sites(torch):
     finally:
         for site, name in CASCADE_SITES.items():
             setattr(tdc, name, real[site])
-
-
-def _live_rows(torch, yt):
-    """Per partition of (P, d, N) victims: the indices of the rows with no
-    NaN (the candidates; NaN rows neither dominate nor need a pair), for
-    the partitions that have any."""
-    real = ~torch.isnan(yt).any(1)
-    return [(p, real[p].nonzero().squeeze(1)) for p in real.any(1).nonzero().squeeze(1).tolist()]
 
 
 def _scan_pairs(torch, cand, alive, out, block: int) -> int:
@@ -3938,41 +4044,47 @@ def _scan_pairs(torch, cand, alive, out, block: int) -> int:
     return pairs
 
 
+def _window_spans(cand, block, band_end):
+    """Per block with a candidate (a row free of NaN) and a window: (block,
+    first row, end row) of its window, ``[b * block, min(band_end[b] *
+    block, N))``."""
+    n = cand.shape[0]
+    live = (~cand.isnan().any(1)).reshape(-1, block).any(1).tolist()
+    spans = [(b, b * block, min(e * block, n)) for b, e in enumerate(band_end.tolist())]
+    return [(b, s, e) for b, s, e in spans if live[b] and e > s]
+
+
 def _site_bound(torch, site, args, out):
-    """(bytes, needed pairs, d) of one cascade launch. Bytes: the rows'
+    """(bytes, needed pairs, d) of one cascade call. Bytes: the rows'
     coordinates the function needs, each read once — the scan's its alive
     rows (no other row is compared, and the buffer holds alive rows), the
-    windowed K2's the candidate victims and the valid rows in some window
-    (the same rows of ``cand``: counted once) — plus the flags, offsets and
-    outputs; the buffer and the summaries are the kernels' scratch. Pairs:
-    the scan's as ``_scan_pairs`` counts them; the windowed K2's as
-    ``_needed_pairs`` counts them over each window (NaN victims, the
-    non-candidates, need none)."""
+    window pass's the candidates of the blocks with a window (victims and
+    window rows are the same rows of ``cand``: counted once) — plus the
+    flags, ends and outputs; the buffer, the summaries and the worklist are
+    the kernels' scratch. Pairs: the scan's as ``_scan_pairs`` counts them;
+    the window pass's as ``_needed_pairs`` counts them over each window
+    (NaN rows, the non-candidates, need none)."""
     if site == "scan":
         cand, alive, block = args[:3]
         n, d = cand.shape
         nbytes = 2 * n + int(alive.sum()) * d * 4
         return nbytes, _scan_pairs(torch, cand, alive, out, block), d
-    xt, xv, yt, begin, end = args[:5]
-    n, d = xt.shape[1], xt.shape[0]
-    edges = torch.zeros(n + 1, dtype=torch.int64, device=xt.device)
-    edges.index_add_(0, begin.clamp(0, n).long(), torch.ones_like(begin, dtype=torch.int64))
-    edges.index_add_(0, end.clamp(0, n).long(), -torch.ones_like(end, dtype=torch.int64))
+    cand, block, band_end = args[:3]
+    n, d = cand.shape
+    real = ~torch.isnan(cand).any(1)
+    edges = torch.zeros(n + 1, dtype=torch.int64, device=cand.device)
+    spans = _window_spans(cand, block, band_end)
+    for _, s, e in spans:
+        edges[s] += 1
+        edges[e] -= 1
     in_window = torch.cumsum(edges, 0)[:n] > 0
-    # the victims are the rows of the dominator set, viewed as (P, d, block)
-    victims = (~torch.isnan(yt).any(1)).reshape(-1)
-    needed = int(((in_window & xv) | victims).sum())
-    nbytes = xv.numel() + out.numel() + 8 * yt.shape[0] + needed * d * 4
-    spans = zip(begin.tolist(), end.tolist())
-    windows = [(xt[:, b:e], xv[b:e]) for b, e in spans]
+    nbytes = 4 * band_end.numel() + out.numel() + int((in_window & real).sum()) * d * 4
     pairs = 0
-    for p, rows in _live_rows(torch, yt):
-        wx, wv = windows[p]
-        if wx.shape[1] == 0:
-            continue
-        wanted = torch.ones(rows.shape[0], dtype=torch.bool, device=yt.device)
-        pairs += _needed_pairs(torch, wx.contiguous(), wv & ~torch.isnan(wx).any(0),
-                               yt[p][:, rows].contiguous(), out[p][rows], wanted)
+    for b, s, e in spans:
+        rows = real[b * block:(b + 1) * block].nonzero().squeeze(1) + b * block
+        wanted = torch.ones(rows.shape[0], dtype=torch.bool, device=cand.device)
+        pairs += _needed_pairs(torch, cand[s:e].T.contiguous(), real[s:e],
+                               cand[rows].T.contiguous(), out[rows], wanted)
     return nbytes, pairs, d
 
 
@@ -3986,15 +4098,18 @@ def site_numbers(torch, sites) -> dict:
     FP32 peak), ``_site_bound``."""
     from skyline_tpu_torch.ops import dominance_kernels as dk
 
-    plain = {"band": lambda *a, **kw: dk.dominated_by_rect_windows_plain(*a[:5]),
+    plain = {"windows": lambda *a, **kw: dk.cascade_windows_plain(*a[:3]),
              "scan": lambda *a, **kw: dk.cascade_scan_plain(*a)}
     torch.cuda.synchronize()
     out = {}
     for site, calls in sites.items():
         ms = in_flow = plain_ms = bytes_ms = ops_ms = bound_ms = 0.0
         pairs = 0
-        for start, end, fn, args, kw, got in calls:
-            in_flow += start.elapsed_time(end)
+        flows, hosts = [], []
+        for start, end, fn, args, kw, got, host_ms in calls:
+            flows.append(start.elapsed_time(end))
+            hosts.append(host_ms)
+            in_flow += flows[-1]
             ms += _event_ms(torch, lambda: fn(*args, **kw), reps=3)  # noqa: B023
             t0 = time.perf_counter()
             want = plain[site](*args, **kw)
@@ -4010,20 +4125,22 @@ def site_numbers(torch, sites) -> dict:
             ops_ms += o
             bound_ms += max(b, o)
         out[site] = {"launches": len(calls), "ms": ms, "in_flow_ms": in_flow,
+                     "in_flow_ms_calls": flows, "host_ms_calls": hosts,
                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bytes_ms": bytes_ms,
                      "ops_ms": ops_ms, "bound_by": "operations" if ops_ms >= bytes_ms
                      else "bytes", "pairs": pairs}
         if site == "scan" and calls:
-            # the scan's grid barriers: one after the group summaries, then
-            # per block with a live row the append's, and once the buffer
-            # has rows (after the first such block) the buffer pass's and,
-            # with mp, the pre-drop's; the time a barrier at most (the work
-            # of the phases included)
+            # the scan's cluster barriers: one at the start, then per block
+            # with a live row the append's, and once the buffer has rows
+            # (after the first such block) the buffer pass's (the pre-drop
+            # shares its phase); the time a barrier at most (the work of the
+            # phases included)
             barriers = 0
-            for _, _, _, (cand, alive, block, mp), _, _ in calls:
+            for _, _, _, (_, alive, block, _), _, _, _ in calls:
                 live = int(alive.reshape(-1, block).any(1).sum())
-                barriers += 1 + live + max(live - 1, 0) * (2 if mp else 1)
-            out[site]["barriers"] = barriers
+                barriers += 1 + live + max(live - 1, 0)
+            out[site]["cluster_barriers"] = barriers
+            out[site]["cluster_ctas"] = dk.SCAN_CTAS
             out[site]["us_per_barrier_at_most"] = ms * 1e3 / max(barriers, 1)
         if ms < bound_ms:
             raise AssertionError(f"cascade site {site} reads under its bound: {out[site]}")
@@ -4044,15 +4161,123 @@ def _wall_ms(torch, fn, reps: int = 3) -> float:
 
 def _sites_line(sites: dict) -> str:
     return "; ".join(f"{k} {v['launches']} x, {v['ms']:.3f} ms ({v['in_flow_ms']:.3f} ms in "
-                     f"the flow, plain {v['plain_ms']:.1f} ms), bound {v['bound_ms']:.6f} ms "
-                     f"by {v['bound_by']}"
-                     + (f", {v['barriers']} grid barriers, at most "
-                        f"{v['us_per_barrier_at_most']:.2f} us each" if "barriers" in v else "")
+                     f"the flow, the longest call {max(v['in_flow_ms_calls'], default=0):.3f} "
+                     f"ms, host {max(v['host_ms_calls'], default=0):.3f} ms at most; plain "
+                     f"{v['plain_ms']:.1f} ms), bound {v['bound_ms']:.6f} ms by {v['bound_by']}"
+                     + (f", a cluster of {v['cluster_ctas']} CTAs, {v['cluster_barriers']} "
+                        f"cluster barriers, at most {v['us_per_barrier_at_most']:.2f} us each"
+                        if "cluster_barriers" in v else "")
                      for k, v in sites.items())
 
 
+def _kernel_ms(torch, fn, reps: int = 5) -> dict:
+    """Device ms a call of ``fn`` by kernel name (``_short_kernel``), from
+    ``torch.profiler`` over ``reps`` calls after a warm one; empty when the
+    profiler sees no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
+            name = _short_kernel(ev.key)
+            out[name] = out.get(name, 0.0) + ev.self_device_time_total / 1e3 / reps
+    return out
+
+
+def _parent_call(torch, parent, site, args, kw):
+    """The parent tree's kernel for a cascade site's recorded call: its
+    windowed K2 (``dominated_by_rect_windows``, with the two transposes of
+    the candidates its caller made) for the window pass, its cooperative
+    ``cascade_scan`` for the scan; a function of no arguments returning
+    the (N,) mask."""
+    if site == "scan":
+        return lambda: parent.cascade_scan(*args, **kw)
+    cand, block, band_end = args[:3]
+    n, d = cand.shape
+    ok = ~torch.isnan(cand).any(1)
+    first = torch.arange(n // block, dtype=torch.int32, device=cand.device) * block
+    ends = (band_end.long() * block).to(torch.int32)
+    return lambda: parent.dominated_by_rect_windows(
+        cand.T.contiguous(), ok, cand.reshape(-1, block, d).transpose(1, 2).contiguous(), first,
+        ends, mp=kw.get("mp", False)).reshape(n)
+
+
+def cascade_breakdown(torch, sites, parent=None) -> dict:
+    """The cascade's calls recorded by ``cascade_sites``, run again: each
+    site's device ms by kernel, summed over its calls (``_kernel_ms``: the
+    window pass's summary and compare kernels, the scan's summaries and
+    cluster kernel); for the window pass the inputs counted — groups of
+    ``BLOCK_VICTIMS`` rows and those holding a candidate (the windowed K2's
+    compare grid had one CTA a group, and only these had an open victim),
+    the worklist's items, the tiles the longest window walks, and the
+    windows' lengths in blocks (least, median, largest, over the blocks
+    with a candidate). With ``parent`` (the parent tree's
+    ``dominance_kernels``) its kernels on the same inputs (``_parent_call``),
+    their masks checked against this tree's, timed by CUDA events
+    (``parent_ms``, summed) beside this tree's (``ms``) and split the same
+    way."""
+    from skyline_tpu_torch.ops import dominance_kernels as dk
+
+    out = {}
+    for site, calls in sites.items():
+        entry = {"calls": len(calls), "ms": 0.0, "kernel_ms": {}}
+        if parent is not None:
+            entry.update(parent_ms=0.0, parent_kernel_ms={})
+        lengths, longest, groups, with_cand, items = [], 0, 0, 0, 0
+        for _, _, fn, args, kw, got, _ in calls:
+            call = lambda fn=fn, args=args, kw=kw: fn(*args, **kw)  # noqa: E731
+            entry["ms"] += _event_ms(torch, call, reps=3)
+            for k, v in _kernel_ms(torch, call).items():
+                entry["kernel_ms"][k] = entry["kernel_ms"].get(k, 0.0) + v
+            if parent is not None:
+                old = _parent_call(torch, parent, site, args, kw)
+                if not torch.equal(old(), got):
+                    raise AssertionError(f"cascade site {site}: the parent's kernel disagrees")
+                entry["parent_ms"] += _event_ms(torch, old, reps=3)
+                for k, v in _kernel_ms(torch, old).items():
+                    entry["parent_kernel_ms"][k] = entry["parent_kernel_ms"].get(k, 0.0) + v
+            if site != "windows":
+                continue
+            cand, block, band_end = args[:3]
+            real = ~torch.isnan(cand).any(1)
+            size = min(block, dk.BLOCK_VICTIMS)
+            groups += cand.shape[0] // size
+            with_cand += int(real.reshape(-1, size).any(1).sum())
+            scratch = {}
+            dk.cascade_windows(cand, block, band_end, scratch=scratch)
+            items += int(scratch["counters"][0])
+            for _, s, e in _window_spans(cand, block, band_end):
+                lengths.append((e - s) / block)
+                longest = max(longest, -(-e // dk.TILE_ROWS) - s // dk.TILE_ROWS)
+        if site == "windows" and calls:
+            lengths.sort()
+            entry.update(groups=groups, groups_with_candidate=with_cand, items=items,
+                         longest_window_tiles=longest,
+                         window_blocks={"min": lengths[0], "median": lengths[len(lengths) // 2],
+                                        "max": lengths[-1]} if lengths else None)
+        out[site] = entry
+    log("timings: the cascade's kernels split: " + "; ".join(
+        f"{site} {v['calls']} calls {v['ms']:.3f} ms ("
+        + ", ".join(f"{k} {m:.3f}" for k, m in sorted(v["kernel_ms"].items())) + ")"
+        + (f", parent {v['parent_ms']:.3f} ms ("
+           + ", ".join(f"{k} {m:.3f}" for k, m in sorted(v["parent_kernel_ms"].items())) + ")"
+           if "parent_ms" in v else "")
+        + (f"; {v['groups_with_candidate']} of {v['groups']} groups hold a candidate, "
+           f"{v['items']} items, the longest window {v['longest_window_tiles']} tiles, "
+           f"window blocks {v['window_blocks']}" if "items" in v else "")
+        for site, v in out.items()))
+    return out
+
+
 def cascade_timings(torch, np, eng, x_last, windows: int, launches_l: dict,
-                    launches_m: dict, dev="cuda") -> dict:
+                    launches_m: dict, dev="cuda", parent=None) -> dict:
     """The device cascade at the north-star flat-merge union (path (c)'s
     last engine, the union K3's north-star row masks; 524,288 rows after
     padding), with ``SKYLINE_MIXED_PRECISION`` on and off: the whole call's
@@ -4060,9 +4285,11 @@ def cascade_timings(torch, np, eng, x_last, windows: int, launches_l: dict,
     cascade's; its launches; each site's device ms, plain ms and bound
     (``cascade_sites``). Then one more window of path (l) with its sites
     watched: the cascade as the flush runs it. Launches per window of (l)
-    and (m) from their main-path runs. ``rows``: the kernel table's rows of
-    the windowed K2 and the scan (their main paths' mp launches), at (l)'s
-    shapes, per launch, the union's numbers under ``inputs``."""
+    and (m) from their main-path runs. ``breakdown``: ``cascade_breakdown``
+    of the union's mp calls and of the (l) window's (with ``parent``, the
+    parent tree's kernels beside them). ``rows``: the kernel table's rows
+    of the window pass and the scan (their main paths' mp launches), at
+    (l)'s shapes, per call, the union's numbers under ``inputs``."""
     from skyline_tpu_torch.ops import device_cascade as tdc
     from skyline_tpu_torch.ops import dominance_kernels as dk
     from skyline_tpu_torch.stream.window import _active_bucket, gather_union
@@ -4097,6 +4324,8 @@ def cascade_timings(torch, np, eng, x_last, windows: int, launches_l: dict,
             launches = {k: v for k, v in dk.LAUNCHES.items() if v}
             out[key] = {"ms": ms, "k3_ms": k3_ms, "sites": site_numbers(torch, sites),
                         "launches": launches}
+            if mp:
+                union_sites = sites
         log(f"timings: device cascade ({key}) at the north-star union ({out['union_rows']} "
             f"rows, {out['valid_rows']} valid): {ms:.3f} ms wall against K3 {k3_ms:.3f} ms "
             f"and the CPU cascade {out['plain_ms']:.1f} ms (bound {out['bound_ms']:.4f} ms); "
@@ -4112,6 +4341,8 @@ def cascade_timings(torch, np, eng, x_last, windows: int, launches_l: dict,
                   for site, calls in sites.items() if calls}
     out["flush_l"] = site_numbers(torch, sites)
     out["flush_l_window_ms"] = window_ms
+    out["breakdown"] = {"north_star_union": cascade_breakdown(torch, union_sites, parent),
+                        "flush_l_window": cascade_breakdown(torch, sites, parent)}
     for p, launches in (("l", launches_l), ("m", launches_m)):
         out[f"launches_per_window_{p}"] = {
             k: v / windows for k, v in launches.items() if v}
@@ -4120,7 +4351,7 @@ def cascade_timings(torch, np, eng, x_last, windows: int, launches_l: dict,
         + f"; launches per window (l) {out['launches_per_window_l']}, (m) "
         f"{out['launches_per_window_m']}")
     out["rows"] = []
-    for site, name in (("band", "dominated_by_rect_windows_mp"), ("scan", "cascade_scan_mp")):
+    for site, name in (("windows", "cascade_windows_mp"), ("scan", "cascade_scan_mp")):
         got = out["flush_l"][site]
         n = max(got["launches"], 1)
         extra = {"inputs": {"north_star_union": {k: out[k]["sites"][site] for k in ("mp", "f32")},
@@ -5383,8 +5614,7 @@ def check_one_device(torch, dev) -> int:
         ("strictly_dominated_bf16_kernel",
          lambda: dk._predrop_call(y3, None, y3.to(other), ok, fused=False)),
         ("mp_predrop_kernel", lambda: dk._predrop_call(y3, ok, y3, ok.to(other), fused=True)),
-        ("dominated_by_rect_windows", lambda: dk.dominated_by_rect_windows(
-            x3[0], ok[0], x3, w, w.to(other))),
+        ("cascade_windows", lambda: dk.cascade_windows(y3[0], 64, w.to(other))),
         ("cascade_scan", lambda: dk.cascade_scan(y3[0], ok[0].to(other), 64)),
     ]
     before = dict(dk.LAUNCHES)
@@ -7386,13 +7616,12 @@ def mesh_flush_timings(torch, np, heavy: dict, summary: dict, path: str) -> dict
 # -- phase 7: the analysis gate ------------------------------------------------
 
 # the kernels the graph audit's matrix launches on the card: K1 and K2 (f32
-# and mp) in the SFS round and the merge step, the windowed K2 and the scan
+# and mp) in the SFS round and the merge step, the window pass and the scan
 # in the device cascade, K3 in the merge-time mask at d > 2,
 # the fused pre-drop in the rounds
 AUDIT_WANTED = ("dominated_by_any", "dominated_by_any_mp", "dominated_by_rect",
                 "dominated_by_rect_mp", "skyline_mask_kernel", PREDROP_FUSED,
-                "dominated_by_rect_windows", "dominated_by_rect_windows_mp", "cascade_scan",
-                "cascade_scan_mp")
+                "cascade_windows", "cascade_windows_mp", "cascade_scan", "cascade_scan_mp")
 AUDIT_CONFIGS = 22
 SENTINEL_RUNS = ROOT / "skyline_tpu_torch" / "_build" / "sentinel"
 
@@ -7824,9 +8053,9 @@ def main() -> int:
                     site["kernel"] = flush["merge_step_k2"]
                 rows[kname].setdefault("inputs", {})[f"{step_name}_{path}"] = site
         casc = cascade_timings(torch, np, eng_c, x_c, w, launches_of["l"],
-                               launches_of["m"])
+                               launches_of["m"], parent=parent)
         details["device_cascade"] = casc
-        # the windowed K2 and the scan have rows of their own
+        # the window pass and the scan have rows of their own
         table += casc["rows"]
         rows.update({r["name"]: r for r in casc["rows"]})
         rows["dominated_by_rect_mp"]["inputs"]["incremental"] = {

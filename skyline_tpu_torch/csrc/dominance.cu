@@ -2,7 +2,7 @@
 //
 // out[p, j] = some valid x[p, :, i] dominates y[p, :, j]   (minimization:
 // all(x_k <= y_k) and any(x_k < y_k)), for an optional leading partition
-// dimension p. One kernel serves four entry points of
+// dimension p. One kernel serves three entry points of
 // skyline_tpu_torch/ops/dominance_kernels.py:
 //
 //   K1 dominated_by_any  (x == y, one set)   replaces skyline_tpu/ops/
@@ -10,9 +10,6 @@
 //        _tile_body, _dom_tile, _tile_sum_skip)
 //   K2 dominated_by_rect (rectangular)       replaces dominated_by_pallas
 //   K3 skyline_mask_kernel (sum-sort + K1)   replaces skyline_mask_pallas
-//   K2 dominated_by_rect_windows: one dominator set, each partition against
-//        its own row window (the device cascade's self and band pass,
-//        every block's in one launch; step 3's WIN)
 //
 // The layout at the surface follows the TPU kernels: coordinates transposed
 // as (P, d, N), validity one uint8 per dominator. The device code that
@@ -173,22 +170,16 @@ namespace {
 
 // Step 1. grid (ntiles + nblocks, P), TILE threads: blocks below ntiles
 // summarise a dominator tile and write its rows row-major into xr; the rest
-// summarise a victim block of bv victims. With ``shared`` (the windowed
-// entry: one dominator set for every partition) the grid is (ntiles +
-// nblocks * P, 1): the tiles once, then every partition's victim blocks.
+// summarise a victim block of bv victims.
 template <int D>
 __global__ void __launch_bounds__(TILE)
 summarize_kernel(const float* __restrict__ x, const uint8_t* __restrict__ xv,
                  const float* __restrict__ y, float* __restrict__ xr,
                  float* __restrict__ tsum, float* __restrict__ bsum, int nx,
-                 int ny, int ntiles, int nblocks, int bv, bool shared) {
+                 int ny, int ntiles, int nblocks, int bv) {
   constexpr int DP = Geo<D>::DP, SW = Geo<D>::SW;
-  int p = blockIdx.y;
-  int idx = blockIdx.x;
-  if (shared && idx >= ntiles) {
-    p = (idx - ntiles) / nblocks;
-    idx = ntiles + (idx - ntiles) % nblocks;
-  }
+  const int p = blockIdx.y;
+  const int idx = blockIdx.x;
   const int tid = threadIdx.x;
   float acc[D + 1];
   if (idx < ntiles) {
@@ -264,21 +255,11 @@ constexpr size_t smem_bytes() {
 // the tile's summary against each of its undecided victims alone (a set of
 // one: the proof of step 2 holds for it), and a warp compares a tile only
 // when some lane found a victim the summary does not rule out.
-//
-// WIN (the windowed entry, the device cascade's self and band pass): each
-// partition reads the one dominator set (xr and tsum of partition 0), only its
-// rows [wbegin[p], wend[p]), offsets read from device memory. The walk
-// covers the tiles that meet the window; in a tile that crosses its edge
-// the rows outside get a NaN first coordinate in shared memory once the
-// tile has landed (NaN <= y is false), so they never dominate. The tile's
-// summary still covers those rows: a summary of a superset skips less,
-// never wrongly. Windows on multiples of TILE cross no edge.
-template <int D, bool WIN>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
 dominated_kernel(const float* __restrict__ xr, const float* __restrict__ tsum,
                  const float* __restrict__ bsum, const float* __restrict__ y,
-                 uint8_t* __restrict__ out, int nx, int ny, int ntiles, int nblocks,
-                 const int* __restrict__ wbegin, const int* __restrict__ wend) {
+                 uint8_t* __restrict__ out, int ny, int ntiles, int nblocks) {
   constexpr int DP = Geo<D>::DP, SW = Geo<D>::SW;
   constexpr int TILE_F4 = TILE * DP / 4;
   extern __shared__ float4 smem[];
@@ -290,16 +271,8 @@ dominated_kernel(const float* __restrict__ xr, const float* __restrict__ tsum,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  int t_lo = 0, t_hi = ntiles, rb = 0, re = nx;
-  if (WIN) {
-    rb = max(wbegin[p], 0);
-    re = min(wend[p], nx);
-    t_lo = rb / TILE;
-    t_hi = re > rb ? (re + TILE - 1) / TILE : t_lo;
-  } else {
-    xr += (size_t)p * ntiles * TILE * DP;
-    tsum += (size_t)p * ntiles * SW;
-  }
+  xr += (size_t)p * ntiles * TILE * DP;
+  tsum += (size_t)p * ntiles * SW;
   const float* bs = bsum + ((size_t)p * nblocks + blockIdx.x) * SW;
   y += (size_t)p * D * ny;
   out += (size_t)p * ny;
@@ -330,8 +303,8 @@ dominated_kernel(const float* __restrict__ xr, const float* __restrict__ tsum,
   load_summary<D>(bs, hi);
 
   bool busy = __syncthreads_or(pending);
-  for (int c0 = t_lo; busy && c0 < t_hi; c0 += CHUNK) {
-    const int cend = min(t_hi, c0 + CHUNK);
+  for (int c0 = 0; busy && c0 < ntiles; c0 += CHUNK) {
+    const int cend = min(ntiles, c0 + CHUNK);
     // step 3: the surviving tiles of this chunk, in order
     int kept = 0;
     for (int base = c0; base < cend; base += THREADS) {
@@ -370,15 +343,6 @@ dominated_kernel(const float* __restrict__ xr, const float* __restrict__ tsum,
       cp_async_commit();
       cp_async_wait<STAGES - 1>();  // tile `it` has landed (this thread's part)
       __syncthreads();              // ... and every thread's
-      if (WIN) {
-        const int tb = list[it] * TILE;
-        if (tb < rb || tb + TILE > re) {  // the same for every thread
-          float* rows = reinterpret_cast<float*>(ring + (it % STAGES) * TILE_F4);
-          for (int r = tid; r < TILE; r += THREADS)
-            if (tb + r < rb || tb + r >= re) rows[r * DP] = __int_as_float(0x7fc00000);
-          __syncthreads();
-        }
-      }
       float lo[SW];
       load_summary<D>(tsum + (size_t)list[it] * SW, lo);
       bool need = false;
@@ -400,38 +364,24 @@ dominated_kernel(const float* __restrict__ xr, const float* __restrict__ tsum,
   }
 }
 
-template <int D, bool WIN>
-cudaError_t launch_compare(const float* xr, const float* tsum, const float* bsum,
-                           const float* y, uint8_t* out, int P, int nx, int ny, int ntiles,
-                           int nblocks, const int* wbegin, const int* wend,
-                           cudaStream_t stream) {
-  // above 48 KB, dynamic shared memory must be asked for
-  const size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      dominated_kernel<D, WIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dominated_kernel<D, WIN><<<dim3(nblocks, P), THREADS, smem, stream>>>(
-      xr, tsum, bsum, y, out, nx, ny, ntiles, nblocks, wbegin, wend);
-  return cudaGetLastError();
-}
-
 template <int D>
 cudaError_t launch(const float* x, const uint8_t* xv, const float* y, uint8_t* out,
                    float* xr, float* tsum, float* bsum, int P, int nx, int ny,
-                   const int* wbegin, const int* wend, cudaStream_t stream) {
+                   cudaStream_t stream) {
   const int ntiles = (nx + TILE - 1) / TILE;
   const int nblocks = (ny + V * THREADS - 1) / (V * THREADS);
-  const bool win = wbegin != nullptr;
-  const dim3 grid = win ? dim3(ntiles + nblocks * P, 1) : dim3(ntiles + nblocks, P);
-  summarize_kernel<D><<<grid, TILE, 0, stream>>>(x, xv, y, xr, tsum, bsum, nx, ny, ntiles,
-                                                 nblocks, V * THREADS, win);
+  summarize_kernel<D><<<dim3(ntiles + nblocks, P), TILE, 0, stream>>>(
+      x, xv, y, xr, tsum, bsum, nx, ny, ntiles, nblocks, V * THREADS);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (win)
-    return launch_compare<D, true>(xr, tsum, bsum, y, out, P, nx, ny, ntiles, nblocks,
-                                   wbegin, wend, stream);
-  return launch_compare<D, false>(xr, tsum, bsum, y, out, P, nx, ny, ntiles, nblocks,
-                                  nullptr, nullptr, stream);
+  // above 48 KB, dynamic shared memory must be asked for
+  const size_t smem = smem_bytes<D>();
+  err = cudaFuncSetAttribute(dominated_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  dominated_kernel<D><<<dim3(nblocks, P), THREADS, smem, stream>>>(xr, tsum, bsum, y, out, ny,
+                                                                   ntiles, nblocks);
+  return cudaGetLastError();
 }
 
 // Step 8's summary pass. grid (ntiles + nblocks, P), TILE threads: blocks
@@ -645,22 +595,17 @@ cudaError_t launch_predrop(const float* y, const uint8_t* yv, const float* x,
 // uint8, all contiguous on the device. Scratch, allocated by the caller:
 // xr (P, ceil(nx / 256) * 256, dp) f32 with dp = d rounded up to 4; tsum
 // (P, ceil(nx / 256), sw) and bsum (P, ceil(ny / 256), sw) f32 with sw =
-// d + 1 rounded up to 4. wbegin and wend null: as above. Else (P,) int32
-// row offsets on the device: one dominator set, x (d, nx) and xv (nx,), for
-// every partition (xr and tsum sized for P = 1), partition p's victims
-// against its rows [wbegin[p], wend[p]) only. Launches the summary pass and
-// the compare kernel on ``stream`` without synchronising and returns
-// cudaGetLastError() of the launches.
+// d + 1 rounded up to 4. Launches the summary pass and the compare kernel
+// on ``stream`` without synchronising and returns cudaGetLastError() of the
+// launches.
 extern "C" int skyline_dominated(const float* x, const uint8_t* xv, const float* y,
                                  uint8_t* out, float* xr, float* tsum, float* bsum,
-                                 int P, int d, int nx, int ny, const int* wbegin,
-                                 const int* wend, void* stream) {
+                                 int P, int d, int nx, int ny, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((wbegin == nullptr) != (wend == nullptr)) return (int)cudaErrorInvalidValue;
   switch (d) {
 #define SKYLINE_CASE(D) \
   case D:               \
-    return (int)launch<D>(x, xv, y, out, xr, tsum, bsum, P, nx, ny, wbegin, wend, s);
+    return (int)launch<D>(x, xv, y, out, xr, tsum, bsum, P, nx, ny, s);
     SKYLINE_CASE(1)
     SKYLINE_CASE(2)
     SKYLINE_CASE(3)

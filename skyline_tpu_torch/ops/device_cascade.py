@@ -32,19 +32,20 @@ and stays so under any superset of those dominators drawn from real
 candidates. The mask is ``cand_ok & ~pre & ~(a) & ~(b) & ~(c)``, and (b)
 and (c) read candidates only, not the buffer; so where the reference runs
 them inside its ``lax.scan``, per block under ``lax.cond``, the port runs
-both once for all blocks before the scan, as ONE windowed K2 in which block
-b's rows meet the candidate rows ``[b * block, band_end[b] * block)``: the
-block itself (no row strictly dominates itself) and its band, the band's
-end computed on the device from the blocks' key ranges (``_band_ends``).
-The scan, pre-drop and (a) with the appends, is
-ONE cooperative kernel (``cascade_scan``) that walks the blocks in order,
-skipping a block with no row left, and keeps the buffer and its count on
-the device. A call makes a fixed number of launches whatever the block
-count, and reads nothing to the host.
+both once for all blocks before the scan, as ONE window pass
+(``cascade_windows``) in which block b's rows meet the candidate rows
+``[b * block, band_end[b] * block)``: the block itself (no row strictly
+dominates itself) and its band, the band's end computed on the device from
+the blocks' key ranges (``_band_ends``), the candidates read row-major in
+place. The scan, pre-drop and (a) with the appends, is ONE call
+(``cascade_scan``) that walks the blocks in order on one thread-block
+cluster, skipping a block with no row left, and keeps the buffer and its
+count on the card. A call makes a fixed number of launches whatever the
+block count, and reads nothing to the host.
 
-On a card the passes are the hand-written kernels (``ops/
-dominance_kernels.py``: the windowed K2 ``dominated_by_rect_windows``
-and ``cascade_scan``; ``mp`` from
+On a card the passes are the hand-written kernels of ``csrc/cascade.cu``
+(through ``ops/dominance_kernels.py``: ``cascade_windows`` and
+``cascade_scan``; ``mp`` from
 ``SKYLINE_MIXED_PRECISION``), with the reference's accelerator sizes (block
 and padding at least 1024 rows); on the CPU the same wrappers run their
 plain versions, with the reference's host sizes (padding at least 64 rows,
@@ -57,11 +58,7 @@ import numpy as np
 import torch
 
 from skyline_tpu_torch.ops.dominance import PAD_VALUE
-from skyline_tpu_torch.ops.dominance_kernels import (
-    cascade_scan,
-    dominated_by_rect_windows,
-    row_sums,
-)
+from skyline_tpu_torch.ops.dominance_kernels import cascade_scan, cascade_windows, row_sums
 from skyline_tpu_torch.utils.buckets import next_pow2
 from skyline_tpu_torch.utils.devices import resolve_device
 from skyline_tpu_torch.utils.knobs import device_cascade_block, mixed_precision_enabled
@@ -131,14 +128,10 @@ def _cascade_core(x: torch.Tensor, valid: torch.Tensor, block: int, mp: bool) ->
                           hi_s.reshape(nb, block).amax(dim=1))
 
     # (b) and (c): block b against the candidates of blocks b ..
-    # band_end[b]-1, itself (the full square) and its band, one windowed K2
+    # band_end[b]-1, itself (the full square) and its band, one window pass
     # (dominated rows acting as dominators are fine: transitivity)
-    cand_t = cand.reshape(nb, block, d).transpose(1, 2).contiguous()
-    first = torch.arange(nb, device=dev, dtype=torch.int32) * block
-    dominated = dominated_by_rect_windows(
-        cand.T.contiguous(), cand_ok, cand_t, first, (band_end * block).to(torch.int32), mp=mp
-    )
-    alive = cand_ok & ~dominated.reshape(n_pad)
+    dominated = cascade_windows(cand, block, band_end.to(torch.int32), mp=mp)
+    alive = cand_ok & ~dominated
     # (a) the scan: the pre-drop (mp) and the survivors of earlier blocks,
     # each block's survivors appended in sort order
     alive_all = cascade_scan(cand, alive, block, mp)

@@ -21,17 +21,20 @@ CUDA kernels. ``csrc/dominance.cu`` compares float32 values:
   same source, behind two entry points: ``strictly_dominated_bf16_kernel
   (y, x, x_valid)``, the certified mask, and ``mp_predrop_kernel(dom,
   dom_ok, block, bvalid)``, the flush's drop with its epilogue fused.
-- ``dominated_by_rect_windows(xt, x_valid, yt, begin, end)``: K2 with one
-  dominator set for every partition, partition p's victims against its rows
-  ``[begin[p], end[p])`` only, the offsets read on the device (the device
-  cascade's self and band pass, every block's in one launch).
 
-``csrc/cascade.cu`` holds ``cascade_scan(cand, alive, block)``, the device
-cascade's scan (pass (a) of ``ops/device_cascade.py``: each block's live
-candidates against the survivors of the blocks before it, the bf16 pre-drop
-first with ``mp``, the survivors appended) in one cooperative launch; it
-replaces the body of the reference's ``lax.scan`` and shares the compare,
-skip and pre-drop device code of ``csrc/dominance_common.cuh``.
+``csrc/cascade.cu`` holds the device cascade's two kernels (``ops/
+device_cascade.py``), which share the compare, skip and pre-drop device
+code of ``csrc/dominance_common.cuh``:
+
+- ``cascade_windows(cand, block, band_end)``: every block's row-major
+  candidates against the candidates of its window, rows ``[b * block,
+  band_end[b] * block)`` (the full square and the band), all blocks in one
+  call: a summary kernel that builds a device worklist of (victim group,
+  window piece) items, then a persistent kernel that pulls them.
+- ``cascade_scan(cand, alive, block)``: pass (a), each block's live
+  candidates against the survivors of the blocks before it, the bf16
+  pre-drop first with ``mp``, the survivors appended, on one thread-block
+  cluster; it replaces the body of the reference's ``lax.scan``.
 
 ``csrc/dominance_rank.cu`` compares int32 dense ranks (the rank cascade):
 
@@ -102,22 +105,23 @@ _PKG = Path(__file__).resolve().parents[1]
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # library name -> (source, {C entry point: argument types}, C error-string
 # function). The compare entry points: x, validity, y, out and three scratch
-# buffers; P, d, nx, ny; (values only) the windows' begin and end offsets,
-# null for none; the stream. The pre-drop: y, its validity, x, its validity,
-# four outputs and three scratch buffers; P, d, nx, ny; four partition
-# strides; the stream. The scan: the candidates, their alive flags, the
-# blocks' live flags, six scratch buffers and the output; d, nb, block, mp;
-# the stream.
+# buffers; P, d, nx, ny; the stream. The pre-drop: y, its validity, x, its
+# validity, four outputs and three scratch buffers; P, d, nx, ny; four
+# partition strides; the stream. The window pass: the candidates, the
+# band's ends, the output and four scratch buffers; d, n, block; the stream.
+# The scan: the candidates, their alive flags, the output and four scratch
+# buffers; d, nb, block, mp; the stream.
 SOURCES = {
     "dominance": (
         _PKG / "csrc" / "dominance.cu",
-        {"skyline_dominated": [_P] * 7 + [_I] * 4 + [_P] * 2 + [_P],
+        {"skyline_dominated": [_P] * 7 + [_I] * 4 + [_P],
          "skyline_predrop": [_P] * 11 + [_I] * 4 + [_L] * 4 + [_P]},
         "skyline_error_string",
     ),
     "cascade": (
         _PKG / "csrc" / "cascade.cu",
-        {"skyline_cascade_scan": [_P] * 9 + [_I] * 4 + [_P]},
+        {"skyline_cascade_windows": [_P] * 7 + [_I] * 3 + [_P],
+         "skyline_cascade_scan": [_P] * 7 + [_I] * 4 + [_P]},
         "skyline_cascade_error_string",
     ),
     "dominance_rank": (
@@ -143,12 +147,20 @@ BLOCK_VICTIMS = 256
 # _MP_PREFIX; csrc/cascade.cu PRE_ROWS): the buffer's first rows have the
 # smallest sums and so dominate the most
 PREDROP_PREFIX = 512
+# the window pass's worklist (csrc/cascade.cu PIECES, PIECE_TILES): a
+# group's window is cut into at most this many pieces, each but the last of
+# at least this many tiles (unless the window is shorter)
+WINDOW_PIECES = 8
+PIECE_TILES = 4
+# the scan's thread-block cluster (csrc/cascade.cu SCAN_CTAS): 8 CTAs, the
+# portable size
+SCAN_CTAS = 8
 
 LAUNCHES = {
     "dominated_by_any": 0, "dominated_by_rect": 0, "skyline_mask_kernel": 0,
     "dominated_by_any_mp": 0, "dominated_by_rect_mp": 0, "skyline_mask_kernel_mp": 0,
     "strictly_dominated_bf16_kernel": 0, "mp_predrop_kernel": 0,
-    "dominated_by_rect_windows": 0, "dominated_by_rect_windows_mp": 0,
+    "cascade_windows": 0, "cascade_windows_mp": 0,
     "cascade_scan": 0, "cascade_scan_mp": 0,
     "rank_transform": 0, "dominated_by_any_rank": 0, "dominated_by_rank_rect": 0,
     "skyline_mask_rank_kernel": 0,
@@ -156,7 +168,6 @@ LAUNCHES = {
 # entry point -> the library whose kernel it launches
 _LIBRARY_OF = {
     "dominated_by_any": "dominance", "dominated_by_rect": "dominance",
-    "dominated_by_rect_windows": "dominance",
     "skyline_mask_kernel": "dominance", "dominated_by_any_rank": "dominance_rank",
     "dominated_by_rank_rect": "dominance_rank",
     "skyline_mask_rank_kernel": "dominance_rank",
@@ -344,19 +355,15 @@ def _one_device(name: str, **tensors) -> None:
 
 
 def _launch(
-    name: str, x3: torch.Tensor, v2: torch.Tensor, y3: torch.Tensor, mp: bool = False,
-    windows: tuple[torch.Tensor, torch.Tensor] | None = None,
+    name: str, x3: torch.Tensor, v2: torch.Tensor, y3: torch.Tensor, mp: bool = False
 ) -> torch.Tensor:
     """One kernel launch on the current stream of the operands' device for
     entry point ``name``, counted in ``LAUNCHES`` (under ``name + "_mp"``
     with ``mp``; the value kernel is the same either way): (P, ny) bool.
-    Rank inputs carry a sum row on top of their ``d`` rank rows. With
-    ``windows`` (begin, end: (P,) int32 row offsets) x3 (1, d, nx) is every
-    partition's dominator set and partition p compares only its window's
-    rows. Every operand, the output and the scratch must lie on one device
+    Rank inputs carry a sum row on top of their ``d`` rank rows. Every
+    operand, the output and the scratch must lie on one device
     (``ValueError`` otherwise)."""
-    _one_device(name, dominators=x3, validity=v2, victims=y3,
-                **(dict(zip(("window_begin", "window_end"), windows)) if windows else {}))
+    _one_device(name, dominators=x3, validity=v2, victims=y3)
     rows, nx = x3.shape[1:]
     P, ny = y3.shape[0], y3.shape[2]
     library = _LIBRARY_OF[name]
@@ -371,13 +378,9 @@ def _launch(
     if P == 0 or ny == 0:
         return out.view(torch.bool)
     scratch = _scratch(P, rows, d, nx, ny, x3)
-    if windows is not None:  # the dominators' tiles and summaries once
-        scratch[:2] = _scratch(1, rows, d, nx, 0, x3)[:2]
     _one_device(name, dominators=x3, output=out, **{f"scratch{i}": t for i, t in enumerate(scratch)})
     args = [x3.data_ptr(), v2.view(torch.uint8).data_ptr(), y3.data_ptr(), out.data_ptr()]
     args += [t.data_ptr() for t in scratch] + [P, d, nx, ny]
-    if library == "dominance":
-        args += [t.data_ptr() for t in windows] if windows is not None else [0, 0]
     with torch.cuda.device(x3.device):
         _call(library, "skyline_dominated" if library == "dominance"
               else "skyline_rank_dominated", args)
@@ -409,41 +412,6 @@ def dominated_by_rect_plain(
     for p in range(x3.shape[0]):
         out[p] = dominated_by(y3[p].T, x3[p].T, v2[p])
     return out if batched else out[0]
-
-
-def _window_args(xt, x_valid, yt, begin, end, name="dominated_by_rect_windows"):
-    """Check one (d, Nx) dominator set with (Nx,) validity, (P, d, Ny)
-    victims and (P,) int32 window offsets, all on one device."""
-    _one_device(name, dominators=xt, validity=x_valid, victims=yt, window_begin=begin,
-                window_end=end)
-    x3, v2, batched = _batched(xt, x_valid, name)
-    y3, _, ybatched = _batched(yt, None, name)
-    if batched or not ybatched or y3.shape[1] != x3.shape[1]:
-        raise ValueError(f"{name}: expected dominators (d, Nx) and victims (P, d, Ny), got "
-                         f"{tuple(xt.shape)} and {tuple(yt.shape)}")
-    for what, t in (("begin", begin), ("end", end)):
-        if t.dtype != torch.int32 or tuple(t.shape) != (y3.shape[0],) or not t.is_contiguous():
-            raise ValueError(f"{name}: {what} must be a contiguous int32 ({y3.shape[0]},) "
-                             f"tensor, got {tuple(t.shape)} {t.dtype}")
-    return x3, v2, y3
-
-
-def dominated_by_rect_windows_plain(
-    xt: torch.Tensor, x_valid: torch.Tensor, yt: torch.Tensor, begin: torch.Tensor,
-    end: torch.Tensor,
-) -> torch.Tensor:
-    """Plain windowed K2: (P, Ny), partition p's victims against the valid
-    dominator rows ``[begin[p], end[p])`` of xt alone (clipped to [0, Nx]; an
-    empty window dominates nothing). The offsets and the windows' validity
-    are read with ``tolist`` (no aten op on a CPU tensor)."""
-    x3, v2, y3 = _window_args(xt, x_valid, yt, begin, end)
-    nx = x3.shape[2]
-    out = torch.zeros((y3.shape[0], y3.shape[2]), dtype=torch.bool, device=yt.device)
-    for p, (b, e) in enumerate(zip(begin.tolist(), end.tolist())):
-        b, e = max(b, 0), min(e, nx)
-        if e > b and v2[0, b:e].any().tolist():
-            out[p] = dominated_by(y3[p].T, x3[0, :, b:e].T, v2[0, b:e])
-    return out
 
 
 def skyline_mask_plain(x: torch.Tensor, valid: torch.Tensor | None = None) -> torch.Tensor:
@@ -698,26 +666,6 @@ def dominated_by_rect(
     return out if batched else out[0]
 
 
-def dominated_by_rect_windows(
-    xt: torch.Tensor, x_valid: torch.Tensor, yt: torch.Tensor, begin: torch.Tensor,
-    end: torch.Tensor, mp: bool = False,
-) -> torch.Tensor:
-    """Windowed K2: ``out[p, j]`` = some valid dominator column i of ``xt``
-    with ``begin[p] <= i < end[p]`` dominates victim column j of ``yt[p]``.
-    xt: (d, Nx) float32, the one dominator set; x_valid: (Nx,) bool; yt: (P,
-    d, Ny) float32; begin, end: (P,) int32 row offsets, read on the device
-    (clipped to [0, Nx]). Returns (P, Ny) bool. On the card ONE launch: the
-    dominators' summary pass once, every partition's victims against the
-    tiles its window meets (``csrc/dominance.cu``, step 3's WIN); counted
-    under its own name (``_mp`` with ``mp``: the same kernel, the same
-    mask)."""
-    name = "dominated_by_rect_windows"
-    if not _device_path(xt, name):
-        return dominated_by_rect_windows_plain(xt, x_valid, yt, begin, end)
-    x3, v2, y3 = _window_args(xt, x_valid, yt, begin, end)
-    return _launch(name, x3, v2, y3, mp, windows=(begin, end))
-
-
 def _mask_args(x, valid, name="skyline_mask_kernel", batch: bool = False):
     """Check (N, d) points — or (P, N, d) with ``batch`` — and their (N,) /
     (P, N) validity."""
@@ -933,24 +881,136 @@ def mp_predrop_kernel(dom, dom_ok, block, bvalid):
     return out, keep.view(torch.bool), counts
 
 
-# -- the device cascade's scan ------------------------------------------------
+# -- the device cascade's kernels ----------------------------------------------
 
 
-def _scan_args(cand: torch.Tensor, alive: torch.Tensor, block: int, name="cascade_scan"):
-    _one_device(name, candidates=cand, alive=alive)
+def _cand_args(cand: torch.Tensor, block: int, name: str) -> tuple[int, int]:
+    """Check (N, d) row-major candidates of whole blocks: (N, d)."""
     if cand.dtype != torch.float32 or cand.dim() != 2 or not cand.is_contiguous():
         raise ValueError(f"{name}: candidates must be contiguous float32 (N, d), got "
                          f"{tuple(cand.shape)} {cand.dtype}")
     n, d = cand.shape
-    if alive.dtype != torch.bool or tuple(alive.shape) != (n,) or not alive.is_contiguous():
-        raise ValueError(f"{name}: alive must be a contiguous bool ({n},) tensor, got "
-                         f"{tuple(alive.shape)} {alive.dtype}")
     if block < 1 or n % block:
         raise ValueError(f"{name}: {n} rows are not whole blocks of {block}")
     if not 1 <= d <= MAX_DIMS:
         raise ValueError(f"{name}: takes 1..{MAX_DIMS} dims, got {d}")
     if n >= 2**31:
         raise ValueError(f"{name}: takes fewer than 2^31 rows")
+    return n, d
+
+
+def _windows_args(cand: torch.Tensor, block: int, band_end: torch.Tensor,
+                  name="cascade_windows") -> tuple[int, int]:
+    _one_device(name, candidates=cand, band_end=band_end)
+    n, d = _cand_args(cand, block, name)
+    nb = n // block
+    if band_end.dtype != torch.int32 or tuple(band_end.shape) != (nb,) \
+            or not band_end.is_contiguous():
+        raise ValueError(f"{name}: band_end must be a contiguous int32 ({nb},) tensor, got "
+                         f"{tuple(band_end.shape)} {band_end.dtype}")
+    return n, d
+
+
+def cascade_windows_plain(
+    cand: torch.Tensor, block: int, band_end: torch.Tensor
+) -> torch.Tensor:
+    """Plain window pass: ``out[j]`` = some row of block b's window, rows
+    ``[b * block, min(band_end[b] * block, N))`` of ``cand``, dominates row
+    j of block b (rows with a NaN coordinate neither dominate nor are
+    dominated). A block with no such row, or an empty window, is skipped;
+    the flags and ends are read with ``tolist`` (no aten op on a CPU
+    tensor). Returns (N,) bool."""
+    n, _ = _windows_args(cand, block, band_end)
+    out = torch.zeros((n,), dtype=torch.bool, device=cand.device)
+    if n == 0:
+        return out
+    real = ~torch.isnan(cand).any(dim=1)
+    has = real.reshape(-1, block).any(dim=1).tolist()
+    for b, (live, end) in enumerate(zip(has, band_end.tolist())):
+        s, e = b * block, min(end * block, n)
+        if live and e > s:
+            out[s : s + block] = dominated_by(cand[s : s + block], cand[s:e], real[s:e])
+    return out
+
+
+def cascade_worklist_plain(
+    cand: torch.Tensor, block: int, band_end: torch.Tensor
+) -> list[tuple[int, int, int]]:
+    """The window pass's worklist as its summary kernel builds it, sorted:
+    one item (group, first tile, end tile) for each piece of each victim
+    group (``BLOCK_VICTIMS`` rows of one block) that holds a row without a
+    NaN coordinate. A group of block b walks the ``TILE_ROWS``-row tiles
+    that meet its window, from tile ``b * block // TILE_ROWS`` to the one
+    holding row ``min(band_end[b] * block, N) - 1``, cut into
+    ``max(1, min(WINDOW_PIECES, tiles // PIECE_TILES))`` pieces of equal
+    length (the last shorter)."""
+    n, _ = _windows_args(cand, block, band_end)
+    gpb = -(-block // BLOCK_VICTIMS)
+    real = ~torch.isnan(cand).any(dim=1)
+    items = []
+    for b, end in enumerate(band_end.tolist()):
+        t_lo = b * block // TILE_ROWS
+        span = -(-min(end * block, n) // TILE_ROWS) - t_lo
+        for g in range(gpb):
+            s = b * block + g * BLOCK_VICTIMS
+            if span <= 0 or not real[s : min(s + BLOCK_VICTIMS, (b + 1) * block)].any().tolist():
+                continue
+            pieces = max(1, min(WINDOW_PIECES, span // PIECE_TILES))
+            size = -(-span // pieces)
+            items += [(b * gpb + g, t_lo + p, t_lo + min(span, p + size))
+                      for p in range(0, span, size)]
+    return sorted(items)
+
+
+def cascade_windows(
+    cand: torch.Tensor, block: int, band_end: torch.Tensor, mp: bool = False,
+    scratch: dict | None = None,
+) -> torch.Tensor:
+    """The device cascade's window pass: ``out[j]`` = some row of block b's
+    window, rows ``[b * block, min(band_end[b] * block, N))``, dominates row
+    j of block b — the full square and the band of every block at once.
+    cand: (N, d) float32 row-major, rows in scan order, non-candidates
+    all-NaN; N a multiple of ``block``; band_end: (N // block,) int32 on
+    cand's device, in blocks. Returns (N,) bool. On the card two launches of
+    ``csrc/cascade.cu`` (the summaries and the worklist, then the persistent
+    compare kernel) with nothing read to the host, counted once under
+    ``cascade_windows`` (``_mp`` with ``mp``: the same kernels, the same
+    mask). ``scratch``, a dict, receives the worklist (``items``, int32
+    rows of group, first tile, end tile, unused) and its two counters (the
+    items, the items pulled)."""
+    name = "cascade_windows"
+    if not _device_path(cand, name):
+        return cascade_windows_plain(cand, block, band_end)
+    n, d = _windows_args(cand, block, band_end)
+    dev = cand.device
+    out = torch.empty((n,), dtype=torch.uint8, device=dev)
+    if n == 0:
+        return out.view(torch.bool)
+    sw = -(-(d + 1) // 4) * 4
+    groups = n // block * -(-block // BLOCK_VICTIMS)
+    work = dict(
+        tile_summaries=torch.empty((-(-n // TILE_ROWS), sw), dtype=torch.float32, device=dev),
+        group_summaries=torch.empty((groups, sw), dtype=torch.float32, device=dev),
+        items=torch.empty((groups * WINDOW_PIECES, 4), dtype=torch.int32, device=dev),
+        counters=torch.zeros((2,), dtype=torch.int32, device=dev),
+    )
+    _one_device(name, candidates=cand, output=out, **work)
+    args = [cand.data_ptr(), band_end.data_ptr(), out.data_ptr()]
+    args += [t.data_ptr() for t in work.values()] + [d, n, block]
+    with torch.cuda.device(dev):
+        _call("cascade", "skyline_cascade_windows", args)
+    LAUNCHES[name + ("_mp" if mp else "")] += 1
+    if scratch is not None:
+        scratch.update(items=work["items"], counters=work["counters"])
+    return out.view(torch.bool)
+
+
+def _scan_args(cand: torch.Tensor, alive: torch.Tensor, block: int, name="cascade_scan"):
+    _one_device(name, candidates=cand, alive=alive)
+    n, d = _cand_args(cand, block, name)
+    if alive.dtype != torch.bool or tuple(alive.shape) != (n,) or not alive.is_contiguous():
+        raise ValueError(f"{name}: alive must be a contiguous bool ({n},) tensor, got "
+                         f"{tuple(alive.shape)} {alive.dtype}")
     return n, d
 
 
@@ -999,33 +1059,30 @@ def cascade_scan(
     rows (a certified drop is a proof of strict dominance, so the mask is
     the same). cand: (N, d) float32 rows in scan order, non-candidates
     all-NaN; alive: (N,) bool; N a multiple of ``block``. Returns (N,) bool.
-    On the card ONE cooperative launch of ``csrc/cascade.cu`` with nothing
-    read to the host (a launch the card refuses raises), counted under
-    ``cascade_scan`` (``_mp`` with ``mp``)."""
+    On the card two launches of ``csrc/cascade.cu`` — the group summaries,
+    then the scan on one thread-block cluster of ``SCAN_CTAS`` CTAs —
+    with nothing read to the host (a cluster the card refuses raises),
+    counted once under ``cascade_scan`` (``_mp`` with ``mp``)."""
     name = "cascade_scan"
     if not _device_path(cand, name):
         return cascade_scan_plain(cand, alive, block, mp)
     n, d = _scan_args(cand, alive, block)
     dev = cand.device
-    out = torch.zeros((n,), dtype=torch.uint8, device=dev)
+    out = torch.empty((n,), dtype=torch.uint8, device=dev)
     if n == 0:
         return out.view(torch.bool)
-    nb = n // block
+    nb, tiles = n // block, -(-n // TILE_ROWS)
     dp, sw = -(-d // 4) * 4, -(-(d + 1) // 4) * 4
-    groups = -(-block // BLOCK_VICTIMS)
-    inf = float("inf")
-    scratch = dict(
-        live=alive.view(nb, block).any(dim=1).to(torch.uint8),
-        buffer=torch.full((n, dp), inf, dtype=torch.float32, device=dev),
-        tile_summaries=torch.full((-(-n // TILE_ROWS), sw), inf, dtype=torch.float32,
-                                  device=dev),
-        group_summaries=torch.empty((nb * groups, sw), dtype=torch.float32, device=dev),
-        flags=torch.zeros((-(-n // 32),), dtype=torch.int32, device=dev),
-        count=torch.zeros((1,), dtype=torch.int32, device=dev),
+    groups = nb * -(-block // BLOCK_VICTIMS)
+    work = dict(
+        buffer=torch.empty((tiles * TILE_ROWS, dp), dtype=torch.float32, device=dev),
+        tile_summaries=torch.empty((tiles, sw), dtype=torch.float32, device=dev),
+        group_summaries=torch.empty((groups, sw), dtype=torch.float32, device=dev),
+        group_live=torch.empty((groups,), dtype=torch.uint8, device=dev),
     )
-    _one_device(name, candidates=cand, alive=alive, output=out, **scratch)
-    args = [cand.data_ptr(), alive.view(torch.uint8).data_ptr()]
-    args += [t.data_ptr() for t in scratch.values()] + [out.data_ptr(), d, nb, block, int(mp)]
+    _one_device(name, candidates=cand, alive=alive, output=out, **work)
+    args = [cand.data_ptr(), alive.view(torch.uint8).data_ptr(), out.data_ptr()]
+    args += [t.data_ptr() for t in work.values()] + [d, nb, block, int(mp)]
     with torch.cuda.device(dev):
         _call("cascade", "skyline_cascade_scan", args)
     LAUNCHES[name + ("_mp" if mp else "")] += 1

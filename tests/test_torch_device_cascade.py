@@ -5,10 +5,14 @@ tiles in interpret mode) over uniform, correlated and anti-correlated rows
 at d in {3, 4, 8} with duplicates and invalid rows, the reference's
 adversarial cases, the 2^24 equal-key band at block 8, NaN rows that
 survive and the key radius; ``device_cascade_keep``'s union semantics; the
-launch plan (one windowed K2 and one scan a call, whatever the block
-count), the band's ends on the device against their numpy form,
-the windowed K2 and the scan against their references (the scan against
-the per-block host loop the port ran before, kept here); and the lazy
+launch plan (one window pass and one scan a call, whatever the block
+count), the band's ends on the device against their numpy form, the window
+pass's worklist against a direct enumeration of its (group, tile) pairs,
+the window pass and the scan against their references (the window pass
+against the windowed K2 the port ran before and, through the whole core,
+JAX's ``_cascade_core`` with its Pallas tiles in interpret mode; the scan
+against the per-block host loop the port ran before, both kept here); and
+the lazy
 engine with host ingest, each flush row forced
 and under ``auto``, against the JAX engine — answers, published digests and
 the race's signatures. Every comparison is exact. The ``cuda``-marked test
@@ -25,7 +29,7 @@ from skyline_tpu.stream import SkylineEngine as JaxEngine
 from skyline_tpu.stream.batched import PartitionSet as JaxSet
 from skyline_tpu_torch.ops import device_cascade as tdc
 from skyline_tpu_torch.ops import dominance_kernels as dk
-from skyline_tpu_torch.ops.dominance import skyline_mask
+from skyline_tpu_torch.ops.dominance import dominated_by, skyline_mask
 from skyline_tpu_torch.ops.dominance_kernels import row_sums
 from skyline_tpu_torch.ops.sorted_sfs import sorted_sfs_keep
 from skyline_tpu_torch.stream import EngineConfig, SkylineEngine
@@ -188,12 +192,12 @@ def _launch_plan_fixture():
 
 @pytest.mark.parametrize("block", [8, 16, 64])
 def test_scan_launch_plan(monkeypatch, block):
-    """Every entry — the windowed K2 (the full square and the band) and the
+    """Every entry — the window pass (the full square and the band) and the
     scan (the pre-drop and the buffer) — is called once a call, whatever the
     block count (8, 4 or 1 blocks), mp off and on; the mask is
     ``skyline_mask``'s."""
     calls = []
-    for name in ("dominated_by_rect_windows", "cascade_scan"):
+    for name in ("cascade_windows", "cascade_scan"):
         real = getattr(tdc, name)
 
         def wrap(*a, _real=real, _name=name, **kw):
@@ -207,7 +211,7 @@ def test_scan_launch_plan(monkeypatch, block):
         keep = tdc._cascade_core(torch.from_numpy(x), torch.from_numpy(valid), block, mp)
         assert np.array_equal(keep.numpy(), skyline_mask(
             torch.from_numpy(x), torch.from_numpy(valid)).numpy())
-        assert sorted(calls) == ["cascade_scan", "dominated_by_rect_windows"], (block, mp, calls)
+        assert sorted(calls) == ["cascade_scan", "cascade_windows"], (block, mp, calls)
 
 
 def _band_ends_np(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
@@ -245,40 +249,162 @@ def test_band_ends_device_matches_numpy(rng, nb, kind):
     assert np.array_equal(got, _band_ends_np(lo, hi))
 
 
-@pytest.mark.parametrize("windows", ["aligned", "ragged", "empty", "clipped"])
+def _windows_reference(cand, cand_ok, block, band_end):
+    """The windowed K2's plain version the port ran before the window pass
+    (``dominated_by_rect_windows_plain``), kept as the reference: one
+    transposed dominator set with its validity, every block's victims as a
+    partition of (nb, d, block), partition b against the valid rows
+    ``[b * block, band_end[b] * block)`` (clipped to the set)."""
+    n, d = cand.shape
+    xt = cand.T.contiguous()
+    yt = cand.reshape(-1, block, d).transpose(1, 2).contiguous()
+    out = torch.zeros((n // block, block), dtype=torch.bool)
+    for p, end in enumerate(band_end.tolist()):
+        b, e = p * block, min(end * block, n)
+        if e > b and cand_ok[b:e].any():
+            out[p] = dominated_by(yt[p].T, xt[:, b:e].T, cand_ok[b:e])
+    return out.reshape(n)
+
+
+def _window_rows(rng, n, d, holes=True):
+    """n sorted-ish candidate rows: anti-correlated, a tenth all-NaN (the
+    non-candidates) and, with ``holes``, a run of NaN rows long enough to
+    leave groups without a candidate."""
+    x = (gen_points(rng, n, d, "anti") * 64).round().astype(np.float32)
+    x = x[np.argsort(x.sum(axis=1), kind="stable")]
+    x[rng.random(n) < 0.1] = np.nan
+    if holes:
+        x[n // 3 : n // 3 + n // 4] = np.nan
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("windows", ["band", "self", "empty", "clipped"])
 @pytest.mark.parametrize("d", [3, 8])
 def test_windowed_k2_plain_matches_each_window(rng, d, windows):
-    """The windowed K2's plain version equals ``dominated_by_rect_plain``
-    over each partition's window of the one dominator set (offsets clipped
-    to the set; an empty window dominates nothing)."""
-    nx, P, ny = 96, 5, 40
-    x = gen_points(rng, nx, d, "anti")
-    x[rng.integers(0, nx, 9)] = np.nan
-    xv = torch.from_numpy(rng.random(nx) < 0.8)
-    y = torch.from_numpy(np.stack([gen_points(rng, ny, d, "uniform") for _ in range(P)]))
-    yt = y.transpose(1, 2).contiguous()
-    begin = {"aligned": [16, 32, 48, 64, 80], "ragged": [3, 17, 0, 50, 95],
-             "empty": [10, 40, 96, 0, 5], "clipped": [-5, 90, 60, 0, 200]}[windows]
-    end = {"aligned": [32, 64, 96, 80, 96], "ragged": [9, 60, 96, 51, 96],
-           "empty": [10, 20, 96, 0, 5], "clipped": [10, 500, 96, 96, 300]}[windows]
-    xt = torch.from_numpy(x).T.contiguous()
-    got = dk.dominated_by_rect_windows(xt, xv, yt, torch.tensor(begin, dtype=torch.int32),
-                                       torch.tensor(end, dtype=torch.int32))
-    for p, (b, e) in enumerate(zip(begin, end)):
-        b, e = max(b, 0), min(e, nx)
-        want = (dk.dominated_by_rect_plain(xt[:, b:e].contiguous(), xv[b:e].contiguous(), yt[p])
-                if e > b else torch.zeros(ny, dtype=torch.bool))
-        assert torch.equal(got[p], want), (p, b, e)
+    """The window pass's plain version equals ``dominated_by_rect_plain``
+    over each block's window of the row-major candidates, rows ``[b *
+    block, band_end[b] * block)`` clipped to the set (the block alone,
+    bands of several blocks, empty windows, ends past the last block), and
+    the windowed K2 it replaced."""
+    block, nb = 16, 6
+    cand = _window_rows(rng, block * nb, d)
+    band_end = {"band": [2, 4, 6, 6, 6, 6], "self": [1, 2, 3, 4, 5, 6],
+                "empty": [0, 1, 2, 3, 4, 5], "clipped": [9, 9, 4, 9, 6, 7]}[windows]
+    ends = torch.tensor(band_end, dtype=torch.int32)
+    got = dk.cascade_windows(cand, block, ends)
+    ok = ~torch.isnan(cand).any(dim=1)
+    for b, end in enumerate(band_end):
+        s, e = b * block, min(end * block, block * nb)
+        victims = cand[s : s + block].T.contiguous()
+        want = (dk.dominated_by_rect_plain(cand[s:e].T.contiguous(), ok[s:e].contiguous(),
+                                           victims)
+                if e > s else torch.zeros(block, dtype=torch.bool))
+        assert torch.equal(got[s : s + block], want), (b, s, e)
+    assert torch.equal(got, _windows_reference(cand, ok, block, ends))
+
+
+@pytest.mark.parametrize("block", [8, 32, 64])
+@pytest.mark.parametrize("d", [2, 3, 8])
+def test_window_pass_plain_matches_reference_and_jax(monkeypatch, rng, d, block):
+    """Through the whole core on seeded rows with duplicates, NaN and invalid
+    rows (blocks of 8-64 rows: every window off the 256-row tile grid): the
+    row-major window pass's plain version equals the windowed K2 it
+    replaced on the core's own candidates and band ends, and the port's
+    mask equals JAX's ``_cascade_core`` with its Pallas tiles in interpret
+    mode, mp off and on. Exact."""
+    x = gen_points(rng, 400, d, "anti")
+    x = np.concatenate([x, x[:50], np.zeros((30, d), np.float32)])
+    x[rng.integers(0, x.shape[0], 12)] = np.nan
+    n_pad = next_pow2(x.shape[0], min_cap=64)
+    x = np.concatenate([x, np.full((n_pad - x.shape[0], d), np.inf, np.float32)])
+    valid = (np.arange(n_pad) < 480) & (rng.random(n_pad) < 0.95)
+    seen = []
+    real = tdc.cascade_windows
+
+    def spy(cand, blk, band_end, mp=False):
+        out = real(cand, blk, band_end, mp=mp)
+        seen.append((cand, band_end, out))
+        return out
+
+    monkeypatch.setattr(tdc, "cascade_windows", spy)
+    for mp in (False, True):
+        seen.clear()
+        keep = tdc._cascade_core(torch.from_numpy(x), torch.from_numpy(valid), block, mp)
+        (cand, band_end, got), = seen
+        ok = ~torch.isnan(cand).any(dim=1)
+        assert torch.equal(got, _windows_reference(cand, ok, block, band_end)), mp
+        want = np.asarray(jdc._cascade_core(jnp.asarray(x), jnp.asarray(valid), block, mp,
+                                            True, True))
+        assert np.array_equal(keep.numpy(), want), mp
+
+
+def _worklist_direct(cand, block, band_end):
+    """Each (group, tile) pair the window pass must walk: every group of
+    ``BLOCK_VICTIMS`` rows of block b with a row free of NaN, against every
+    ``TILE_ROWS``-row tile that meets rows ``[b * block, min(band_end[b] *
+    block, N))``."""
+    n = cand.shape[0]
+    real = ~torch.isnan(cand).any(dim=1)
+    pairs = set()
+    gpb = -(-block // dk.BLOCK_VICTIMS)
+    for b, end in enumerate(band_end.tolist()):
+        s, e = b * block, min(end * block, n)
+        for g in range(gpb):
+            lo = s + g * dk.BLOCK_VICTIMS
+            if e > s and real[lo : min(lo + dk.BLOCK_VICTIMS, s + block)].any():
+                pairs |= {(b * gpb + g, t) for t in range(s // dk.TILE_ROWS,
+                                                          -(-e // dk.TILE_ROWS))}
+    return pairs
+
+
+@pytest.mark.parametrize("case", ["long", "short", "tiny_blocks", "empty"])
+def test_worklist_items_cover_each_window_tile(rng, case):
+    """The window pass's worklist (``cascade_worklist_plain``, what its
+    summary kernel emits) covers each (group, window tile) pair exactly
+    once: a group's pieces are disjoint and contiguous, at most
+    ``WINDOW_PIECES`` of them, all but the last of one length and that
+    length no shorter than ``PIECE_TILES`` tiles unless the window is;
+    groups without a candidate and empty windows have none."""
+    block, nb = {"long": (512, 16), "short": (1024, 8), "tiny_blocks": (8, 64),
+                 "empty": (256, 8)}[case]
+    cand = _window_rows(rng, block * nb, 3, holes=case != "short")
+    idx = np.arange(nb)
+    ends = {"long": np.minimum(nb, idx + 1 + rng.integers(0, nb, nb)),
+            "short": np.minimum(nb, idx + 1 + (idx % 2)),
+            "tiny_blocks": np.minimum(nb, idx + 1 + rng.integers(0, 40, nb)),
+            "empty": idx}[case]
+    if case == "long":
+        ends[0] = nb  # one window over every tile
+    band_end = torch.from_numpy(ends.astype(np.int32))
+    items = dk.cascade_worklist_plain(cand, block, band_end)
+    covered = [(g, t) for g, t0, t1 in items for t in range(t0, t1)]
+    assert len(covered) == len(set(covered))
+    assert set(covered) == _worklist_direct(cand, block, band_end)
+    by_group = {}
+    for g, t0, t1 in items:
+        by_group.setdefault(g, []).append((t0, t1))
+    for g, pieces in by_group.items():
+        span = pieces[-1][1] - pieces[0][0]
+        assert len(pieces) <= dk.WINDOW_PIECES
+        assert all(a[1] == b[0] for a, b in zip(pieces, pieces[1:])), (g, pieces)
+        sizes = [t1 - t0 for t0, t1 in pieces]
+        assert len(set(sizes[:-1])) <= 1 and sizes[-1] <= sizes[0]
+        assert min(sizes[0], span) >= min(dk.PIECE_TILES, span)
+    if case == "long":
+        assert max(len(p) for p in by_group.values()) == dk.WINDOW_PIECES
+    if case == "empty":
+        assert items == []
 
 
 def test_windowed_k2_and_scan_refuse_bad_operands():
-    xt, xv = torch.zeros((3, 8)), torch.ones(8, dtype=torch.bool)
-    yt = torch.zeros((2, 3, 4))
-    i32 = torch.zeros(2, dtype=torch.int32)
+    cand = torch.zeros((16, 3))
+    ends = torch.ones(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="int32"):
-        dk.dominated_by_rect_windows(xt, xv, yt, i32.long(), i32)
-    with pytest.raises(ValueError, match="victims"):
-        dk.dominated_by_rect_windows(xt, xv, yt[0], i32, i32)
+        dk.cascade_windows(cand, 8, ends.long())
+    with pytest.raises(ValueError, match="band_end"):
+        dk.cascade_windows(cand, 8, ends[:1])
+    with pytest.raises(ValueError, match="whole blocks"):
+        dk.cascade_windows(cand[:12], 8, ends)
     with pytest.raises(ValueError, match="whole blocks"):
         dk.cascade_scan(torch.zeros((12, 3)), torch.ones(12, dtype=torch.bool), 8)
     with pytest.raises(ValueError, match="alive"):
@@ -518,6 +644,6 @@ def test_cascade_on_card_matches_cpu(monkeypatch, rng, mp):
         got = tdc.device_cascade_mask(torch.from_numpy(x).cuda()).cpu().numpy()
         suffix = "_mp" if mp == "1" else ""
         # one launch of each entry a call
-        for name in ("dominated_by_rect_windows", "cascade_scan"):
+        for name in ("cascade_windows", "cascade_scan"):
             assert dk.LAUNCHES[name + suffix] == 1, (name, dict(dk.LAUNCHES))
         assert np.array_equal(got, tdc.device_cascade_mask(torch.from_numpy(x)).numpy())

@@ -26,6 +26,7 @@ from skyline_tpu_torch.bridge.kafkalite import (
     KafkaLiteProducer,
     MessageSizeTooLargeError,
 )
+from test_torch_wire import _whole_reference_native  # noqa: F401  (autouse)
 
 TIMEOUT_S = 10.0
 REPO = __import__("pathlib").Path(__file__).resolve().parents[1]
