@@ -355,7 +355,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    in the cascade's core is an error); every kernel it launched printed
    with its count, each of
    ``AUDIT_WANTED`` at least once), and the trajectory sentinel on a
-   healthy (exit 0) and a drifting (exit 1) fixture trajectory.
+   healthy (exit 0) and a drifting (exit 1) fixture trajectory;
+8. deploy (``check_deploy``): the stack as a user starts it. The
+   launcher's demo in a child process (``python -m
+   skyline_tpu_torch.deploy.launch --demo --dims 8 --flush-policy lazy
+   --demo-records 1000000``, free bootstrap and stats ports): it must exit
+   0, its result row's size must equal the engine's answer here on the card
+   over the same rows (``_wire_rows``, seed 0), and the worker's own
+   ``/stats``, kept by the launcher before the stack stops, must name
+   ``cuda:0``, ``cuda`` kernel-profile signatures and launches of
+   ``DEPLOY_WANTED``; its wall and the row's TotalTime are printed. Then
+   ``python -m skyline_tpu_torch.deploy.drills all --device cuda`` (serve,
+   chaos, mesh, obs, the wall-clock bounds held) must exit 0, with
+   launches of ``DRILLS_WANTED``; its evidence line goes into the details.
 
 Each phase's, parity leg's and path's seconds are logged as it ends and
 kept under ``seconds`` in the details JSON.
@@ -440,7 +452,7 @@ RANK_PATH = (
     "rank_transform", "dominated_by_any_rank", "dominated_by_rank_rect",
     "skyline_mask_rank_kernel",
 )
-PHASES = ("kernels", "parity", "main", "timings", "analysis")
+PHASES = ("kernels", "parity", "main", "timings", "analysis", "deploy")
 
 
 def log(msg: str) -> None:
@@ -4192,13 +4204,23 @@ def _kernel_ms(torch, fn, reps: int = 5) -> dict:
 
 
 def _parent_call(torch, parent, site, args, kw):
-    """The parent tree's kernel for a cascade site's recorded call: its
-    windowed K2 (``dominated_by_rect_windows``, with the two transposes of
-    the candidates its caller made) for the window pass, its cooperative
-    ``cascade_scan`` for the scan; a function of no arguments returning
-    the (N,) mask."""
-    if site == "scan":
-        return lambda: parent.cascade_scan(*args, **kw)
+    """The parent tree's kernel for a cascade site's recorded call, a
+    function of no arguments returning the (N,) mask: the parent's entry of
+    the same name (``CASCADE_SITES``: ``cascade_windows`` or
+    ``cascade_scan``) on the recorded arguments, with the keywords its
+    signature takes — the entry points both trees have, so a redesign of
+    either kernel leaves this call standing. A parent from before the
+    window pass had its own kernel (no ``cascade_windows``) runs its
+    windowed K2
+    (``dominated_by_rect_windows``) with the two transposes of the
+    candidates its caller made."""
+    import inspect
+
+    entry = getattr(parent, CASCADE_SITES[site], None)
+    if entry is not None:
+        params = inspect.signature(entry).parameters
+        takes = {k: v for k, v in kw.items() if k in params}
+        return lambda: entry(*args, **takes)
     cand, block, band_end = args[:3]
     n, d = cand.shape
     ok = ~torch.isnan(cand).any(1)
@@ -7725,6 +7747,152 @@ def check_analysis(torch, np, dev="cuda") -> dict:
     return out
 
 
+DEPLOY_RUNS = ROOT / "skyline_tpu_torch" / "_build" / "deploy_runs"
+DEPLOY_ROWS = 1_000_000
+# the launcher's demo at the north-star shape; the other flags keep their
+# defaults (mr-angle, parallelism 4, domain 10,000, anti-correlated, seed 0)
+DEPLOY_FLAGS = ["--demo", "--dims", "8", "--flush-policy", "lazy",
+                "--demo-records", str(DEPLOY_ROWS)]
+# the worker's kernels on that run: K1 mp, K2 mp and the fused pre-drop in the
+# SFS rounds, K2 in the tree merge
+DEPLOY_WANTED = MP_ROUNDS + TREE_K2
+# the drills' kernels: K2 mp in the incremental merge steps, K2 in the
+# cross-chip and tree pairs, the device cascade's two, the fused pre-drop
+DRILLS_WANTED = ("dominated_by_rect_mp", "dominated_by_rect", "cascade_windows_mp",
+                 "cascade_scan_mp", PREDROP_FUSED)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _child(args: list, log_path: Path, timeout_s: float) -> tuple[int, float]:
+    """``python -m args`` from the checkout's root, its output to
+    ``log_path``: (exit code, wall s). A child past ``timeout_s`` is killed
+    and fails the phase."""
+    t0 = time.perf_counter()
+    proc = _spawn(args, log_path)
+    try:
+        rc = proc.wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        _stop(proc)
+        raise AssertionError(f"deploy: {args[0]} still running after {timeout_s:.0f} s "
+                             f"(see {log_path})") from None
+    return rc, time.perf_counter() - t0
+
+
+def launcher_demo(torch, np) -> dict:
+    """The launcher's demo at full size, as a user starts it: ``python -m
+    skyline_tpu_torch.deploy.launch`` with ``DEPLOY_FLAGS``, a free
+    bootstrap and stats port, logs under ``DEPLOY_RUNS``. Fails unless it
+    exits 0; its result row's size must equal the engine's answer in this
+    process on the card over the same rows; the worker's own ``/stats``,
+    kept by the launcher before the stack stops, must name ``cuda:0``, kernel
+    profile signatures on the ``cuda`` backend, and launches of each of
+    ``DEPLOY_WANTED``."""
+    import csv as csvmod
+    import shutil
+
+    from skyline_tpu_torch.stream import SkylineEngine
+    from skyline_tpu_torch.utils.config import parse_job_args
+
+    csvmod.field_size_limit(1 << 30)
+    logs = DEPLOY_RUNS / "launch"
+    shutil.rmtree(logs, ignore_errors=True)
+    logs.mkdir(parents=True)
+    args = ["skyline_tpu_torch.deploy.launch", *DEPLOY_FLAGS,
+            "--bootstrap", f"127.0.0.1:{_free_port()}", "--stats-port", str(_free_port()),
+            "--log-dir", str(logs), "--out-csv", str(logs / "results.csv")]
+    rc, wall_s = _child(args, DEPLOY_RUNS / "launch.log", 900)
+    if rc:
+        raise AssertionError(f"deploy: the launcher exited {rc}:\n"
+                             f"{(DEPLOY_RUNS / 'launch.log').read_text()[-3000:]}")
+    with open(logs / "results.csv", newline="") as f:
+        header, row = list(csvmod.reader(f))[:2]
+    doc = dict(zip(header, row))
+    stats = json.loads((logs / "worker_stats.json").read_text())
+    device = stats["device"]
+    prof = stats.get("kernel_profile") or {}
+    signatures = sorted({(k["variant"], k["backend"]) for k in prof.get("kernels", [])})
+    worker_log = (logs / "worker.log").read_text()
+    banner = next(ln for ln in worker_log.splitlines() if "skyline worker:" in ln)
+    out = {"wall_s": wall_s, "row": {k: doc[k] for k in ("QueryID", "Records", "SkylineSize",
+                                                          "TotalTime(ms)")},
+           "worker_device": device, "kernel_signatures": signatures,
+           "records_in": stats["records_in"], "banner": banner}
+    log(f"deploy: launcher demo exit 0 in {wall_s:.1f} s ({DEPLOY_ROWS} rows, d = 8, lazy): "
+        f"result row skyline {doc['SkylineSize']}, TotalTime {doc['TotalTime(ms)']} ms; the "
+        f"worker's /stats: device {device['name']} ({device['card']}), launches "
+        f"{device['launches']}, kernel profile signatures {signatures}; {banner.strip()}")
+    if device["name"] != "cuda:0" or "device=cuda" not in banner:
+        raise AssertionError(f"deploy: the worker ran on {device['name']} ({banner})")
+    if not signatures or {b for _, b in signatures} != {"cuda"}:
+        raise AssertionError(f"deploy: the worker's kernel profile is {signatures}")
+    missing = [k for k in DEPLOY_WANTED if not device["launches"].get(k)]
+    if missing:
+        raise AssertionError(f"deploy: the launcher's worker launched no {missing}: "
+                             f"{device['launches']}")
+    if stats["records_in"] != DEPLOY_ROWS:
+        raise AssertionError(f"deploy: the worker ingested {stats['records_in']} rows")
+    # the same rows through the engine alone, in this process on the card
+    x = _wire_rows(np, DEPLOY_ROWS, 0)
+    eng = SkylineEngine(parse_job_args(["--dims", "8", "--flush-policy", "lazy",
+                                        "--device", "cuda"]).engine_config())
+    ids = np.arange(DEPLOY_ROWS, dtype=np.int64)
+    for s in range(0, DEPLOY_ROWS, 65536):
+        eng.process_records(ids[s : s + 65536], x[s : s + 65536])
+    eng.process_trigger("0,0")
+    (res,) = eng.poll_results()
+    out["engine_skyline"] = int(res["skyline_size"])
+    if int(doc["SkylineSize"]) != out["engine_skyline"]:
+        raise AssertionError(f"deploy: the demo's row says {doc['SkylineSize']}, the engine "
+                             f"on the same rows {out['engine_skyline']}")
+    return out
+
+
+def drills_all(torch, np) -> dict:
+    """``python -m skyline_tpu_torch.deploy.drills all --device cuda`` as a
+    child process, the wall-clock bounds held: it must exit 0 with each
+    drill's PASS; its evidence line is returned, and its launches must
+    include each of ``DRILLS_WANTED``."""
+    log_path = DEPLOY_RUNS / "drills.log"
+    rc, wall_s = _child(["skyline_tpu_torch.deploy.drills", "all", "--device", "cuda"],
+                        log_path, 900)
+    text = log_path.read_text()
+    if rc:
+        raise AssertionError(f"deploy: the drills exited {rc}:\n{text[-4000:]}")
+    passes = [ln for ln in text.splitlines() if ln.endswith("-smoke] PASS")]
+    ev = json.loads(text.strip().splitlines()[-1])
+    ev["wall_s"] = wall_s
+    for line in text.splitlines():
+        if line.startswith("[") and "-smoke]" in line:
+            log(f"deploy: {line}")
+    log(f"deploy: drills all exit 0 in {wall_s:.1f} s ({len(passes)} PASS lines; drills "
+        f"{({k: round(v, 1) for k, v in ev['seconds'].items()})} s); launches {ev['launches']}")
+    missing = [k for k in DRILLS_WANTED if not ev["launches"].get(k)]
+    if missing:
+        raise AssertionError(f"deploy: the drills launched no {missing}: {ev['launches']}")
+    return ev
+
+
+def check_deploy(torch, np) -> dict:
+    """The deployment plane on the card: the launcher's demo, then the four
+    drills."""
+    DEPLOY_RUNS.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    out = {"launcher": launcher_demo(torch, np)}
+    out["launcher_s"] = time.perf_counter() - t0
+    out["drills"] = drills_all(torch, np)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"deploy: phase done in {out['wall_s']:.1f} s (launcher {out['launcher_s']:.1f} s, "
+        f"drills {out['drills']['wall_s']:.1f} s)")
+    return out
+
+
 WORKER_PATHS = {
     "t": lambda torch, np, windows, profile: wire_path(torch, np, windows, profile),
     "u": lambda torch, np, windows, profile: crash_path(torch, np),
@@ -8078,6 +8246,9 @@ def main() -> int:
     if "analysis" in args.only:
         details["analysis"] = check_analysis(torch, np)
         seconds["analysis"] = details["analysis"]["wall_s"]
+    if "deploy" in args.only:
+        details["deploy"] = check_deploy(torch, np)
+        seconds["deploy"] = details["deploy"]["wall_s"]
     if args.ab_paths:
         if args.parent is None:
             raise SystemExit("--ab-paths needs --parent")

@@ -519,6 +519,7 @@ class SkylineWorker:
         # latency distributions (ingest batch / merge / query latency /
         # serve reads): p50/p90/p99 summaries, the dashboard's tiles
         out["latency_ms"] = self.telemetry.latency_snapshot()
+        out["device"] = self._device_doc()
         if self.serve_server is not None:
             out["serve"] = self.serve_server.admission.stats()
             out["snapshot_store"] = self.serve_server.store.stats()
@@ -545,6 +546,22 @@ class SkylineWorker:
                 res["recovered"] = self._recovered
             out["resilience"] = res
         return out
+
+    def _device_doc(self) -> dict:
+        """Where this process's engine runs (``cuda:<index>`` with the
+        card's name, or ``cpu``) and the hand-written kernels it has
+        launched so far, by entry (only those launched)."""
+        import torch
+
+        from skyline_tpu_torch.ops import dominance_kernels as dk
+
+        dev = torch.device(self.engine.config.device)
+        doc = {"name": str(dev), "card": None}
+        if dev.type == "cuda":
+            index = torch.cuda.current_device() if dev.index is None else dev.index
+            doc = {"name": f"cuda:{index}", "card": torch.cuda.get_device_name(index)}
+        doc["launches"] = {k: v for k, v in dk.LAUNCHES.items() if v}
+        return doc
 
     def close(self) -> None:
         if getattr(self, "_closed", False):
